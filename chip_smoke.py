@@ -7,26 +7,39 @@ Phases, each fatal on failure:
 
 1. device: the card's name and power limit, then the kernels' build
    (``nvcc`` for ``sm_90a`` into ``build/kernels/``) with its time;
-2. every kernel of the serving path against its plain PyTorch version on
-   the card, at the path's own shapes (full ``jpeg-resnet`` at 16 bands,
-   batch 4): error, kernel ms, plain ms, the least time the card could
-   take (bound) and, where one PyTorch call computes the same product,
-   that call's ms (``library_ms``, a yardstick the port never calls);
+2. every kernel of the serving and training paths against its plain
+   PyTorch version on the card, at the paths' own shapes (full
+   ``jpeg-resnet``; the serving kernels at 16 bands and batch 4, the block
+   transforms at the training batch of 8: the data encode and stage 0's
+   factored decode and encode): error, kernel ms, plain ms, the least
+   time the card could take (bound) and, where one PyTorch call computes
+   the same function, that call's ms (``library_ms``, a yardstick the
+   port never calls);
 3. the compiled server: full ``jpeg-resnet`` from JPEG bytes (the
    synthetic mixed-quality stream) at 16 bands, batch 4; every batch's
    logits are held against the same plan run on the plain path;
 4. the per-layer walk (``--no-compiled``), held the same way;
-5. one ``{"kernels": [...]}`` line, with each kernel's launches in phases
-   3 and 4, then the ``{"ok": true, ...}`` line last.
+5. one full-width training step (batch 8, 64 bands) on the kernel path
+   against the same step on the plain path, from the same weights and
+   batch: the loss and every gradient tensor;
+6. the trainer (``launch/train.py``'s ``train_loop``) at full width, batch
+   8, four steps, a checkpoint after step 2 and at the end, and the plan
+   export; then one batch served from the exported plan through the
+   compiled path, held against the plain path;
+7. one ``{"kernels": [...]}`` line, with each kernel's launches in phases
+   3, 4 and 6 (each path driven with the counts set to 0 just before it
+   and read just after), then the ``{"ok": true, ...}`` line last.
 
 It imports neither JAX nor the reference package, exits non-zero without
 CUDA, and needs one card.
 """
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -37,12 +50,26 @@ REPO_SRC = os.path.join(ROOT, "src")
 PEAK_FP32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
 BANDS, BATCH = 16, 4
+#: the training batch (the reference trainer's default)
+TRAIN_BATCH = 8
 #: kernel vs plain: fp32 sums in another order over up to 18,432 terms
 CONV_RTOL = 1e-4
 #: ASM: 64- and 128-term sums
 ASM_RTOL = 2e-5
+#: block DCT/IDCT: 64-term sums
+BLOCK_RTOL = 1e-5
 #: served logits vs the plain path, relative to the largest logit
 LOGIT_RTOL = 1e-4
+#: training step, kernel path vs plain path: the loss (relative), and each
+#: gradient tensor by relative norm — fp32 sums in another order through
+#: 20 layers, and ASM masks that may flip on pre-activations within
+#: rounding of zero; a tensor may exceed TRAIN_GRAD_RTOL only within
+#: TRAIN_FLOOR_FACTOR × the plain path's own change under rounding-level
+#: input noise (see train_step_check)
+TRAIN_LOSS_RTOL = 1e-4
+TRAIN_GRAD_RTOL = 1e-3
+TRAIN_FLOOR_FACTOR = 10.0
+KERNELS = ("fused_block", "jpeg_conv", "asm_relu", "block_dct", "block_idct")
 
 
 def fail(msg: str) -> None:
@@ -54,22 +81,25 @@ def log(msg: str) -> None:
     print(f"[chip_smoke] {msg}", flush=True)
 
 
-def cuda_ms(fn, reps: int = 10, warmup: int = 2) -> float:
-    """Median device time of ``fn`` over ``reps`` runs (CUDA events)."""
+def cuda_ms(fn, reps: int = 10, trials: int = 3, warmup: int = 2) -> float:
+    """Device time of one call of ``fn``: CUDA events around ``reps``
+    back-to-back calls, so the host's dispatch overlaps the device's work;
+    the median of ``trials`` such runs, over ``reps``."""
     import torch
 
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     times = []
-    for _ in range(reps):
+    for _ in range(trials):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
-        fn()
+        for _ in range(reps):
+            fn()
         b.record()
         b.synchronize()
-        times.append(a.elapsed_time(b))
+        times.append(a.elapsed_time(b) / reps)
     return statistics.median(times)
 
 
@@ -106,6 +136,261 @@ def asm_flops(pairs: int, w: int) -> float:
     return 2.0 * pairs * (w * 128 + 64 * w)
 
 
+def counts() -> dict[str, int]:
+    """Every kernel wrapper's launch count."""
+    from repro_torch.kernels import asm_relu, block_dct, fused_block, \
+        jpeg_conv
+
+    return {"fused_block": fused_block.LAUNCHES,
+            "jpeg_conv": jpeg_conv.LAUNCHES, "asm_relu": asm_relu.LAUNCHES,
+            **block_dct.LAUNCHES}
+
+
+def reset_counts() -> None:
+    from repro_torch.kernels import asm_relu, block_dct, fused_block, \
+        jpeg_conv
+
+    fused_block.LAUNCHES = jpeg_conv.LAUNCHES = asm_relu.LAUNCHES = 0
+    for k in block_dct.LAUNCHES:
+        block_dct.LAUNCHES[k] = 0
+
+
+def drive(path: str, required, launches: dict, fn):
+    """Run one path of the port with the counts set to 0 just before it,
+    add its counts to ``launches`` and fail if a kernel in ``required``
+    was not launched."""
+    reset_counts()
+    out = fn()
+    got = counts()
+    for k, v in got.items():
+        launches[k] += v
+    missing = [k for k in required if got[k] <= 0]
+    if missing:
+        fail(f"{path}: kernels {missing} were never launched ({got})")
+    log(f"{path}: launches {got}")
+    return out
+
+
+def hold_logits(phase: str, seen, classes: int, plain_fn):
+    """Hold every served batch's logits against ``plain_fn`` on the same
+    input; returns the errors and the top-1 agreement (fails below 1.0)."""
+    import torch
+
+    errs, agree, n = [], 0, 0
+    with torch.inference_mode():
+        for x, lg in seen:
+            ref = plain_fn(x)
+            if lg.shape != (lg.shape[0], classes):
+                fail(f"{phase}: logits shape {tuple(lg.shape)}")
+            errs.append(compare(f"{phase} logits", lg, ref, LOGIT_RTOL))
+            agree += int((lg.argmax(-1) == ref.argmax(-1)).sum())
+            n += lg.shape[0]
+    top1 = agree / n
+    if top1 != 1.0:
+        fail(f"{phase}: top-1 agreement {top1} < 1.0")
+    return errs, top1
+
+
+def train_step_check(cfg, dev) -> None:
+    """Phase 5: one full-width step's loss and gradients, kernel path
+    against plain path, from the same weights and batch.
+
+    Every ReLU's gradient is a 0/1 mask, so a pre-activation within
+    rounding of zero passes its gradient on one path and not on the other;
+    a batch-norm vector's gradient sums ~500k such terms per channel with
+    much cancellation.  So beside the kernel-vs-plain error the phase
+    measures the plain path's own sensitivity: the same step on the batch
+    times (1 + 1e-6·noise), rounding-level.  A gradient tensor fails if
+    its kernel-vs-plain error exceeds both ``TRAIN_GRAD_RTOL`` and
+    ``TRAIN_FLOOR_FACTOR`` times that floor."""
+    import torch
+
+    from repro_torch.core import dispatch as dsp
+    from repro_torch.data.pipeline import jpeg_iterator
+    from repro_torch.models.registry import build_model
+    from repro_torch.optim import value_and_grad
+    from repro_torch.tree import leaves_with_paths
+
+    kernel_model = build_model(cfg)
+    plain_model = build_model(
+        cfg, dispatch=dsp.DispatchConfig(path="reference"))
+    bundle = kernel_model.init_params(torch.Generator().manual_seed(0), dev)
+    batch = next(jpeg_iterator(0, TRAIN_BATCH, cfg.image_size,
+                               cfg.in_channels, cfg.num_classes, device=dev))
+    coef = batch["coefficients"]
+    noise = torch.randn(coef.shape, device=dev,
+                        generator=torch.Generator(device=dev).manual_seed(3))
+    nudged = dict(batch, coefficients=coef * (1 + 1e-6 * noise))
+    out = {}
+    for name, model, b in (("kernel", kernel_model, batch),
+                           ("plain", plain_model, batch),
+                           ("plain, nudged batch", plain_model, nudged)):
+        def step():
+            return value_and_grad(lambda p, bt: model.loss_fn(p, bt)[0],
+                                  bundle, b)
+        step()  # warm-up: allocator and cuDNN's choices
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        loss, grads = step()
+        torch.cuda.synchronize()
+        out[name] = (float(loss), grads, time.perf_counter() - t0,
+                     torch.cuda.max_memory_allocated() / 2 ** 30)
+    (lk, gk, tk, mk), (lp, gp, tp, mp), (_, gq, _, _) = out.values()
+    if not (abs(lk - lp) <= TRAIN_LOSS_RTOL * abs(lp) and lk == lk):
+        fail(f"training step: loss {lk} (kernel path) vs {lp} (plain)")
+
+    def rel(a, b):
+        nb = float(b.norm())
+        return float((a - b).norm()) / nb if nb else float(a.norm())
+
+    worst = (0.0, 0.0, "")
+    worst_floor = (0.0, "")
+    for (path, a), (_, b), (_, q) in zip(leaves_with_paths(gk),
+                                         leaves_with_paths(gp),
+                                         leaves_with_paths(gq)):
+        if not bool(torch.isfinite(a).all()):
+            fail(f"training step: non-finite gradient at {path}")
+        err, floor = rel(a, b), rel(q, b)
+        if err > max(TRAIN_GRAD_RTOL, TRAIN_FLOOR_FACTOR * floor):
+            fail(f"training step: gradient at {path} differs by {err:.3e} "
+                 f"relative norm (> {TRAIN_GRAD_RTOL} and > "
+                 f"{TRAIN_FLOOR_FACTOR} × the plain path's own "
+                 f"{floor:.3e})")
+        worst = max(worst, (err, floor, path))
+        worst_floor = max(worst_floor, (floor, path))
+    log(f"training step, full width, batch {TRAIN_BATCH}: loss {lk:.6f} "
+        f"(kernel) vs {lp:.6f} (plain); worst gradient relative-norm error "
+        f"{worst[0]:.3e} at {worst[2]} (plain path's own floor there "
+        f"{worst[1]:.3e}; largest floor {worst_floor[0]:.3e} at "
+        f"{worst_floor[1]}); value_and_grad {tk * 1e3:.1f} ms kernel path, "
+        f"{tp * 1e3:.1f} ms plain path; peak memory {mk:.2f} / {mp:.2f} GiB")
+    del out, gk, gp, gq
+    profile_step(lambda: value_and_grad(
+        lambda p, bt: kernel_model.loss_fn(p, bt)[0], bundle, batch))
+    torch.cuda.empty_cache()
+
+
+#: device kernels grouped by name, for the training step's breakdown
+#: (first match wins; cuDNN's FFT engine runs complex GEMMs and FFTs)
+KERNEL_GROUPS = (("block transforms", ("block_matmul_kernel",)),
+                 ("ASM kernel", ("asm_kernel",)),
+                 ("jpeg_conv kernel", ("banded_conv_kernel",)),
+                 ("cuDNN conv", ("cudnn", "implicit_gemm", "fprop", "dgrad",
+                                 "wgrad", "fft", "cf32", "complex")),
+                 ("cuBLAS GEMM", ("gemm", "cutlass")),
+                 ("elementwise, copies, reductions",
+                  ("elementwise", "copy", "reduce", "vectorized")))
+
+
+def profile_step(step) -> None:
+    """Device time of one training step by kernel group, from a
+    ``torch.profiler`` trace, and the device's idle share of the step's
+    wall; prints "not measured" where the trace has no device time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    per_kernel: dict[str, float] = {}
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        t = next((v for v in (getattr(e, a, 0) for a in (
+            "self_device_time_total", "device_time_total",
+            "self_cuda_time_total", "cuda_time_total")) if v), 0.0)
+        per_kernel[e.key] = per_kernel.get(e.key, 0.0) + t
+    busy = sum(per_kernel.values())
+    if busy <= 0:
+        log("training step profile: device time not measured (the trace "
+            "holds no device events)")
+        return
+    groups = {g: 0.0 for g, _ in KERNEL_GROUPS}
+    groups["other"] = 0.0
+    for name, t in per_kernel.items():
+        low = name.lower()
+        g = next((g for g, keys in KERNEL_GROUPS
+                  if any(k in low for k in keys)), "other")
+        groups[g] += t
+    log(f"training step profile (kernel path, torch.profiler): wall "
+        f"{wall_us / 1e3:.1f} ms, device busy {busy / 1e3:.1f} ms, idle "
+        f"share {max(0.0, 1 - busy / wall_us):.3f}; by group (ms, share of "
+        f"busy): " + ", ".join(f"{g} {t / 1e3:.2f} ({t / busy:.3f})"
+                               for g, t in groups.items()))
+    top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:12]
+    for name, t in top:
+        log(f"  {t / 1e3:8.3f} ms  {name[:110]}")
+
+
+def train_and_serve(cfg, dev, ckpt_dir: str, launches: dict) -> None:
+    """Phase 6: ``train_loop`` at full width, then one batch served from
+    the exported plan through the compiled path."""
+    import torch
+
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.core import dispatch as dsp
+    from repro_torch.core import plan as planlib
+    from repro_torch.launch import serve, train
+
+    args = train.parse_args(
+        ["--arch", "jpeg-resnet", "--steps", "4", "--batch",
+         str(TRAIN_BATCH), "--ckpt-every", "2", "--log-every", "1",
+         "--ckpt-dir", ckpt_dir, "--seed", "0"])
+    result = drive("train", ("jpeg_conv", "asm_relu", "block_dct",
+                             "block_idct"), launches,
+                   lambda: train.train_loop(args))
+    losses = [v for _, v in result["losses"]]
+    if len(losses) != 4 or not all(v == v and abs(v) < 1e30
+                                   for v in losses):
+        fail(f"train: losses {losses}")
+    steps = CheckpointManager(ckpt_dir).steps()
+    if steps != [2, 4]:
+        fail(f"train: checkpoints {steps}, want [2, 4]")
+    step_ms = [t * 1e3 for t in result["step_s"]]
+    steady = statistics.median(step_ms[1:])
+    data_ms = [t * 1e3 for t in result["data_s"]]
+    log(f"train: full jpeg-resnet, batch {TRAIN_BATCH}, 64 bands: step ms "
+        f"{[round(t, 1) for t in step_ms]} (first includes warm-up), "
+        f"median after the first {steady:.1f} ms = "
+        f"{TRAIN_BATCH / steady * 1e3:.1f} images/s, of which the batch "
+        f"(host synthesis, device encode) {[round(t, 1) for t in data_ms]} "
+        f"ms; losses {losses}; "
+        f"loop wall {result['wall_s']:.2f} s incl. checkpoints and export; "
+        f"checkpoints {steps}; plan -> {result['plan_dir']}")
+
+    plan = planlib.load_plan(result["plan_dir"], device=dev)
+    cp = planlib.load_compiled_plan(
+        os.path.join(result["plan_dir"], "compiled"), device=dev)
+    sargs = serve.parse_args(["--arch", "jpeg-resnet", "--batch",
+                              str(TRAIN_BATCH), "--requests",
+                              str(TRAIN_BATCH), "--max-new", "1",
+                              "--seed", "1"])
+    seen = []
+    info = {"bands": plan.bands, "compiled": True, "path": cp.meta["path"]}
+    report = drive(
+        "serve exported plan", ("asm_relu", "block_dct", "block_idct"),
+        launches,
+        lambda: serve.serve_jpeg_resnet(
+            sargs, prepared=(plan, cp, info),
+            on_batch=lambda x, lg: seen.append((x.clone(), lg.clone()))))
+    ref_cfg = dsp.DispatchConfig(path="reference")
+    errs, top1 = hold_logits(
+        "exported plan", seen, cfg.num_classes,
+        lambda x: planlib.apply_compiled_packed(cp, x, ref_cfg))
+    log(f"exported plan (step {result['final_step']}): served "
+        f"{report['images']} images in {report['batches']} batch, forward "
+        f"{report['forward_s'] * 1e3:.1f} ms; logits vs plain path: max abs "
+        f"err {max(errs):.3e}, top-1 agreement {top1}")
+    del plan, cp
+    torch.cuda.empty_cache()
+
+
 def main() -> None:
     if not os.path.isdir(os.path.join(REPO_SRC, "repro_torch")):
         fail(f"no src/repro_torch beside {__file__}: run from a checkout")
@@ -120,10 +405,11 @@ def main() -> None:
     from repro_torch.core import plan as planlib
     from repro_torch.kernels import _build
     from repro_torch.kernels import asm_relu as kasm
+    from repro_torch.kernels import block_dct as kbd
     from repro_torch.kernels import fused_block as kfb
     from repro_torch.kernels import jpeg_conv as kjc
     from repro_torch.kernels import tiling
-    from repro_torch.launch import serve
+    from repro_torch.launch import serve, train
 
     dev = torch.device("cuda", 0)
     # --- phase 1: device and build -------------------------------------
@@ -239,57 +525,82 @@ def main() -> None:
                    (asm_flops(n_rows, w), 4.0 * n_rows * (w + 64)))
         del t
 
+        # block transforms at the training path's shapes: stage 0's
+        # factored encode and decode (batch 8, 64 channels of 32×32 blocks)
+        # and the data encode (batch 8, 3 channels, quality 50)
+        s0_rows = TRAIN_BATCH * grid * grid * cfg.widths[0]
+        data_rows = TRAIN_BATCH * grid * grid * cfg.in_channels
+        for name, label, n, q in (
+                ("block_dct", "s0 factored encode", s0_rows, None),
+                ("block_idct", "s0 factored decode", s0_rows, None),
+                ("block_dct", "data encode q50", data_rows, 50)):
+            fn = getattr(kbd, name)
+            plain = getattr(kbd, name + "_plain")
+            shape = (n, 8, 8) if name == "block_dct" else (n, 64)
+            x = torch.randn(shape, generator=gen, device=dev)
+            got = fn(x, q)
+            err = compare(f"{name} {label}", got, plain(x, q), BLOCK_RTOL)
+            x2, op = x.reshape(n, 64), kbd.operator(name, q, x)
+            record(name, f"{label} rows={n}", err,
+                   cuda_ms(lambda: fn(x, q)), cuda_ms(lambda: plain(x, q)),
+                   (2.0 * n * 64 * 64, 4.0 * (2 * n * 64 + 64 * 64)),
+                   cuda_ms(lambda: torch.matmul(x2, op)))
+            del x, x2, got
+
     # --- phases 3 and 4: the server, compiled and per-layer ---------------
-    counters = (kfb, kjc, kasm)
-    launches = {m.__name__.rsplit(".", 1)[1]: 0 for m in counters}
+    launches = {k: 0 for k in KERNELS}
     ref_cfg = dsp.DispatchConfig(path="reference", bands=BANDS)
-    for phase, compiled in (("compiled", True), ("per-layer", False)):
+    # at 16 bands s0b0-s1b1 fuse and s2b0-s3b1 walk per layer: factored
+    # convs (block transforms), the s2b0 projection (jpeg_conv), ASM
+    walks = (("compiled", True, KERNELS),
+             ("per-layer", False, ("jpeg_conv", "asm_relu", "block_dct",
+                                   "block_idct")))
+    for phase, compiled, required in walks:
         seen = []
         args.compiled = compiled
         prepared = (plan, cp if compiled else None,
                     dict(plan_info, compiled=compiled))
-        for m in counters:
-            m.LAUNCHES = 0
-        report = serve.serve_jpeg_resnet(
-            args, prepared=prepared,
-            on_batch=lambda x, lg: seen.append((x.clone(), lg.clone())))
-        counts = {m.__name__.rsplit(".", 1)[1]: m.LAUNCHES
-                  for m in counters}
-        for k, v in counts.items():
-            launches[k] += v
+        report = drive(
+            f"serve {phase}", required, launches,
+            lambda: serve.serve_jpeg_resnet(
+                args, prepared=prepared,
+                on_batch=lambda x, lg: seen.append((x.clone(), lg.clone()))))
         if report["completed"] != args.requests or not seen:
             fail(f"{phase}: served {report['completed']} of {args.requests}")
-        errs, agree, n = [], 0, 0
-        with torch.inference_mode():
-            for x, lg in seen:
-                if compiled:
-                    ref = planlib.apply_compiled_packed(cp, x, ref_cfg)
-                else:
-                    ref = planlib.apply_plan(plan, x, ref_cfg)
-                if lg.shape != (BATCH, cfg.num_classes):
-                    fail(f"{phase}: logits shape {tuple(lg.shape)}")
-                errs.append(compare(f"{phase} logits", lg, ref, LOGIT_RTOL))
-                agree += int((lg.argmax(-1) == ref.argmax(-1)).sum())
-                n += lg.shape[0]
-        top1 = agree / n
+        errs, top1 = hold_logits(
+            phase, seen, cfg.num_classes,
+            lambda x: (planlib.apply_compiled_packed(cp, x, ref_cfg)
+                       if compiled else planlib.apply_plan(plan, x, ref_cfg)))
         log(f"{phase}: {report['images_per_s']:.2f} images/s (host ingest "
             f"{report['ingest_s']:.3f} s + forward {report['forward_s']:.3f} "
-            f"s), latency {report['latency_ms']}, launches {counts}, "
-            f"logits vs plain "
+            f"s), latency {report['latency_ms']}, logits vs plain "
             f"path: max abs err {max(errs):.3e}, top-1 agreement {top1}")
-        if top1 != 1.0:
-            fail(f"{phase}: top-1 agreement {top1} < 1.0")
+    del plan, cp
+    torch.cuda.empty_cache()
+
+    # --- phase 5: one training step, kernel path against plain path -------
+    train_step_check(cfg, dev)
+
+    # --- phase 6: the trainer, then serving from its exported plan ---------
+    ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    try:
+        train_and_serve(cfg, dev, ckpt_dir, launches)
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
 
     kernels = []
-    src = "src/repro_torch/csrc/jpeg_kernels.cu"
+    src = {k: "src/repro_torch/csrc/jpeg_kernels.cu" for k in KERNELS}
+    src["block_dct"] = src["block_idct"] = "src/repro_torch/csrc/block_dct.cu"
     replaces = {"fused_block": "src/repro/kernels/fused_block.py:143",
                 "jpeg_conv": "src/repro/kernels/jpeg_conv.py:112",
-                "asm_relu": "src/repro/kernels/asm_relu.py:65"}
-    for name in ("fused_block", "jpeg_conv", "asm_relu"):
+                "asm_relu": "src/repro/kernels/asm_relu.py:65",
+                "block_dct": "src/repro/kernels/block_dct.py:37",
+                "block_idct": "src/repro/kernels/block_dct.py:37"}
+    for name in KERNELS:
         r = rows[name]
         if launches[name] <= 0:
-            fail(f"{name} was never launched on the serving path")
-        kernels.append({"name": name, "route": "cuda", "source": src,
+            fail(f"{name} was never launched on the main paths")
+        kernels.append({"name": name, "route": "cuda", "source": src[name],
                         "replaces": replaces[name],
                         "launches": launches[name],
                         "max_abs_err": r["max_abs_err"], "ms": r["ms"],

@@ -9,9 +9,8 @@ convention before it touches the network (no spatial decode, no rounding):
 * pixels are mapped from JPEG's level-shifted ``[-128, 128)`` to the
   network's ``[-1, 1)`` (a ``1/128`` scale, which commutes with the DCT);
 * the result is divided by the plan's canonical quantization table
-  (``core.dct.quantization_table(spec.quality)``, the ``scaled=True``
-  convention of ``core.jpeg.jpeg_encode`` — see the convention table in
-  ``core/jpeg.py``).
+  (``core.dct.quantization_table(spec.quality)``, the convention of
+  ``kernels.block_dct.block_dct(blocks, quality)``).
 
 Net effect per zigzag index ``k`` (non-subsampled components):
 ``coef[k] · q_file[k] / (128 · q_canon[k])`` — one multiply per

@@ -171,19 +171,24 @@ def spatial_conv(img: torch.Tensor, kernel: torch.Tensor,
 
 def _jpeg_conv_factored(coef: torch.Tensor, kernel: torch.Tensor, stride: int,
                         *, quality: int, in_scaled: bool, out_scaled: bool,
-                        bands: int = dctlib.NFREQ) -> torch.Tensor:
+                        bands: int = dctlib.NFREQ,
+                        path: str = "reference") -> torch.Tensor:
     """Ξ = J ∘ C ∘ J̃ applied as its factors (exact, never forms Ξ).
 
     ``(N, bh, bw, Cin, 64) -> (N, bh/s, bw/s, Cout, 64)``; ``bands`` zeroes
-    the coefficients above the cutoff on both sides.
+    the coefficients above the cutoff on both sides.  The decode and the
+    encode are ``dispatch.block_idct``/``block_dct`` on ``path``
+    (``"cuda"``: the block-transform kernel; ``"reference"``: its plain
+    version); the spatial conv is ``F.conv2d``.
     """
+    from repro_torch.core import dispatch as dsp
+
     if bands < coef.shape[-1]:
         coef = pad_bands(coef[..., :bands])
-    img = jpeglib.jpeg_decode(torch.movedim(coef, 3, 1), scaled=in_scaled,
-                              quality=quality)
-    out = spatial_conv(img, kernel, stride)
-    enc = jpeglib.jpeg_encode(out, scaled=out_scaled, quality=quality)
-    enc = torch.movedim(enc, 1, 3)
+    blocks = dsp.block_idct(coef, quality if in_scaled else None, path=path)
+    out = spatial_conv(jpeglib.unblock_channels_last(blocks), kernel, stride)
+    enc = dsp.block_dct(jpeglib.block_channels_last(out),
+                        quality if out_scaled else None, path=path)
     if bands < enc.shape[-1]:
         enc = pad_bands(enc[..., :bands])
     return enc

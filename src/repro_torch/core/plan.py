@@ -15,12 +15,23 @@ package, which demotes blocks whose operands do not fit a TPU core's VMEM,
 every materialised block is fused here: the kernels stream Ξ from device
 memory, so ``meta["smem"]`` records each fused block's per-CTA shared
 memory instead.
+
+:func:`save_plan`/:func:`load_plan` and :func:`save_compiled_plan`/
+:func:`load_compiled_plan` store both through the checkpoint manager
+(arrays in the checksummed store, the static structure in the manifest's
+``extra``); a restored plan gives bit-identical logits.  The format is
+the port's own: reading plan directories written by the reference
+package is later work.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, NamedTuple
 
+import numpy as np
 import torch
+
+from repro_torch import resolve_device
 
 from repro_torch.core import batchnorm as bnlib
 from repro_torch.core import dct as dctlib
@@ -32,7 +43,9 @@ from repro_torch.kernels import tiling
 
 __all__ = ["operator_keys", "build_operators", "InferencePlan", "build_plan",
            "apply_plan", "CompiledStem", "CompiledBlock", "CompiledPlan",
-           "compile_plan", "apply_compiled", "apply_compiled_packed"]
+           "compile_plan", "apply_compiled", "apply_compiled_packed",
+           "save_plan", "load_plan", "save_compiled_plan",
+           "load_compiled_plan"]
 
 
 def operator_keys(params: Any, spec: resnetlib.ResNetSpec) -> list[str]:
@@ -393,3 +406,192 @@ def apply_compiled_packed(cp: CompiledPlan, packed: torch.Tensor,
         coef = pad_bands(packed.reshape(n, bh, bw, st.cin, st.w_in))
         h = _apply_stem(st, coef, cp.phi, cfg)
     return _run_blocks(cp, h, cfg)
+
+
+# --------------------------------------------------------------------------
+# Serialization through the checkpoint manager
+# --------------------------------------------------------------------------
+
+_OP_ARRAYS = ("xi", "kernel", "scale", "shift")
+_OP_STATIC = ("stride", "bands", "quality", "in_scaled", "out_scaled", "path")
+_PC_STATIC = ("stride", "ndy", "ndx", "cin", "w_in", "cout", "w_out")
+_PA_STATIC = ("w", "bands", "phi")
+_PLAN_FORMAT = "repro_torch/1"
+_COMPILED_FORMAT = "repro_torch/1"
+
+
+def _leaf_path(key: str) -> str:
+    """The path the checkpoint manager records for flat-dict key ``key``."""
+    return f"[{key!r}]"
+
+
+def _op_save(key: str, op: dispatchlib.ConvOperator,
+             arrays: dict[str, torch.Tensor]) -> dict[str, Any]:
+    meta: dict[str, Any] = {f: getattr(op, f) for f in _OP_STATIC}
+    for f in _OP_ARRAYS:
+        val = getattr(op, f)
+        meta[f"has_{f}"] = val is not None
+        if val is not None:
+            arrays[f"{key}.{f}"] = val
+    return meta
+
+
+def _op_load(key: str, meta: dict[str, Any],
+             arr) -> dispatchlib.ConvOperator:
+    fields = {f: meta[f] for f in _OP_STATIC}
+    for f in _OP_ARRAYS:
+        fields[f] = arr(f"{key}.{f}") if meta[f"has_{f}"] else None
+    return dispatchlib.ConvOperator(**fields)
+
+
+def _spec_json(spec: resnetlib.ResNetSpec) -> dict[str, Any]:
+    return dict(spec._asdict(), widths=list(spec.widths))
+
+
+def _spec_from(d: dict[str, Any]) -> resnetlib.ResNetSpec:
+    return resnetlib.ResNetSpec(**dict(d, widths=tuple(d["widths"])))
+
+
+def _restore(directory: str, step: int | None, kind: str, fmt: str,
+             device) -> tuple[dict[str, Any], Any]:
+    from repro_torch.checkpoint import CheckpointManager
+
+    dev = resolve_device(device)
+    _, by_path, extra = CheckpointManager(directory).restore_tree(step)
+    if extra.get("kind") != kind:
+        raise ValueError(f"{directory} does not hold a {kind}")
+    if extra.get("format") != fmt:
+        raise ValueError(f"unsupported {kind} format "
+                         f"{extra.get('format')!r} (want {fmt!r})")
+
+    def arr(key):
+        return torch.as_tensor(np.asarray(by_path[_leaf_path(key)])).to(dev)
+
+    return extra, arr
+
+
+def save_plan(plan: InferencePlan, directory: str, step: int = 0,
+              keep: int = 3) -> None:
+    """Persist a plan: its arrays through the checksummed, atomic store,
+    its static structure in the manifest's ``extra``."""
+    from repro_torch.checkpoint import CheckpointManager
+
+    arrays = {"head.w": plan.head_w, "head.b": plan.head_b}
+    meta_ops = {}
+    for name, entry in plan.operators.items():
+        ops = entry.items() if isinstance(entry, dict) else [(None, entry)]
+        for slot, op in ops:
+            key = name if slot is None else f"{name}/{slot}"
+            meta_ops[key] = _op_save(key, op, arrays)
+    extra = {"kind": "jpeg_inference_plan", "format": _PLAN_FORMAT,
+             "spec": _spec_json(plan.spec), "phi": plan.phi,
+             "cfg": dataclasses.asdict(plan.cfg), "bands": plan.bands,
+             "ops": meta_ops}
+    CheckpointManager(directory, keep=keep).save(step, arrays, extra=extra)
+
+
+def load_plan(directory: str, step: int | None = None,
+              device: str | torch.device | None = None) -> InferencePlan:
+    """Restore an :class:`InferencePlan` saved by :func:`save_plan` onto
+    ``device`` (default CUDA); ``step=None`` is the newest valid step."""
+    extra, arr = _restore(directory, step, "jpeg_inference_plan",
+                          _PLAN_FORMAT, device)
+    operators: dict[str, Any] = {}
+    for key, meta in extra["ops"].items():
+        op = _op_load(key, meta, arr)
+        if "/" in key:
+            name, slot = key.split("/", 1)
+            operators.setdefault(name, {})[slot] = op
+        else:
+            operators[key] = op
+    return InferencePlan(operators, arr("head.w"), arr("head.b"),
+                         _spec_from(extra["spec"]), int(extra["phi"]),
+                         dispatchlib.DispatchConfig(**extra["cfg"]),
+                         {k: int(v) for k, v in extra["bands"].items()})
+
+
+def save_compiled_plan(cp: CompiledPlan, directory: str, step: int = 0,
+                       keep: int = 3) -> None:
+    """Persist a compiled schedule: the packed buffers through the array
+    store, the static schedule into ``extra``.  A restore serves the same
+    buffers with no recompile."""
+    from repro_torch.checkpoint import CheckpointManager
+
+    arrays = {"head.w": cp.head_w, "head.b": cp.head_b}
+
+    def pc_save(prefix, pc):
+        arrays[f"{prefix}.xi"] = pc.xi
+        arrays[f"{prefix}.shift"] = pc.shift
+        return {f: int(getattr(pc, f)) for f in _PC_STATIC}
+
+    def pa_save(prefix, pa):
+        arrays[f"{prefix}.cat"] = pa.cat
+        arrays[f"{prefix}.recon_t"] = pa.recon_t
+        return {f: int(getattr(pa, f)) for f in _PA_STATIC}
+
+    st = cp.stem
+    stem_meta = {"kind": st.kind, "cin": st.cin, "cout": st.cout,
+                 "w_in": st.w_in, "w_out": st.w_out,
+                 "bands_out": st.bands_out,
+                 "op": _op_save("stem.op", st.op, arrays)}
+    if st.kind == "packed":
+        stem_meta["conv"] = pc_save("stem.conv", st.conv)
+        stem_meta["asm"] = pa_save("stem.asm", st.asm)
+    blocks_meta = []
+    for blk in cp.blocks:
+        m = {f: getattr(blk, f) for f in CompiledBlock._fields[:9]}
+        m["ops"] = {slot: _op_save(f"{blk.name}.ops.{slot}", op, arrays)
+                    for slot, op in blk.ops.items()}
+        for slot, save in (("conv1", pc_save), ("asm_mid", pa_save),
+                           ("conv2", pc_save), ("proj", pc_save),
+                           ("asm_out", pa_save)):
+            if getattr(blk, slot) is not None:
+                m[slot] = save(f"{blk.name}.{slot}", getattr(blk, slot))
+        blocks_meta.append(m)
+    extra = {"kind": "jpeg_compiled_plan", "format": _COMPILED_FORMAT,
+             "spec": _spec_json(cp.spec), "phi": cp.phi,
+             "cfg": dataclasses.asdict(cp.cfg), "bands": cp.bands,
+             "meta": cp.meta, "stem": stem_meta, "blocks": blocks_meta}
+    CheckpointManager(directory, keep=keep).save(step, arrays, extra=extra)
+
+
+def load_compiled_plan(directory: str, step: int | None = None,
+                       device: str | torch.device | None = None
+                       ) -> CompiledPlan:
+    """Restore a :class:`CompiledPlan` saved by :func:`save_compiled_plan`
+    onto ``device`` (default CUDA)."""
+    extra, arr = _restore(directory, step, "jpeg_compiled_plan",
+                          _COMPILED_FORMAT, device)
+
+    def pc_load(prefix, meta):
+        return tiling.PackedConv(arr(f"{prefix}.xi"), arr(f"{prefix}.shift"),
+                                 **{f: int(meta[f]) for f in _PC_STATIC})
+
+    def pa_load(prefix, meta):
+        return tiling.PackedAsm(arr(f"{prefix}.cat"),
+                                arr(f"{prefix}.recon_t"),
+                                **{f: int(meta[f]) for f in _PA_STATIC})
+
+    sm = extra["stem"]
+    packed = sm["kind"] == "packed"
+    stem = CompiledStem(
+        sm["kind"], pc_load("stem.conv", sm["conv"]) if packed else None,
+        pa_load("stem.asm", sm["asm"]) if packed else None,
+        _op_load("stem.op", sm["op"], arr), int(sm["cin"]), int(sm["cout"]),
+        int(sm["w_in"]), int(sm["w_out"]), int(sm["bands_out"]))
+    blocks = []
+    for m in extra["blocks"]:
+        name = m["name"]
+        parts = {slot: load(f"{name}.{slot}", m[slot])
+                 for slot, load in (("conv1", pc_load), ("asm_mid", pa_load),
+                                    ("conv2", pc_load), ("proj", pc_load),
+                                    ("asm_out", pa_load)) if slot in m}
+        ops = {slot: _op_load(f"{name}.ops.{slot}", om, arr)
+               for slot, om in m["ops"].items()}
+        blocks.append(CompiledBlock(
+            *(m[f] for f in CompiledBlock._fields[:9]), **parts, ops=ops))
+    return CompiledPlan(stem, tuple(blocks), arr("head.w"), arr("head.b"),
+                        _spec_from(extra["spec"]), int(extra["phi"]),
+                        dispatchlib.DispatchConfig(**extra["cfg"]),
+                        {k: int(v) for k, v in extra["bands"].items()},
+                        extra["meta"])

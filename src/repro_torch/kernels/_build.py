@@ -91,6 +91,8 @@ def library() -> ctypes.CDLL:
         lib.jk_banded_conv_smem.restype = _I
         lib.jk_asm.argtypes = [_P] * 4 + [ctypes.c_longlong, _I, _I, _I, _P]
         lib.jk_asm.restype = _I
+        lib.jk_block_matmul.argtypes = [_P] * 3 + [ctypes.c_longlong, _P]
+        lib.jk_block_matmul.restype = _I
         _LIB = lib
     return _LIB
 

@@ -11,7 +11,9 @@ launch, so device memory sees each row once in and once out.
 Bound: 192 FFMA per element moved (64·2 + 64 multiply-adds per lane), so
 the fp32 FFMA rate bounds it, not memory.  The Pallas kernel padded rows
 up to a ``pick_tile`` tile; the CUDA grid strides over rows and needs no
-padding.
+padding.  In training the kernel sits in the autograd graph; its backward
+is plain PyTorch in closed form (the reference package has no backward
+kernel either).
 """
 from __future__ import annotations
 
@@ -23,7 +25,8 @@ import torch.nn.functional as F
 from repro_torch.kernels import _build
 from repro_torch.kernels.tiling import PackedAsm, pack_asm, packed_asm_apply
 
-__all__ = ["LAUNCHES", "asm_relu", "asm_relu_plain"]
+__all__ = ["LAUNCHES", "asm_relu", "asm_relu_plain",
+           "asm_relu_backward_plain"]
 
 #: kernel launches made by :func:`asm_relu` (reset by callers that count)
 LAUNCHES = 0
@@ -31,7 +34,10 @@ LAUNCHES = 0
 
 @functools.lru_cache(maxsize=None)
 def _operands(phi: int, bands: int, device: str) -> PackedAsm:
-    return pack_asm(phi, bands, bands, device=device)
+    # normal tensors even when first made under inference_mode: the plain
+    # version's autograd saves them
+    with torch.inference_mode(False):
+        return pack_asm(phi, bands, bands, device=device)
 
 
 def _bands(coef: torch.Tensor, bands: int | None) -> int:
@@ -48,15 +54,26 @@ def asm_relu_plain(coef: torch.Tensor, phi: int = 14,
     return F.pad(out, (0, nf - b)).reshape(coef.shape)
 
 
-def asm_relu(coef: torch.Tensor, phi: int = 14,
-             bands: int | None = None) -> torch.Tensor:
-    """ASM ReLU over ``(..., nf)`` coefficients at their first ``bands``
-    lanes (default all ``nf``); the output keeps ``nf`` lanes, zero above
-    ``bands``.  A CPU tensor takes :func:`asm_relu_plain`; a CUDA tensor
-    launches the kernel or raises."""
+def asm_relu_backward_plain(coef: torch.Tensor, grad: torch.Tensor,
+                            phi: int = 14,
+                            bands: int | None = None) -> torch.Tensor:
+    """Gradient of :func:`asm_relu` with respect to ``coef`` in closed form,
+    plain PyTorch: the mask is a constant, as ``jnp.where`` makes it in the
+    reference package, so ``∂coef = ((grad @ recon_t.T) · mask) @ recon.T``
+    at the first ``bands`` lanes and zero above them."""
+    nf, b = coef.shape[-1], _bands(coef, bands)
+    pa = _operands(phi, b, str(coef.device))
+    nfreq = pa.cat.shape[1] // 2
+    t = coef.reshape(-1, nf)[:, :b]
+    mask = (t @ pa.cat[:, :nfreq]) > 0
+    g = grad.reshape(-1, nf)[:, :b] @ pa.recon_t.T
+    g = torch.where(mask, g, torch.zeros((), dtype=g.dtype, device=g.device))
+    return F.pad(g @ pa.cat[:, nfreq:].T, (0, nf - b)).reshape(coef.shape)
+
+
+def _launch(coef: torch.Tensor, phi: int, bands: int | None) -> torch.Tensor:
     global LAUNCHES
-    if coef.device.type == "cpu":
-        return asm_relu_plain(coef, phi, bands)
+    coef = coef.contiguous()
     nf, b = coef.shape[-1], _bands(coef, bands)
     pa = _operands(phi, b, str(coef.device))
     _build.check_device(coef, pa.cat, pa.recon_t)
@@ -68,3 +85,31 @@ def asm_relu(coef: torch.Tensor, phi: int = 14,
     _build.launch_check(err, "asm_relu")
     LAUNCHES += 1
     return out
+
+
+class _AsmRelu(torch.autograd.Function):
+    """The kernel forward; the closed-form plain backward
+    (:func:`asm_relu_backward_plain`)."""
+
+    @staticmethod
+    def forward(ctx, coef, phi, bands):
+        ctx.save_for_backward(coef)
+        ctx.phi, ctx.bands = phi, bands
+        return _launch(coef, phi, bands)
+
+    @staticmethod
+    def backward(ctx, grad):
+        (coef,) = ctx.saved_tensors
+        return asm_relu_backward_plain(coef, grad, ctx.phi, ctx.bands), \
+            None, None
+
+
+def asm_relu(coef: torch.Tensor, phi: int = 14,
+             bands: int | None = None) -> torch.Tensor:
+    """ASM ReLU over ``(..., nf)`` coefficients at their first ``bands``
+    lanes (default all ``nf``); the output keeps ``nf`` lanes, zero above
+    ``bands``.  A CPU tensor takes :func:`asm_relu_plain`; a CUDA tensor
+    launches the kernel (differentiably) or raises."""
+    if coef.device.type == "cpu":
+        return asm_relu_plain(coef, phi, bands)
+    return _AsmRelu.apply(coef, phi, bands)

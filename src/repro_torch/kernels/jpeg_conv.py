@@ -15,7 +15,8 @@ run to run.
 
 Bound: fp32 FFMA at the path's shapes (see the note in the source); the
 kernel stages 64×128 output tiles through shared memory with a 4×8
-register block per thread.
+register block per thread.  In training the kernel sits in the autograd
+graph (the stem conv); its backward is plain PyTorch.
 """
 from __future__ import annotations
 
@@ -115,17 +116,10 @@ def jpeg_conv_plain(coef: torch.Tensor, xi: torch.Tensor, stride: int = 1, *,
     return out
 
 
-def jpeg_conv(coef: torch.Tensor, xi: torch.Tensor, stride: int = 1, *,
-              shift: torch.Tensor | None = None,
-              w_out: int | None = None) -> torch.Tensor:
-    """Apply Ξ ``(ndy, ndx, Cin, nf, Cout, nf')`` to ``(N, bh, bw, Cin, ≥nf)``
-    coefficients → ``(N, bh/s, bw/s, Cout, w_out)`` (default ``w_out =
-    nf'``; extra lanes are zero), adding ``shift`` ``(Cout,)`` to DC.
-    A CPU tensor takes :func:`jpeg_conv_plain`; a CUDA tensor launches the
-    kernel or raises."""
+def _launch(coef: torch.Tensor, xi: torch.Tensor, stride: int,
+            shift: torch.Tensor | None, w_out: int | None) -> torch.Tensor:
     global LAUNCHES
-    if coef.device.type == "cpu":
-        return jpeg_conv_plain(coef, xi, stride, shift=shift, w_out=w_out)
+    coef, xi = coef.contiguous(), xi.contiguous()
     n, bh, bw, cin, nf = coef.shape
     ndy, ndx, _, nf_in, cout, nf_out = xi.shape
     w_o = nf_out if w_out is None else w_out
@@ -136,3 +130,42 @@ def jpeg_conv(coef: torch.Tensor, xi: torch.Tensor, stride: int = 1, *,
         shift=None if shift is None else _shift_row(shift, cout, nf_out))
     LAUNCHES += 1
     return out.reshape(n, bh // stride, bw // stride, cout, w_o)
+
+
+class _JpegConv(torch.autograd.Function):
+    """The kernel forward; the backward differentiates the plain version,
+    recomputed under ``enable_grad`` (the reference package has no
+    backward kernel either)."""
+
+    @staticmethod
+    def forward(ctx, coef, xi, shift, stride, w_out):
+        ctx.save_for_backward(coef, xi, shift)
+        ctx.stride, ctx.w_out = stride, w_out
+        return _launch(coef, xi, stride, shift, w_out)
+
+    @staticmethod
+    def backward(ctx, grad):
+        saved = ctx.saved_tensors
+        needs = ctx.needs_input_grad[:3]
+        with torch.enable_grad():
+            leaves = [None if t is None else t.detach().requires_grad_(n)
+                      for t, n in zip(saved, needs)]
+            out = jpeg_conv_plain(leaves[0], leaves[1], ctx.stride,
+                                  shift=leaves[2], w_out=ctx.w_out)
+            wrt = [t for t, n in zip(leaves, needs) if n and t is not None]
+            grads = iter(torch.autograd.grad(out, wrt, grad) if wrt else ())
+        return (*(next(grads) if n and t is not None else None
+                  for t, n in zip(leaves, needs)), None, None)
+
+
+def jpeg_conv(coef: torch.Tensor, xi: torch.Tensor, stride: int = 1, *,
+              shift: torch.Tensor | None = None,
+              w_out: int | None = None) -> torch.Tensor:
+    """Apply Ξ ``(ndy, ndx, Cin, nf, Cout, nf')`` to ``(N, bh, bw, Cin, ≥nf)``
+    coefficients → ``(N, bh/s, bw/s, Cout, w_out)`` (default ``w_out =
+    nf'``; extra lanes are zero), adding ``shift`` ``(Cout,)`` to DC.
+    A CPU tensor takes :func:`jpeg_conv_plain`; a CUDA tensor launches the
+    kernel (differentiably in ``coef``, Ξ and ``shift``) or raises."""
+    if coef.device.type == "cpu":
+        return jpeg_conv_plain(coef, xi, stride, shift=shift, w_out=w_out)
+    return _JpegConv.apply(coef, xi, shift, stride, w_out)

@@ -6,15 +6,20 @@ Needs an NVIDIA GPU of compute capability 9.0 (the kernels are built for
     python -m pytest -q tests/test_torch_cuda_kernels.py
 
 Covers ragged row counts, every per-channel width 8…64, both shortcut
-kinds and both strides of the fused block, and the launch counters.
+kinds and both strides of the fused block, both block-transform operators,
+the launch counters, and the autograd wrappers' gradients against those of
+the plain versions.
 """
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.core import conv as convlib
+from repro_torch.core import dispatch as dsp
+from repro_torch.core import resnet as resnetlib
 from repro_torch.kernels import _build
 from repro_torch.kernels import asm_relu as kasm
+from repro_torch.kernels import block_dct as kbd
 from repro_torch.kernels import fused_block as kfb
 from repro_torch.kernels import jpeg_conv as kjc
 from repro_torch.kernels import tiling
@@ -114,3 +119,98 @@ def test_kernels_refuse_bad_operands(dev):
         kasm.asm_relu(x, 14)
     np.testing.assert_array_equal(
         kasm.asm_relu(torch.zeros((2, 16)), 14).numpy(), np.zeros((2, 16)))
+
+
+@pytest.mark.parametrize("quality", [None, 50])
+@pytest.mark.parametrize("rows", [1, 63, 515, 24576 + 37])
+def test_block_transforms_match_plain(dev, rows, quality):
+    g = torch.Generator(device=dev).manual_seed(rows)
+    blocks = torch.randn((rows, 8, 8), generator=g, device=dev)
+    before = dict(kbd.LAUNCHES)
+    coef = kbd.block_dct(blocks, quality)
+    # 64-term fp32 sums in another order than cuBLAS's
+    _close(coef, kbd.block_dct_plain(blocks, quality), 1e-5)
+    _close(kbd.block_idct(coef, quality), kbd.block_idct_plain(coef, quality),
+           1e-5)
+    assert kbd.LAUNCHES["block_dct"] == before["block_dct"] + 1
+    assert kbd.LAUNCHES["block_idct"] == before["block_idct"] + 1
+
+
+def _grads_match(fn, plain, inputs, rtol):
+    """The wrapper's gradients against the plain version's, for a random
+    cotangent; fp32, ``rtol`` relative to the largest plain gradient."""
+    g = torch.Generator(device=inputs[0].device).manual_seed(7)
+    xs = [x.detach().clone().requires_grad_(True) for x in inputs]
+    ys = [x.detach().clone().requires_grad_(True) for x in inputs]
+    out, want = fn(*xs), plain(*ys)
+    _close(out.detach(), want.detach(), rtol)
+    cot = torch.randn(out.shape, generator=g, device=out.device)
+    for a, b in zip(torch.autograd.grad(out, xs, cot),
+                    torch.autograd.grad(want, ys, cot)):
+        _close(a, b, rtol)
+
+
+@pytest.mark.parametrize("name", ["block_dct", "block_idct"])
+def test_block_transform_gradients(dev, name):
+    shape = (4, 5, 3, 8, 8) if name == "block_dct" else (4, 5, 3, 64)
+    x = torch.randn(shape, device=dev)
+    fn = getattr(kbd, name)
+    plain = getattr(kbd, name + "_plain")
+    before = kbd.LAUNCHES[name]
+    _grads_match(lambda t: fn(t, 50), lambda t: plain(t, 50), [x], 1e-5)
+    assert kbd.LAUNCHES[name] == before + 2  # forward and backward
+
+
+@pytest.mark.parametrize("bands", [16, 64])
+def test_asm_relu_gradients(dev, bands):
+    x = torch.randn((3, 4, 4, 5, 64), device=dev)
+    _grads_match(lambda t: kasm.asm_relu(t, 14, bands=bands),
+                 lambda t: kasm.asm_relu_plain(t, 14, bands=bands), [x],
+                 2e-5)
+
+
+@pytest.mark.parametrize("stride", [1, 2])
+def test_jpeg_conv_gradients(dev, stride):
+    k = torch.randn((6, 3, 3, 3), device=dev) * 0.3
+    coef = torch.randn((2, 4, 4, 3, 64), device=dev)
+
+    def run(conv):
+        return lambda c, kern: conv(c, convlib.explode(kern, stride,
+                                                       in_scaled=True),
+                                    stride, w_out=64)
+
+    _grads_match(run(kjc.jpeg_conv), run(kjc.jpeg_conv_plain), [coef, k],
+                 1e-4)
+
+
+def test_training_forward_kernel_path_matches_plain(dev):
+    """jpeg_apply in training on the kernel path against the plain path,
+    with a lowered materialise limit so that the factored convs (and the
+    block kernels) run too; loss and every gradient within 1e-4 relative
+    norm (fp32 sums in another order, ASM masks that may flip on
+    pre-activations within rounding of zero)."""
+    spec = resnetlib.ResNetSpec(widths=(8, 16), num_classes=10)
+    params, state = resnetlib.init_resnet(torch.Generator().manual_seed(0),
+                                          spec, dev)
+    coef = torch.randn((2, 4, 4, 3, 64), device=dev) * 4
+    labels = torch.tensor([1, 7], device=dev)
+
+    def loss_and_grads(path):
+        cfg = dsp.DispatchConfig(path=path, materialize_limit=1_000_000)
+        leaves = {k: v.detach().clone().requires_grad_(True)
+                  for k, v in params["s1b0"].items()}
+        p = dict(params, s1b0=leaves)
+        logits, _ = resnetlib.jpeg_apply(p, state, coef, training=True,
+                                         spec=spec, dispatch=cfg)
+        loss = torch.nn.functional.cross_entropy(logits, labels)
+        return loss.detach(), torch.autograd.grad(loss,
+                                                  list(leaves.values()))
+
+    counts = (kjc.LAUNCHES, kasm.LAUNCHES, dict(kbd.LAUNCHES))
+    loss_k, grads_k = loss_and_grads("auto")
+    assert kjc.LAUNCHES > counts[0] and kasm.LAUNCHES > counts[1]
+    assert all(kbd.LAUNCHES[n] > counts[2][n] for n in kbd.LAUNCHES)
+    loss_p, grads_p = loss_and_grads("reference")
+    assert abs(float(loss_k) - float(loss_p)) <= 1e-4 * abs(float(loss_p))
+    for a, b in zip(grads_k, grads_p):
+        assert float((a - b).norm()) <= 1e-4 * float(b.norm())

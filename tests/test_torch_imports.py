@@ -19,8 +19,11 @@ def _modules():
 
 def test_port_imports_no_jax_and_no_reference_package():
     names = _modules()
-    assert "repro_torch.kernels.fused_block" in names
-    assert "repro_torch.launch.serve" in names
+    for want in ("kernels.fused_block", "kernels.block_dct", "launch.serve",
+                 "launch.train", "optim.optimizers", "optim.schedule",
+                 "optim.grad", "checkpoint.manager", "models.registry",
+                 "data.pipeline", "tree"):
+        assert "repro_torch." + want in names, want
     code = (
         "import importlib, sys\n"
         f"for n in {names!r}:\n"
