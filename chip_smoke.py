@@ -6,12 +6,15 @@
 Phases, each fatal on failure:
 
 1. device: the card's name and power limit, then the kernels' build
-   (``nvcc`` for ``sm_90a`` into ``build/kernels/``) with its time;
+   (one ``nvcc`` per source for ``sm_90a``, all started together, linked
+   into ``build/kernels/``) with its time;
 2. every kernel of the serving and training paths against its plain
    PyTorch version on the card, at the paths' own shapes (full
    ``jpeg-resnet``; the serving kernels at 16 bands and batch 4, the block
    transforms at the training batch of 8: the data encode and stage 0's
-   factored decode and encode): error, kernel ms, plain ms, the least
+   factored decode and encode; flash attention at ``smollm-360m``'s
+   prefill in bf16 and fp32, ``mistral-nemo-12b``'s heads, a window of 256
+   and a non-causal S != T case): error, kernel ms, plain ms, the least
    time the card could take (bound) and, where one PyTorch call computes
    the same function, that call's ms (``library_ms``, a yardstick the
    port never calls);
@@ -26,13 +29,27 @@ Phases, each fatal on failure:
    8, four steps, a checkpoint after step 2 and at the end, and the plan
    export; then one batch served from the exported plan through the
    compiled path, held against the plain path;
-7. one ``{"kernels": [...]}`` line, with each kernel's launches in phases
-   3, 4 and 6 (each path driven with the counts set to 0 just before it
-   and read just after), then the ``{"ok": true, ...}`` line last.
+7. LM serving, fp32: full-width ``smollm-360m`` (random weights from seed
+   0) prefills 4 prompts of 2048 tokens (cache grown to 2048 + 32) and
+   decodes 32 steps, on the kernel path and on the plain path, both fed
+   the plain path's greedy tokens: logits and the prefill's KV cache held
+   within 1e-3 of the largest |value|, top-1 agreeing wherever the plain
+   path's top-2 gap exceeds twice the logit error;
+8. the same in bf16 (the published dtype) from the same weights: the
+   kernel path's logit error against step 7's fp32 plain path at most 1.5×
+   the bf16 plain path's; prefill and decode tokens/s, 32 kernel launches
+   per prefill and none per decode step, and a ``torch.profiler``
+   breakdown of one prefill and one decode step;
+9. ``repro_torch.launch.serve --arch smollm-360m`` at the reference's
+   defaults: 16 requests completed and its report line;
+10. one ``{"kernels": [...]}`` line, with each kernel's launches in phases
+   3, 4, 6, 7, 8 and 9 (each path driven with the counts set to 0 just
+   before it and read just after), then the ``{"ok": true, ...}`` line last.
 
 It imports neither JAX nor the reference package, exits non-zero without
 CUDA, and needs one card.
 """
+import dataclasses
 import json
 import os
 import shutil
@@ -46,8 +63,10 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 REPO_SRC = os.path.join(ROOT, "src")
 
 #: published H100 SXM peaks (NVIDIA data sheet): fp32 outside the tensor
-#: cores — the kernels use no TF32 — and HBM3 bandwidth
+#: cores — the kernels use no TF32 — bf16 dense tensor cores, and HBM3
+#: bandwidth
 PEAK_FP32_FLOPS = 67e12
+PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES = 3.35e12
 BANDS, BATCH = 16, 4
 #: the training batch (the reference trainer's default)
@@ -69,7 +88,19 @@ LOGIT_RTOL = 1e-4
 TRAIN_LOSS_RTOL = 1e-4
 TRAIN_GRAD_RTOL = 1e-3
 TRAIN_FLOOR_FACTOR = 10.0
-KERNELS = ("fused_block", "jpeg_conv", "asm_relu", "block_dct", "block_idct")
+#: flash attention against its plain version: fp32 absolute (the
+#: reference's own test); bf16: the kernel's error against the plain
+#: version on fp32 copies at most BF16_FACTOR × the bf16 plain version's
+ATTN_ATOL = 2e-4
+BF16_FACTOR = 1.5
+#: LM serving (smollm-360m): batch, prompt tokens, decode steps, and the
+#: fp32 kernel-vs-plain bound on logits and KV cache, relative to the
+#: largest |value|
+LM_ARCH, LM_BATCH, LM_PROMPT, LM_DECODE = "smollm-360m", 4, 2048, 32
+LM_RTOL = 1e-3
+JPEG_KERNELS = ("fused_block", "jpeg_conv", "asm_relu", "block_dct",
+                "block_idct")
+KERNELS = JPEG_KERNELS + ("flash_attention",)
 
 
 def fail(msg: str) -> None:
@@ -103,8 +134,9 @@ def cuda_ms(fn, reps: int = 10, trials: int = 3, warmup: int = 2) -> float:
     return statistics.median(times)
 
 
-def bound(flops: float, nbytes: float) -> tuple[float, str]:
-    t_ops, t_mem = flops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES
+def bound(flops: float, nbytes: float,
+          peak: float = PEAK_FP32_FLOPS) -> tuple[float, str]:
+    t_ops, t_mem = flops / peak, nbytes / PEAK_BYTES
     return max(t_ops, t_mem) * 1e3, "operations" if t_ops >= t_mem \
         else "bytes"
 
@@ -138,19 +170,21 @@ def asm_flops(pairs: int, w: int) -> float:
 
 def counts() -> dict[str, int]:
     """Every kernel wrapper's launch count."""
-    from repro_torch.kernels import asm_relu, block_dct, fused_block, \
-        jpeg_conv
+    from repro_torch.kernels import asm_relu, block_dct, flash_attention, \
+        fused_block, jpeg_conv
 
     return {"fused_block": fused_block.LAUNCHES,
             "jpeg_conv": jpeg_conv.LAUNCHES, "asm_relu": asm_relu.LAUNCHES,
-            **block_dct.LAUNCHES}
+            **block_dct.LAUNCHES,
+            "flash_attention": flash_attention.LAUNCHES}
 
 
 def reset_counts() -> None:
-    from repro_torch.kernels import asm_relu, block_dct, fused_block, \
-        jpeg_conv
+    from repro_torch.kernels import asm_relu, block_dct, flash_attention, \
+        fused_block, jpeg_conv
 
     fused_block.LAUNCHES = jpeg_conv.LAUNCHES = asm_relu.LAUNCHES = 0
+    flash_attention.LAUNCHES = 0
     for k in block_dct.LAUNCHES:
         block_dct.LAUNCHES[k] = 0
 
@@ -266,27 +300,28 @@ def train_step_check(cfg, dev) -> None:
         f"{worst_floor[1]}); value_and_grad {tk * 1e3:.1f} ms kernel path, "
         f"{tp * 1e3:.1f} ms plain path; peak memory {mk:.2f} / {mp:.2f} GiB")
     del out, gk, gp, gq
-    profile_step(lambda: value_and_grad(
+    profile_step("training step (kernel path)", lambda: value_and_grad(
         lambda p, bt: kernel_model.loss_fn(p, bt)[0], bundle, batch))
     torch.cuda.empty_cache()
 
 
 #: device kernels grouped by name, for the training step's breakdown
 #: (first match wins; cuDNN's FFT engine runs complex GEMMs and FFTs)
-KERNEL_GROUPS = (("block transforms", ("block_matmul_kernel",)),
+KERNEL_GROUPS = (("flash attention kernel", ("flash_attention_kernel",)),
+                 ("block transforms", ("block_matmul_kernel",)),
                  ("ASM kernel", ("asm_kernel",)),
                  ("jpeg_conv kernel", ("banded_conv_kernel",)),
                  ("cuDNN conv", ("cudnn", "implicit_gemm", "fprop", "dgrad",
                                  "wgrad", "fft", "cf32", "complex")),
-                 ("cuBLAS GEMM", ("gemm", "cutlass")),
+                 ("cuBLAS GEMM", ("gemm", "cutlass", "nvjet", "xmma")),
                  ("elementwise, copies, reductions",
                   ("elementwise", "copy", "reduce", "vectorized")))
 
 
-def profile_step(step) -> None:
-    """Device time of one training step by kernel group, from a
-    ``torch.profiler`` trace, and the device's idle share of the step's
-    wall; prints "not measured" where the trace has no device time."""
+def profile_step(label: str, step) -> None:
+    """Device time of one call of ``step`` by kernel group, from a
+    ``torch.profiler`` trace, and the device's idle share of its wall;
+    prints "not measured" where the trace has no device time."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -308,8 +343,8 @@ def profile_step(step) -> None:
         per_kernel[e.key] = per_kernel.get(e.key, 0.0) + t
     busy = sum(per_kernel.values())
     if busy <= 0:
-        log("training step profile: device time not measured (the trace "
-            "holds no device events)")
+        log(f"{label} profile: device time not measured (the trace holds "
+            f"no device events)")
         return
     groups = {g: 0.0 for g, _ in KERNEL_GROUPS}
     groups["other"] = 0.0
@@ -318,7 +353,7 @@ def profile_step(step) -> None:
         g = next((g for g, keys in KERNEL_GROUPS
                   if any(k in low for k in keys)), "other")
         groups[g] += t
-    log(f"training step profile (kernel path, torch.profiler): wall "
+    log(f"{label} profile (torch.profiler): wall "
         f"{wall_us / 1e3:.1f} ms, device busy {busy / 1e3:.1f} ms, idle "
         f"share {max(0.0, 1 - busy / wall_us):.3f}; by group (ms, share of "
         f"busy): " + ", ".join(f"{g} {t / 1e3:.2f} ({t / busy:.3f})"
@@ -391,6 +426,249 @@ def train_and_serve(cfg, dev, ckpt_dir: str, launches: dict) -> None:
     torch.cuda.empty_cache()
 
 
+def attention_pairs(s: int, t: int, causal: bool, window) -> int:
+    """(query, key) pairs the masks leave, per batch row and head."""
+    import numpy as np
+
+    qpos = np.arange(s)
+    hi = np.minimum(qpos, t - 1) if causal else np.full(s, t - 1)
+    lo = np.maximum(qpos - window + 1, 0) if window else np.zeros(s, int)
+    return int(np.clip(hi - lo + 1, 0, None).sum())
+
+
+def attention_checks(dev, record) -> None:
+    """Phase 2, flash attention: the kernel against its plain version at
+    the LM path's shapes and the mask cases; library_ms is SDPA (GQA,
+    causal flag or a boolean mask for the window)."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as kfa
+
+    bf16, fp32 = torch.bfloat16, torch.float32
+    cases = (  # label, b, s, t, h, kvh, hd, causal, window, dtype
+        ("smollm-360m prefill bf16", 4, 2048, 2048, 15, 5, 64, True, None,
+         bf16),
+        ("smollm-360m prefill fp32", 4, 2048, 2048, 15, 5, 64, True, None,
+         fp32),
+        ("mistral-nemo-12b heads bf16 (plain: chunked)", 1, 4096, 4096, 32,
+         8, 128, True, None, bf16),
+        ("window 256 fp32", 2, 1000, 1000, 15, 5, 64, True, 256, fp32),
+        ("not causal, S != T, fp32", 2, 300, 1000, 24, 2, 128, False, None,
+         fp32),
+    )
+    gen = torch.Generator(device=dev).manual_seed(2)
+    for label, b, s, t, h, kvh, hd, causal, window, dtype in cases:
+        q = torch.randn((b, s, h, hd), generator=gen, device=dev).to(dtype)
+        k = torch.randn((b, t, kvh, hd), generator=gen, device=dev).to(dtype)
+        v = torch.randn((b, t, kvh, hd), generator=gen, device=dev).to(dtype)
+        kw = dict(causal=causal, window=window)
+        got = kfa.flash_attention(q, k, v, **kw)
+        exact = kfa.attention_plain(q.float(), k.float(), v.float(), **kw)
+        torch.cuda.synchronize()
+        if got.shape != q.shape or got.dtype != dtype \
+                or not bool(torch.isfinite(got).all()):
+            fail(f"flash_attention {label}: shape {tuple(got.shape)}, "
+                 f"dtype {got.dtype} or non-finite output")
+        err = float((got.float() - exact).abs().max())
+        if dtype == fp32:
+            tol = ATTN_ATOL
+        else:
+            plain = kfa.attention_plain(q, k, v, **kw).float()
+            tol = BF16_FACTOR * float((plain - exact).abs().max())
+            del plain
+        if not err <= tol:
+            fail(f"flash_attention {label}: max abs err {err:.3e} > "
+                 f"tolerance {tol:.3e}")
+        del got, exact
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        mask = None
+        if window is not None:
+            qpos = torch.arange(s, device=dev)[:, None]
+            kpos = torch.arange(t, device=dev)[None, :]
+            mask = (kpos > qpos - window) & (kpos <= qpos if causal
+                                              else True)
+
+        def library():
+            return F.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=mask,
+                is_causal=causal and mask is None, enable_gqa=True)
+
+        pairs = attention_pairs(s, t, causal, window)
+        nbytes = q.element_size() * 2.0 * (q.numel() + k.numel())
+        record("flash_attention",
+               f"{label} q{tuple(q.shape)} kv{tuple(k.shape)} (tol "
+               f"{tol:.2e})", err,
+               cuda_ms(lambda: kfa.flash_attention(q, k, v, **kw)),
+               cuda_ms(lambda: kfa.attention_plain(q, k, v, **kw), reps=3),
+               (4.0 * b * h * hd * pairs, nbytes), cuda_ms(library),
+               PEAK_BF16_FLOPS if dtype == bf16 else PEAK_FP32_FLOPS)
+        del q, k, v, qt, kt, vt
+    torch.cuda.empty_cache()
+
+
+def lm_run(model, params, prompts, feed=None) -> dict:
+    """Prefill ``prompts`` (cache grown by LM_DECODE slots), then LM_DECODE
+    decode steps, each fed ``feed[:, i]`` or, without ``feed``, the greedy
+    token of the step before.  Returns the logits of every position (B,
+    1 + LM_DECODE, V), the prefill's KV cache (copies), the tokens fed,
+    wall times and flash-attention launches of each part."""
+    import torch
+
+    from repro_torch.kernels import flash_attention as kfa
+
+    with torch.inference_mode():
+        torch.cuda.synchronize()
+        n0 = kfa.LAUNCHES
+        t0 = time.perf_counter()
+        last, cache = model.prefill(params, {"tokens": prompts},
+                                    pad_to=LM_PROMPT + LM_DECODE)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        n1 = kfa.LAUNCHES
+        kv = {n: x[:, :, :LM_PROMPT].clone()
+              for n, x in cache["pos0"].items()}
+        logits, fed = [last[:, 0]], []
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        for i in range(LM_DECODE):
+            tok = feed[:, i] if feed is not None else logits[-1].argmax(-1)
+            fed.append(tok)
+            step, cache = model.decode_step(params, cache,
+                                            {"tokens": tok[:, None]})
+            logits.append(step[:, 0])
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+    return {"logits": torch.stack(logits, 1), "kv": kv,
+            "fed": torch.stack(fed, 1), "prefill_s": t1 - t0,
+            "decode_s": t3 - t2, "prefill_launches": n1 - n0,
+            "decode_launches": kfa.LAUNCHES - n1}
+
+
+def lm_phases(dev, card: str, launches: dict) -> None:
+    """Phases 7-9: smollm-360m prefill and decode on the kernel path
+    against the plain path in fp32 and in bf16, then the LM server."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.dispatch import DispatchConfig
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer as T
+    from repro_torch.models.registry import build_model
+
+    cfg16 = get_config(LM_ARCH)
+    cfg32 = dataclasses.replace(cfg16, dtype="float32")
+    plain_cfg = DispatchConfig(path="reference")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params32 = build_model(cfg32).init_params(gen, dev)
+    prompts = torch.randint(0, cfg16.vocab_size, (LM_BATCH, LM_PROMPT),
+                            generator=gen, device=dev)
+    layers = cfg16.n_layers
+    shape = (f"{LM_ARCH} full width, batch {LM_BATCH}, prompt {LM_PROMPT}, "
+             f"{LM_DECODE} decode steps")
+
+    def kernel_run(phase, cfg, params, feed):
+        def fn():
+            out = lm_run(build_model(cfg), params, prompts, feed)
+            if out["prefill_launches"] != layers \
+                    or out["decode_launches"] != 0:
+                fail(f"{phase}: {out['prefill_launches']} flash_attention "
+                     f"launches in the prefill (want {layers}) and "
+                     f"{out['decode_launches']} in {LM_DECODE} decode steps "
+                     f"(want 0)")
+            return out
+        return drive(phase, ("flash_attention",), launches, fn)
+
+    def max_err(a, b) -> float:
+        return float((a - b).abs().max())
+
+    # --- phase 7: fp32, kernel path against plain path --------------------
+    p32 = lm_run(build_model(cfg32, dispatch=plain_cfg), params32, prompts)
+    if p32["prefill_launches"] or p32["decode_launches"]:
+        fail("the plain path launched the flash-attention kernel")
+    k32 = kernel_run("lm fp32 (kernel path)", cfg32, params32, p32["fed"])
+    want = p32["logits"]
+    if not bool(torch.isfinite(k32["logits"]).all()):
+        fail("lm fp32: non-finite logits on the kernel path")
+    err = max_err(k32["logits"], want)
+    scale = float(want.abs().max())
+    if not err <= LM_RTOL * scale:
+        fail(f"lm fp32: logits differ by {err:.3e} (> {LM_RTOL} × "
+             f"{scale:.3e})")
+    top2 = want.topk(2, dim=-1).values
+    decided = (top2[..., 0] - top2[..., 1]) > 2 * err
+    agree = k32["logits"].argmax(-1) == want.argmax(-1)
+    if not bool(agree[decided].all()):
+        fail(f"lm fp32: top-1 differs at {int((~agree & decided).sum())} "
+             f"positions whose top-2 gap exceeds 2 × {err:.3e}")
+    kv_errs = {}
+    for n in ("k", "v"):
+        e, sc = max_err(k32["kv"][n], p32["kv"][n]), \
+            float(p32["kv"][n].abs().max())
+        if not e <= LM_RTOL * sc:
+            fail(f"lm fp32: prefill cache {n} differs by {e:.3e} (> "
+                 f"{LM_RTOL} × {sc:.3e})")
+        kv_errs[n] = e / sc
+    log(f"lm fp32, {shape} [{card}]: logits max abs err {err:.3e} of "
+        f"max |logit| {scale:.3e} ({err / scale:.2e} relative); top-1 "
+        f"agrees at {int(agree.sum())} of {agree.numel()} positions "
+        f"({int(decided.sum())} decided by a gap > 2 × err, all agree); "
+        f"prefill cache relative err k {kv_errs['k']:.2e} v "
+        f"{kv_errs['v']:.2e}; kernel path prefill "
+        f"{k32['prefill_s'] * 1e3:.1f} ms, decode "
+        f"{k32['decode_s'] * 1e3:.1f} ms; plain path prefill "
+        f"{p32['prefill_s'] * 1e3:.1f} ms, decode "
+        f"{p32['decode_s'] * 1e3:.1f} ms")
+    del k32["kv"], p32["kv"]
+
+    # --- phase 8: bf16 from the same weights ------------------------------
+    params16 = T.cast_params(params32, torch.bfloat16)
+    del params32
+    torch.cuda.empty_cache()
+    p16 = lm_run(build_model(cfg16, dispatch=plain_cfg), params16, prompts,
+                 p32["fed"])
+    k16 = kernel_run("lm bf16 (kernel path)", cfg16, params16, p32["fed"])
+    e_k, e_p = max_err(k16["logits"], want), max_err(p16["logits"], want)
+    if not (bool(torch.isfinite(k16["logits"]).all())
+            and e_k <= BF16_FACTOR * e_p):
+        fail(f"lm bf16: kernel path's logit error {e_k:.3e} against the "
+             f"fp32 plain path > {BF16_FACTOR} × the bf16 plain path's "
+             f"{e_p:.3e}")
+    agree16 = int((k16["logits"].argmax(-1) == want.argmax(-1)).sum())
+    log(f"lm bf16, {shape} [{card}]: logit err vs the fp32 plain path "
+        f"{e_k:.3e} (kernel path) vs {e_p:.3e} (bf16 plain path); top-1 "
+        f"agrees with fp32 at {agree16} of {want.shape[0] * want.shape[1]}; "
+        f"kernel path prefill {k16['prefill_s'] * 1e3:.1f} ms = "
+        f"{LM_BATCH * LM_PROMPT / k16['prefill_s']:.0f} tokens/s, decode "
+        f"{k16['decode_s'] * 1e3:.1f} ms for {LM_DECODE} steps = "
+        f"{LM_BATCH * LM_DECODE / k16['decode_s']:.1f} tokens/s "
+        f"({k16['decode_s'] / LM_DECODE * 1e3:.2f} ms a step); plain path "
+        f"prefill {p16['prefill_s'] * 1e3:.1f} ms, decode "
+        f"{p16['decode_s'] * 1e3:.1f} ms")
+    del p16, k16, p32, k32, want
+    model = build_model(cfg16)
+    with torch.inference_mode():
+        profile_step("lm bf16 prefill (kernel path)", lambda: model.prefill(
+            params16, {"tokens": prompts}, pad_to=LM_PROMPT + LM_DECODE))
+        _, cache = model.prefill(params16, {"tokens": prompts},
+                                 pad_to=LM_PROMPT + LM_DECODE)
+        tok = prompts[:, -1:]
+        profile_step("lm bf16 decode step", lambda: model.decode_step(
+            params16, cache, {"tokens": tok}))
+    del params16, cache, model
+    torch.cuda.empty_cache()
+
+    # --- phase 9: the LM server at the reference's defaults ---------------
+    report = drive("serve lm", (), launches,
+                   lambda: serve.main(["--arch", LM_ARCH]))
+    if report["completed"] != 16 or report["decode_tokens"] <= 0:
+        fail(f"serve lm: completed {report['completed']} of 16")
+    log(f"serve lm ({LM_ARCH}, bf16, batch 4, ctx 256, 16 requests) "
+        f"[{card}]: {report['decode_tokens']} decode tokens in "
+        f"{report['wall_s']:.3f} s = {report['tokens_per_s']:.1f} tokens/s")
+    torch.cuda.empty_cache()
+
+
 def main() -> None:
     if not os.path.isdir(os.path.join(REPO_SRC, "repro_torch")):
         fail(f"no src/repro_torch beside {__file__}: run from a checkout")
@@ -452,8 +730,9 @@ def main() -> None:
     grid = cfg.image_size // 8
     rows: dict[str, dict] = {}
 
-    def record(name, shape, err, ms, plain_ms, work, library_ms=None):
-        bms, by = bound(*work)
+    def record(name, shape, err, ms, plain_ms, work, library_ms=None,
+               peak=PEAK_FP32_FLOPS):
+        bms, by = bound(*work, peak)
         # the kernels line carries each kernel's first (largest) shape
         r = rows.setdefault(name, {"max_abs_err": 0.0, "ms": ms,
                                    "plain_ms": plain_ms, "bound_ms": bms,
@@ -547,12 +826,14 @@ def main() -> None:
                    cuda_ms(lambda: torch.matmul(x2, op)))
             del x, x2, got
 
+        attention_checks(dev, record)
+
     # --- phases 3 and 4: the server, compiled and per-layer ---------------
     launches = {k: 0 for k in KERNELS}
     ref_cfg = dsp.DispatchConfig(path="reference", bands=BANDS)
     # at 16 bands s0b0-s1b1 fuse and s2b0-s3b1 walk per layer: factored
     # convs (block transforms), the s2b0 projection (jpeg_conv), ASM
-    walks = (("compiled", True, KERNELS),
+    walks = (("compiled", True, JPEG_KERNELS),
              ("per-layer", False, ("jpeg_conv", "asm_relu", "block_dct",
                                    "block_idct")))
     for phase, compiled, required in walks:
@@ -588,14 +869,20 @@ def main() -> None:
     finally:
         shutil.rmtree(ckpt_dir, ignore_errors=True)
 
+    # --- phases 7-9: LM serving ---------------------------------------------
+    lm_phases(dev, card, launches)
+
     kernels = []
     src = {k: "src/repro_torch/csrc/jpeg_kernels.cu" for k in KERNELS}
     src["block_dct"] = src["block_idct"] = "src/repro_torch/csrc/block_dct.cu"
+    src["flash_attention"] = "src/repro_torch/csrc/flash_attention.cu"
     replaces = {"fused_block": "src/repro/kernels/fused_block.py:143",
                 "jpeg_conv": "src/repro/kernels/jpeg_conv.py:112",
                 "asm_relu": "src/repro/kernels/asm_relu.py:65",
                 "block_dct": "src/repro/kernels/block_dct.py:37",
-                "block_idct": "src/repro/kernels/block_dct.py:37"}
+                "block_idct": "src/repro/kernels/block_dct.py:37",
+                "flash_attention":
+                    "src/repro/kernels/flash_attention.py:96"}
     for name in KERNELS:
         r = rows[name]
         if launches[name] <= 0:

@@ -2,8 +2,11 @@
 
 Serves ``jpeg-resnet`` from JPEG bytes to logits: the numpy codec on the
 host, then the compiled plan on the device, with the hot loops in hand
-written CUDA kernels (``repro_torch/csrc``).  Everything is float32: TF32
-is switched off for matmuls and convolutions when the package is imported.
+written CUDA kernels (``repro_torch/csrc``); trains it; and serves the
+reference's dense language models (prefill through the flash-attention
+kernel, then decode).  The JPEG path is float32, the LMs run in their
+configured dtype (bf16 or fp32): TF32 is switched off for matmuls and
+convolutions when the package is imported.
 
 Entry points run on the CUDA device unless the caller passes
 ``device="cpu"``; without CUDA they raise (:func:`resolve_device`).

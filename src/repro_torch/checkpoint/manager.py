@@ -12,7 +12,8 @@
 
 The on-disk layout is the reference package's (``arrays.npz`` with leaves
 ``leaf_<i>``, ``manifest.json`` with each leaf's tree path, shape, dtype
-and checksum), with its path strings (``repro_torch.tree``), so either
+and checksum; bf16 leaves stored widened to fp32 and recorded as
+``bfloat16``), with its path strings (``repro_torch.tree``), so either
 package can read the other's arrays.
 """
 from __future__ import annotations
@@ -37,10 +38,18 @@ _READ_ERRORS = (OSError, ValueError, KeyError, EOFError,
                 zipfile.BadZipFile)
 
 
-def _host(leaf: Any) -> np.ndarray:
+def _host(leaf: Any) -> tuple[np.ndarray, str]:
+    """``(array to store, dtype to record)``: numpy has no bfloat16, so a
+    bf16 tensor is widened (exactly) to fp32 for storage and recorded as
+    ``bfloat16``, as the reference package does."""
     if isinstance(leaf, torch.Tensor):
-        return leaf.detach().cpu().numpy().copy()
-    return np.array(leaf)
+        t = leaf.detach().cpu()
+        if t.dtype == torch.bfloat16:
+            return t.float().numpy(), "bfloat16"
+        arr = t.numpy().copy()
+    else:
+        arr = np.array(leaf)
+    return arr, str(arr.dtype)
 
 
 class CheckpointManager:
@@ -68,12 +77,11 @@ class CheckpointManager:
             os.makedirs(tmp)
             manifest = {"step": step, "extra": extra, "leaves": {}}
             arrays = {}
-            for i, (path, arr) in enumerate(leaves):
+            for i, (path, (arr, dtype)) in enumerate(leaves):
                 name = f"leaf_{i}"
                 arrays[name] = arr
                 manifest["leaves"][name] = {
-                    "path": path, "shape": list(arr.shape),
-                    "dtype": str(arr.dtype),
+                    "path": path, "shape": list(arr.shape), "dtype": dtype,
                     "sha256": hashlib.sha256(arr.tobytes()).hexdigest()}
             np.savez(os.path.join(tmp, "arrays.npz"), **arrays)
             with open(os.path.join(tmp, "manifest.json"), "w") as f:
@@ -142,7 +150,8 @@ class CheckpointManager:
                 ) -> tuple[Any, dict[str, Any]]:
         """Restore step ``step`` into the structure of ``target_tree``: each
         leaf comes back as a tensor on its target leaf's device, in its
-        dtype.  Returns ``(tree, extra)``."""
+        dtype (a bf16 leaf stored widened comes back bit-identical).
+        Returns ``(tree, extra)``."""
         by_path, manifest = self._read(step)
         want = {p for p, _ in leaves_with_paths(target_tree)}
         missing = sorted(want - set(by_path))
@@ -159,9 +168,12 @@ class CheckpointManager:
 
     def restore_tree(self, step: int | None = None
                      ) -> tuple[int, dict[str, np.ndarray], dict[str, Any]]:
-        """Template-free restore: ``(step, {path: array}, extra)``.  ``None``
-        picks the newest valid step; raises ``FileNotFoundError`` when there
-        is none, or when an explicit step is missing or damaged."""
+        """Template-free restore: ``(step, {path: array}, extra)``, the
+        arrays as stored: a leaf recorded as ``bfloat16`` comes back as its
+        exact fp32 widening (numpy has no bf16; the reference returns it
+        cast back).  ``None`` picks the newest valid step; raises
+        ``FileNotFoundError`` when there is none, or when an explicit step
+        is missing or damaged."""
         if step is None:
             step = next((s for s in reversed(self.steps())
                          if self._valid(s)), None)

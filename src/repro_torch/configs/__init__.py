@@ -1,28 +1,64 @@
-"""Model and training configurations of the port (``jpeg-resnet`` full and
-reduced)."""
+"""Model and training configurations of the port: ``jpeg-resnet`` and the
+reference's dense language models (full and reduced)."""
 from __future__ import annotations
 
 import dataclasses
+import importlib
+from typing import Optional
 
-__all__ = ["ModelConfig", "TrainConfig", "LM_ARCHS", "get_config",
+__all__ = ["ModelConfig", "TrainConfig", "ARCHS", "LM_ARCHS", "get_config",
            "reduced_config"]
 
-#: the reference package's language-model archs, not ported yet
-LM_ARCHS = ("granite-3-2b", "granite-moe-3b-a800m", "internvl2-1b",
-            "jamba-v0.1-52b", "mistral-nemo-12b", "mixtral-8x7b",
-            "rwkv6-7b", "smollm-360m", "starcoder2-3b", "whisper-small")
+#: arch → config module of the port
+ARCHS = {"jpeg-resnet": "jpeg_resnet", "granite-3-2b": "granite_3_2b",
+         "mistral-nemo-12b": "mistral_nemo_12b",
+         "smollm-360m": "smollm_360m", "starcoder2-3b": "starcoder2_3b"}
+
+#: the reference's language-model archs not ported yet → the ROADMAP item
+#: that holds them
+LM_ARCHS = {"granite-moe-3b-a800m": "7.3", "mixtral-8x7b": "7.3",
+            "jamba-v0.1-52b": "7.3 and 7.4", "rwkv6-7b": "7.4",
+            "internvl2-1b": "7.5", "whisper-small": "7.5"}
 
 
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
+    """The reference's ``repro/configs/base.py:ModelConfig`` fields that the
+    port reads: the dense LM fields and the jpeg-resnet ones, same
+    defaults."""
+
     name: str
-    image_size: int
-    in_channels: int
-    widths: tuple[int, ...]
-    blocks_per_stage: int
-    num_classes: int
+    family: str = "jpeg_resnet"  # dense | jpeg_resnet
+    n_layers: int = 0
+    d_model: int = 0
+    n_heads: int = 0
+    n_kv_heads: int = 0
+    head_dim: int = 0
+    d_ff: int = 0
+    vocab_size: int = 0
+    rope_theta: float = 10_000.0
+    sliding_window: Optional[int] = None
+    use_rope: bool = True
+    # --- jpeg-resnet ---
+    image_size: int = 32
+    in_channels: int = 3
+    widths: tuple[int, ...] = ()
+    blocks_per_stage: int = 1
+    num_classes: int = 10
     asm_phi: int = 14
+    # --- numerics ---
+    norm_eps: float = 1e-5
+    tie_embeddings: bool = False
+    dtype: str = "bfloat16"
     source: str = ""
+
+    @property
+    def q_dim(self) -> int:
+        return self.n_heads * self.head_dim
+
+    @property
+    def kv_dim(self) -> int:
+        return self.n_kv_heads * self.head_dim
 
 
 @dataclasses.dataclass(frozen=True)
@@ -39,25 +75,23 @@ class TrainConfig:
     grad_clip: float = 1.0
 
 
-def _check(arch: str) -> None:
+def _module(arch: str):
     if arch in LM_ARCHS:
         raise NotImplementedError(
-            f"{arch!r} is a language model of the reference package; the "
-            f"port runs jpeg-resnet only until the LM model zoo is ported "
-            f"(ROADMAP Queue 1 item 7)")
-    if arch != "jpeg-resnet":
-        raise KeyError(f"unknown arch {arch!r}; the port runs jpeg-resnet")
+            f"{arch!r} is a language model of the reference package that "
+            f"the port does not run yet (ROADMAP Queue 1 item "
+            f"{LM_ARCHS[arch]}); it runs {', '.join(sorted(ARCHS))}")
+    if arch not in ARCHS:
+        raise KeyError(f"unknown arch {arch!r}; the port runs "
+                       f"{', '.join(sorted(ARCHS))}")
+    return importlib.import_module(f"repro_torch.configs.{ARCHS[arch]}")
 
 
 def get_config(arch: str) -> ModelConfig:
-    from repro_torch.configs import jpeg_resnet
-
-    _check(arch)
-    return jpeg_resnet.full()
+    """The full published configuration of ``arch``."""
+    return _module(arch).full()
 
 
 def reduced_config(arch: str) -> ModelConfig:
-    from repro_torch.configs import jpeg_resnet
-
-    _check(arch)
-    return jpeg_resnet.reduced()
+    """A tiny same-family configuration of ``arch`` for CPU tests."""
+    return _module(arch).reduced()

@@ -1,7 +1,8 @@
 """Build and load the hand-written CUDA kernels (``repro_torch/csrc``).
 
-``nvcc`` compiles every ``csrc/*.cu`` for ``sm_90a`` into one shared library
-with a plain C interface, loaded with :mod:`ctypes` — a few seconds, where
+``nvcc`` compiles every ``csrc/*.cu`` for ``sm_90a`` — one process per
+source, all started together — and links the objects into one shared
+library with a plain C interface, loaded with :mod:`ctypes`: seconds, where
 a build against PyTorch's headers takes minutes.  The library lands in
 ``build/kernels/`` at the repository root (git-ignored), named by a hash
 of the sources and flags, so an edited source rebuilds and an unchanged
@@ -26,8 +27,9 @@ __all__ = ["BUILD_DIR", "SOURCES", "build", "library", "check_device",
 _PKG = Path(__file__).resolve().parents[1]
 SOURCES = tuple(sorted((_PKG / "csrc").glob("*.cu")))
 BUILD_DIR = _PKG.parents[1] / "build" / "kernels"
-_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+_ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
+_FLAGS = (*_ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas",
+          "-v")
 
 _LIB: ctypes.CDLL | None = None
 _LOG: dict[str, object] = {}
@@ -60,17 +62,31 @@ def build() -> Path:
         _LOG.setdefault("cached", True)
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
+    tag = f"{out.stem}.{os.getpid()}.tmp"
+    objs = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in SOURCES]
     t0 = time.perf_counter()
-    proc = subprocess.run([_nvcc(), *_FLAGS, "-o", str(tmp),
-                           *map(str, SOURCES)],
-                          capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{proc.stderr}")
+    procs = [subprocess.Popen([_nvcc(), *_FLAGS, "-c", str(src), "-o",
+                               str(obj)], stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+             for src, obj in zip(SOURCES, objs)]
+    logs = [proc.communicate()[1] for proc in procs]
+    failed = [(src.name, proc.returncode, err) for src, proc, err
+              in zip(SOURCES, procs, logs) if proc.returncode != 0]
+    tmp = BUILD_DIR / f"{tag}.so"
+    if not failed:
+        link = subprocess.run([_nvcc(), *_ARCH, "-shared", "-o", str(tmp),
+                               *map(str, objs)], capture_output=True,
+                              text=True)
+        if link.returncode != 0:
+            failed = [("the link", link.returncode, link.stderr)]
+    for obj in objs:
+        obj.unlink(missing_ok=True)
+    if failed:
+        raise RuntimeError("\n".join(f"nvcc failed on {what} ({rc}):\n{err}"
+                                     for what, rc, err in failed))
     os.replace(tmp, out)
     _LOG.update(seconds=time.perf_counter() - t0, cached=False,
-                ptxas=proc.stderr)
+                ptxas="".join(logs))
     return out
 
 
@@ -93,19 +109,24 @@ def library() -> ctypes.CDLL:
         lib.jk_asm.restype = _I
         lib.jk_block_matmul.argtypes = [_P] * 3 + [ctypes.c_longlong, _P]
         lib.jk_block_matmul.restype = _I
+        lib.jk_flash_attention.argtypes = [_P] * 4 + [_I] * 9 + [
+            ctypes.c_float, _I, _P]
+        lib.jk_flash_attention.restype = _I
         _LIB = lib
     return _LIB
 
 
-def check_device(*tensors: torch.Tensor) -> None:
-    """Raise unless every tensor is a contiguous float32 tensor on one CUDA
-    device of compute capability 9.0 or newer."""
+def check_device(*tensors: torch.Tensor,
+                 dtypes: tuple[torch.dtype, ...] = (torch.float32,)) -> None:
+    """Raise unless every tensor is contiguous, of a dtype in ``dtypes``,
+    and on one CUDA device of compute capability 9.0 or newer."""
     dev = tensors[0].device
     for t in tensors:
-        if t.device != dev or t.dtype != torch.float32 \
+        if t.device != dev or t.dtype not in dtypes \
                 or not t.is_contiguous():
-            raise ValueError(f"kernel operands must be contiguous float32 on "
-                             f"{dev}; got {t.dtype} on {t.device} "
+            names = "/".join(str(d).removeprefix("torch.") for d in dtypes)
+            raise ValueError(f"kernel operands must be contiguous {names} "
+                             f"on {dev}; got {t.dtype} on {t.device} "
                              f"(contiguous={t.is_contiguous()})")
     cap = torch.cuda.get_device_capability(dev)
     if cap < (9, 0):

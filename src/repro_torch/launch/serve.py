@@ -1,13 +1,14 @@
-"""Serve ``jpeg-resnet`` from JPEG bytes to logits.
+"""Serve ``jpeg-resnet`` from JPEG bytes to logits, and the dense language
+models by slot-batched decoding.
 
-Requests are real baseline JFIF files: the synthetic image corpus encoded
-at a rotating quality mix (35/50/75/90, the true IJG tables), so every
-batch exercises the per-image quantization normalization that lets one
-plan serve all of them.  The host entropy-decodes and normalizes each
-batch (``repro_torch.codec``, never a spatial decode), the device runs the
-plan built in-process from seeded random weights: by default the compiled
-schedule from the tile-packed stem input, with ``--no-compiled`` the
-per-layer plan walk from 64-lane coefficients.
+jpeg-resnet: requests are real baseline JFIF files: the synthetic image
+corpus encoded at a rotating quality mix (35/50/75/90, the true IJG
+tables), so every batch exercises the per-image quantization normalization
+that lets one plan serve all of them.  The host entropy-decodes and
+normalizes each batch (``repro_torch.codec``, never a spatial decode), the
+device runs the plan built in-process from seeded random weights: by
+default the compiled schedule from the tile-packed stem input, with
+``--no-compiled`` the per-layer plan walk from 64-lane coefficients.
 
 Requests run through a pool of ``--batch`` slots: each request classifies
 a random number (1..``--max-new``) of images and a finished slot refills
@@ -16,10 +17,19 @@ latency percentiles, the server's time split into host ingest and device
 forward, and the plan's fused and per-layer split.  The server's clock
 excludes the synthetic client's image synthesis and encoding.
 
+Language models (:func:`serve_lm`, a port of the reference's): ``--batch``
+decode slots over a ``--ctx``-slot cache, each request generating a random
+4..``--max-new`` greedy tokens from a random one-token start, finished
+slots refilled from the pending requests; the report is one JSON line
+with decode tokens/s.  The prompt path (``Model.prefill``, which runs the
+flash-attention kernel) is driven by ``chip_smoke.py``.
+
     PYTHONPATH=src python -m repro_torch.launch.serve --arch jpeg-resnet \\
         --ingest bytes --bands 16 --batch 4 --requests 8
     PYTHONPATH=src python -m repro_torch.launch.serve --arch jpeg-resnet \\
         --reduced --device cpu --batch 2 --requests 2
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-360m \\
+        --reduced --device cpu
 
 Runs on the CUDA device unless ``--device cpu`` is given; without CUDA it
 raises.
@@ -35,15 +45,17 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.configs import get_config, reduced_config
+from repro_torch.configs import ARCHS, get_config, reduced_config
 from repro_torch.configs.jpeg_resnet import spec_of
 from repro_torch.core import dct as dctlib
 from repro_torch.core import dispatch as dispatchlib
 from repro_torch.core import plan as planlib
 from repro_torch.core import resnet as resnetlib
+from repro_torch.models.registry import build_model
 
 __all__ = ["BYTE_QUALITIES", "jpeg_byte_requests", "prepare_plan",
-           "serve_jpeg_resnet", "percentiles", "parse_args", "main"]
+           "serve_jpeg_resnet", "serve_lm", "percentiles", "parse_args",
+           "main"]
 
 #: quality mix of the synthetic byte stream
 BYTE_QUALITIES = (35, 50, 75, 90)
@@ -209,9 +221,65 @@ def serve_jpeg_resnet(args, *, prepared=None,
     return out
 
 
+def serve_lm(args) -> dict:
+    """Decode-only slot serving of a dense LM, as the reference's
+    ``serve_lm``: the same numpy draws (request budgets, start tokens) from
+    ``--seed`` and the same report keys.  As there, every slot shares the
+    cache's one position index, so a refilled slot continues at the global
+    index over the previous request's cache."""
+    device = resolve_device(args.device)
+    cfg = reduced_config(args.arch) if args.reduced \
+        else get_config(args.arch)
+    model = build_model(cfg)
+    gen = torch.Generator(device=device).manual_seed(args.seed)
+    params = model.init_params(gen, device)
+    rng = np.random.default_rng(args.seed)
+    b = args.batch
+    cache = model.init_cache(b, args.ctx, device)
+
+    # synthetic request stream; never start more than args.requests
+    started = min(b, args.requests)
+    pending = args.requests - started
+    budgets = rng.integers(4, args.max_new + 1, size=(b,))
+    active = np.arange(b) < started
+    produced = np.zeros((b,), np.int64)
+    tokens = torch.as_tensor(rng.integers(0, cfg.vocab_size, size=(b, 1)),
+                             device=device)
+
+    n_tokens = 0
+    completed = 0
+    with torch.inference_mode():
+        t0 = time.perf_counter()
+        while completed < args.requests:
+            logits, cache = model.decode_step(params, cache,
+                                              {"tokens": tokens})
+            tokens = torch.argmax(logits[:, -1], dim=-1)[:, None]
+            n_tokens += int(active.sum())
+            produced += active
+            done = active & (produced >= budgets)
+            for i in np.where(done)[0]:
+                completed += 1
+                produced[i] = 0
+                if pending > 0:
+                    pending -= 1
+                    budgets[i] = rng.integers(4, args.max_new + 1)
+                else:
+                    active[i] = False
+            if not active.any():
+                break
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        wall = time.perf_counter() - t0
+    out = {"arch": cfg.name, "decode_tokens": n_tokens, "wall_s": wall,
+           "tokens_per_s": n_tokens / max(wall, 1e-9),
+           "completed": completed}
+    print(json.dumps(out), flush=True)
+    return out
+
+
 def parse_args(argv=None) -> argparse.Namespace:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--arch", required=True, choices=("jpeg-resnet",))
+    ap.add_argument("--arch", required=True, choices=sorted(ARCHS))
     ap.add_argument("--reduced", action="store_true",
                     help="the CIFAR-scale config instead of the full one")
     ap.add_argument("--ingest", default="bytes", choices=("bytes",),
@@ -223,9 +291,12 @@ def parse_args(argv=None) -> argparse.Namespace:
                     help="serve the compiled schedule (default); "
                          "--no-compiled serves the per-layer plan walk")
     ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--ctx", type=int, default=256,
+                    help="LM decode cache slots")
     ap.add_argument("--requests", type=int, default=16)
     ap.add_argument("--max-new", type=int, default=32,
-                    help="most images one request classifies")
+                    help="most images one request classifies (LM: most "
+                         "tokens one request generates)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda; 'cpu' runs the "
@@ -234,7 +305,10 @@ def parse_args(argv=None) -> argparse.Namespace:
 
 
 def main(argv=None) -> dict:
-    return serve_jpeg_resnet(parse_args(argv))
+    args = parse_args(argv)
+    if args.arch == "jpeg-resnet":
+        return serve_jpeg_resnet(args)
+    return serve_lm(args)
 
 
 if __name__ == "__main__":

@@ -1,1 +1,1 @@
-"""Model registry of the port (the jpeg-resnet family)."""
+"""Model registry and models of the port: jpeg-resnet and the dense LMs."""

@@ -1,0 +1,86 @@
+"""Transformer layers of the dense language models: RMS norm, RoPE, GQA
+attention (full-sequence and single-token decode), SwiGLU.
+
+A port of ``repro/models/layers.py`` with its conventions: activations
+``(B, S, D)``, heads ``(B, S, H, head_dim)``, KV caches ``(B, T, KVH,
+head_dim)``, ``H = KVH · G``; norm and softmax statistics in fp32 whatever
+the activation dtype.  Full-sequence attention is
+``kernels/flash_attention.py``: the hand-written kernel on a CUDA tensor,
+its plain version on a CPU one or when the caller asks for it
+(``plain=True``).  The reference's ``shard(...)`` hints are dropped: they
+are no-ops without mesh rules.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels import flash_attention as kfa
+
+__all__ = ["resolve_dtype", "rms_norm", "apply_rope", "attention",
+           "decode_attention", "swiglu_mlp"]
+
+
+def resolve_dtype(name: str) -> torch.dtype:
+    return {"bfloat16": torch.bfloat16, "float32": torch.float32,
+            "float16": torch.float16}[name]
+
+
+def rms_norm(x: torch.Tensor, weight: torch.Tensor,
+             eps: float = 1e-5) -> torch.Tensor:
+    xf = x.float()
+    scale = torch.rsqrt(torch.mean(xf * xf, dim=-1, keepdim=True) + eps)
+    return (xf * scale * weight.float()).to(x.dtype)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float) -> torch.Tensor:
+    """Rotary embeddings.  ``x``: (B, S, H, hd); ``positions``: (B, S)."""
+    hd = x.shape[-1]
+    half = hd // 2
+    freqs = theta ** (-torch.arange(half, dtype=torch.float32,
+                                    device=x.device) / half)
+    ang = positions.float()[..., None] * freqs  # (B, S, half)
+    cos = torch.cos(ang)[:, :, None, :]
+    sin = torch.sin(ang)[:, :, None, :]
+    x1, x2 = x[..., :half].float(), x[..., half:].float()
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+              causal: bool = True, window: Optional[int] = None,
+              q_offset: int = 0, plain: bool = False) -> torch.Tensor:
+    """Full-sequence attention: ``q`` (B, S, H, hd), ``k``/``v`` (B, T,
+    KVH, hd); ``q_offset`` is the position of q[0] relative to k[0].  The
+    flash-attention kernel on a CUDA tensor (its plain version with
+    ``plain=True``), the plain version on a CPU tensor."""
+    fn = kfa.attention_plain if plain else kfa.flash_attention
+    return fn(q, k, v, causal=causal, window=window, q_offset=q_offset)
+
+
+def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
+                     v_cache: torch.Tensor,
+                     cache_len: torch.Tensor) -> torch.Tensor:
+    """Single-token attention against a padded cache: ``q`` (B, 1, H, hd),
+    caches (B, T, KVH, hd), ``cache_len`` the number of valid entries (the
+    new token's k/v already written; a ring-buffer cache has every slot
+    valid).  A dense product over the cache, as in the reference."""
+    b, _, h, hd = q.shape
+    t, kvh = k_cache.shape[1], k_cache.shape[2]
+    g = h // kvh
+    qg = q.reshape(b, 1, kvh, g, hd) * (hd ** -0.5)
+    scores = kfa.gqa_scores(qg, k_cache)  # (B, KVH, G, 1, T)
+    valid = torch.arange(t, device=q.device) < cache_len
+    scores = torch.where(valid, scores, -1e30)
+    probs = torch.softmax(scores, dim=-1).to(q.dtype)
+    out = torch.einsum("bngst,btnd->bsngd", probs, v_cache)
+    return out.reshape(b, 1, h, hd)
+
+
+def swiglu_mlp(x: torch.Tensor, w_gate: torch.Tensor, w_in: torch.Tensor,
+               w_out: torch.Tensor) -> torch.Tensor:
+    """SwiGLU: (silu(x @ w_gate) * (x @ w_in)) @ w_out."""
+    return (F.silu(x @ w_gate) * (x @ w_in)) @ w_out

@@ -1,29 +1,36 @@
 """Architecture registry: one interface over the model families.
 
 ``build_model(cfg)`` returns a :class:`Model` bundle of functions; the
-trainer talks only to it.  The port has the jpeg-resnet family alone: the
-reference's language models wait for the LM model zoo (ROADMAP Queue 1
-item 7).  A model's trainable state is the bundle ``{"params",
-"bn_state"}``, as in the reference, which differentiates both.
+trainer and the server talk only to it.  The port has two families:
+``jpeg_resnet`` (whose trainable state is the bundle ``{"params",
+"bn_state"}``, as in the reference, which differentiates both) and the
+dense language models, which serve: ``prefill`` a prompt, then
+``decode_step`` from its cache.  The reference's other LM families wait
+(ROADMAP Queue 1 item 7).
 """
 from __future__ import annotations
 
 from typing import Any, Callable, NamedTuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
 from repro_torch.configs import ModelConfig
 from repro_torch.core import dispatch as dispatchlib
 
-__all__ = ["Model", "build_model", "count_params", "jpeg_resnet_spec"]
+__all__ = ["Model", "build_model", "input_specs", "count_params",
+           "jpeg_resnet_spec"]
 
 
 class Model(NamedTuple):
     cfg: ModelConfig
-    init_params: Callable[..., Any]  # (generator, device) -> bundle
-    loss_fn: Callable[..., Any]      # (bundle, batch) -> (loss, metrics)
-    forward: Callable[..., Any]      # (bundle, batch) -> (logits, aux)
+    init_params: Callable[..., Any]  # (generator, device) -> params
+    loss_fn: Callable[..., Any]      # (params, batch) -> (loss, metrics)
+    forward: Callable[..., Any]      # (params, batch) -> (logits, aux)
+    init_cache: Callable[..., Any] | None = None  # (batch, seq, device)
+    decode_step: Callable[..., Any] | None = None  # (params, cache, batch)
+    prefill: Callable[..., Any] | None = None  # (params, batch, pad_to)
 
 
 def jpeg_resnet_spec(cfg: ModelConfig):
@@ -62,13 +69,66 @@ def _jpeg_resnet_model(cfg: ModelConfig, remat: str,
     return Model(cfg, init_params, loss, fwd)
 
 
+def _lm_model(cfg: ModelConfig, remat: str,
+              dispatch: dispatchlib.DispatchConfig | None) -> Model:
+    from repro_torch.models import transformer as T
+
+    if remat != "none":
+        raise NotImplementedError(
+            "remat is for LM training, which the port does not run yet "
+            "(ROADMAP Queue 1 item 7.1)")
+    plain = dispatch is not None and dispatch.path == "reference"
+
+    def init_params(generator: torch.Generator, device=None):
+        return T.init_params(generator, cfg, device)
+
+    def loss(params, batch):
+        return T.loss_fn(params, cfg, batch, plain=plain)
+
+    def fwd(params, batch):
+        return T.forward(params, cfg, batch, plain=plain)
+
+    def init_cache(batch: int, seq: int, device=None):
+        return T.init_cache(cfg, batch, seq, device)
+
+    def dstep(params, cache, batch):
+        return T.decode_step(params, cfg, cache, batch)
+
+    def pfill(params, batch, pad_to=None):
+        return T.prefill(params, cfg, batch, pad_to=pad_to, plain=plain)
+
+    return Model(cfg, init_params, loss, fwd, init_cache, dstep, pfill)
+
+
 def build_model(cfg: ModelConfig, remat: str = "none", *,
                 dispatch: dispatchlib.DispatchConfig | None = None) -> Model:
-    """The model bundle for ``cfg``; ``dispatch`` picks the op paths of its
-    forward (None: ``auto``, the kernels on a CUDA device).  Configs of
-    the reference's language models are refused earlier, by
-    ``configs.get_config``."""
-    return _jpeg_resnet_model(cfg, remat, dispatch)
+    """The model bundle for ``cfg``.  ``dispatch`` picks the op paths of
+    its forward (None: ``auto``, the kernels on a CUDA device); for a
+    language model a ``reference`` path runs the plain attention on any
+    device.  Configs of LM families the port does not run are refused
+    earlier, by ``configs.get_config``."""
+    if cfg.family == "jpeg_resnet":
+        return _jpeg_resnet_model(cfg, remat, dispatch)
+    return _lm_model(cfg, remat, dispatch)
+
+
+def input_specs(cfg: ModelConfig, batch: int, seq: int,
+                kind: str) -> dict[str, np.ndarray]:
+    """Zero host batches of one cell: ``kind`` 'train' or 'prefill' gives
+    the full sequence (with labels for 'train'), 'decode' one token per
+    sequence (the cache comes from ``Model.init_cache``); jpeg-resnet
+    takes coefficients and labels."""
+    if cfg.family == "jpeg_resnet":
+        n = cfg.image_size // 8
+        return {"coefficients": np.zeros((batch, n, n, cfg.in_channels, 64),
+                                         np.float32),
+                "labels": np.zeros((batch,), np.int32)}
+    if kind == "decode":
+        return {"tokens": np.zeros((batch, 1), np.int32)}
+    out = {"tokens": np.zeros((batch, seq), np.int32)}
+    if kind == "train":
+        out["labels"] = np.zeros((batch, seq), np.int32)
+    return out
 
 
 def count_params(tree: Any) -> int:

@@ -7,8 +7,9 @@ Needs an NVIDIA GPU of compute capability 9.0 (the kernels are built for
 
 Covers ragged row counts, every per-channel width 8…64, both shortcut
 kinds and both strides of the fused block, both block-transform operators,
-the launch counters, and the autograd wrappers' gradients against those of
-the plain versions.
+the launch counters, the autograd wrappers' gradients against those of
+the plain versions, and flash attention in fp32 and bf16 (ragged tiles,
+S != T, windows, a query offset, bad operands, a small model's prefill).
 """
 import numpy as np
 import pytest
@@ -20,6 +21,7 @@ from repro_torch.core import resnet as resnetlib
 from repro_torch.kernels import _build
 from repro_torch.kernels import asm_relu as kasm
 from repro_torch.kernels import block_dct as kbd
+from repro_torch.kernels import flash_attention as kfa
 from repro_torch.kernels import fused_block as kfb
 from repro_torch.kernels import jpeg_conv as kjc
 from repro_torch.kernels import tiling
@@ -214,3 +216,92 @@ def test_training_forward_kernel_path_matches_plain(dev):
     assert abs(float(loss_k) - float(loss_p)) <= 1e-4 * abs(float(loss_p))
     for a, b in zip(grads_k, grads_p):
         assert float((a - b).norm()) <= 1e-4 * float(b.norm())
+
+
+# ------------------------------------------------------- flash attention
+
+CARD = [  # b, s, t, h, kvh, hd, causal, window, q_offset
+    (2, 200, 200, 15, 5, 64, True, None, 0),    # ragged query and key tiles
+    (1, 130, 300, 8, 2, 128, False, None, 0),   # S != T, not causal
+    (2, 333, 333, 4, 1, 64, True, 100, 0),      # window, MQA
+    (1, 77, 127, 6, 3, 64, True, None, 50),     # a continued prompt
+    (1, 64, 64, 2, 2, 128, False, 16, 0),       # window, not causal
+]
+
+
+def _card_qkv(dev, b, s, t, h, kvh, hd, dtype, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return tuple(torch.randn(shape, generator=g, device=dev).to(dtype)
+                 for shape in ((b, s, h, hd), (b, t, kvh, hd),
+                               (b, t, kvh, hd)))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,t,h,kvh,hd,causal,window,q_offset", CARD)
+def test_kernel_matches_plain_on_card(dev, dtype, b, s, t, h, kvh, hd,
+                                      causal, window, q_offset):
+    """fp32: 2e-4 absolute.  bf16: the kernel's error against the plain
+    version on fp32 copies is at most 1.5× the bf16 plain version's (the
+    plain version rounds its probabilities to bf16, the kernel does not)."""
+    q, k, v = _card_qkv(dev, b, s, t, h, kvh, hd, dtype, s + t + h)
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    before = kfa.LAUNCHES
+    with torch.inference_mode():
+        got = kfa.flash_attention(q, k, v, **kw)
+        torch.cuda.synchronize()
+        assert kfa.LAUNCHES == before + 1
+        assert got.dtype == dtype and got.shape == q.shape
+        assert torch.isfinite(got).all()
+        exact = kfa.attention_plain(q.float(), k.float(), v.float(), **kw)
+        err = float((got.float() - exact).abs().max())
+        if dtype == torch.float32:
+            assert err <= 2e-4, err
+        else:
+            plain = kfa.attention_plain(q, k, v, **kw).float()
+            assert err <= 1.5 * float((plain - exact).abs().max()), err
+
+
+def test_kernel_refuses_bad_operands_and_gradients(dev):
+    q, k, v = _card_qkv(dev, 1, 64, 64, 4, 2, 64, torch.float32, 0)
+    with pytest.raises(ValueError, match="head_dim"):
+        kfa.flash_attention(*_card_qkv(dev, 1, 64, 64, 4, 2, 32,
+                                       torch.float32, 0))
+    with pytest.raises(ValueError, match="share a dtype"):
+        kfa.flash_attention(q, k.to(torch.bfloat16), v)
+    with pytest.raises(ValueError, match="contiguous"):
+        kfa.flash_attention(q.transpose(1, 2).contiguous().transpose(1, 2),
+                            k, v)
+    with pytest.raises(ValueError, match="contiguous"):
+        kfa.flash_attention(q.half(), k.half(), v.half())
+    with pytest.raises(ValueError, match="KVH dividing H"):
+        kfa.flash_attention(q, k[:, :, :1].repeat(1, 1, 3, 1), v)
+    with pytest.raises(ValueError, match="window"):
+        kfa.flash_attention(q, k, v, window=0)
+    with pytest.raises(NotImplementedError, match="Queue 1 item 7.1"):
+        kfa.flash_attention(q.requires_grad_(), k, v)
+
+
+def test_model_prefill_runs_the_kernel_on_card(dev):
+    """A small dense config with head_dim 64: prefill on the card launches
+    the kernel once a layer and agrees with the plain path."""
+    from repro_torch.configs import ModelConfig
+    from repro_torch.core.dispatch import DispatchConfig
+    from repro_torch.models.registry import build_model
+
+    cfg = ModelConfig(name="tiny", family="dense", n_layers=3, d_model=256,
+                      n_heads=6, n_kv_heads=2, head_dim=64, d_ff=512,
+                      vocab_size=1000, dtype="float32")
+    model = build_model(cfg)
+    plain = build_model(cfg, dispatch=DispatchConfig(path="reference"))
+    params = model.init_params(torch.Generator(device=dev).manual_seed(0))
+    toks = torch.randint(0, 1000, (2, 150), device=dev)
+    with torch.inference_mode():
+        before = kfa.LAUNCHES
+        got, cache = model.prefill(params, {"tokens": toks}, pad_to=160)
+        assert kfa.LAUNCHES == before + cfg.n_layers
+        want, ref_cache = plain.prefill(params, {"tokens": toks}, pad_to=160)
+        assert kfa.LAUNCHES == before + cfg.n_layers
+        torch.cuda.synchronize()
+    scale = float(want.abs().max())
+    assert float((got - want).abs().max()) <= 1e-4 * scale
+    assert cache["pos0"]["k"].shape == (3, 2, 160, 2, 64)

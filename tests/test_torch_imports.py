@@ -22,7 +22,10 @@ def test_port_imports_no_jax_and_no_reference_package():
     for want in ("kernels.fused_block", "kernels.block_dct", "launch.serve",
                  "launch.train", "optim.optimizers", "optim.schedule",
                  "optim.grad", "checkpoint.manager", "models.registry",
-                 "data.pipeline", "tree"):
+                 "data.pipeline", "tree", "models.layers",
+                 "models.transformer", "kernels.flash_attention",
+                 "configs.smollm_360m", "configs.granite_3_2b",
+                 "configs.starcoder2_3b", "configs.mistral_nemo_12b"):
         assert "repro_torch." + want in names, want
     code = (
         "import importlib, sys\n"

@@ -306,10 +306,16 @@ def test_prefetch_yields_in_order_and_joins():
 
 
 def test_lm_arch_names_the_roadmap_item():
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        get_config("smollm-360m")
+    with pytest.raises(NotImplementedError, match="Queue 1 item 7.3"):
+        get_config("mixtral-8x7b")
     with pytest.raises(KeyError):
         get_config("no-such-arch")
+
+
+def test_dense_lm_arch_resolves():
+    cfg = get_config("smollm-360m")
+    assert (cfg.family, cfg.n_layers, cfg.d_model, cfg.n_heads,
+            cfg.n_kv_heads, cfg.head_dim) == ("dense", 32, 960, 15, 5, 64)
 
 
 def _args(ckpt_dir, *extra):
