@@ -7,14 +7,16 @@ Phases, each fatal on failure:
 
 1. device: the card's name and power limit, then the kernels' build
    (one ``nvcc`` per source for ``sm_90a``, all started together, linked
-   into ``build/kernels/``) with its time;
+   into ``build/kernels/``) with its time, and each compiled kernel's
+   registers, static shared memory and spills (``-Xptxas -v``);
 2. every kernel of the serving and training paths against its plain
    PyTorch version on the card, at the paths' own shapes (full
    ``jpeg-resnet``; the serving kernels at 16 bands and batch 4, the block
    transforms at the training batch of 8: the data encode and stage 0's
    factored decode and encode; flash attention at ``smollm-360m``'s
-   prefill in bf16 and fp32, ``mistral-nemo-12b``'s heads, a window of 256
-   and a non-causal S != T case): error, kernel ms, plain ms, the least
+   prefill in bf16 and fp32, ``mistral-nemo-12b``'s heads, and a window of
+   256 and a non-causal S != T case, each in bf16 (the tensor-core
+   kernel) and fp32 (the FFMA kernel)): error, kernel ms, plain ms, the least
    time the card could take (bound) and, where one PyTorch call computes
    the same function, that call's ms (``library_ms``, a yardstick the
    port never calls);
@@ -132,6 +134,37 @@ def cuda_ms(fn, reps: int = 10, trials: int = 3, warmup: int = 2) -> float:
         b.synchronize()
         times.append(a.elapsed_time(b) / reps)
     return statistics.median(times)
+
+
+#: device kernels of csrc/, longest name first (one contains another)
+DEVICE_KERNELS = ("flash_attention_tc_kernel", "flash_attention_kernel",
+                  "banded_conv_kernel", "block_matmul_kernel", "asm_kernel")
+
+
+def ptxas_report(text: str) -> list[str]:
+    """One line per compiled kernel from ``nvcc -Xptxas -v``: registers,
+    static shared memory and spills (dynamic shared memory is set at
+    launch: ``conv_smem_bytes`` and the kernels' own formulas)."""
+    import re
+
+    out, name, spill = [], None, ""
+    for line in text.splitlines():
+        entry = re.search(r"Compiling entry function '(\w+)'", line)
+        if entry:
+            mangled = entry.group(1)
+            base = next((k for k in DEVICE_KERNELS if k in mangled), mangled)
+            args = re.search(base + r"I((?:L[ib]\d+E)+)E", mangled)
+            targs = re.findall(r"L[ib](\d+)E", args.group(1)) if args else []
+            name = base + (f"<{', '.join(targs)}>" if targs else "")
+            spill = ""
+        elif "spill" in line:
+            spill = line.split(":", 1)[-1].strip() if ":" in line \
+                else line.strip()
+        elif "Used" in line and name:
+            used = line.split("Used", 1)[1].strip()
+            out.append(f"{name}: used {used}; {spill}")
+            name = None
+    return out
 
 
 def bound(flops: float, nbytes: float,
@@ -307,7 +340,7 @@ def train_step_check(cfg, dev) -> None:
 
 #: device kernels grouped by name, for the training step's breakdown
 #: (first match wins; cuDNN's FFT engine runs complex GEMMs and FFTs)
-KERNEL_GROUPS = (("flash attention kernel", ("flash_attention_kernel",)),
+KERNEL_GROUPS = (("flash attention kernels", ("flash_attention",)),
                  ("block transforms", ("block_matmul_kernel",)),
                  ("ASM kernel", ("asm_kernel",)),
                  ("jpeg_conv kernel", ("banded_conv_kernel",)),
@@ -453,7 +486,10 @@ def attention_checks(dev, record) -> None:
          fp32),
         ("mistral-nemo-12b heads bf16 (plain: chunked)", 1, 4096, 4096, 32,
          8, 128, True, None, bf16),
+        ("window 256 bf16", 2, 1000, 1000, 15, 5, 64, True, 256, bf16),
         ("window 256 fp32", 2, 1000, 1000, 15, 5, 64, True, 256, fp32),
+        ("not causal, S != T, bf16", 2, 300, 1000, 24, 2, 128, False, None,
+         bf16),
         ("not causal, S != T, fp32", 2, 300, 1000, 24, 2, 128, False, None,
          fp32),
     )
@@ -706,9 +742,8 @@ def main() -> None:
     log(f"kernels built in {time.perf_counter() - t0:.2f} s "
         f"(nvcc {info.get('seconds', 0.0):.2f} s, cached="
         f"{info.get('cached')}) -> {_build.BUILD_DIR}")
-    for line in str(info.get("ptxas", "")).splitlines():
-        if "registers" in line or "spill" in line or "Compiling" in line:
-            log(f"ptxas: {line.strip()}")
+    for line in ptxas_report(str(info.get("ptxas", ""))):
+        log(f"ptxas: {line}")
 
     # --- phase 2: kernels against their plain versions ------------------
     cfg = get_config("jpeg-resnet")
@@ -766,9 +801,13 @@ def main() -> None:
                    cuda_ms(lambda: kfb.fused_block_reference(*ops)),
                    (flops, nbytes))
 
+        # the s2b0 projection is the served path's one jpeg_conv with 64-row
+        # tiles (kernels/jpeg_conv.py tile_rows)
         for label, op, shape in (
                 ("s1b0.conv1", plan.operators["s1b0"]["conv1"],
                  (BATCH, grid, grid, 64, 64)),
+                ("s2b0.proj", plan.operators["s2b0"]["proj"],
+                 (BATCH, grid // 2, grid // 2, 128, 64)),
                 ("stem", plan.operators["stem"], (BATCH, grid, grid, 3, 64))):
             coef = torch.randn(shape, generator=gen, device=dev)
             run = (coef, op.xi, op.stride)
@@ -777,12 +816,12 @@ def main() -> None:
             want = kjc.jpeg_conv_plain(*run, **kw)
             err = compare(f"jpeg_conv {label}", got, want, CONV_RTOL)
             ndy, ndx, cin, nf_in, cout, nf_out = op.xi.shape
-            s = op.stride
-            out_rows = BATCH * (grid // s) ** 2
-            work = conv_work(BATCH * grid * grid, cin, nf_in, ndy * ndx,
+            s, (n, gh, gw) = op.stride, shape[:3]
+            out_rows = n * (gh // s) * (gw // s)
+            work = conv_work(n * gh * gw, cin, nf_in, ndy * ndx,
                              nf_in, cout, nf_out, 64, out_rows)
             cols = tiling.conv_slices(
-                coef[..., :nf_in].reshape(BATCH, grid, grid, cin * nf_in),
+                coef[..., :nf_in].reshape(n, gh, gw, cin * nf_in),
                 s, ndy, ndx).reshape(out_rows, -1)
             xi2 = op.xi.reshape(-1, cout * nf_out)
             record("jpeg_conv", f"{label} x{tuple(shape)}", err,

@@ -1,43 +1,66 @@
 // Flash attention (online softmax) with GQA and causal / sliding-window /
-// key-padding masks, for Hopper (sm_90a); fp32 or bf16 in, fp32 inside.
+// key-padding masks, for Hopper (sm_90a): two device kernels, chosen by
+// dtype.
 //
 // Replaces kernels/flash_attention.py:flash_attention_pallas.  Layout as in
 // models/layers.py:attention: q (B, S, H, hd), k and v (B, T, KVH, hd),
 // contiguous; query head h reads KV head h / G (G = H / KVH); query row i
-// sits at position i + q_offset.  Semantics of the Pallas kernel: q is cast
-// to fp32 and then scaled by hd^-0.5, scores, running max, denominator and
-// accumulator are fp32, masked scores count as -1e30, the denominator is
-// floored at 1e-30, and the output takes q's dtype.  Unlike the Pallas
-// kernel it neither transposes nor pads: ragged query and key tiles are
-// masked here.
+// sits at position i + q_offset.  Semantics of the Pallas kernel: scores,
+// running max, denominator and accumulator are fp32, masked entries
+// contribute nothing, the denominator is floored at 1e-30, and the output
+// takes q's dtype.  Unlike the Pallas kernel neither kernel transposes or
+// pads: ragged query and key tiles are masked here.  Both visit only the
+// 64-key tiles that the causal and window masks reach, walk the query
+// tiles last-first (the causal mask's longest tiles start first), and give
+// masked entries p = 0 outright, so a row whose first visited keys are all
+// masked carries nothing forward and a row with no valid key comes out 0.
 //
 // Bound: on this path (hd 64 or 128, thousands of keys) the score and P·V
-// products dominate: 4·hd multiply-adds per (query, key) pair against a
-// few bytes per row, so operations bound it.  This first version runs them
-// as fp32 FFMA (no tensor cores, no TF32: fp32 is the parity path), so its
-// ceiling is the card's 67 TFLOP/s fp32 rate; mma.sync / wgmma on bf16,
-// TMA and pipelining are later work.  The design keeps the FFMA issue rate
-// up and skips work the masks remove:
+// products dominate: 4·hd operations per unmasked (query, key) pair against
+// a few bytes per row, so operations bound both kernels.
 //
-// * one CTA of 256 threads per (batch, query head, 64-row query tile); the
-//   grid walks the query tiles last-first, so the causal mask's longest
-//   tiles start first;
-// * the CTA visits only the 64-key tiles its causal and window footprint
-//   reaches: a tile that the masks remove for every row of the query tile
-//   is never loaded;
+// flash_attention_tc_kernel (bf16) runs both products on the tensor cores
+// (ceiling 989 TFLOP/s dense bf16), FlashAttention-2 style on mma.sync
+// m16n8k16 with fp32 accumulators:
+//
+// * one CTA per (batch, query head, query tile of 128 rows at hd 64, 256 at
+//   hd 128); each warp owns 32 query rows, two m16 tiles, so every K and V
+//   fragment it reads from shared memory feeds two products.  Every warp
+//   reads all of a K/V tile, so with 16-row warps those reads, not the
+//   tensor cores, set the pace.  Q's fragments are reloaded from shared
+//   memory each k16 step: O's accumulators leave no registers for them;
+// * K and V tiles of 64 keys move through a three-stage cp.async ring in
+//   shared memory, two tiles ahead of the one computed, with one barrier a
+//   tile; rows past T are zero-filled by cp.async's src-size-0 form
+//   (garbage in V would give NaN even at p = 0) and masked; rows are padded
+//   by 16 bytes, so the eight rows an ldmatrix reads fall in distinct
+//   banks, for K (the col-major B operand of Q·Kᵀ as stored) and for V
+//   (ldmatrix.trans gives the B operand of P·V);
+// * the online softmax runs on the S accumulator fragments: a row's max
+//   takes a tree over the thread's 16 scores and two xor-shuffles within
+//   the quad that holds the row, p = 2^(s·c − m·c) is one FFMA and one
+//   MUFU op (c = hd^-0.5·log2 e), the accumulators are rescaled only when
+//   a row's max moved, and denominators stay per thread until the end;
+// * P is rounded to bf16 in registers and used directly as the A fragments
+//   of P·V (the S accumulator layout is the A layout of m16n8k16), with no
+//   trip through shared memory; like models/layers.py:attention and unlike
+//   the Pallas kernel, P·V therefore sees bf16 probabilities;
+// * masks are applied only on the tiles where the warp's rows need them,
+//   and a warp skips a tile its rows cannot see at all.
+//
+// flash_attention_kernel (fp32) is the parity path and runs both products
+// as fp32 FFMA (no tensor cores, no TF32: ceiling 67 TFLOP/s):
+//
+// * one CTA of 256 threads per (batch, query head, 64-row query tile);
 // * the scaled Q tile stays in shared memory for the whole key loop; each
-//   K and V tile is staged there once (16-byte loads, converted to fp32),
-//   rows past T zero-filled and masked;
+//   K and V tile is staged there once (16-byte loads), rows past T
+//   zero-filled and masked;
 // * thread (ty, tx) owns query rows 4·ty … 4·ty+3: scores for keys tx +
 //   16·j (j < 4: the K rows a quarter-warp reads fall in distinct banks with
 //   the padded stride hd + 4) and output columns 4·tx + 64·j' (j' < hd/64);
 //   a row's running max m, denominator l and hd/16 accumulators live in
 //   the registers of the 16 threads that share ty, which reduce a tile's
 //   row max and row sum with four xor-shuffles;
-// * masked entries contribute p = 0 outright, so a row whose first tiles
-//   are all masked carries nothing forward (the Pallas recurrence sums
-//   garbage there until a valid key wipes it); a row with no valid key at
-//   all comes out 0;
 // * the probability tile reuses the K tile's shared memory: 51,200 bytes a
 //   CTA at hd 64, 100,352 at hd 128 (two CTAs an SM), above the 48 KB
 //   default, so the host raises the dynamic limit before each launch.
@@ -56,41 +79,6 @@ constexpr int FA_BQ = 64;        // query rows per CTA
 constexpr int FA_BK = 64;        // keys per tile
 constexpr int FA_LDP = FA_BK + 4;
 constexpr float FA_NEG = -1e30f;
-
-template <typename T>
-struct Io;
-
-template <>
-struct Io<float> {
-  static __device__ __forceinline__ float4 load4(const float* p) {
-    return __ldg(reinterpret_cast<const float4*>(p));
-  }
-  static __device__ __forceinline__ void store4(float* p, float4 v) {
-    *reinterpret_cast<float4*>(p) = v;
-  }
-};
-
-template <>
-struct Io<__nv_bfloat16> {
-  // Four bf16 in 8 bytes; the element at the lower address is the low half
-  // of each 32-bit word.  bf16 → fp32 is exact (a 16-bit shift).
-  static __device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
-    const uint2 u = __ldg(reinterpret_cast<const uint2*>(p));
-    return make_float4(__uint_as_float(u.x << 16),
-                       __uint_as_float(u.x & 0xffff0000u),
-                       __uint_as_float(u.y << 16),
-                       __uint_as_float(u.y & 0xffff0000u));
-  }
-  // Round to nearest even, as a PyTorch cast from fp32 to bf16 does.
-  static __device__ __forceinline__ void store4(__nv_bfloat16* p, float4 v) {
-    const __nv_bfloat162 a = __floats2bfloat162_rn(v.x, v.y);
-    const __nv_bfloat162 b = __floats2bfloat162_rn(v.z, v.w);
-    uint2 u;
-    u.x = *reinterpret_cast<const uint32_t*>(&a);
-    u.y = *reinterpret_cast<const uint32_t*>(&b);
-    *reinterpret_cast<uint2*>(p) = u;
-  }
-};
 
 __device__ __forceinline__ float row_max16(float x) {
 #pragma unroll
@@ -116,10 +104,14 @@ constexpr int smem_floats() {
   return 2 * FA_BQ * (HD + 4) + FA_BK * HD;
 }
 
-template <typename T, int HD>
+__device__ __forceinline__ float4 load4(const float* p) {
+  return __ldg(reinterpret_cast<const float4*>(p));
+}
+
+template <int HD>
 __global__ void __launch_bounds__(FA_THREADS, 2) flash_attention_kernel(
-    const T* __restrict__ q, const T* __restrict__ k,
-    const T* __restrict__ v, T* __restrict__ out, int S, int Tn, int H,
+    const float* __restrict__ q, const float* __restrict__ k,
+    const float* __restrict__ v, float* __restrict__ out, int S, int Tn, int H,
     int KVH, int causal, int window, int q_offset, float scale) {
   static_assert(HD % 64 == 0 && HD <= 128, "head_dim 64 or 128");
   static_assert(FA_BQ * (HD + 4) >= FA_BQ * FA_LDP, "P must fit in K's tile");
@@ -141,17 +133,17 @@ __global__ void __launch_bounds__(FA_THREADS, 2) flash_attention_kernel(
 
   const long long q_stride = (long long)H * HD;     // between positions
   const long long kv_stride = (long long)KVH * HD;
-  const T* qb = q + ((long long)b * S * H + h) * HD;
-  const T* kb = k + ((long long)b * Tn * KVH + n) * HD;
-  const T* vb = v + ((long long)b * Tn * KVH + n) * HD;
-  T* ob = out + ((long long)b * S * H + h) * HD;
+  const float* qb = q + ((long long)b * S * H + h) * HD;
+  const float* kb = k + ((long long)b * Tn * KVH + n) * HD;
+  const float* vb = v + ((long long)b * Tn * KVH + n) * HD;
+  float* ob = out + ((long long)b * S * H + h) * HD;
 
   for (int i = tid; i < FA_BQ * HD / 4; i += FA_THREADS) {
     const int r = i / (HD / 4);
     const int c4 = i % (HD / 4);
     float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
     if (q0 + r < S) {
-      x = Io<T>::load4(qb + (long long)(q0 + r) * q_stride + 4 * c4);
+      x = load4(qb + (long long)(q0 + r) * q_stride + 4 * c4);
       x.x *= scale;
       x.y *= scale;
       x.z *= scale;
@@ -184,8 +176,8 @@ __global__ void __launch_bounds__(FA_THREADS, 2) flash_attention_kernel(
       float4 vx = kx;
       if (k0 + r < Tn) {
         const long long off = (long long)(k0 + r) * kv_stride + 4 * c4;
-        kx = Io<T>::load4(kb + off);
-        vx = Io<T>::load4(vb + off);
+        kx = load4(kb + off);
+        vx = load4(vb + off);
       }
       *reinterpret_cast<float4*>(ks + r * LD + 4 * c4) = kx;
       *reinterpret_cast<float4*>(vs + r * HD + 4 * c4) = vx;
@@ -293,27 +285,398 @@ __global__ void __launch_bounds__(FA_THREADS, 2) flash_attention_kernel(
       const float4 o = make_float4(
           acc[i][4 * jj + 0] / den, acc[i][4 * jj + 1] / den,
           acc[i][4 * jj + 2] / den, acc[i][4 * jj + 3] / den);
-      Io<T>::store4(ob + (long long)row * q_stride + 4 * tx + 64 * jj, o);
+      *reinterpret_cast<float4*>(ob + (long long)row * q_stride + 4 * tx +
+                                 64 * jj) = o;
     }
   }
 }
 
-template <typename T, int HD>
-int launch(const void* q, const void* k, const void* v, void* out, int b,
-           int s, int t, int h, int kvh, int causal, int window,
-           int q_offset, float scale, cudaStream_t stream) {
+// ------------------------------------------------ bf16 on the tensor cores
+
+constexpr int TC_BK = 64;      // keys per tile
+constexpr int TC_STAGES = 3;   // K/V ring: tile j (V), j + 1 (K), j + 2 (loading)
+constexpr float LOG2E = 1.4426950408889634f;
+
+typedef __nv_bfloat16 bf16;
+
+// Tile shape by head dim (measured on the H100 with
+// tools/kernel_variants.py; PERF.md): WARPS warps of 32 query rows (two
+// m16 tiles, so each K and V fragment read from shared memory feeds two
+// products), MINB CTAs an SM for the register budget.  O's 64 or 128
+// accumulators a thread leave no room for Q's fragments, which are reloaded
+// from shared memory each k16 step.
+template <int HD>
+struct TcShape {
+  static constexpr int MT = 2;  // m16 tiles a warp
+  static constexpr int WARPS = HD == 64 ? 4 : 8;
+  static constexpr int MINB = HD == 64 ? 2 : 1;
+  static constexpr int THREADS = 32 * WARPS;
+  static constexpr int BQ = 16 * MT * WARPS;  // query rows per CTA
+};
+
+template <int HD>
+constexpr int tc_smem_bytes() {
+  // Q tile, then the K and V rings; rows padded by 8 bf16 (16 bytes)
+  return (TcShape<HD>::BQ + 2 * TC_STAGES * TC_BK) * (HD + 8) *
+         (int)sizeof(bf16);
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global → shared, bypassing L1; zero-filled when !valid (the
+// source is then not read)
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(valid ? 16 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4],
+                                              uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+// c (16×8 fp32) += a (16×16 bf16, row) · b (16×8 bf16, col)
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// two floats → bf16x2, round to nearest even; lo is the lower address
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// 2^x on the special-function unit (one MUFU op; 2^-inf = 0)
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// Fragment layouts of mma.m16n8k16 for lane = 4·g + t (PTX ISA): the
+// accumulator holds rows g and g + 8, columns 2t and 2t + 1; A the same
+// rows at columns 2t, 2t + 1 and 2t + 8, 2t + 9; B columns (n) g, rows (k)
+// 2t, 2t + 1 and 2t + 8, 2t + 9.  A thread holds 2·MT rows of its warp,
+// indexed rr = 2·mt + (0 for row g, 1 for row g + 8).
+template <int HD>
+__global__ void __launch_bounds__(TcShape<HD>::THREADS, TcShape<HD>::MINB)
+    flash_attention_tc_kernel(const bf16* __restrict__ q,
+                              const bf16* __restrict__ k,
+                              const bf16* __restrict__ v,
+                              bf16* __restrict__ out, int S, int Tn, int H,
+                              int KVH, int causal, int window, int q_offset,
+                              float scale_log2) {
+  static_assert(HD % 64 == 0 && HD <= 128, "head_dim 64 or 128");
+  using C = TcShape<HD>;
+  constexpr int MT = C::MT, NTHR = C::THREADS, BQ = C::BQ, BK = TC_BK;
+  constexpr int NK = BK / 8;    // n8 tiles of S (keys) per tile
+  constexpr int LD = HD + 8;    // padded row stride, in bf16
+  constexpr int KT = HD / 16;   // k16 steps of Q·Kᵀ
+  constexpr int NT = HD / 8;    // n8 tiles of the output
+  constexpr int CH = HD / 8;    // 16-byte chunks of a row
+  constexpr int WR = 16 * MT;   // query rows per warp
+  constexpr int RR = 2 * MT;    // rows per thread
+  extern __shared__ __align__(16) unsigned char tc_smem[];
+  bf16* qs = reinterpret_cast<bf16*>(tc_smem);  // [BQ][LD]
+  bf16* ks = qs + BQ * LD;                       // [TC_STAGES][BK][LD]
+  bf16* vs = ks + TC_STAGES * BK * LD;           // [TC_STAGES][BK][LD]
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, tq = lane & 3;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int n = h / (H / KVH);
+
+  const long long q_stride = (long long)H * HD;  // between positions
+  const long long kv_stride = (long long)KVH * HD;
+  const bf16* qb = q + ((long long)b * S * H + h) * HD;
+  const bf16* kb = k + ((long long)b * Tn * KVH + n) * HD;
+  const bf16* vb = v + ((long long)b * Tn * KVH + n) * HD;
+  bf16* ob = out + ((long long)b * S * H + h) * HD;
+
+  // the keys any row of this tile may see
+  const int q_lo = q0 + q_offset;
+  const int q_hi = min(q0 + BQ, S) - 1 + q_offset;
+  const int k_end = causal ? min(Tn, q_hi + 1) : Tn;
+  const int k_first = (window > 0 ? max(0, q_lo - window + 1) : 0) / BK * BK;
+  const int ntiles = k_end > k_first ? (k_end - k_first + BK - 1) / BK : 0;
+
+  auto load_kv = [&](int tile) {
+    const int k0 = k_first + tile * BK;
+    bf16* kd = ks + (tile % TC_STAGES) * BK * LD;
+    bf16* vd = vs + (tile % TC_STAGES) * BK * LD;
+#pragma unroll
+    for (int j = 0; j < BK * CH / NTHR; ++j) {
+      const int i = tid + j * NTHR;
+      const int r = i / CH, c = i % CH;
+      const bool ok = k0 + r < Tn;
+      const long long off = (long long)(ok ? k0 + r : 0) * kv_stride + 8 * c;
+      cp_async16(smem_addr(kd + r * LD + 8 * c), kb + off, ok);
+      cp_async16(smem_addr(vd + r * LD + 8 * c), vb + off, ok);
+    }
+  };
+
+  // Q and the first two K/V tiles: groups 0 (Q, tile 0) and 1 (tile 1)
+#pragma unroll
+  for (int j = 0; j < BQ * CH / NTHR; ++j) {
+    const int i = tid + j * NTHR;
+    const int r = i / CH, c = i % CH;
+    const bool ok = q0 + r < S;
+    cp_async16(smem_addr(qs + r * LD + 8 * c),
+               qb + (long long)(ok ? q0 + r : 0) * q_stride + 8 * c, ok);
+  }
+  if (ntiles > 0) load_kv(0);
+  cp_async_commit();
+  if (ntiles > 1) load_kv(1);
+  cp_async_commit();
+
+  float o[MT][NT][4];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+      o[mt][j][0] = o[mt][j][1] = o[mt][j][2] = o[mt][j][3] = 0.f;
+  // running max (raw score units) and this thread's share of the sum
+  float m[RR], l[RR];
+#pragma unroll
+  for (int rr = 0; rr < RR; ++rr) {
+    m[rr] = FA_NEG;
+    l[rr] = 0.f;
+  }
+
+  // this warp's rows
+  const int wrow = q0 + WR * warp;
+  const int wpos_lo = wrow + q_offset, wpos_hi = wpos_lo + WR - 1;
+
+  // The ring runs two tiles ahead of the one computed (tile it + 1 may
+  // still be in flight); one barrier a tile guards it.
+  for (int it = 0; it < ntiles; ++it) {
+    cp_async_wait<1>();
+    // tile it landed for every thread; every warp is done with tile it - 1,
+    // whose stage tile it + 2 takes
+    __syncthreads();
+    if (it + 2 < ntiles) load_kv(it + 2);
+    cp_async_commit();
+    const int k0 = k_first + it * BK;
+    // a tile none of the warp's rows can see adds nothing
+    if (wrow >= S || (causal && k0 > wpos_hi) ||
+        (window > 0 && k0 + BK - 1 <= wpos_lo - window))
+      continue;
+
+    // S = Q·Kᵀ: WR rows × BK keys, NK n8 tiles per m16 tile
+    const bf16* kt = ks + (it % TC_STAGES) * BK * LD;
+    float sc[MT][NK][4] = {};
+#pragma unroll
+    for (int kk = 0; kk < KT; ++kk) {
+      uint32_t qa[MT][4];  // Q's A fragments: rows 16·mt + 0..15
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+        ldsm_x4(qa[mt], smem_addr(qs + (WR * warp + 16 * mt + (lane & 15)) *
+                                           LD +
+                                  16 * kk + 8 * (lane >> 4)));
+#pragma unroll
+      for (int np = 0; np < NK / 2; ++np) {
+        uint32_t bk[4];  // keys 16·np + 0..7 and + 8..15, hd 16·kk + 0..15
+        ldsm_x4(bk, smem_addr(kt + (16 * np + (lane & 7) + 8 * (lane >> 4)) *
+                                       LD +
+                              16 * kk + 8 * ((lane >> 3) & 1)));
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) {
+          mma_bf16(sc[mt][2 * np], qa[mt], bk[0], bk[1]);
+          mma_bf16(sc[mt][2 * np + 1], qa[mt], bk[2], bk[3]);
+        }
+      }
+    }
+
+    // masked scores are -inf, so p = 0
+    if (k0 + BK > Tn || (causal && k0 + BK - 1 > wpos_lo) ||
+        (window > 0 && k0 <= wpos_hi - window)) {
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int j = 0; j < NK; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int kpos = k0 + 8 * j + 2 * tq + (e & 1);
+            const int qp = wpos_lo + 16 * mt + 8 * (e >> 1) + g;
+            if (!(kpos < Tn && (!causal || kpos <= qp) &&
+                  (window <= 0 || kpos > qp - window)))
+              sc[mt][j][e] = -INFINITY;
+          }
+    }
+    // online softmax: row max over the quad, p = 2^(s·c − m·c) by one FFMA
+    // and one MUFU op, c = hd^-0.5·log2 e
+    float alpha[RR], mc[RR];
+    bool moved = false;
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        float x[NK];
+#pragma unroll
+        for (int j = 0; j < NK; ++j)
+          x[j] = fmaxf(sc[mt][j][2 * r], sc[mt][j][2 * r + 1]);
+#pragma unroll
+        for (int w = NK / 2; w > 0; w >>= 1)
+#pragma unroll
+          for (int j = 0; j < w; ++j) x[j] = fmaxf(x[j], x[j + w]);
+        float mx = fmaxf(x[0], __shfl_xor_sync(0xffffffffu, x[0], 1));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+        const int rr = 2 * mt + r;
+        const float m_new = fmaxf(m[rr], mx);  // finite: at least FA_NEG
+        moved |= m_new != m[rr];
+        alpha[rr] = ex2((m[rr] - m_new) * scale_log2);
+        m[rr] = m_new;
+        mc[rr] = m_new * scale_log2;
+      }
+    // the accumulators need rescaling only where a row's max moved
+    if (__any_sync(0xffffffffu, moved)) {
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int j = 0; j < NT; ++j) {
+          o[mt][j][0] *= alpha[2 * mt];
+          o[mt][j][1] *= alpha[2 * mt];
+          o[mt][j][2] *= alpha[2 * mt + 1];
+          o[mt][j][3] *= alpha[2 * mt + 1];
+        }
+    }
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int rr = 2 * mt + r;
+        float x[NK];
+#pragma unroll
+        for (int j = 0; j < NK; ++j) {
+          const float p0 = ex2(fmaf(sc[mt][j][2 * r], scale_log2, -mc[rr]));
+          const float p1 = ex2(fmaf(sc[mt][j][2 * r + 1], scale_log2, -mc[rr]));
+          sc[mt][j][2 * r] = p0;
+          sc[mt][j][2 * r + 1] = p1;
+          x[j] = p0 + p1;
+        }
+#pragma unroll
+        for (int w = NK / 2; w > 0; w >>= 1)
+#pragma unroll
+          for (int j = 0; j < w; ++j) x[j] += x[j + w];
+        l[rr] = l[rr] * alpha[rr] + x[0];
+      }
+
+    // O += P·V: P's accumulator fragments are the A fragments, in bf16
+    const bf16* vt = vs + (it % TC_STAGES) * BK * LD;
+#pragma unroll
+    for (int kc = 0; kc < NK / 2; ++kc) {
+      uint32_t pa[MT][4];
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+        pa[mt][0] = pack_bf16(sc[mt][2 * kc][0], sc[mt][2 * kc][1]);
+        pa[mt][1] = pack_bf16(sc[mt][2 * kc][2], sc[mt][2 * kc][3]);
+        pa[mt][2] = pack_bf16(sc[mt][2 * kc + 1][0], sc[mt][2 * kc + 1][1]);
+        pa[mt][3] = pack_bf16(sc[mt][2 * kc + 1][2], sc[mt][2 * kc + 1][3]);
+      }
+#pragma unroll
+      for (int np = 0; np < NT / 2; ++np) {
+        uint32_t bv[4];  // keys 16·kc + 0..15, hd 16·np + 0..7 and + 8..15
+        ldsm_x4_trans(bv, smem_addr(vt + (16 * kc + (lane & 7) +
+                                          8 * ((lane >> 3) & 1)) * LD +
+                                    16 * np + 8 * (lane >> 4)));
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) {
+          mma_bf16(o[mt][2 * np], pa[mt], bv[0], bv[1]);
+          mma_bf16(o[mt][2 * np + 1], pa[mt], bv[2], bv[3]);
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();  // nothing stays in flight
+
+#pragma unroll
+  for (int rr = 0; rr < RR; ++rr) {
+    l[rr] += __shfl_xor_sync(0xffffffffu, l[rr], 1);
+    l[rr] += __shfl_xor_sync(0xffffffffu, l[rr], 2);
+    l[rr] = 1.f / fmaxf(l[rr], 1e-30f);
+  }
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = wrow + 16 * mt + 8 * r + g;
+      if (row >= S) continue;
+      const float inv = l[2 * mt + r];
+      bf16* orow = ob + (long long)row * q_stride + 2 * tq;
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+        *reinterpret_cast<uint32_t*>(orow + 8 * j) =
+            pack_bf16(o[mt][j][2 * r] * inv, o[mt][j][2 * r + 1] * inv);
+    }
+}
+
+// ------------------------------------------------------------- launches
+
+template <int HD>
+int launch_fp32(const void* q, const void* k, const void* v, void* out,
+                int b, int s, int t, int h, int kvh, int causal, int window,
+                int q_offset, float scale, cudaStream_t stream) {
   constexpr int bytes = smem_floats<HD>() * (int)sizeof(float);
   // above the 48 KB default: raise the limit (per device, so every launch)
   const cudaError_t err = cudaFuncSetAttribute(
-      flash_attention_kernel<T, HD>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+      flash_attention_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      bytes);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((unsigned)((s + FA_BQ - 1) / FA_BQ), (unsigned)h,
                   (unsigned)b);
-  flash_attention_kernel<T, HD><<<grid, FA_THREADS, bytes, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out), s, t, h, kvh, causal,
-      window, q_offset, scale);
+  flash_attention_kernel<HD><<<grid, FA_THREADS, bytes, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(out), s, t, h, kvh,
+      causal, window, q_offset, scale);
+  return (int)cudaGetLastError();
+}
+
+template <int HD>
+int launch_bf16(const void* q, const void* k, const void* v, void* out,
+                int b, int s, int t, int h, int kvh, int causal, int window,
+                int q_offset, float scale, cudaStream_t stream) {
+  constexpr int bytes = tc_smem_bytes<HD>();
+  const cudaError_t err = cudaFuncSetAttribute(
+      flash_attention_tc_kernel<HD>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return (int)err;
+  constexpr int bq = TcShape<HD>::BQ, threads = TcShape<HD>::THREADS;
+  const dim3 grid((unsigned)((s + bq - 1) / bq), (unsigned)h, (unsigned)b);
+  flash_attention_tc_kernel<HD><<<grid, threads, bytes, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<bf16*>(out), s, t, h, kvh,
+      causal, window, q_offset, scale * LOG2E);
   return (int)cudaGetLastError();
 }
 
@@ -321,8 +684,8 @@ int launch(const void* q, const void* k, const void* v, void* out, int b,
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16 (q, k, v and out alike); window <= 0
-// means no window.
+// dtype: 0 = float32 (the FFMA kernel), 1 = bfloat16 (the tensor-core
+// kernel), q, k, v and out alike; window <= 0 means no window.
 int jk_flash_attention(const void* q, const void* k, const void* v,
                        void* out, int b, int s, int t, int h, int kvh,
                        int hd, int causal, int window, int q_offset,
@@ -333,17 +696,17 @@ int jk_flash_attention(const void* q, const void* k, const void* v,
   if (b == 0 || s == 0) return 0;
   const cudaStream_t st = (cudaStream_t)stream;
   if (dtype == 0 && hd == 64)
-    return launch<float, 64>(q, k, v, out, b, s, t, h, kvh, causal, window,
-                             q_offset, scale, st);
+    return launch_fp32<64>(q, k, v, out, b, s, t, h, kvh, causal, window,
+                           q_offset, scale, st);
   if (dtype == 0 && hd == 128)
-    return launch<float, 128>(q, k, v, out, b, s, t, h, kvh, causal, window,
-                              q_offset, scale, st);
+    return launch_fp32<128>(q, k, v, out, b, s, t, h, kvh, causal, window,
+                            q_offset, scale, st);
   if (dtype == 1 && hd == 64)
-    return launch<__nv_bfloat16, 64>(q, k, v, out, b, s, t, h, kvh, causal,
-                                     window, q_offset, scale, st);
+    return launch_bf16<64>(q, k, v, out, b, s, t, h, kvh, causal, window,
+                           q_offset, scale, st);
   if (dtype == 1 && hd == 128)
-    return launch<__nv_bfloat16, 128>(q, k, v, out, b, s, t, h, kvh, causal,
-                                      window, q_offset, scale, st);
+    return launch_bf16<128>(q, k, v, out, b, s, t, h, kvh, causal, window,
+                            q_offset, scale, st);
   return (int)cudaErrorInvalidValue;
 }
 

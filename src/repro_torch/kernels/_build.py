@@ -21,8 +21,8 @@ from pathlib import Path
 
 import torch
 
-__all__ = ["BUILD_DIR", "SOURCES", "build", "library", "check_device",
-           "stream_of", "launch_check", "build_log"]
+__all__ = ["BUILD_DIR", "SOURCES", "build", "library", "use",
+           "check_device", "stream_of", "launch_check", "build_log"]
 
 _PKG = Path(__file__).resolve().parents[1]
 SOURCES = tuple(sorted((_PKG / "csrc").glob("*.cu")))
@@ -49,30 +49,35 @@ def _nvcc() -> str:
                        "toolkit (set CUDA_HOME or put nvcc on PATH)")
 
 
-def build() -> Path:
-    """Compile the sources unless a library for this exact source text and
-    flag set is already in :data:`BUILD_DIR`; returns its path."""
+def build(sources: tuple[Path, ...] | None = None,
+          out_dir: Path | None = None) -> Path:
+    """Compile ``sources`` (default :data:`SOURCES`; edited copies of them
+    for a variant) into one library in ``out_dir`` (default
+    :data:`BUILD_DIR`) unless one for this exact source text and flag set
+    is already there; returns its path."""
+    sources = SOURCES if sources is None else tuple(map(Path, sources))
+    out_dir = BUILD_DIR if out_dir is None else Path(out_dir)
     h = hashlib.sha256(" ".join(_FLAGS).encode())
-    for src in SOURCES:
+    for src in sources:
         h.update(src.name.encode())
         h.update(src.read_bytes())
-    out = BUILD_DIR / f"libjpeg_kernels_{h.hexdigest()[:16]}.so"
+    out = out_dir / f"libjpeg_kernels_{h.hexdigest()[:16]}.so"
     if out.exists():
         _LOG.setdefault("seconds", 0.0)
         _LOG.setdefault("cached", True)
         return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    out_dir.mkdir(parents=True, exist_ok=True)
     tag = f"{out.stem}.{os.getpid()}.tmp"
-    objs = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in SOURCES]
+    objs = [out_dir / f"{tag}.{src.stem}.o" for src in sources]
     t0 = time.perf_counter()
     procs = [subprocess.Popen([_nvcc(), *_FLAGS, "-c", str(src), "-o",
                                str(obj)], stdout=subprocess.PIPE,
                               stderr=subprocess.PIPE, text=True)
-             for src, obj in zip(SOURCES, objs)]
+             for src, obj in zip(sources, objs)]
     logs = [proc.communicate()[1] for proc in procs]
     failed = [(src.name, proc.returncode, err) for src, proc, err
-              in zip(SOURCES, procs, logs) if proc.returncode != 0]
-    tmp = BUILD_DIR / f"{tag}.so"
+              in zip(sources, procs, logs) if proc.returncode != 0]
+    tmp = out_dir / f"{tag}.so"
     if not failed:
         link = subprocess.run([_nvcc(), *_ARCH, "-shared", "-o", str(tmp),
                                *map(str, objs)], capture_output=True,
@@ -98,22 +103,27 @@ def build_log() -> dict:
 
 def library() -> ctypes.CDLL:
     """The loaded kernel library, built on first use."""
+    return _LIB if _LIB is not None else use(build())
+
+
+def use(path: Path | str) -> ctypes.CDLL:
+    """Load the library at ``path`` (one that :func:`build` made) and
+    launch every kernel through it from now on."""
     global _LIB
-    if _LIB is None:
-        lib = ctypes.CDLL(str(build()))
-        lib.jk_banded_conv.argtypes = [_P] * 7 + [_I] * 15 + [_P]
-        lib.jk_banded_conv.restype = _I
-        lib.jk_banded_conv_smem.argtypes = [_I, _I]
-        lib.jk_banded_conv_smem.restype = _I
-        lib.jk_asm.argtypes = [_P] * 4 + [ctypes.c_longlong, _I, _I, _I, _P]
-        lib.jk_asm.restype = _I
-        lib.jk_block_matmul.argtypes = [_P] * 3 + [ctypes.c_longlong, _P]
-        lib.jk_block_matmul.restype = _I
-        lib.jk_flash_attention.argtypes = [_P] * 4 + [_I] * 9 + [
-            ctypes.c_float, _I, _P]
-        lib.jk_flash_attention.restype = _I
-        _LIB = lib
-    return _LIB
+    lib = ctypes.CDLL(str(path))
+    lib.jk_banded_conv.argtypes = [_P] * 7 + [_I] * 16 + [_P]
+    lib.jk_banded_conv.restype = _I
+    lib.jk_banded_conv_smem.argtypes = [_I, _I, _I]
+    lib.jk_banded_conv_smem.restype = _I
+    lib.jk_asm.argtypes = [_P] * 4 + [ctypes.c_longlong, _I, _I, _I, _P]
+    lib.jk_asm.restype = _I
+    lib.jk_block_matmul.argtypes = [_P] * 3 + [ctypes.c_longlong, _P]
+    lib.jk_block_matmul.restype = _I
+    lib.jk_flash_attention.argtypes = [_P] * 4 + [_I] * 9 + [
+        ctypes.c_float, _I, _P]
+    lib.jk_flash_attention.restype = _I
+    _LIB = lib
+    return lib
 
 
 def check_device(*tensors: torch.Tensor,

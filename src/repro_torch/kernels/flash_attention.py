@@ -11,9 +11,12 @@ reach for large ones); :func:`flash_attention` launches
 
 Layout: q ``(B, S, H, hd)``, k and v ``(B, T, KVH, hd)``; query head ``h``
 reads KV head ``h // (H // KVH)``; query row ``i`` sits at position ``i +
-q_offset``.  Bound: fp32 FFMA on the score and P·V products (4·hd
-operations per unmasked (query, key) pair); the kernel skips key tiles the
-masks remove whole.  The kernel is inference-only: it has no backward yet.
+q_offset``.  Bound: the score and P·V products, 4·hd operations per
+unmasked (query, key) pair.  bf16 runs them on the tensor cores
+(``mma.sync``, FlashAttention-2 style, probabilities rounded to bf16 like
+the plain version's); fp32, the parity path, as fp32 FFMA.  Both kernels
+skip key tiles the masks remove whole.  They are inference-only: there is
+no backward yet.
 """
 from __future__ import annotations
 

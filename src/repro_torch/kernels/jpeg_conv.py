@@ -14,11 +14,15 @@ all of K itself, so sums never cross CTAs and results do not vary from
 run to run.
 
 Bound: fp32 FFMA at the path's shapes (see the note in the source); the
-kernel stages 64×128 output tiles through shared memory with a 4×8
-register block per thread.  In training the kernel sits in the autograd
-graph (the stem conv); its backward is plain PyTorch.
+kernel computes 128×128 output tiles with an 8×8 register block per
+thread, fed by 32-wide K slices double-buffered by ``cp.async``, and a
+64-row variant that :func:`banded_conv` picks where the 128-row grid would
+leave more than half the SMs idle.  In training the kernel sits in the
+autograd graph (the stem conv); its backward is plain PyTorch.
 """
 from __future__ import annotations
+
+import functools
 
 import torch
 import torch.nn.functional as F
@@ -27,22 +31,39 @@ from repro_torch.core.conv import _offsets_from, apply_exploded
 from repro_torch.kernels import _build
 from repro_torch.kernels.tiling import PackedAsm
 
-__all__ = ["LAUNCHES", "jpeg_conv", "jpeg_conv_plain", "banded_conv",
-           "conv_smem_bytes"]
+__all__ = ["LAUNCHES", "TILE_ROWS", "jpeg_conv", "jpeg_conv_plain",
+           "banded_conv", "conv_smem_bytes", "tile_rows"]
 
 #: kernel launches made by :func:`jpeg_conv`
 LAUNCHES = 0
 
 # tile geometry of banded_conv_kernel (csrc/jpeg_kernels.cu)
-_BM, _BN, _BK, _WARPS, _NF = 64, 128, 16, 8, 64
+_BN, _BK, _LDA, _STAGES, _WARPS, _NF = 128, 32, 36, 2, 8, 64
+#: output rows per tile: the kernel's two variants
+TILE_ROWS = (128, 64)
 
 
-def conv_smem_bytes(w_o: int, with_asm: bool) -> int:
-    """Dynamic shared memory of one banded-conv CTA (mirrors
-    ``jk_banded_conv_smem`` in the CUDA source)."""
+def conv_smem_bytes(w_o: int, with_asm: bool, bm: int = 128) -> int:
+    """Dynamic shared memory of one banded-conv CTA of ``bm`` rows (mirrors
+    ``jk_banded_conv_smem`` in the CUDA source): the GEMM ring, or the ASM
+    epilogue's tile and operators where that is larger."""
+    gemm = _STAGES * (bm * _LDA + _BK * _BN)
     if not with_asm:
-        return (_BK * (_BM + 2) + _BK * _BN) * 4
-    return (_BM * (_BN + 16) + w_o * 2 * _NF + _NF * w_o + _WARPS * _NF) * 4
+        return gemm * 4
+    return max(gemm, bm * _BN + w_o * 2 * _NF + _NF * w_o + _WARPS * _NF) * 4
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def tile_rows(m_rows: int, col_tiles: int, sms: int) -> int:
+    """128-row tiles, or 64 where the 128-row grid would leave more than
+    half the card's SMs idle.  On an H100 (132 SMs; PERF.md) the 64-row
+    tiles are 1.6× faster at the served s2b0 projection (64 CTAs of 128
+    rows) and 4 % slower at s1b0.conv1 (128 CTAs of 128 rows)."""
+    return 128 if 2 * -(-m_rows // 128) * col_tiles >= sms else 64
 
 
 def banded_conv(x: torch.Tensor, *, cin: int, w_in: int, xi: torch.Tensor,
@@ -81,6 +102,9 @@ def banded_conv(x: torch.Tensor, *, cin: int, w_in: int, xi: torch.Tensor,
     _build.check_device(*ops)
     out = torch.empty((n, bh_o, bw_o, cout * w_o), dtype=x.dtype,
                       device=x.device)
+    cpt = _BN // (w_o if asm is not None else w_b)
+    bm = tile_rows(n * bh_o * bw_o, -(-cout // cpt),
+                   _sm_count(x.device.index or 0))
     dmin_y, _ = _offsets_from(ndy, stride)
     dmin_x, _ = _offsets_from(ndx, stride)
 
@@ -92,7 +116,7 @@ def banded_conv(x: torch.Tensor, *, cin: int, w_in: int, xi: torch.Tensor,
         ptr(asm.cat if asm is not None else None),
         ptr(asm.recon_t if asm is not None else None), out.data_ptr(),
         n, bh, bw, cin, kx // cin, w_in, stride, ndy, ndx, dmin_y, dmin_x,
-        cout, w_b, w_r, w_o, _build.stream_of(x))
+        cout, w_b, w_r, w_o, bm, _build.stream_of(x))
     _build.launch_check(err, "banded_conv")
     return out
 

@@ -25,6 +25,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch import resolve_device
 from repro_torch.configs import ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.tree import tree_map
@@ -131,10 +132,12 @@ def lm_params_from_numpy(tree: dict, *, device=None,
                          dtype: torch.dtype = torch.float32) -> dict:
     """The reference's LM parameters as numpy arrays (bf16 ones widened to
     fp32 first) → the port's tree, weights in ``dtype`` and norms in fp32,
-    on ``device``."""
+    on ``device`` (:func:`~repro_torch.resolve_device`: the CUDA device
+    unless the caller passes ``device="cpu"``)."""
+    dev = resolve_device(device)
     host = tree_map(lambda a: torch.from_numpy(np.array(a, np.float32)),
                     tree)
-    return cast_params(host, dtype, device if device is not None else "cpu")
+    return cast_params(host, dtype, dev)
 
 
 def _layer(blocks: dict, j: int, i: int) -> dict:

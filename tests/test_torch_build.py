@@ -79,3 +79,21 @@ def test_a_failing_source_is_named(fake, monkeypatch):
         _build.build()
     assert "link" not in fake.read_text()
     assert not _build.BUILD_DIR.exists() or not os.listdir(_build.BUILD_DIR)
+
+
+def test_edited_copies_build_into_their_own_directory(fake, tmp_path):
+    out = tmp_path / "variant"
+    out.mkdir()
+    copies = []
+    for src in _build.SOURCES:
+        copies.append(out / src.name)
+        copies[-1].write_text(src.read_text() + "\n// a variant\n")
+    lib = _build.build(copies, out)
+    assert lib.parent == out and lib.exists()
+    assert not _build.BUILD_DIR.exists()  # the committed build is untouched
+    assert all(str(out) in line for line in lib.read_text().splitlines())
+    started = [ln.split()[1] for ln in fake.read_text().splitlines()
+               if ln.startswith("start")]
+    assert sorted(started) == sorted(src.name for src in _build.SOURCES)
+    assert sorted(os.listdir(out)) == sorted([lib.name, *started])
+    assert _build.build() != lib  # other source text, another library

@@ -6,10 +6,12 @@ Needs an NVIDIA GPU of compute capability 9.0 (the kernels are built for
     python -m pytest -q tests/test_torch_cuda_kernels.py
 
 Covers ragged row counts, every per-channel width 8…64, both shortcut
-kinds and both strides of the fused block, both block-transform operators,
-the launch counters, the autograd wrappers' gradients against those of
-the plain versions, and flash attention in fp32 and bf16 (ragged tiles,
-S != T, windows, a query offset, bad operands, a small model's prefill).
+kinds and both strides of the fused block, the banded conv's 16-byte and
+4-byte K paths in its 128- and 64-row variants, both block-transform
+operators, the launch counters, the autograd wrappers' gradients against
+those of the plain versions, and flash attention in fp32 and bf16 (ragged
+tiles and the tensor-core kernel's tile edges, S != T, windows, a query
+offset, bad operands, a small model's prefill).
 """
 import numpy as np
 import pytest
@@ -107,12 +109,71 @@ def test_fused_block_matches_plain(dev, case):
     _close(got, kfb.fused_block_reference(x, c1, a1, c2, a2, pp), 1e-4)
 
 
+@pytest.fixture(params=kjc.TILE_ROWS, ids=lambda bm: f"bm{bm}")
+def tile(request, monkeypatch):
+    """Force the banded conv's 128- or 64-row variant (the wrapper picks
+    by grid size, and these shapes are small)."""
+    monkeypatch.setattr(kjc, "tile_rows", lambda *_: request.param)
+    return request.param
+
+
+#: jpeg_conv on both K paths: (N, bh, bw, Cin, Cout, stride, r, bands);
+#: M = N·bh·bw/s² and Cout·bands are not multiples of 128
+CONV_PATHS = [
+    (2, 13, 11, 3, 9, 1, 3, 16),    # the stem's Cin = 3, 16-byte copies
+    (3, 10, 14, 3, 20, 2, 3, 64),   # stem-like, stride 2, w 64
+    (3, 9, 11, 5, 7, 1, 3, 5),      # odd width: 4-byte gathers
+    (2, 12, 10, 6, 11, 2, 1, 10),   # w 10: gathers, 1×1 stride 2
+]
+
+
+@pytest.mark.parametrize("n,bh,bw,cin,cout,stride,r,bands", CONV_PATHS)
+def test_jpeg_conv_paths_and_tiles(dev, tile, n, bh, bw, cin, cout, stride,
+                                   r, bands):
+    g = torch.Generator(device=dev).manual_seed(n * bh + bands)
+    k = torch.randn((cout, cin, r, r), generator=g, device=dev) * 0.3
+    xi = convlib.explode(k, stride, bands=bands)
+    coef = torch.randn((n, bh, bw, cin, 64), generator=g, device=dev)
+    shift = torch.randn((cout,), generator=g, device=dev)
+    for kw in ({}, {"shift": shift, "w_out": 64}):
+        got = kjc.jpeg_conv(coef, xi, stride, **kw)
+        _close(got, kjc.jpeg_conv_plain(coef, xi, stride, **kw), 1e-4)
+
+
+@pytest.mark.parametrize("case", [
+    # (N, grid, cin, cout, stride, w, projection): the ASM epilogue at w
+    # 16 and 64 on 16-byte copies, at w 6 on gathers
+    (2, 13, 20, 20, 1, 16, False),
+    (3, 10, 8, 9, 2, 64, True),
+    (2, 9, 5, 7, 1, 6, True),
+])
+def test_fused_block_paths_and_tiles(dev, tile, case):
+    n, grid, cin, cout, s, w, with_proj = case
+    g = torch.Generator(device=dev).manual_seed(sum(case))
+    c1 = _pc(g, dev, cin, cout, s, 3, w, w, w)
+    c2 = _pc(g, dev, cout, cout, 1, 3, w, w, w)
+    pp = _pc(g, dev, cin, cout, s, 1, w, w, w) if with_proj else None
+    a1 = tiling.pack_asm(14, w, w, device=dev)
+    a2 = tiling.pack_asm(8, w, w, device=dev)
+    x = torch.randn((n, grid, grid, cin * w), generator=g, device=dev)
+    got = kfb.fused_block(x, c1, a1, c2, a2, pp)
+    _close(got, kfb.fused_block_reference(x, c1, a1, c2, a2, pp), 1e-4)
+
+
+def test_tile_rows_follow_the_grid(dev):
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    assert kjc.tile_rows(4096, 8, sms) == 128      # s0 at batch 4
+    assert kjc.tile_rows(1024, 16, sms) == 128     # s1 at batch 4
+    assert kjc.tile_rows(256, 32, sms) == 64       # s2 at batch 4
+
+
 def test_smem_formula_matches_library(dev):
     lib = _build.library()
-    for w in range(8, 65, 8):
-        for with_asm in (0, 1):
-            assert lib.jk_banded_conv_smem(w, with_asm) == \
-                kjc.conv_smem_bytes(w, bool(with_asm))
+    for bm in kjc.TILE_ROWS:
+        for w in range(8, 65, 8):
+            for with_asm in (0, 1):
+                assert lib.jk_banded_conv_smem(w, with_asm, bm) == \
+                    kjc.conv_smem_bytes(w, bool(with_asm), bm)
 
 
 def test_kernels_refuse_bad_operands(dev):
@@ -236,13 +297,12 @@ def _card_qkv(dev, b, s, t, h, kvh, hd, dtype, seed):
                                (b, t, kvh, hd)))
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("b,s,t,h,kvh,hd,causal,window,q_offset", CARD)
-def test_kernel_matches_plain_on_card(dev, dtype, b, s, t, h, kvh, hd,
-                                      causal, window, q_offset):
+def _hold_kernel_against_plain(dev, dtype, b, s, t, h, kvh, hd, causal,
+                               window, q_offset):
     """fp32: 2e-4 absolute.  bf16: the kernel's error against the plain
-    version on fp32 copies is at most 1.5× the bf16 plain version's (the
-    plain version rounds its probabilities to bf16, the kernel does not)."""
+    version on fp32 copies is at most 1.5× the bf16 plain version's (both
+    round their probabilities to bf16; the kernel keeps the scaled q in
+    fp32)."""
     q, k, v = _card_qkv(dev, b, s, t, h, kvh, hd, dtype, s + t + h)
     kw = dict(causal=causal, window=window, q_offset=q_offset)
     before = kfa.LAUNCHES
@@ -259,6 +319,38 @@ def test_kernel_matches_plain_on_card(dev, dtype, b, s, t, h, kvh, hd,
         else:
             plain = kfa.attention_plain(q, k, v, **kw).float()
             assert err <= 1.5 * float((plain - exact).abs().max()), err
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,t,h,kvh,hd,causal,window,q_offset", CARD)
+def test_kernel_matches_plain_on_card(dev, dtype, b, s, t, h, kvh, hd,
+                                      causal, window, q_offset):
+    _hold_kernel_against_plain(dev, dtype, b, s, t, h, kvh, hd, causal,
+                               window, q_offset)
+
+
+#: bf16 cases on the tensor-core kernel's tile edges (query tiles of 128
+#: rows at hd 64 and 256 at hd 128, warps of 32 rows, 64-key tiles): b, s,
+#: t, h, kvh, hd, causal, window, q_offset
+TC_EDGES = [
+    (1, 127, 127, 3, 3, 64, True, None, 0),      # G 1, one short tile
+    (1, 129, 129, 6, 2, 128, True, None, 0),     # G 3, one row past a tile
+    (2, 191, 191, 8, 1, 64, True, None, 0),      # G 8 (MQA), ragged tiles
+    (1, 2049, 2049, 2, 1, 128, True, None, 0),   # a long ragged prefill
+    (1, 129, 191, 3, 1, 128, False, None, 0),    # S != T, not causal
+    (1, 127, 2049, 8, 1, 64, True, None, 1922),  # q_offset > 0
+    # window 70: the first visited key tile (keys 0..63) is fully masked
+    # for rows 133.. and skipped by the warps whose rows all lie past it
+    (1, 191, 191, 3, 3, 128, True, 70, 0),
+    (2, 2049, 2049, 6, 2, 64, True, 256, 0),
+]
+
+
+@pytest.mark.parametrize("b,s,t,h,kvh,hd,causal,window,q_offset", TC_EDGES)
+def test_tensor_core_kernel_tile_edges(dev, b, s, t, h, kvh, hd, causal,
+                                       window, q_offset):
+    _hold_kernel_against_plain(dev, torch.bfloat16, b, s, t, h, kvh, hd,
+                               causal, window, q_offset)
 
 
 def test_kernel_refuses_bad_operands_and_gradients(dev):

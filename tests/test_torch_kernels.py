@@ -182,10 +182,27 @@ def test_fused_block_wide_join_matches_xla_twin():
 
 
 def test_smem_sizes_fit_one_cta():
-    for w in range(8, 65, 8):
-        assert kjc.conv_smem_bytes(w, True) <= 227 * 1024
-    assert kjc.conv_smem_bytes(64, True) == 88064
-    assert kjc.conv_smem_bytes(16, False) < 48 * 1024
+    for bm in kjc.TILE_ROWS:
+        for w in range(8, 65, 8):
+            assert kjc.conv_smem_bytes(w, True, bm) <= 227 * 1024
+    # ASM epilogue at w 64: the 128×128 tile, cat, recon_t, warp scratch
+    assert kjc.conv_smem_bytes(64, True) == 4 * (128 * 128 + 192 * 64 + 512)
+    # two stages of a 32-wide K slice of A (128 rows of 36 floats) and B
+    # (128 columns)
+    assert kjc.conv_smem_bytes(16, False) == 2 * 4 * (128 * 36 + 32 * 128)
+    assert kjc.conv_smem_bytes(16, False, 64) == 2 * 4 * (64 * 36 + 32 * 128)
+
+
+@pytest.mark.parametrize("m_rows,col_tiles,sms,want", [
+    (1024, 16, 132, 128),  # s1 at batch 4: 128 CTAs of 128 rows
+    (4096, 8, 132, 128),   # s0 at batch 4: 256 CTAs
+    (256, 32, 132, 64),    # s2 at batch 4: 64 CTAs, half the card idle
+    (8448, 1, 132, 128),   # CTAs for exactly half the SMs
+    (8447, 1, 132, 128),
+    (8320, 1, 132, 64),
+])
+def test_tile_rows_fill_the_card(m_rows, col_tiles, sms, want):
+    assert kjc.tile_rows(m_rows, col_tiles, sms) == want
 
 
 def test_cpu_tensors_take_the_plain_version_and_do_not_count():

@@ -24,6 +24,7 @@ from repro.launch import serve as ref_serve
 from repro.models import registry as RR
 from repro.models import transformer as RT
 from repro_torch.checkpoint import CheckpointManager
+from repro_torch.core import resnet
 from repro_torch.configs import get_config, reduced_config
 from repro_torch.launch import serve
 from repro_torch.models import registry
@@ -52,7 +53,7 @@ def pair(request):
     arch = request.param
     rcfg, cfg = RC.reduced_config(arch), reduced_config(arch)
     rp = RT.init_params(jax.random.PRNGKey(0), rcfg)
-    params = T.lm_params_from_numpy(_host(rp))
+    params = T.lm_params_from_numpy(_host(rp), device="cpu")
     toks = np.random.default_rng(1).integers(
         0, cfg.vocab_size, (2, S + 3)).astype(np.int32)
     return arch, rcfg, rp, cfg, params, toks
@@ -232,9 +233,29 @@ def _bf16_tree(arch="smollm-360m"):
     return rcfg, cfg, RT.init_params(jax.random.PRNGKey(0), rcfg)
 
 
+@pytest.mark.parametrize("load", [
+    lambda device: T.lm_params_from_numpy({"ln_f": np.ones(4)},
+                                          device=device),
+    lambda device: resnet.params_from_numpy({"w": np.ones(4)}, {},
+                                            device=device),
+], ids=["lm_params_from_numpy", "params_from_numpy"])
+def test_params_from_numpy_default_to_cuda(load, monkeypatch):
+    """Both loaders resolve a missing device to CUDA, as every entry point
+    does: without CUDA they raise unless the caller asks for the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        load(None)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        load("cuda")
+    out = load("cpu")
+    leaf = out["ln_f"] if isinstance(out, dict) else out[0]["w"]
+    assert leaf.device.type == "cpu" and leaf.dtype == torch.float32
+
+
 def test_bf16_tree_round_trips_bit_identically(tmp_path):
     _, cfg, rp = _bf16_tree()
-    params = T.lm_params_from_numpy(_host(rp), dtype=torch.bfloat16)
+    params = T.lm_params_from_numpy(_host(rp), device="cpu",
+                                    dtype=torch.bfloat16)
     assert params["embed"].dtype == torch.bfloat16
     assert params["ln_f"].dtype == torch.float32
     mgr = CheckpointManager(str(tmp_path))
