@@ -19,7 +19,10 @@ Phases, each fatal on failure:
    kernel) and fp32 (the FFMA kernel)): error, kernel ms, plain ms, the least
    time the card could take (bound) and, where one PyTorch call computes
    the same function, that call's ms (``library_ms``, a yardstick the
-   port never calls);
+   port never calls); ASM also at the served walk's s2 and s3 row counts
+   and a ragged one, where it and the q50 data encode also print the
+   kernel's device time from ``torch.profiler`` beside the host's time to
+   issue a call;
 3. the compiled server: full ``jpeg-resnet`` from JPEG bytes (the
    synthetic mixed-quality stream) at 16 bands, batch 4; every batch's
    logits are held against the same plan run on the plain path;
@@ -165,6 +168,42 @@ def ptxas_report(text: str) -> list[str]:
             out.append(f"{name}: used {used}; {spill}")
             name = None
     return out
+
+
+def split_cost(label: str, fn, kernel: str, calls: int = 50) -> None:
+    """Tell a wrapper's fixed cost from its kernel's time: the kernel's
+    device time a launch from a ``torch.profiler`` trace of ``calls``
+    calls, the events' time a call (``cuda_ms``), and the host's time to
+    issue one call (wall clock around ``calls`` calls, no synchronise
+    inside)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    event_ms = cuda_ms(fn)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    total, n = 0.0, 0
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA and kernel in e.key:
+            total += next((v for v in (getattr(e, a, 0) for a in (
+                "self_device_time_total", "device_time_total",
+                "self_cuda_time_total", "cuda_time_total")) if v), 0.0)
+            n += e.count
+    device = f"{total / n / 1e3:.4f} ms" if n else "not measured"
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    host_ms = (time.perf_counter() - t0) / calls * 1e3
+    torch.cuda.synchronize()
+    log(f"{label}: kernel device time {device} a launch ({n} launches "
+        f"traced), events {event_ms:.4f} ms a call, host {host_ms:.4f} ms "
+        f"to issue a call")
 
 
 def bound(flops: float, nbytes: float,
@@ -830,18 +869,34 @@ def main() -> None:
                    work, cuda_ms(lambda: torch.matmul(cols, xi2)))
             del cols
 
-        n_rows = BATCH * grid * grid * 64  # stage 0 of the per-layer walk
+        # ASM at stage 0 of the per-layer walk (16 and 64 bands), then at
+        # the served walk's s2 and s3 (16 bands) and a ragged row count; at
+        # the served shapes also the kernel's device time from the profiler
+        # and the wrapper's host time a call
+        n_rows = BATCH * grid * grid * cfg.widths[0]
+        s2_rows = BATCH * (grid // 4) ** 2 * cfg.widths[2]
+        s3_rows = BATCH * (grid // 8) ** 2 * cfg.widths[3]
         t = torch.randn((n_rows, 64), generator=gen, device=dev)
-        for w in (BANDS, 64):
-            got = kasm.asm_relu(t, cfg.asm_phi, bands=w)
-            want = kasm.asm_relu_plain(t, cfg.asm_phi, bands=w)
-            err = compare(f"asm_relu w={w}", got, want, ASM_RTOL)
-            record("asm_relu", f"w={w} rows={n_rows}", err,
-                   cuda_ms(lambda: kasm.asm_relu(t, cfg.asm_phi, bands=w)),
-                   cuda_ms(lambda: kasm.asm_relu_plain(t, cfg.asm_phi,
+        for label, n, w in (("s0", n_rows, BANDS), ("s0", n_rows, 64),
+                            ("s2", s2_rows, BANDS), ("s3", s3_rows, BANDS),
+                            ("ragged", s2_rows + 37, BANDS)):
+            x = t[:n]
+
+            def run(x=x, w=w):
+                return kasm.asm_relu(x, cfg.asm_phi, bands=w)
+
+            got = run()
+            want = kasm.asm_relu_plain(x, cfg.asm_phi, bands=w)
+            err = compare(f"asm_relu {label} w={w}", got, want, ASM_RTOL)
+            record("asm_relu", f"{label} w={w} rows={n}", err,
+                   cuda_ms(run),
+                   cuda_ms(lambda: kasm.asm_relu_plain(x, cfg.asm_phi,
                                                        bands=w)),
-                   (asm_flops(n_rows, w), 4.0 * n_rows * (w + 64)))
-        del t
+                   (asm_flops(n, w), 4.0 * n * (w + 64)))
+            if label in ("s2", "s3"):
+                split_cost(f"asm_relu {label} w={w} rows={n}", run,
+                           "asm_kernel")
+        del t, x, got, want
 
         # block transforms at the training path's shapes: stage 0's
         # factored encode and decode (batch 8, 64 channels of 32×32 blocks)
@@ -863,6 +918,9 @@ def main() -> None:
                    cuda_ms(lambda: fn(x, q)), cuda_ms(lambda: plain(x, q)),
                    (2.0 * n * 64 * 64, 4.0 * (2 * n * 64 + 64 * 64)),
                    cuda_ms(lambda: torch.matmul(x2, op)))
+            if q is not None:
+                split_cost(f"{name} {label} rows={n}", lambda: fn(x, q),
+                           "block_matmul_kernel")
             del x, x2, got
 
         attention_checks(dev, record)

@@ -37,14 +37,37 @@
 //     src-size-0 form.
 //   wgmma, TMA and TF32/bf16 modes are later work.
 //
-// * asm_kernel — ASM ReLU (paper §4.2) per row of w lanes:
-//       both = t @ cat (w×128); masked = both[:64] > 0 ? both[64:] : 0;
-//       out = masked @ recon_t (64×w)
-//   with cat and recon_t in shared memory.  It replaces
-//   kernels/asm_relu.py:asm_relu_pallas.  The same device function
-//   (asm_row) is banded_conv_kernel's ASM epilogue, applied to a tile whose
-//   columns cover whole channels.  Bound: 192 FFMA per element moved, i.e.
-//   operations, not bytes, at every w of the path.
+// * asm_kernel — ASM ReLU (paper §4.2) over a tile of rows of w lanes:
+//       both = T @ cat (w×128); M = both[:64] > 0 ? both[64:] : 0;
+//       out = M @ recon_t (64×w)
+//   It replaces kernels/asm_relu.py:asm_relu_pallas.  One device routine,
+//   asm_tile, computes it for a tile of rows in shared memory; asm_kernel
+//   feeds it tiles of x, and banded_conv_kernel's ASM epilogue feeds it the
+//   (row, channel) pairs of its output tile, one channel at a time.
+//   Bound: 192 FFMA per lane read, i.e. operations at w = 64; at w = 16
+//   bytes and operations are about even.  In practice shared memory bounds
+//   it: an SM reads 128 bytes of it a clock against 128 FFMA, so the design
+//   cuts the bytes each FFMA reads:
+//   - product 1 is register-blocked: a thread holds R rows × 4
+//     frequencies of both halves (approx f..f+3 and exact 64+f..64+f+3),
+//     so the mask is applied in registers: per k, two float4 of cat and R
+//     values of T for 8R FFMA (R = 8 in asm_kernel and the 128-row conv
+//     tiles: 1 byte per FFMA);
+//   - the masked tile goes to shared memory once; product 2 gives each
+//     thread 4 output lanes of 8, 4, 2 or 1 rows, as many row groups as
+//     fill 256 threads at the tile's width, so every thread works;
+//   - persistent asm_kernel CTAs load cat and recon_t into shared memory
+//     once (zero-padded to a multiple of 4 lanes) and walk tiles of ASM_BM
+//     rows; the next tile's first w lanes are in flight by cp.async
+//     (16-byte copies where w, ld_in and x allow) while this one is
+//     computed; rows are padded so float4 reads of two rows fall in
+//     distinct banks; where rows have zero lanes past w, a tile's output
+//     rows are gathered in shared memory (the zero lanes written once) and
+//     stored by one bulk copy, so the copy engine, not the threads, moves
+//     them;
+//   - sums run in ascending k, as the plain version's GEMMs do, so the
+//     mask's sign is decided as close to it as FFMA allows.
+//   TF32 and bf16 modes are later work.
 //
 // Every launch goes on the caller's stream; the host functions return
 // cudaGetLastError() so the Python wrapper can raise.
@@ -59,17 +82,36 @@ constexpr int BK = 32;             // K slice staged per step
 constexpr int LDA = BK + 4;        // A's row stride: conflict-free float4 reads
 constexpr int STAGES = 2;          // cp.async ring depth
 constexpr int THREADS = 256;
-constexpr int WARPS = THREADS / 32;
 constexpr int NF = 64;             // pixels per 8×8 block
 constexpr int MAX_W = 64;
+constexpr int LDC = BN + 4;        // the ASM epilogue's tile row stride
+constexpr int LDM = NF + 4;        // the masked tile's row stride
+constexpr int ASM_BM = 128;        // asm_kernel's rows per tile
 
-// shared memory of one CTA, in floats: the GEMM ring, and the ASM
-// epilogue's output tile (BM × BN), cat, recon_t and per-warp scratch
+__host__ __device__ constexpr int round4(int w) { return (w + 3) & ~3; }
+
+// shared memory, in floats: the GEMM ring; cat and recon_t at width
+// round4(w); the ASM epilogue's output tile (BM × LDC), operators and
+// masked tile (BM × LDM)
 __host__ __device__ constexpr int gemm_floats(int bm) {
   return STAGES * (bm * LDA + BK * BN);
 }
+__host__ __device__ constexpr int asm_ops_floats(int w) {
+  return round4(w) * 3 * NF;
+}
 __host__ __device__ constexpr int asm_floats(int bm, int w) {
-  return bm * BN + w * 2 * NF + NF * w + WARPS * NF;
+  return bm * LDC + asm_ops_floats(w) + bm * LDM;
+}
+// asm_kernel's staged tile row stride: round4(w) lanes padded so that the
+// float4 reads of two rows fall in distinct banks
+__host__ __device__ constexpr int asm_ldt(int w) {
+  return round4(w) + ((round4(w) + 4) % 32 ? 4 : 8);
+}
+// asm_kernel: the operators, the masked tile, two staged tiles of x and,
+// with the bulk copy, the output tile
+__host__ __device__ constexpr int asm_kernel_floats(int w, bool bulk) {
+  return asm_ops_floats(w) + ASM_BM * LDM + 2 * ASM_BM * asm_ldt(w) +
+         (bulk ? ASM_BM * NF : 0);
 }
 
 struct ConvArgs {
@@ -115,33 +157,202 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
+// bytes (a multiple of 16; both ends 16-byte aligned) from shared to
+// device memory by the copy engine, asynchronously: the thread's earlier
+// writes to src must be made visible to it by fence_async_smem
+__device__ __forceinline__ void bulk_store(float* dst, const float* src,
+                                           int bytes) {
+  asm volatile(
+      "cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n"
+      "cp.async.bulk.commit_group;\n" ::"l"(dst),
+      "r"(smem_addr(src)), "r"(bytes)
+      : "memory");
+}
+
+// until this thread's bulk stores have read their source
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+
+// until this thread's bulk stores are complete
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
 __device__ __forceinline__ float comp(const float4& v, int c) {
   return c == 0 ? v.x : c == 1 ? v.y : c == 2 ? v.z : v.w;
 }
 
-// ASM of one w-lane vector t (in shared memory) by one warp; writes w lanes
-// of out.  scratch holds 64 floats private to the warp.
-__device__ __forceinline__ void asm_row(const float* t, int w, const float* cat,
-                                        const float* rt, float* scratch,
-                                        float* out, int lane) {
-  float b0 = 0.f, b1 = 0.f, v0 = 0.f, v1 = 0.f;
-  for (int l = 0; l < w; ++l) {
-    const float tv = t[l];
-    const float* c = cat + l * 2 * NF;
-    b0 = fmaf(tv, c[lane], b0);
-    b1 = fmaf(tv, c[lane + 32], b1);
-    v0 = fmaf(tv, c[NF + lane], v0);
-    v1 = fmaf(tv, c[NF + lane + 32], v1);
+__device__ __forceinline__ float4 ld4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+
+// cat (w × 128) and recon_t (64 × w) from device memory into shared memory
+// at width round4(w): cat's rows and recon_t's columns past w are zero.
+__device__ __forceinline__ void stage_asm_ops(const float* catg,
+                                              const float* rtg, int w,
+                                              float* cat, float* rt) {
+  const int wp = round4(w);
+  for (int e = threadIdx.x; e < wp * 2 * NF; e += THREADS)
+    cat[e] = e < w * 2 * NF ? catg[e] : 0.f;
+  for (int e = threadIdx.x; e < NF * wp; e += THREADS) {
+    const int p = e / wp, l = e - p * wp;
+    rt[e] = l < w ? rtg[p * w + l] : 0.f;
   }
-  scratch[lane] = b0 > 0.f ? v0 : 0.f;
-  scratch[lane + 32] = b1 > 0.f ? v1 : 0.f;
-  __syncwarp();
-  for (int l = lane; l < w; l += 32) {
-    float s = 0.f;
-    for (int p = 0; p < NF; ++p) s = fmaf(scratch[p], rt[p * w + l], s);
-    out[l] = s;
+}
+
+// Product 2 and the stores for N rows rows[0..N-1] of the masked tile m:
+// lanes l0..l0+3 (l0 = 4·cg) of o = m @ rt, those below w written (with
+// VO, a float4 whose lanes from w are zero); rows from nrows on are
+// skipped.
+template <int N>
+__device__ __forceinline__ void asm_rows(const int (&rows)[N],
+                                         const float* m, const float* rt,
+                                         int wp, int cg, int w, float* out,
+                                         long long ld_out, int nrows,
+                                         bool vo) {
+  float acc[N][4];
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+  for (int kq = 0; kq < NF; kq += 4) {  // product 2's K loop
+    float4 mv[N];
+#pragma unroll
+    for (int i = 0; i < N; ++i) mv[i] = ld4(m + rows[i] * LDM + kq);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const float4 b = ld4(rt + (kq + kk) * wp + 4 * cg);
+#pragma unroll
+      for (int i = 0; i < N; ++i) {
+        const float v = comp(mv[i], kk);
+        acc[i][0] = fmaf(v, b.x, acc[i][0]);
+        acc[i][1] = fmaf(v, b.y, acc[i][1]);
+        acc[i][2] = fmaf(v, b.z, acc[i][2]);
+        acc[i][3] = fmaf(v, b.w, acc[i][3]);
+      }
+    }
   }
-  __syncwarp();
+  const int l0 = 4 * cg;
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    if (rows[i] >= nrows) continue;
+    float* o = out + rows[i] * ld_out;
+    if (vo) {
+      *reinterpret_cast<float4*>(o + l0) = make_float4(
+          acc[i][0], l0 + 1 < w ? acc[i][1] : 0.f,
+          l0 + 2 < w ? acc[i][2] : 0.f, l0 + 3 < w ? acc[i][3] : 0.f);
+    } else {
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        if (l0 + j < w) o[l0 + j] = acc[i][j];
+    }
+  }
+}
+
+// ASM of a tile of 16·R rows of t (shared memory, row stride ldt, lanes
+// 0..kw-1 read; lanes past w, up to kw, must be zero) with cat and rt from
+// stage_asm_ops and m, a 16·R × LDM scratch tile:
+//   both = t @ cat; m = both[:64] > 0 ? both[64:] : 0; o = m @ rt
+// Row j < nrows of o goes to out + j·ld_out: its w lanes (with VO, zeros
+// up to lane round4(w)).  TV: t's rows are 16-byte aligned and kw % 4 == 0
+// (float4 reads); VO: out and ld_out allow float4 stores.  Every thread of
+// the CTA calls it; it synchronises once (m written), and the caller
+// synchronises before t or m is written again.
+template <int R, bool TV>
+__device__ __forceinline__ void asm_tile(const float* t, int ldt, int kw,
+                                         int w, const float* cat,
+                                         const float* rt, float* m,
+                                         float* out, long long ld_out,
+                                         int nrows, bool vo) {
+  constexpr int BM = 16 * R;
+  const int tid = threadIdx.x;
+  {
+    // product 1: rows ty + 16·i, frequencies 4tx..4tx+3 of both halves
+    const int tx = tid & 15, ty = tid >> 4;
+    float ap[R][4], ex[R][4];
+#pragma unroll
+    for (int i = 0; i < R; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) ap[i][j] = ex[i][j] = 0.f;
+    auto step = [&](const float* c, const float (&tv)[R]) {
+      const float4 c0 = ld4(c + 4 * tx), c1 = ld4(c + NF + 4 * tx);
+#pragma unroll
+      for (int i = 0; i < R; ++i) {
+        ap[i][0] = fmaf(tv[i], c0.x, ap[i][0]);
+        ap[i][1] = fmaf(tv[i], c0.y, ap[i][1]);
+        ap[i][2] = fmaf(tv[i], c0.z, ap[i][2]);
+        ap[i][3] = fmaf(tv[i], c0.w, ap[i][3]);
+        ex[i][0] = fmaf(tv[i], c1.x, ex[i][0]);
+        ex[i][1] = fmaf(tv[i], c1.y, ex[i][1]);
+        ex[i][2] = fmaf(tv[i], c1.z, ex[i][2]);
+        ex[i][3] = fmaf(tv[i], c1.w, ex[i][3]);
+      }
+    };
+    if (TV) {
+      for (int kq = 0; kq < kw; kq += 4) {
+        float4 t4[R];
+#pragma unroll
+        for (int i = 0; i < R; ++i) t4[i] = ld4(t + (ty + 16 * i) * ldt + kq);
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          float tv[R];
+#pragma unroll
+          for (int i = 0; i < R; ++i) tv[i] = comp(t4[i], kk);
+          step(cat + (kq + kk) * 2 * NF, tv);
+        }
+      }
+    } else {
+      for (int k = 0; k < kw; ++k) {
+        float tv[R];
+#pragma unroll
+        for (int i = 0; i < R; ++i) tv[i] = t[(ty + 16 * i) * ldt + k];
+        step(cat + k * 2 * NF, tv);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < R; ++i)
+      *reinterpret_cast<float4*>(m + (ty + 16 * i) * LDM + 4 * tx) =
+          make_float4(ap[i][0] > 0.f ? ex[i][0] : 0.f,
+                      ap[i][1] > 0.f ? ex[i][1] : 0.f,
+                      ap[i][2] > 0.f ? ex[i][2] : 0.f,
+                      ap[i][3] > 0.f ? ex[i][3] : 0.f);
+  }
+  __syncthreads();
+  // product 2: lanes 4cg..4cg+3 of rows rg + rgs·i (i < np), rgs row
+  // groups of cgs lane groups filling the CTA (at most cgs - 1 threads
+  // idle), taken 8, 4, 2 and 1 rows at a time
+  const int wp = round4(w), cgs = wp >> 2, rgs = THREADS / cgs;
+  const int cg = tid % cgs, rg = tid / cgs;
+  const int np = rg < rgs && rg < BM ? (BM - 1 - rg) / rgs + 1 : 0;
+  int i = 0;
+  if constexpr (BM >= 128) {
+    for (; i + 8 <= np; i += 8) {
+      int rows[8];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) rows[j] = rg + rgs * (i + j);
+      asm_rows<8>(rows, m, rt, wp, cg, w, out, ld_out, nrows, vo);
+    }
+  }
+  if (i + 4 <= np) {
+    const int rows[4] = {rg + rgs * i, rg + rgs * (i + 1),
+                         rg + rgs * (i + 2), rg + rgs * (i + 3)};
+    asm_rows<4>(rows, m, rt, wp, cg, w, out, ld_out, nrows, vo);
+    i += 4;
+  }
+  if (i + 2 <= np) {
+    const int rows[2] = {rg + rgs * i, rg + rgs * (i + 1)};
+    asm_rows<2>(rows, m, rt, wp, cg, w, out, ld_out, nrows, vo);
+    i += 2;
+  }
+  if (i < np) {
+    const int rows[1] = {rg + rgs * i};
+    asm_rows<1>(rows, m, rt, wp, cg, w, out, ld_out, nrows, vo);
+  }
 }
 
 // Position of one K index in the packed order (offset oy·ndx + ox, input
@@ -182,8 +393,9 @@ struct KPos {
   }
 };
 
-// VEC: every width a multiple of 4 and x, xi 16-byte aligned, so each
-// 4-lane group of K or of the tile's columns is 16 contiguous bytes.
+// VEC: every width a multiple of 4 and x, xi, out 16-byte aligned, so each
+// 4-lane group of K, of the tile's columns or of an output row is 16
+// contiguous bytes.
 // The 128-row variant keeps its 64 accumulators, 32 A and 8 B values a
 // thread in registers at one CTA an SM (168 registers, no spills); capped
 // at two CTAs it spills.
@@ -313,7 +525,7 @@ __global__ void __launch_bounds__(THREADS, BM == 128 ? 1 : 2)
   __syncthreads();  // the ring is free: the ASM epilogue reuses it
 
   const bool do_asm = a.cat != nullptr;
-  float* Cs = smem;  // [BM][BN]
+  float* Cs = smem;  // [BM][LDC]
 #pragma unroll
   for (int i = 0; i < TM; ++i) {
     const long long r = m0 + ty + 16 * i;
@@ -329,7 +541,7 @@ __global__ void __launch_bounds__(THREADS, BM == 128 ? 1 : 2)
         if (a.res != nullptr && l < a.w_r) v += a.res[(r * a.cout + co) * a.w_r + l];
       }
       if (do_asm) {
-        Cs[(ty + 16 * i) * BN + tc] = v;
+        Cs[(ty + 16 * i) * LDC + tc] = v;
       } else if (ok) {
         float* orow = a.out + (r * a.cout + co) * a.w_o;
         if (l < a.w_o) orow[l] = v;
@@ -339,45 +551,87 @@ __global__ void __launch_bounds__(THREADS, BM == 128 ? 1 : 2)
   }
   if (!do_asm) return;
 
-  float* cat = smem + BM * BN;
-  float* rt = cat + a.w_o * 2 * NF;
-  float* scratch = rt + NF * a.w_o;
-  for (int e = t; e < a.w_o * 2 * NF; e += THREADS) cat[e] = a.cat[e];
-  for (int e = t; e < NF * a.w_o; e += THREADS) rt[e] = a.rt[e];
-  __syncthreads();
-  const int warp = t >> 5, lane = t & 31;
-  for (int pr = warp; pr < BM * a.cpt; pr += WARPS) {
-    const int rl = pr / a.cpt, ch = pr - rl * a.cpt;
-    const long long r = m0 + rl;
-    const int co = c0 + ch;
-    if (r >= a.m_rows || co >= a.cout) continue;  // uniform across the warp
-    asm_row(Cs + rl * BN + ch * a.w_o, a.w_o, cat, rt, scratch + warp * NF,
-            a.out + (r * a.cout + co) * a.w_o, lane);
+  // ASM of the tile's (row, channel) pairs, one channel's BM rows at a time
+  float* cat = smem + BM * LDC;
+  float* rt = cat + round4(a.w_o) * 2 * NF;
+  float* msk = rt + NF * round4(a.w_o);
+  stage_asm_ops(a.cat, a.rt, a.w_o, cat, rt);
+  const int rows = (int)(a.m_rows - m0 < BM ? a.m_rows - m0 : BM);
+  for (int ch = 0; ch < a.cpt && c0 + ch < a.cout; ++ch) {
+    __syncthreads();  // Cs, cat and rt written; the last channel's msk read
+    asm_tile<TM, VEC>(Cs + ch * a.w_o, LDC, a.w_o, a.w_o, cat, rt, msk,
+                      a.out + (m0 * a.cout + c0 + ch) * a.w_o,
+                      (long long)a.cout * a.w_o, rows, VEC);
   }
 }
 
-__global__ void __launch_bounds__(THREADS) asm_kernel(
+// ASM ReLU over rows of x (row stride ld_in) read at w lanes, into out
+// (row stride ld_out).  Persistent CTAs walk tiles of ASM_BM rows, the next
+// tile in flight while this one is computed.  VIN: w, ld_in and x allow
+// 16-byte copies; VO: out and ld_out allow float4 stores.  BULK (VO, rows
+// of at most 64 lanes with zero lanes past w): a tile's output rows,
+// contiguous in out, are gathered in shared memory, whose lanes from
+// round4(w) are zeroed once, and stored by one bulk copy, so the threads
+// issue no stores for the zero lanes; otherwise out's lanes from w are
+// already zero and the threads store the w lanes.
+__global__ void __launch_bounds__(THREADS, 2) asm_kernel(
     const float* x, const float* catg, const float* rtg, float* out,
-    long long rows, int ld_in, int w, int ld_out) {
-  extern __shared__ float smem[];
+    long long rows, int ld_in, int w, int ld_out, bool vin, bool vo,
+    bool bulk) {
+  extern __shared__ __align__(16) float smem[];
+  const int wp = round4(w), ldt = asm_ldt(w);
   float* cat = smem;
-  float* rt = cat + w * 2 * NF;
-  float* tbuf = rt + NF * w;
-  float* scratch = tbuf + WARPS * NF;
-  for (int e = threadIdx.x; e < w * 2 * NF; e += THREADS) cat[e] = catg[e];
-  for (int e = threadIdx.x; e < NF * w; e += THREADS) rt[e] = rtg[e];
-  __syncthreads();
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  float* tw = tbuf + warp * NF;
-  for (long long r = (long long)blockIdx.x * WARPS + warp; r < rows;
-       r += (long long)gridDim.x * WARPS) {
-    const float* xr = x + r * ld_in;
-    for (int l = lane; l < w; l += 32) tw[l] = xr[l];
-    __syncwarp();
-    float* orow = out + r * ld_out;
-    asm_row(tw, w, cat, rt, scratch + warp * NF, orow, lane);
-    for (int l = w + lane; l < ld_out; l += 32) orow[l] = 0.f;
+  float* rt = cat + wp * 2 * NF;
+  float* msk = rt + NF * wp;
+  float* tiles = msk + ASM_BM * LDM;  // two of ASM_BM × ldt
+  float* obuf = tiles + 2 * ASM_BM * ldt;  // ASM_BM × ld_out
+  const long long ntiles = (rows + ASM_BM - 1) / ASM_BM;
+  // rows of tile tl into dst: w lanes, zero to wp; rows past the end zero.
+  // This thread copies lane group cc of rows cr0, cr0 + cstep, ...
+  const int per = vin ? wp >> 2 : wp, cstep = THREADS / per;
+  const int cr0 = threadIdx.x / per;
+  const int cc = (threadIdx.x - cr0 * per) * (vin ? 4 : 1);
+  auto load = [&](long long tl, float* dst) {
+    const long long r0 = tl * ASM_BM;
+    if (cr0 >= cstep) return;
+    for (int r = cr0; r < ASM_BM; r += cstep) {
+      const bool ok = r0 + r < rows && cc < w;
+      const float* src = ok ? x + (r0 + r) * ld_in + cc : x;
+      if (vin)
+        cp_async<16>(dst + r * ldt + cc, src, ok);
+      else
+        cp_async<4>(dst + r * ldt + cc, src, ok);
+    }
+  };
+  long long tile = blockIdx.x;
+  load(tile, tiles);
+  cp_async_commit();
+  stage_asm_ops(catg, rtg, w, cat, rt);
+  if (bulk)
+    for (int e = threadIdx.x; e < ASM_BM * ld_out; e += THREADS)
+      obuf[e] = 0.f;
+  for (int it = 0; tile < ntiles; ++it, tile += gridDim.x) {
+    if (bulk && threadIdx.x == 0) bulk_wait_read();  // obuf is free
+    cp_async_wait<0>();
+    // this tile landed for every thread; every thread is done with the
+    // last tile, whose buffer the next load overwrites, and with msk
+    __syncthreads();
+    if (tile + gridDim.x < ntiles)
+      load(tile + gridDim.x, tiles + ((it + 1) & 1) * ASM_BM * ldt);
+    cp_async_commit();
+    const long long r0 = tile * ASM_BM;
+    const int nrows = (int)(rows - r0 < ASM_BM ? rows - r0 : ASM_BM);
+    asm_tile<ASM_BM / 16, true>(tiles + (it & 1) * ASM_BM * ldt, ldt, wp, w,
+                                cat, rt, msk, bulk ? obuf : out + r0 * ld_out,
+                                ld_out, nrows, vo);
+    if (bulk) {
+      fence_async_smem();
+      __syncthreads();
+      if (threadIdx.x == 0)
+        bulk_store(out + r0 * ld_out, obuf, nrows * ld_out * 4);
+    }
   }
+  if (bulk && threadIdx.x == 0) bulk_wait();
 }
 
 // Dynamic shared memory of one banded_conv CTA of bm rows, in bytes.
@@ -438,7 +692,7 @@ int jk_banded_conv(const float* x, const float* xi, const float* shift,
   if (a.m_rows == 0) return 0;
   const bool vec = w_in % 4 == 0 && w_x % 4 == 0 && w_b % 4 == 0 &&
                    a.wv % 4 == 0 && (uintptr_t)x % 16 == 0 &&
-                   (uintptr_t)xi % 16 == 0;
+                   (uintptr_t)xi % 16 == 0 && (uintptr_t)out % 16 == 0;
   const int smem = conv_smem(w_o, cat != nullptr, bm);
   const cudaStream_t st = (cudaStream_t)stream;
   if (bm == 128)
@@ -450,21 +704,46 @@ int jk_banded_conv(const float* x, const float* xi, const float* shift,
 
 int jk_asm(const float* x, const float* cat, const float* rt, float* out,
            long long rows, int ld_in, int w, int ld_out, void* stream) {
-  static bool configured = false;
-  if (!configured) {
+  if (w < 1 || w > MAX_W || ld_in < w || ld_out < w)
+    return (int)cudaErrorInvalidValue;
+  if (rows == 0) return 0;
+  const bool vin = w % 4 == 0 && ld_in % 4 == 0 && (uintptr_t)x % 16 == 0;
+  const bool vo = ld_out % 4 == 0 && (uintptr_t)out % 16 == 0;
+  // rows with zero lanes go out by the bulk copy; full rows (w == ld_out)
+  // by the threads, which saves the copy's barrier a tile
+  const bool bulk = vo && w < ld_out && ld_out <= NF;
+  // per process: the SM count and, per width and store path, the CTAs an
+  // SM holds
+  static int sms = 0;
+  static int per_sm[2][MAX_W + 1];
+  const int smem = asm_kernel_floats(w, bulk) * 4;
+  if (sms == 0) {
     cudaError_t e = cudaFuncSetAttribute(
         asm_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (MAX_W * 2 * NF + NF * MAX_W + 2 * WARPS * NF) * 4);
+        asm_kernel_floats(MAX_W, true) * 4);
+    int dev = 0;
+    if (e == cudaSuccess) e = cudaGetDevice(&dev);
+    if (e == cudaSuccess)
+      e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     if (e != cudaSuccess) return (int)e;
-    configured = true;
   }
-  if (w < 1 || w > MAX_W || ld_in < w || ld_out < w) return (int)cudaErrorInvalidValue;
-  if (rows == 0) return 0;
-  const long long want = (rows + WARPS - 1) / WARPS;
-  const unsigned blocks = (unsigned)(want < 2112 ? want : 2112);
-  const size_t smem = (size_t)(w * 2 * NF + NF * w + 2 * WARPS * NF) * 4;
-  asm_kernel<<<blocks, THREADS, smem, (cudaStream_t)stream>>>(
-      x, cat, rt, out, rows, ld_in, w, ld_out);
+  int& ctas = per_sm[bulk][w];
+  if (ctas == 0) {
+    cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &ctas, asm_kernel, THREADS, smem);
+    if (e != cudaSuccess) return (int)e;
+    if (ctas < 1) return (int)cudaErrorInvalidConfiguration;
+  }
+  const long long tiles = (rows + ASM_BM - 1) / ASM_BM;
+  const long long cap = (long long)ctas * sms;
+  if (!bulk && ld_out > w) {
+    const cudaError_t e = cudaMemsetAsync(
+        out, 0, (size_t)rows * ld_out * sizeof(float), (cudaStream_t)stream);
+    if (e != cudaSuccess) return (int)e;
+  }
+  asm_kernel<<<(unsigned)(tiles < cap ? tiles : cap), THREADS, smem,
+               (cudaStream_t)stream>>>(x, cat, rt, out, rows, ld_in, w,
+                                       ld_out, vin, vo, bulk);
   return (int)cudaGetLastError();
 }
 

@@ -12,6 +12,7 @@ launch builds.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -126,6 +127,11 @@ def use(path: Path | str) -> ctypes.CDLL:
     return lib
 
 
+@functools.lru_cache(maxsize=None)
+def _capability(dev: torch.device) -> tuple[int, int]:
+    return torch.cuda.get_device_capability(dev)
+
+
 def check_device(*tensors: torch.Tensor,
                  dtypes: tuple[torch.dtype, ...] = (torch.float32,)) -> None:
     """Raise unless every tensor is contiguous, of a dtype in ``dtypes``,
@@ -138,7 +144,7 @@ def check_device(*tensors: torch.Tensor,
             raise ValueError(f"kernel operands must be contiguous {names} "
                              f"on {dev}; got {t.dtype} on {t.device} "
                              f"(contiguous={t.is_contiguous()})")
-    cap = torch.cuda.get_device_capability(dev)
+    cap = _capability(dev)
     if cap < (9, 0):
         raise RuntimeError(f"the kernels are built for sm_90a; device {dev} "
                            f"has compute capability {cap}")

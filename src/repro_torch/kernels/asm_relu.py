@@ -1,19 +1,26 @@
 """ASM ReLU (paper §4.2) over rows of zigzag coefficients — CUDA kernel.
 
 Replaces ``repro/kernels/asm_relu.py:asm_relu_pallas``.  Each row of ``nf``
-lanes is read at its first ``bands`` lanes; a warp computes
-``both = t @ cat`` (``cat`` = ``[R_φ | R]`` packed ``(bands, 128)``), masks
-the exact reconstruction ``both[64:]`` by ``both[:64] > 0`` and maps back
-with ``recon_t`` ``(64, bands)``; lanes at and above ``bands`` are written
-as zero.  ``cat`` and ``recon_t`` sit in shared memory for the whole
-launch, so device memory sees each row once in and once out.
+lanes is read at its first ``bands`` lanes; ``both = t @ cat`` (``cat`` =
+``[R_φ | R]`` packed ``(bands, 128)``) gives the approximate and the exact
+reconstruction, the exact one is masked by ``both[:64] > 0`` and mapped
+back with ``recon_t`` ``(64, bands)``; lanes at and above ``bands`` are
+written as zero.
 
-Bound: 192 FFMA per element moved (64·2 + 64 multiply-adds per lane), so
-the fp32 FFMA rate bounds it, not memory.  The Pallas kernel padded rows
-up to a ``pick_tile`` tile; the CUDA grid strides over rows and needs no
-padding.  In training the kernel sits in the autograd graph; its backward
-is plain PyTorch in closed form (the reference package has no backward
-kernel either).
+Bound: 192 FFMA per lane read, so the fp32 FFMA rate bounds it at 64
+bands; at 16 bands bytes and operations are about even.  The kernel
+(``csrc/jpeg_kernels.cu:asm_kernel``) runs persistent CTAs that hold
+``cat`` and ``recon_t`` in shared memory for the whole launch and walk
+tiles of 128 rows, the next tile in flight by ``cp.async`` while this one
+is computed by ``asm_tile``, the routine the fused block's ASM epilogue
+shares: both products register-blocked (a thread holds 8 rows × 4
+frequencies of both halves, so the mask is applied in registers), the
+masked tile in shared memory once between them, and the tile's output
+stored from shared memory by one bulk copy.  Device memory sees each row
+once in and once out.  The Pallas kernel padded rows up to a
+``pick_tile`` tile; here the ragged last tile is masked.  In training the
+kernel sits in the autograd graph; its backward is plain PyTorch in closed
+form (the reference package has no backward kernel either).
 """
 from __future__ import annotations
 
@@ -33,7 +40,7 @@ LAUNCHES = 0
 
 
 @functools.lru_cache(maxsize=None)
-def _operands(phi: int, bands: int, device: str) -> PackedAsm:
+def _operands(phi: int, bands: int, device: torch.device) -> PackedAsm:
     # normal tensors even when first made under inference_mode: the plain
     # version's autograd saves them
     with torch.inference_mode(False):
@@ -50,7 +57,7 @@ def asm_relu_plain(coef: torch.Tensor, phi: int = 14,
     """Plain PyTorch version of :func:`asm_relu`."""
     nf, b = coef.shape[-1], _bands(coef, bands)
     t = coef.reshape(-1, nf)[:, :b]
-    out = packed_asm_apply(t, _operands(phi, b, str(coef.device)))
+    out = packed_asm_apply(t, _operands(phi, b, coef.device))
     return F.pad(out, (0, nf - b)).reshape(coef.shape)
 
 
@@ -62,7 +69,7 @@ def asm_relu_backward_plain(coef: torch.Tensor, grad: torch.Tensor,
     reference package, so ``∂coef = ((grad @ recon_t.T) · mask) @ recon.T``
     at the first ``bands`` lanes and zero above them."""
     nf, b = coef.shape[-1], _bands(coef, bands)
-    pa = _operands(phi, b, str(coef.device))
+    pa = _operands(phi, b, coef.device)
     nfreq = pa.cat.shape[1] // 2
     t = coef.reshape(-1, nf)[:, :b]
     mask = (t @ pa.cat[:, :nfreq]) > 0
@@ -75,13 +82,13 @@ def _launch(coef: torch.Tensor, phi: int, bands: int | None) -> torch.Tensor:
     global LAUNCHES
     coef = coef.contiguous()
     nf, b = coef.shape[-1], _bands(coef, bands)
-    pa = _operands(phi, b, str(coef.device))
+    pa = _operands(phi, b, coef.device)
     _build.check_device(coef, pa.cat, pa.recon_t)
     out = torch.empty_like(coef)
-    lib = _build.library()
-    err = lib.jk_asm(coef.data_ptr(), pa.cat.data_ptr(),
-                     pa.recon_t.data_ptr(), out.data_ptr(),
-                     coef.numel() // nf, nf, b, nf, _build.stream_of(coef))
+    err = _build.library().jk_asm(
+        coef.data_ptr(), pa.cat.data_ptr(), pa.recon_t.data_ptr(),
+        out.data_ptr(), coef.numel() // nf, nf, b, nf,
+        _build.stream_of(coef))
     _build.launch_check(err, "asm_relu")
     LAUNCHES += 1
     return out
@@ -109,7 +116,12 @@ def asm_relu(coef: torch.Tensor, phi: int = 14,
     """ASM ReLU over ``(..., nf)`` coefficients at their first ``bands``
     lanes (default all ``nf``); the output keeps ``nf`` lanes, zero above
     ``bands``.  A CPU tensor takes :func:`asm_relu_plain`; a CUDA tensor
-    launches the kernel (differentiably) or raises."""
+    launches the kernel (differentiably) or raises.  Where no gradient is
+    wanted the kernel is launched without the autograd ``Function``, whose
+    cost to issue exceeds the kernel's time at the served walk's row
+    counts (PERF.md)."""
     if coef.device.type == "cpu":
         return asm_relu_plain(coef, phi, bands)
-    return _AsmRelu.apply(coef, phi, bands)
+    if torch.is_grad_enabled() and coef.requires_grad:
+        return _AsmRelu.apply(coef, phi, bands)
+    return _launch(coef, phi, bands)

@@ -37,20 +37,24 @@ __all__ = ["LAUNCHES", "TILE_ROWS", "jpeg_conv", "jpeg_conv_plain",
 #: kernel launches made by :func:`jpeg_conv`
 LAUNCHES = 0
 
-# tile geometry of banded_conv_kernel (csrc/jpeg_kernels.cu)
-_BN, _BK, _LDA, _STAGES, _WARPS, _NF = 128, 32, 36, 2, 8, 64
+# tile geometry of banded_conv_kernel (csrc/jpeg_kernels.cu): the GEMM
+# ring, and the ASM epilogue's tile and masked tile row strides
+_BN, _BK, _LDA, _STAGES, _NF = 128, 32, 36, 2, 64
+_LDC, _LDM = _BN + 4, _NF + 4
 #: output rows per tile: the kernel's two variants
 TILE_ROWS = (128, 64)
 
 
 def conv_smem_bytes(w_o: int, with_asm: bool, bm: int = 128) -> int:
     """Dynamic shared memory of one banded-conv CTA of ``bm`` rows (mirrors
-    ``jk_banded_conv_smem`` in the CUDA source): the GEMM ring, or the ASM
-    epilogue's tile and operators where that is larger."""
+    ``jk_banded_conv_smem`` in the CUDA source): the GEMM ring or, with the
+    ASM epilogue where it is larger, the epilogue's output tile, ``cat`` and
+    ``recon_t`` at ``w_o`` rounded up to 4 lanes, and the masked tile."""
     gemm = _STAGES * (bm * _LDA + _BK * _BN)
     if not with_asm:
         return gemm * 4
-    return max(gemm, bm * _BN + w_o * 2 * _NF + _NF * w_o + _WARPS * _NF) * 4
+    wp = -(-w_o // 4) * 4
+    return max(gemm, bm * _LDC + wp * 3 * _NF + bm * _LDM) * 4
 
 
 @functools.lru_cache(maxsize=None)

@@ -5,7 +5,8 @@ Needs an NVIDIA GPU of compute capability 9.0 (the kernels are built for
 
     python -m pytest -q tests/test_torch_cuda_kernels.py
 
-Covers ragged row counts, every per-channel width 8…64, both shortcut
+Covers ragged row counts, every ASM width 1…64 (all-zero rows and rows
+whose approximation is exactly 0 among them), both shortcut
 kinds and both strides of the fused block, the banded conv's 16-byte and
 4-byte K paths in its 128- and 64-row variants, both block-transform
 operators, the launch counters, the autograd wrappers' gradients against
@@ -50,9 +51,18 @@ def _close(got, want, rtol):
     assert err <= tol, (err, tol)
 
 
-@pytest.mark.parametrize("w", list(range(8, 65, 8)))
-@pytest.mark.parametrize("rows", [1, 37, 4099])
+#: asm_kernel's tiles are 128 rows: one row, one short of a tile, one past
+#: it, a whole number of tiles, and more tiles than the persistent CTAs,
+#: ragged
+ASM_ROWS = [1, 127, 129, 4736, 50001]
+
+
+@pytest.mark.parametrize("w", list(range(1, 65)))
+@pytest.mark.parametrize("rows", ASM_ROWS)
 def test_asm_relu_every_width(dev, w, rows):
+    """Rows read at w of 64 lanes (16-byte copies where w % 4 == 0, float4
+    stores) and rows of w lanes (4-byte copies and scalar stores where
+    w % 4 != 0)."""
     g = torch.Generator(device=dev).manual_seed(w + rows)
     x = torch.randn((rows, 64), generator=g, device=dev)
     before = kasm.LAUNCHES
@@ -61,6 +71,32 @@ def test_asm_relu_every_width(dev, w, rows):
     _close(got, kasm.asm_relu_plain(x, 8, bands=w), 2e-5)
     narrow = x[:, :w].contiguous()
     _close(kasm.asm_relu(narrow, 14), kasm.asm_relu_plain(narrow, 14), 2e-5)
+
+
+@pytest.mark.parametrize("w", [6, 16, 64])
+def test_asm_relu_zero_and_masked_rows(dev, w):
+    """All-zero rows, and rows whose approximation is exactly 0 (φ = 0
+    keeps only DC, and DC is 0) while the exact reconstruction is not: the
+    mask is off on both paths, so those rows come out exactly 0."""
+    g = torch.Generator(device=dev).manual_seed(w)
+    x = torch.randn((4099, 64), generator=g, device=dev)
+    x[::3] = 0
+    x[1::3, 0] = 0
+    for phi in (0, 14):
+        got = kasm.asm_relu(x, phi, bands=w)
+        _close(got, kasm.asm_relu_plain(x, phi, bands=w), 2e-5)
+        assert not got[::3].any()
+    assert not kasm.asm_relu(x, 0, bands=w)[1::3].any()
+
+
+@pytest.mark.parametrize("nf,w", [(72, 16), (66, 64), (9, 7)])
+def test_asm_relu_rows_the_output_tile_does_not_take(dev, nf, w):
+    """Rows wider than 64 lanes, or of a width that is not a multiple of
+    4, are stored by the threads instead of the bulk copy."""
+    x = torch.randn((3001, nf), device=dev)
+    got = kasm.asm_relu(x, 14, bands=w)
+    _close(got, kasm.asm_relu_plain(x, 14, bands=w), 2e-5)
+    assert not got[:, w:].any()
 
 
 @pytest.mark.parametrize("stride,r", [(1, 3), (2, 3), (2, 1)])
@@ -170,7 +206,7 @@ def test_tile_rows_follow_the_grid(dev):
 def test_smem_formula_matches_library(dev):
     lib = _build.library()
     for bm in kjc.TILE_ROWS:
-        for w in range(8, 65, 8):
+        for w in range(1, 65):
             for with_asm in (0, 1):
                 assert lib.jk_banded_conv_smem(w, with_asm, bm) == \
                     kjc.conv_smem_bytes(w, bool(with_asm), bm)

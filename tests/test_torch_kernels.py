@@ -183,10 +183,18 @@ def test_fused_block_wide_join_matches_xla_twin():
 
 def test_smem_sizes_fit_one_cta():
     for bm in kjc.TILE_ROWS:
-        for w in range(8, 65, 8):
+        for w in range(1, 65):
             assert kjc.conv_smem_bytes(w, True, bm) <= 227 * 1024
-    # ASM epilogue at w 64: the 128×128 tile, cat, recon_t, warp scratch
-    assert kjc.conv_smem_bytes(64, True) == 4 * (128 * 128 + 192 * 64 + 512)
+    # the 64-row variant runs two CTAs an SM (228 KB, 1 KB reserved a CTA)
+    for w in range(1, 65):
+        assert 2 * (kjc.conv_smem_bytes(w, True, 64) + 1024) <= 228 * 1024
+    # ASM epilogue at w 64: the 128×128 tile at row stride 132, cat,
+    # recon_t, the masked 128×64 tile at row stride 68
+    assert kjc.conv_smem_bytes(64, True) == 4 * (128 * 132 + 192 * 64
+                                                 + 128 * 68)
+    # at w 6 the operators are padded to 8 lanes
+    assert kjc.conv_smem_bytes(6, True, 64) == 4 * (64 * 132 + 192 * 8
+                                                    + 64 * 68)
     # two stages of a 32-wide K slice of A (128 rows of 36 floats) and B
     # (128 columns)
     assert kjc.conv_smem_bytes(16, False) == 2 * 4 * (128 * 36 + 32 * 128)

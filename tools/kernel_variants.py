@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Time variants of the hand-written kernels against the committed ones.
 
-    python3 tools/kernel_variants.py [attention] [conv]
+    python3 tools/kernel_variants.py [attention] [conv] [asm] [--parent DIR]
 
 Each variant is a named set of text edits to ``src/repro_torch/csrc/*.cu``:
 an ablation (a part of the kernel removed, so its results are wrong and
@@ -20,7 +20,14 @@ with ``chip_smoke.cuda_ms`` in two rounds:
   ``jpeg_conv.tile_rows`` picks 64 rows) and an s0b0-shaped
   ``fused_block`` (64 → 64 channels at width 16), each with the 64- and
   the 128-row tiles (forced by replacing ``jpeg_conv.tile_rows``), with
-  the error against the plain version.
+  the error against the plain version;
+* asm: ``asm_relu`` at 262,144 rows of 64 lanes read at w = 16, 32, 48
+  and 64, and ``fused_block`` at s0b0 (x (4, 32, 32, 64·16), 64 → 64
+  channels, width 16) and s1b0 (64 → 128 channels, stride 2, projection),
+  each with the 64- and the 128-row banded-conv tiles.  With ``--parent
+  DIR`` (a directory holding an earlier ``csrc/*.cu``, such as ``git
+  archive`` of the parent commit's ``src/repro_torch/csrc``), the set also
+  times that source as it is and with its ASM epilogue skipped.
 
 Needs one CUDA card of capability 9.0 and ``nvcc``; prints the card's
 name and power limit first.
@@ -29,6 +36,7 @@ import json
 import os
 import subprocess
 import sys
+from pathlib import Path
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path[:0] = [os.path.join(ROOT, "src"), ROOT]
@@ -86,12 +94,61 @@ SETS = {
         "no FFMA loop": {JK: [("for (int kq = 0; kq < BK; kq += 4) {",
                                "for (int kq = 0; kq < 0; kq += 4) {")]},
     },
+    "asm": {
+        "as committed": {},
+        "no product 2": {JK: [(
+            "kq < NF; kq += 4) {  // product 2's K loop",
+            "kq < 0; kq += 4) {  // product 2's K loop")]},
+        "no loads after the first tile": {JK: [(
+            "if (tile + gridDim.x < ntiles)", "if (false)")]},
+        "no ASM epilogue": {JK: [(
+            "for (int ch = 0; ch < a.cpt && c0 + ch < a.cout; ++ch) {",
+            "for (int ch = 0; ch < 0; ++ch) {")]},
+        "64-row asm_kernel tiles": {JK: [(
+            "constexpr int ASM_BM = 128;", "constexpr int ASM_BM = 64;")]},
+        "asm_kernel at one CTA an SM": {JK: [(
+            "__launch_bounds__(THREADS, 2) asm_kernel(",
+            "__launch_bounds__(THREADS, 1) asm_kernel(")]},
+        "both K loops unrolled by 2": {JK: [
+            ("      for (int kq = 0; kq < kw; kq += 4) {",
+             "#pragma unroll 2\n      for (int kq = 0; kq < kw; kq += 4) {"),
+            ("  for (int kq = 0; kq < NF; kq += 4) {  // product 2's K loop",
+             "#pragma unroll 2\n  for (int kq = 0; kq < NF; kq += 4) {")]},
+        # the stores skipped at run time (the compiler cannot tell, so the
+        # products stay)
+        "no output stores": {JK: [
+            ("if (rows[i] >= nrows) continue;",
+             "if (rows[i] >= nrows || ld_out >= 0) continue;"),
+            ("bulk_store(out + r0 * ld_out, obuf, nrows * ld_out * 4);",
+             ";")]},
+        "stores by the threads, no bulk copy": {JK: [(
+            "const bool bulk = vo && w < ld_out && ld_out <= NF;",
+            "const bool bulk = false;")]},
+        "bulk copy for full rows too": {JK: [(
+            "const bool bulk = vo && w < ld_out && ld_out <= NF;",
+            "const bool bulk = vo && ld_out <= NF;")]},
+        "no product 1": {JK: [("for (int kq = 0; kq < kw; kq += 4) {",
+                               "for (int kq = 0; kq < 0; kq += 4) {")]},
+    },
+}
+
+#: variants of the source before the ASM tile routine (``--parent``): one
+#: warp a (row, channel) pair in the epilogue
+PARENT_SETS = {
+    "asm": {
+        "parent as it is": {},
+        "parent, no ASM epilogue": {JK: [(
+            "for (int pr = warp; pr < BM * a.cpt; pr += WARPS) {",
+            "for (int pr = warp; pr < 0; pr += WARPS) {")]},
+    },
 }
 
 
-def build(name: str, edits: dict) -> tuple[str, str]:
-    """Compile the edited sources into one library; returns its path and
-    the compiler's ``-Xptxas -v`` report."""
+def build(name: str, edits: dict, src_dir: str | None = None
+          ) -> tuple[str, str]:
+    """Compile the edited sources (the committed ones, or those of the same
+    names in ``src_dir``) into one library; returns its path and the
+    compiler's ``-Xptxas -v`` report."""
     from repro_torch.kernels import _build
 
     out = os.path.join(ROOT, "build", "variants",
@@ -99,6 +156,8 @@ def build(name: str, edits: dict) -> tuple[str, str]:
     os.makedirs(out, exist_ok=True)
     paths = []
     for src in _build.SOURCES:
+        if src_dir is not None:
+            src = Path(src_dir) / src.name
         text = src.read_text()
         for old, new in edits.get(src.name, ()):
             if old not in text:
@@ -176,6 +235,40 @@ def conv_cases(dev):
              kfb.fused_block_reference(*ops))]
 
 
+def asm_cases(dev):
+    import torch
+
+    from repro_torch.core import conv as convlib
+    from repro_torch.kernels import asm_relu as kasm
+    from repro_torch.kernels import fused_block as kfb
+    from repro_torch.kernels import tiling
+
+    g = torch.Generator(device=dev).manual_seed(1)
+    t = torch.randn((262144, 64), generator=g, device=dev)
+    cases = []
+    for w in (16, 32, 48, 64):
+        cases.append((f"asm_relu w={w}",
+                      lambda w=w: kasm.asm_relu(t, 14, bands=w),
+                      kasm.asm_relu_plain(t, 14, bands=w)))
+
+    def pc(cin, cout, stride, r):
+        k = torch.randn((cout, cin, r, r), generator=g, device=dev) * 0.05
+        sh = torch.randn((cout,), generator=g, device=dev)
+        return tiling.pack_conv(convlib.explode(k, stride, bands=16), sh,
+                                stride, w_in=16, w_out=16)
+
+    asm = (tiling.pack_asm(14, 16, 16, device=dev),
+           tiling.pack_asm(14, 16, 16, device=dev))
+    x = torch.randn((4, 32, 32, 64 * 16), generator=g, device=dev)
+    for label, cout, s in (("s0b0", 64, 1), ("s1b0", 128, 2)):
+        ops = (x, pc(64, cout, s, 3), asm[0], pc(cout, cout, 1, 3), asm[1],
+               pc(64, cout, s, 1) if s == 2 else None)
+        cases.append((f"fused_block {label}",
+                      lambda ops=ops: kfb.fused_block(*ops),
+                      kfb.fused_block_reference(*ops)))
+    return cases
+
+
 def main() -> None:
     import torch
 
@@ -190,20 +283,32 @@ def main() -> None:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60)
     print(smi.stdout.strip(), flush=True)
-    sets = sys.argv[1:] or list(SETS)
+    args = sys.argv[1:]
+    parent = None
+    if "--parent" in args:
+        i = args.index("--parent")
+        parent = args[i + 1]
+        del args[i:i + 2]
+    sets = args or list(SETS)
     dev = torch.device("cuda", 0)
     libs = {}
+    shown = {"attention": ("flash_attention_tc",),
+             "conv": ("banded_conv",), "asm": ("banded_conv", "asm_kernel")}
     for which in sets:
-        for name, edits in SETS[which].items():
-            lib, log = build(f"{which} {name}", edits)
+        variants = [(name, edits, None) for name, edits in SETS[which].items()]
+        if parent is not None:
+            variants += [(name, edits, parent) for name, edits
+                         in PARENT_SETS.get(which, {}).items()]
+        for name, edits, src_dir in variants:
+            lib, log = build(f"{which} {name}", edits, src_dir)
             libs[(which, name)] = lib
             for line in cs.ptxas_report(log):
-                if ("flash_attention_tc" in line and which == "attention") \
-                        or ("banded_conv" in line and which == "conv"):
+                if any(k in line for k in shown[which]):
                     print(f"{which} / {name}: ptxas {line}", flush=True)
     with torch.inference_mode():
-        cases = {"attention": attention_cases(dev) if "attention" in sets
-                 else [], "conv": conv_cases(dev) if "conv" in sets else []}
+        makers = {"attention": attention_cases, "conv": conv_cases,
+                  "asm": asm_cases}
+        cases = {k: makers[k](dev) for k in sets}
         tile_rows = kjc.tile_rows
         for rnd in range(2):
             for (which, name), lib in libs.items():
@@ -217,13 +322,16 @@ def main() -> None:
                             "ms": ms, "tflops": flops / ms / 1e9,
                             "err_vs_sdpa": float((got.float() - want)
                                                  .abs().max())}
-                for label, fn, want in cases["conv"] if which == "conv" \
-                        else ():
-                    for bm in kjc.TILE_ROWS:
+                for label, fn, want in cases[which] \
+                        if which in ("conv", "asm") else ():
+                    # both banded-conv tile heights; asm_relu has one
+                    for bm in kjc.TILE_ROWS[:1 if "asm_relu" in label
+                                            else 2]:
                         kjc.tile_rows = lambda *_, bm=bm: bm
                         err = float((fn() - want).abs().max())
-                        row[f"{label} bm{bm}"] = {"ms": cs.cuda_ms(fn),
-                                                  "err": err}
+                        key = label if "asm_relu" in label \
+                            else f"{label} bm{bm}"
+                        row[key] = {"ms": cs.cuda_ms(fn), "err": err}
                     kjc.tile_rows = tile_rows
                 print(json.dumps(row), flush=True)
 
