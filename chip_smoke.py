@@ -8,7 +8,10 @@ Phases, each fatal on failure:
 1. device: the card's name and power limit, then the kernels' build
    (one ``nvcc`` per source for ``sm_90a``, all started together, linked
    into ``build/kernels/``) with its time, and each compiled kernel's
-   registers, static shared memory and spills (``-Xptxas -v``);
+   registers, static shared memory and spills (``-Xptxas -v``); beside
+   the build, on the host, the synthetic client writes its 32
+   mixed-quality JFIF files once (every serving phase reads them through
+   ``--jpeg-dir``) and the decode pool's cold start is timed;
 2. every kernel of the serving and training paths against its plain
    PyTorch version on the card, at the paths' own shapes (full
    ``jpeg-resnet``; the serving kernels at 16 bands and batch 4, the block
@@ -23,9 +26,9 @@ Phases, each fatal on failure:
    and a ragged one, where it and the q50 data encode also print the
    kernel's device time from ``torch.profiler`` beside the host's time to
    issue a call;
-3. the compiled server: full ``jpeg-resnet`` from JPEG bytes (the
-   synthetic mixed-quality stream) at 16 bands, batch 4; every batch's
-   logits are held against the same plan run on the plain path;
+3. the compiled server: full ``jpeg-resnet`` from the client's JPEG bytes
+   at 16 bands, batch 4, decode double-buffered against the device; every
+   batch's logits are held against the same plan run on the plain path;
 4. the per-layer walk (``--no-compiled``), held the same way;
 5. one full-width training step (batch 8, 64 bands) on the kernel path
    against the same step on the plain path, from the same weights and
@@ -34,26 +37,46 @@ Phases, each fatal on failure:
    8, four steps, a checkpoint after step 2 and at the end, and the plan
    export; then one batch served from the exported plan through the
    compiled path, held against the plain path;
-7. LM serving, fp32: full-width ``smollm-360m`` (random weights from seed
+7. ``serve --qos --ingest bytes``: full ``jpeg-resnet`` built at 40 bands
+   (``QOS_BANDS``) into a ``--plan-dir``, the default ladder (top, 48, 32,
+   24; b48 shares the top's schedule), batch 8, buckets 1, 2, 4, 8 (one
+   CUDA graph a cell), 32 single-image byte requests as one burst: every
+   served request's logits held against its tier's plain path, no
+   capture after warmup, a replayed graph for every tier served; each
+   distinct tier's bucket-1 and bucket-8 cells of the grid that served,
+   replayed (no new capture) and timed against the same forward run
+   eagerly, bucket 8 on served images held against the plain path; then a
+   restart from the same ``--plan-dir``, 48 requests under a deadline at
+   pass 1's p95 latency, and the tier policy stepping down.  Printed:
+   images/s, latency percentiles, ingest and device walls and the share
+   of ingest that overlapped the device (from the flight recorder), the
+   ladder's device bytes, and phases 3-4 beside them.  Launches: the
+   wrappers' counts (eager runs: each cell's warm-up before its capture,
+   the top-tier probe) plus each cell's per-replay launches, recorded at
+   its capture, times its replays;
+8. LM serving, fp32: full-width ``smollm-360m`` (random weights from seed
    0) prefills 4 prompts of 2048 tokens (cache grown to 2048 + 32) and
    decodes 32 steps, on the kernel path and on the plain path, both fed
    the plain path's greedy tokens: logits and the prefill's KV cache held
    within 1e-3 of the largest |value|, top-1 agreeing wherever the plain
    path's top-2 gap exceeds twice the logit error;
-8. the same in bf16 (the published dtype) from the same weights: the
-   kernel path's logit error against step 7's fp32 plain path at most 1.5×
+9. the same in bf16 (the published dtype) from the same weights: the
+   kernel path's logit error against step 8's fp32 plain path at most 1.5×
    the bf16 plain path's; prefill and decode tokens/s, 32 kernel launches
    per prefill and none per decode step, and a ``torch.profiler``
    breakdown of one prefill and one decode step;
-9. ``repro_torch.launch.serve --arch smollm-360m`` at the reference's
-   defaults: 16 requests completed and its report line;
-10. one ``{"kernels": [...]}`` line, with each kernel's launches in phases
-   3, 4, 6, 7, 8 and 9 (each path driven with the counts set to 0 just
-   before it and read just after), then the ``{"ok": true, ...}`` line last.
+10. ``repro_torch.launch.serve --arch smollm-360m`` at the reference's
+   defaults but 8 requests (``LM_SERVE_REQUESTS``): all completed and its
+   report line;
+11. one ``{"kernels": [...]}`` line, with each kernel's launches in phases
+   3, 4, 6, 7, 8, 9 and 10 (each path driven with the counts set to 0
+   just before it and read just after), then the ``{"ok": true, ...}``
+   line last.
 
 It imports neither JAX nor the reference package, exits non-zero without
 CUDA, and needs one card.
 """
+import atexit
 import dataclasses
 import json
 import os
@@ -62,6 +85,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -74,6 +98,16 @@ PEAK_FP32_FLOPS = 67e12
 PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES = 3.35e12
 BANDS, BATCH = 16, 4
+#: the synthetic client's files, made once for every serving phase
+CLIENT_IMAGES = 32
+#: phase 7's plan: the widest budget at which stage 0's Ξ (64 → 64
+#: channels, 9 block offsets: 36,864·b² elements) fits the materialise
+#: limit of 64 Mi elements, so every tier fuses s0 and runs s1b0's
+#: projection through jpeg_conv; at 48 or 64 bands every conv but the
+#: stem is factored, and a tier keeps a factored layer factored
+QOS_BANDS = 40
+#: phase 7's bursts: pass 1, and the restart under a deadline
+QOS_REQUESTS, QOS_RESTART_REQUESTS = 32, 48
 #: the training batch (the reference trainer's default)
 TRAIN_BATCH = 8
 #: kernel vs plain: fp32 sums in another order over up to 18,432 terms
@@ -103,6 +137,8 @@ BF16_FACTOR = 1.5
 #: largest |value|
 LM_ARCH, LM_BATCH, LM_PROMPT, LM_DECODE = "smollm-360m", 4, 2048, 32
 LM_RTOL = 1e-3
+#: phase 10's requests (the reference's default is 16)
+LM_SERVE_REQUESTS = 8
 JPEG_KERNELS = ("fused_block", "jpeg_conv", "asm_relu", "block_dct",
                 "block_idct")
 KERNELS = JPEG_KERNELS + ("flash_attention",)
@@ -113,8 +149,13 @@ def fail(msg: str) -> None:
     sys.exit(1)
 
 
+_T0 = time.perf_counter()
+
+
 def log(msg: str) -> None:
-    print(f"[chip_smoke] {msg}", flush=True)
+    """One line of the run's log, stamped with seconds since the start."""
+    print(f"[chip_smoke {time.perf_counter() - _T0:6.1f}s] {msg}",
+          flush=True)
 
 
 def cuda_ms(fn, reps: int = 10, trials: int = 3, warmup: int = 2) -> float:
@@ -242,32 +283,27 @@ def asm_flops(pairs: int, w: int) -> float:
 
 def counts() -> dict[str, int]:
     """Every kernel wrapper's launch count."""
-    from repro_torch.kernels import asm_relu, block_dct, flash_attention, \
-        fused_block, jpeg_conv
+    from repro_torch import kernels
 
-    return {"fused_block": fused_block.LAUNCHES,
-            "jpeg_conv": jpeg_conv.LAUNCHES, "asm_relu": asm_relu.LAUNCHES,
-            **block_dct.LAUNCHES,
-            "flash_attention": flash_attention.LAUNCHES}
+    return kernels.launch_counts()
 
 
 def reset_counts() -> None:
-    from repro_torch.kernels import asm_relu, block_dct, flash_attention, \
-        fused_block, jpeg_conv
+    from repro_torch import kernels
 
-    fused_block.LAUNCHES = jpeg_conv.LAUNCHES = asm_relu.LAUNCHES = 0
-    flash_attention.LAUNCHES = 0
-    for k in block_dct.LAUNCHES:
-        block_dct.LAUNCHES[k] = 0
+    kernels.set_launch_counts({k: 0 for k in kernels.launch_counts()})
 
 
-def drive(path: str, required, launches: dict, fn):
+def drive(path: str, required, launches: dict, fn, replayed=None):
     """Run one path of the port with the counts set to 0 just before it,
     add its counts to ``launches`` and fail if a kernel in ``required``
-    was not launched."""
+    was not launched.  ``replayed(out)`` adds the launches that CUDA graph
+    replays made, which the wrappers' counters do not see."""
     reset_counts()
     out = fn()
     got = counts()
+    for k, v in (replayed(out) if replayed else {}).items():
+        got[k] += v
     for k, v in got.items():
         launches[k] += v
     missing = [k for k in required if got[k] <= 0]
@@ -435,7 +471,8 @@ def profile_step(label: str, step) -> None:
         log(f"  {t / 1e3:8.3f} ms  {name[:110]}")
 
 
-def train_and_serve(cfg, dev, ckpt_dir: str, launches: dict) -> None:
+def train_and_serve(cfg, dev, ckpt_dir: str, launches: dict,
+                    jpeg_dir: str) -> None:
     """Phase 6: ``train_loop`` at full width, then one batch served from
     the exported plan through the compiled path."""
     import torch
@@ -474,10 +511,11 @@ def train_and_serve(cfg, dev, ckpt_dir: str, launches: dict) -> None:
     plan = planlib.load_plan(result["plan_dir"], device=dev)
     cp = planlib.load_compiled_plan(
         os.path.join(result["plan_dir"], "compiled"), device=dev)
-    sargs = serve.parse_args(["--arch", "jpeg-resnet", "--batch",
+    sargs = serve.parse_args(["--arch", "jpeg-resnet", "--ingest", "bytes",
+                              "--batch",
                               str(TRAIN_BATCH), "--requests",
                               str(TRAIN_BATCH), "--max-new", "1",
-                              "--seed", "1"])
+                              "--jpeg-dir", jpeg_dir, "--seed", "1"])
     seen = []
     info = {"bands": plan.bands, "compiled": True, "path": cp.meta["path"]}
     report = drive(
@@ -621,7 +659,7 @@ def lm_run(model, params, prompts, feed=None) -> dict:
 
 
 def lm_phases(dev, card: str, launches: dict) -> None:
-    """Phases 7-9: smollm-360m prefill and decode on the kernel path
+    """Phases 8-10: smollm-360m prefill and decode on the kernel path
     against the plain path in fp32 and in bf16, then the LM server."""
     import torch
 
@@ -657,7 +695,7 @@ def lm_phases(dev, card: str, launches: dict) -> None:
     def max_err(a, b) -> float:
         return float((a - b).abs().max())
 
-    # --- phase 7: fp32, kernel path against plain path --------------------
+    # --- phase 8: fp32, kernel path against plain path --------------------
     p32 = lm_run(build_model(cfg32, dispatch=plain_cfg), params32, prompts)
     if p32["prefill_launches"] or p32["decode_launches"]:
         fail("the plain path launched the flash-attention kernel")
@@ -696,7 +734,7 @@ def lm_phases(dev, card: str, launches: dict) -> None:
         f"{p32['decode_s'] * 1e3:.1f} ms")
     del k32["kv"], p32["kv"]
 
-    # --- phase 8: bf16 from the same weights ------------------------------
+    # --- phase 9: bf16 from the same weights ------------------------------
     params16 = T.cast_params(params32, torch.bfloat16)
     del params32
     torch.cuda.empty_cache()
@@ -733,14 +771,239 @@ def lm_phases(dev, card: str, launches: dict) -> None:
     del params16, cache, model
     torch.cuda.empty_cache()
 
-    # --- phase 9: the LM server at the reference's defaults ---------------
+    # --- phase 10: the LM server at the reference's defaults --------------
     report = drive("serve lm", (), launches,
-                   lambda: serve.main(["--arch", LM_ARCH]))
-    if report["completed"] != 16 or report["decode_tokens"] <= 0:
-        fail(f"serve lm: completed {report['completed']} of 16")
-    log(f"serve lm ({LM_ARCH}, bf16, batch 4, ctx 256, 16 requests) "
+                   lambda: serve.main(["--arch", LM_ARCH, "--requests",
+                                       str(LM_SERVE_REQUESTS)]))
+    if report["completed"] != LM_SERVE_REQUESTS \
+            or report["decode_tokens"] <= 0:
+        fail(f"serve lm: completed {report['completed']} of "
+             f"{LM_SERVE_REQUESTS}")
+    log(f"serve lm ({LM_ARCH}, bf16, batch 4, ctx 256, "
+        f"{LM_SERVE_REQUESTS} requests) "
         f"[{card}]: {report['decode_tokens']} decode tokens in "
         f"{report['wall_s']:.3f} s = {report['tokens_per_s']:.1f} tokens/s")
+    torch.cuda.empty_cache()
+
+def trace_overlap(path: str) -> tuple[float, float, float]:
+    """Seconds of ingest decode, of device dispatch, and of their overlap
+    in a flight-recorder trace (``serve --trace-out``)."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+
+    def union(name):
+        spans = sorted((e["ts"], e["ts"] + e["dur"]) for e in events
+                       if e.get("ph") == "X" and e.get("name") == name)
+        out = []
+        for a, b in spans:
+            if out and a <= out[-1][1]:
+                out[-1][1] = max(out[-1][1], b)
+            else:
+                out.append([a, b])
+        return out
+
+    ing, dev = union("ingest-decode"), union("device-dispatch")
+    both = sum(max(0.0, min(b, d) - max(a, c)) for a, b in ing
+               for c, d in dev)
+    return (sum(b - a for a, b in ing) / 1e6,
+            sum(b - a for a, b in dev) / 1e6, both / 1e6)
+
+
+def make_client(cfg, directory: str, out: dict) -> None:
+    """The synthetic client's bytes, made once for every serving phase:
+    ``CLIENT_IMAGES`` mixed-quality JFIF files written to ``directory``
+    (the phases serve them through ``--jpeg-dir``); then the decode pool's
+    cold start, timed on a batch of them.  Runs beside the kernels'
+    build; ``out`` gets the timings, or the exception."""
+    try:
+        from repro_torch.codec import ingest as ingestlib
+        from repro_torch.launch import serve
+
+        t0 = time.perf_counter()
+        make = serve.jpeg_byte_requests(TRAIN_BATCH, cfg, 0)
+        datas = []
+        for step in range(CLIENT_IMAGES // TRAIN_BATCH):
+            datas += make(step)
+        for i, d in enumerate(datas):
+            with open(os.path.join(directory, f"client_{i:03d}.jpg"),
+                      "wb") as f:
+                f.write(d)
+        out["encode_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        n = cfg.image_size // 8
+        ingestlib.ingest_batch(datas[:TRAIN_BATCH], quality=50, grid=(n, n),
+                               channels=cfg.in_channels, with_stats=False)
+        out["pool_start_s"] = time.perf_counter() - t0
+        out["workers"] = ingestlib.ingest_workers()
+    except BaseException as e:  # re-raised by the main thread
+        out["error"] = e
+
+
+def qos_phase(cfg, dev, launches: dict, slot_reports: dict,
+              jpeg_dir: str) -> None:
+    """Phase 7: ``serve --qos --ingest bytes`` at full width (see the
+    module docstring), two passes over one ``--plan-dir``."""
+    import numpy as np
+    import torch
+
+    from repro_torch.codec import ingest as ingestlib
+    from repro_torch.core import dispatch as dsp
+    from repro_torch.core import plan as planlib
+    from repro_torch.launch import serve
+
+    plan_dir = tempfile.mkdtemp(prefix="chip_smoke_qos_")
+    grid = cfg.image_size // 8
+    plain = dsp.DispatchConfig(path="reference")
+    try:
+        base = ["--arch", "jpeg-resnet", "--qos", "--ingest", "bytes",
+                "--bands", str(QOS_BANDS), "--batch", str(TRAIN_BATCH),
+                "--batch-buckets", "1,2,4,8", "--plan-dir", plan_dir,
+                "--jpeg-dir", jpeg_dir, "--seed", "0"]
+        served = {}
+
+        def run(label, extra, on_served=None):
+            args = serve.parse_args(base + extra)
+            t0 = time.perf_counter()
+            out = drive(label, JPEG_KERNELS, launches,
+                        lambda: serve.serve_jpeg_resnet(
+                            args, on_served=on_served),
+                        replayed=lambda r: r["qos"]["graph_launches"])
+            log(f"{label}: entry point took {time.perf_counter() - t0:.2f} "
+                f"s (plan and ladder "
+                f"{'restored' if not out['plan']['built'] else 'built'}, "
+                f"{out['qos']['grid']['cells']} graphs captured in "
+                f"{out['qos']['warmup_s']:.2f} s); replay launches "
+                f"{out['qos']['graph_launches']}")
+            return out
+
+        def hold(ladder, reqs, grid_engine):
+            # every served request against its tier's plain path, while
+            # the grid's cells are alive
+            served.update(ladder=ladder, grid=grid_engine)
+            errs, agree, n = [], 0, 0
+            tiers = {t.name: t for t in ladder.tiers}
+            with torch.inference_mode():
+                for name in sorted({r.tier for _, _, r in reqs}):
+                    group = [(p, r) for _, p, r in reqs if r.tier == name]
+                    cp = tiers[name].compiled
+                    x, _ = ingestlib.ingest_batch(
+                        [p for p, _ in group],
+                        quality=ladder.base.spec.quality, grid=(grid, grid),
+                        channels=cfg.in_channels, pack_width=cp.stem.w_in,
+                        with_stats=False)
+                    want = planlib.apply_compiled_packed(
+                        cp, torch.as_tensor(x).to(dev), plain)
+                    got = torch.as_tensor(
+                        np.stack([r.result() for _, r in group])).to(dev)
+                    errs.append(compare(f"qos {name} logits vs plain", got,
+                                        want, LOGIT_RTOL))
+                    agree += int((got.argmax(-1) == want.argmax(-1)).sum())
+                    n += len(group)
+            served.update(errs=errs, agree=agree, n=n,
+                          x8=[p for _, p, _ in reqs[:TRAIN_BATCH]])
+
+        trace1 = os.path.join(plan_dir, "trace1.json")
+        r1 = run("serve --qos", ["--requests", str(QOS_REQUESTS),
+                                 "--trace-out", trace1], on_served=hold)
+        q = r1["qos"]
+        if r1["completed"] != QOS_REQUESTS or q["compiles_post_warmup"] != 0:
+            fail(f"qos: {r1['completed']} of {QOS_REQUESTS} served, "
+                 f"{q['compiles_post_warmup']} captures after warmup")
+        # a tier that shares an earlier tier's schedule replays its cells
+        column = {t.name: served["ladder"].tiers[t.shared_with].name
+                  if t.shared_with is not None else t.name
+                  for t in served["ladder"].tiers}
+        for tier in q["per_tier"]:
+            if not any(k.startswith(column[tier] + "/")
+                       for k in q["cell_replays"]):
+                fail(f"qos: tier {tier} served with no graph replayed")
+        if served["agree"] != served["n"] or served["n"] != QOS_REQUESTS:
+            fail(f"qos: top-1 agreement {served['agree']}/{served['n']} "
+                 f"< 1.0")
+        ing_s, dev_s, both_s = trace_overlap(trace1)
+        lad = q["ladder"]
+        dir_bytes = sum(os.path.getsize(os.path.join(r, f))
+                        for r, _, fs in os.walk(plan_dir) for f in fs)
+        log(f"qos pass 1: {r1['images_per_s']:.2f} images/s over "
+            f"{r1['wall_s']:.3f} s, latency {r1['latency_ms']}; ingest "
+            f"{q['ingest_wall_s']:.3f} s + device {q['device_wall_s']:.3f} s "
+            f"(trace: ingest {ing_s:.3f} s, device {dev_s:.3f} s, overlap "
+            f"{both_s:.3f} s = {both_s / max(ing_s, 1e-9):.3f} of ingest); "
+            f"batches by tier { {k: v['batches'] for k, v in q['per_tier'].items()} }, "
+            f"switches {[(e['from'], e['to'], e['reason']) for e in q['tier_switches']]}; "
+            f"ladder device bytes {lad['device_bytes']} (top tier alone "
+            f"{lad['top_tier_bytes']}); plan directory {dir_bytes} bytes; "
+            f"tiers "
+            f"{[(t['name'], t['bands'], t['fused']) for t in q['tiers']]}; "
+            f"logits vs each tier's plain path: max abs err "
+            f"{max(served['errs']):.3e}, top-1 agreement "
+            f"{served['agree'] / served['n']}")
+
+        # each distinct tier's bucket-1 and bucket-8 cells, replayed by the
+        # grid that served (no new capture): the replay against the same
+        # forward run eagerly, and bucket 8 on served images held against
+        # the plain path
+        ladder, grid_engine = served["ladder"], served["grid"]
+        with torch.inference_mode():
+            for tier, col in zip(ladder.tiers, grid_engine.columns):
+                if tier.shared_with is not None:
+                    continue
+                cp = tier.compiled
+                rows, _ = ingestlib.ingest_batch(
+                    served["x8"], quality=ladder.base.spec.quality,
+                    grid=(grid, grid), channels=cfg.in_channels,
+                    pack_width=cp.stem.w_in, with_stats=False)
+                for bucket in (1, 8):
+                    cell = col.cells[("bytes", bucket)]
+                    x = torch.as_tensor(rows[:bucket]).to(dev)
+                    if bucket == 8:
+                        compare(f"{tier.name} b8 graph vs plain",
+                                cell(rows).clone(),
+                                planlib.apply_compiled_packed(cp, x, plain),
+                                LOGIT_RTOL)
+                    graph = cell.time_wall(iters=5) * 1e3
+                    eager = cuda_ms(lambda: planlib.apply_compiled_packed(
+                        cp, x), reps=3, warmup=1)
+                    t0 = time.perf_counter()
+                    for _ in range(3):
+                        planlib.apply_compiled_packed(cp, x)
+                    host = (time.perf_counter() - t0) / 3 * 1e3
+                    torch.cuda.synchronize()
+                    log(f"{tier.name} bucket {bucket}: graph replay "
+                        f"{graph:.3f} ms, eager forward {eager:.3f} ms "
+                        f"(host {host:.3f} ms to issue it), "
+                        f"{sum(cell.graph_launches.values())} kernel "
+                        f"launches a replay {cell.graph_launches}")
+        del ladder, grid_engine, served["ladder"], served["grid"]
+        torch.cuda.empty_cache()
+
+        # pass 2: restart from the same --plan-dir with a longer burst
+        # under a deadline at pass 1's p95 latency: the burst's tail is
+        # shed, and the policy steps down (queue depth, deadline slack)
+        deadline = r1["latency_ms"]["p95_ms"]
+        r2 = run("serve --qos restart",
+                 ["--requests", str(QOS_RESTART_REQUESTS),
+                  "--deadline-ms", f"{deadline:.1f}"])
+        q2 = r2["qos"]
+        if r2["plan"]["built"] or not q2["ladder"]["restored"]:
+            fail("qos restart: the plan or the ladder was built again")
+        if not q2["tier_switches"]:
+            fail(f"qos restart: no tier switch under a {deadline:.1f} ms "
+                 f"deadline")
+        log(f"qos pass 2 (deadline {deadline:.1f} ms): "
+            f"{r2['images_per_s']:.2f} images/s, latency "
+            f"{r2['latency_ms']}, completed {r2['completed']} of "
+            f"{QOS_RESTART_REQUESTS}, shed {q2['deadline_shed']}, misses "
+            f"{q2['deadline_misses']}; batches by tier "
+            f"{ {k: v['batches'] for k, v in q2['per_tier'].items()} }; "
+            f"switches {[(e['from'], e['to'], e['reason']) for e in q2['tier_switches']]}")
+        for phase in ("compiled", "per-layer"):
+            r = slot_reports[phase]
+            log(f"beside it, phase 3-4 {phase} (16 bands, batch 4, no "
+                f"graphs): {r['images_per_s']:.2f} images/s, ingest wait "
+                f"{r['ingest_s']:.3f} s + forward {r['forward_s']:.3f} s")
+    finally:
+        shutil.rmtree(plan_dir, ignore_errors=True)
     torch.cuda.empty_cache()
 
 
@@ -775,6 +1038,15 @@ def main() -> None:
     log(f"python {sys.version.split()[0]} torch {torch.__version__} "
         f"cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)} "
         f"capability {torch.cuda.get_device_capability(0)}")
+    # the synthetic client's files and the decode pool's cold start, on
+    # the host beside the build
+    cfg = get_config("jpeg-resnet")
+    client_dir = tempfile.mkdtemp(prefix="chip_smoke_client_")
+    atexit.register(shutil.rmtree, client_dir, True)
+    client: dict = {}
+    maker = threading.Thread(target=make_client,
+                             args=(cfg, client_dir, client))
+    maker.start()
     t0 = time.perf_counter()
     _build.library()
     info = _build.build_log()
@@ -783,13 +1055,20 @@ def main() -> None:
         f"{info.get('cached')}) -> {_build.BUILD_DIR}")
     for line in ptxas_report(str(info.get("ptxas", ""))):
         log(f"ptxas: {line}")
+    maker.join()
+    if "error" in client:
+        raise client["error"]
+    log(f"client: {CLIENT_IMAGES} JFIF files encoded in "
+        f"{client['encode_s']:.2f} s -> {client_dir}; decode pool of "
+        f"{client['workers']} workers started (first batch of "
+        f"{TRAIN_BATCH}) in {client['pool_start_s']:.2f} s, beside the "
+        f"build")
 
     # --- phase 2: kernels against their plain versions ------------------
-    cfg = get_config("jpeg-resnet")
     args = serve.parse_args(["--arch", "jpeg-resnet", "--ingest", "bytes",
                              "--bands", str(BANDS), "--batch", str(BATCH),
                              "--requests", "16", "--max-new", "2",
-                             "--seed", "0"])
+                             "--jpeg-dir", client_dir, "--seed", "0"])
     t0 = time.perf_counter()
     plan, cp, plan_info = serve.prepare_plan(args, cfg, dev)
     torch.cuda.synchronize()
@@ -933,6 +1212,7 @@ def main() -> None:
     walks = (("compiled", True, JPEG_KERNELS),
              ("per-layer", False, ("jpeg_conv", "asm_relu", "block_dct",
                                    "block_idct")))
+    slot_reports = {}
     for phase, compiled, required in walks:
         seen = []
         args.compiled = compiled
@@ -949,6 +1229,7 @@ def main() -> None:
             phase, seen, cfg.num_classes,
             lambda x: (planlib.apply_compiled_packed(cp, x, ref_cfg)
                        if compiled else planlib.apply_plan(plan, x, ref_cfg)))
+        slot_reports[phase] = report
         log(f"{phase}: {report['images_per_s']:.2f} images/s (host ingest "
             f"{report['ingest_s']:.3f} s + forward {report['forward_s']:.3f} "
             f"s), latency {report['latency_ms']}, logits vs plain "
@@ -962,11 +1243,14 @@ def main() -> None:
     # --- phase 6: the trainer, then serving from its exported plan ---------
     ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_train_")
     try:
-        train_and_serve(cfg, dev, ckpt_dir, launches)
+        train_and_serve(cfg, dev, ckpt_dir, launches, client_dir)
     finally:
         shutil.rmtree(ckpt_dir, ignore_errors=True)
 
-    # --- phases 7-9: LM serving ---------------------------------------------
+    # --- phase 7: serve --qos, CUDA graphs over the ladder -----------------
+    qos_phase(cfg, dev, launches, slot_reports, client_dir)
+
+    # --- phases 8-10: LM serving --------------------------------------------
     lm_phases(dev, card, launches)
 
     kernels = []

@@ -46,10 +46,17 @@ def _host(leaf: Any) -> tuple[np.ndarray, str]:
         t = leaf.detach().cpu()
         if t.dtype == torch.bfloat16:
             return t.float().numpy(), "bfloat16"
-        arr = t.numpy().copy()
+        # a host leaf is copied (an asynchronous save must not see later
+        # writes); a device leaf's .cpu() is already a copy
+        arr = t.numpy().copy() if leaf.device.type == "cpu" else t.numpy()
     else:
         arr = np.array(leaf)
     return arr, str(arr.dtype)
+
+
+def _digest(arr: np.ndarray) -> str:
+    """sha256 of the array's C-order bytes, read in place."""
+    return hashlib.sha256(np.ascontiguousarray(arr).data).hexdigest()
 
 
 class CheckpointManager:
@@ -82,7 +89,7 @@ class CheckpointManager:
                 arrays[name] = arr
                 manifest["leaves"][name] = {
                     "path": path, "shape": list(arr.shape), "dtype": dtype,
-                    "sha256": hashlib.sha256(arr.tobytes()).hexdigest()}
+                    "sha256": _digest(arr)}
             np.savez(os.path.join(tmp, "arrays.npz"), **arrays)
             with open(os.path.join(tmp, "manifest.json"), "w") as f:
                 json.dump(manifest, f)
@@ -133,8 +140,7 @@ class CheckpointManager:
         with np.load(os.path.join(d, "arrays.npz")) as z:
             for name, meta in manifest["leaves"].items():
                 arr = z[name]
-                if hashlib.sha256(arr.tobytes()).hexdigest() \
-                        != meta["sha256"]:
+                if _digest(arr) != meta["sha256"]:
                     raise ValueError(f"checksum mismatch in {d}/{name}")
                 by_path[meta["path"]] = arr
         return by_path, manifest
@@ -175,11 +181,15 @@ class CheckpointManager:
         ``FileNotFoundError`` when there is none, or when an explicit step
         is missing or damaged."""
         if step is None:
-            step = next((s for s in reversed(self.steps())
-                         if self._valid(s)), None)
-            if step is None:
-                raise FileNotFoundError(
-                    f"no valid checkpoint under {self.directory}")
+            # newest first, each step read (and verified) once
+            for s in reversed(self.steps()):
+                try:
+                    by_path, manifest = self._read(s)
+                except _READ_ERRORS:
+                    continue
+                return s, by_path, manifest["extra"]
+            raise FileNotFoundError(
+                f"no valid checkpoint under {self.directory}")
         try:
             by_path, manifest = self._read(step)
         except _READ_ERRORS as e:

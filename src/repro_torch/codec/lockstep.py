@@ -44,12 +44,22 @@ import numpy as np
 from repro_torch.core import dct as dctlib
 from repro_torch.codec import bitstream as bs
 
-__all__ = ["LOCKSTEP_MIN_STREAMS", "count_streams", "decode_scans"]
+__all__ = ["LOCKSTEP_MIN_STREAMS", "LOCKSTEP_MIN_PARALLEL", "count_streams",
+           "parallelism", "prefers_lockstep", "decode_scans"]
 
 #: below this many independent streams the vector overhead outweighs the
 #: amortisation and the scalar loop wins; callers use :func:`count_streams`
 #: to pick a path.
 LOCKSTEP_MIN_STREAMS = 8
+
+#: a lockstep step costs the same whether one stream is active or all
+#: are, and the loop runs as many steps as the longest stream has
+#: symbols; so lockstep wins only where the batch's symbols spread over
+#: enough streams.  :func:`parallelism` (total over longest) crosses
+#: even with the scalar decoder at about 40 on a CPU host
+#: (``tools/lockstep_crossover.py``); a batch of 8 images without
+#: restart markers is about 6.
+LOCKSTEP_MIN_PARALLEL = 48
 
 _NF = dctlib.NFREQ
 
@@ -88,6 +98,26 @@ _ADV, _EOB = _ac_luts()
 def count_streams(scans: Sequence[bs.Scan]) -> int:
     """Total independently decodable bit streams across ``scans``."""
     return sum(len(s.segments) for s in scans)
+
+
+def parallelism(scans: Sequence[bs.Scan]) -> float:
+    """Total symbols over the longest stream's: how many streams a lockstep
+    step advances on average.  Entropy-coded bytes stand in for symbols
+    (each symbol with its value bits is a few bits), since they are known
+    before decoding."""
+    sizes = [int(seg.size) for sc in scans for seg in sc.segments]
+    longest = max(sizes, default=0)
+    return sum(sizes) / longest if longest else 0.0
+
+
+def prefers_lockstep(scans: Sequence[bs.Scan]) -> bool:
+    """Whether :func:`decode_scans` beats the scalar decoder on ``scans``:
+    a :func:`parallelism` of at least ``LOCKSTEP_MIN_PARALLEL`` (which
+    implies at least that many streams, so more than
+    ``LOCKSTEP_MIN_STREAMS``).  Both decoders are bit-exact, so the choice
+    changes only the time.  (The reference package chooses by the stream
+    count alone.)"""
+    return parallelism(scans) >= LOCKSTEP_MIN_PARALLEL
 
 
 def _scalar(scan: bs.Scan) -> bs.DecodedJpeg:

@@ -8,6 +8,18 @@ fused residual block — runs along one of three paths:
 * ``factored``  — convolution as decode → spatial conv → encode, for layers
   whose Ξ would exceed ``MATERIALIZE_LIMIT`` elements.
 
+The reference package's ``pallas`` path names its TPU kernels; the port
+accepts ``pallas`` as another name for ``cuda`` (a config, an operator
+path read from a reference plan directory, ``JPEG_DISPATCH`` and
+``serve --dispatch``), so one ``--dispatch`` value means the same in both
+packages.  Plans the port saves write ``pallas`` where it means ``cuda``,
+so that the reference reads them too.
+
+The global config is the reference's: ``JPEG_DISPATCH`` / ``JPEG_BANDS``
+parsed on first use (:func:`get_config`), replaced by :func:`configure`,
+scoped by :func:`override`; a call that passes no config uses it
+(:func:`resolve_config`).
+
 ``auto`` resolves by operator size (factored above the limit), then by
 device: ``cuda`` for CUDA tensors, ``reference`` for CPU ones.  A path is
 resolved per operator when a plan is built; at apply time a config whose
@@ -25,7 +37,9 @@ activations stay 64 lanes wide at op boundaries, zero above the cutoff.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import os
 from typing import NamedTuple
 
 import torch
@@ -35,11 +49,20 @@ from repro_torch.core import batchnorm as bnlib
 from repro_torch.core import conv as convlib
 from repro_torch.core import dct as dctlib
 
-__all__ = ["PATHS", "DispatchConfig", "choose_path", "ConvOperator", "conv",
-           "precompute_conv", "apply_conv", "asm_relu", "batchnorm",
-           "block_dct", "block_idct", "fused_block"]
+__all__ = ["PATHS", "PATH_ALIASES", "DispatchConfig", "get_config",
+           "configure", "override", "resolve_config", "canonical_path",
+           "choose_path", "ConvOperator", "conv", "precompute_conv",
+           "apply_conv", "asm_relu", "batchnorm", "block_dct", "block_idct",
+           "fused_block"]
 
 PATHS = ("reference", "cuda", "factored")
+#: other names of a path: the reference package's ``pallas`` is ``cuda``
+PATH_ALIASES = {"pallas": "cuda"}
+
+
+def canonical_path(path: str) -> str:
+    """``pallas`` → ``cuda``; every other name unchanged."""
+    return PATH_ALIASES.get(path, path)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -53,6 +76,7 @@ class DispatchConfig:
     materialize_limit: int | None = None
 
     def __post_init__(self):
+        object.__setattr__(self, "path", canonical_path(self.path))
         if self.path not in ("auto",) + PATHS:
             raise ValueError(f"unknown dispatch path {self.path!r}")
         if not 1 <= self.bands <= dctlib.NFREQ:
@@ -63,6 +87,51 @@ class DispatchConfig:
         if self.materialize_limit is not None:
             return self.materialize_limit
         return convlib.MATERIALIZE_LIMIT
+
+
+def _from_env() -> DispatchConfig:
+    return DispatchConfig(
+        path=os.environ.get("JPEG_DISPATCH", "auto").strip().lower() or "auto",
+        bands=int(os.environ.get("JPEG_BANDS", dctlib.NFREQ)))
+
+
+# Parsed on first use, so a malformed JPEG_DISPATCH/JPEG_BANDS raises the
+# validating ValueError at the first dispatch call, not at import.
+_CONFIG: DispatchConfig | None = None
+
+
+def get_config() -> DispatchConfig:
+    """The process-wide config (``JPEG_DISPATCH``/``JPEG_BANDS`` until
+    :func:`configure` replaces it)."""
+    global _CONFIG
+    if _CONFIG is None:
+        _CONFIG = _from_env()
+    return _CONFIG
+
+
+def configure(**changes) -> DispatchConfig:
+    """Replace fields of the global config for the rest of the process
+    (the serve entry point's ``--dispatch``/``--bands``)."""
+    global _CONFIG
+    _CONFIG = dataclasses.replace(get_config(), **changes)
+    return _CONFIG
+
+
+@contextlib.contextmanager
+def override(**changes):
+    """Replace fields of the global config inside a ``with`` block."""
+    global _CONFIG
+    prev = get_config()
+    _CONFIG = dataclasses.replace(prev, **changes)
+    try:
+        yield _CONFIG
+    finally:
+        _CONFIG = prev
+
+
+def resolve_config(cfg: DispatchConfig | None) -> DispatchConfig:
+    """``cfg``, or the global config when it is None."""
+    return get_config() if cfg is None else cfg
 
 
 def choose_path(op: str, cfg: DispatchConfig, *, device: torch.device,
@@ -101,6 +170,9 @@ class ConvOperator(NamedTuple):
     ``xi`` is the band-truncated Ξ with any batch-norm scale folded into its
     output-channel axis (None on the factored path, which keeps ``kernel``
     and applies ``scale`` per step); ``shift`` is the folded DC bias.
+    ``bn_scale`` keeps the folded scale even where Ξ absorbed it, as the
+    reference's operator does (its spatial executor and the ladder re-derive
+    a layer from ``kernel``); :func:`apply_conv` never applies it.
     """
 
     xi: torch.Tensor | None
@@ -113,6 +185,7 @@ class ConvOperator(NamedTuple):
     path: str
     scale: torch.Tensor | None = None
     shift: torch.Tensor | None = None
+    bn_scale: torch.Tensor | None = None
 
 
 def conv(coef: torch.Tensor, kernel: torch.Tensor, stride: int = 1, *,
@@ -126,7 +199,7 @@ def conv(coef: torch.Tensor, kernel: torch.Tensor, stride: int = 1, *,
     above ``cfg.bands``."""
     from repro_torch.kernels import jpeg_conv as kjc
 
-    cfg = cfg or DispatchConfig()
+    cfg = resolve_config(cfg)
     path = choose_path("conv", cfg, device=coef.device,
                        op_elems=convlib.operator_elems(kernel.shape, stride,
                                                        cfg.bands))
@@ -149,12 +222,13 @@ def precompute_conv(kernel: torch.Tensor, stride: int = 1, *,
                     shift: torch.Tensor | None = None,
                     cfg: DispatchConfig | None = None) -> ConvOperator:
     """Explode a layer once, on the kernel's device, resolving its path."""
-    cfg = cfg or DispatchConfig()
+    cfg = resolve_config(cfg)
     bands = cfg.bands if bands is None else bands
     path = choose_path("conv", cfg, device=kernel.device,
                        op_elems=convlib.operator_elems(kernel.shape, stride,
                                                        bands))
     xi = None
+    bn_scale = scale
     if path != "factored":
         xi = convlib.explode(kernel, stride, quality=quality,
                              in_scaled=in_scaled, out_scaled=out_scaled,
@@ -162,8 +236,11 @@ def precompute_conv(kernel: torch.Tensor, stride: int = 1, *,
         if scale is not None:
             xi = xi * scale.to(xi)[None, None, None, None, :, None]
             scale = None
+        # explode's einsum leaves Ξ permuted; the kernels read it
+        # contiguous, so copy once here rather than on every launch
+        xi = xi.contiguous()
     return ConvOperator(xi, kernel, stride, bands, quality, in_scaled,
-                        out_scaled, path, scale, shift)
+                        out_scaled, path, scale, shift, bn_scale)
 
 
 def apply_conv(coef: torch.Tensor, op: ConvOperator,
@@ -171,7 +248,7 @@ def apply_conv(coef: torch.Tensor, op: ConvOperator,
     """Apply an operator along its path → 64-wide coefficients (+ shift)."""
     from repro_torch.kernels import jpeg_conv as kjc
 
-    cfg = cfg or DispatchConfig()
+    cfg = resolve_config(cfg)
     path = _runtime_path(op.path, cfg)
     if path == "cuda":
         return kjc.jpeg_conv(coef, op.xi, op.stride, shift=op.shift,
@@ -214,7 +291,7 @@ def block_dct(blocks: torch.Tensor, quality: int | None = None,
     and the tensor's device."""
     from repro_torch.kernels import block_dct as kbd
 
-    path = path or _transform_path(cfg or DispatchConfig(), blocks.device)
+    path = path or _transform_path(resolve_config(cfg), blocks.device)
     fn = kbd.block_dct if path == "cuda" else kbd.block_dct_plain
     return fn(blocks, quality)
 
@@ -226,7 +303,7 @@ def block_idct(coef: torch.Tensor, quality: int | None = None,
     ``path`` as for :func:`block_dct`."""
     from repro_torch.kernels import block_dct as kbd
 
-    path = path or _transform_path(cfg or DispatchConfig(), coef.device)
+    path = path or _transform_path(resolve_config(cfg), coef.device)
     fn = kbd.block_idct if path == "cuda" else kbd.block_idct_plain
     return fn(coef, quality)
 
@@ -243,7 +320,7 @@ def asm_relu(coef: torch.Tensor, phi: int = asmlib.EXACT_PHI,
     ``cfg.bands``); lanes above the cutoff come back zero."""
     from repro_torch.kernels import asm_relu as kasm
 
-    cfg = cfg or DispatchConfig()
+    cfg = resolve_config(cfg)
     bands = cfg.bands if bands is None else bands
     if choose_path("asm_relu", cfg, device=coef.device) == "cuda":
         return kasm.asm_relu(coef, phi, bands=bands)
@@ -258,6 +335,6 @@ def fused_block(x: torch.Tensor, block, *, path: str,
 
     args = (x, block.conv1, block.asm_mid, block.conv2, block.asm_out,
             block.proj)
-    if _runtime_path(path, cfg or DispatchConfig()) == "cuda":
+    if _runtime_path(path, resolve_config(cfg)) == "cuda":
         return kfb.fused_block(*args)
     return kfb.fused_block_reference(*args)

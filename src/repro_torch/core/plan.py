@@ -16,12 +16,19 @@ every materialised block is fused here: the kernels stream Ξ from device
 memory, so ``meta["smem"]`` records each fused block's per-CTA shared
 memory instead.
 
+:func:`capture_compiled` pins the schedule to one input shape: on a CUDA
+device one ``torch.cuda.CUDAGraph`` over static input and output buffers,
+so a served batch costs one graph replay instead of issuing every kernel
+of the walk from Python.
+
 :func:`save_plan`/:func:`load_plan` and :func:`save_compiled_plan`/
 :func:`load_compiled_plan` store both through the checkpoint manager
 (arrays in the checksummed store, the static structure in the manifest's
-``extra``); a restored plan gives bit-identical logits.  The format is
-the port's own: reading plan directories written by the reference
-package is later work.
+``extra``); a restored plan gives bit-identical logits.  They write the
+reference package's formats (plan format 2, compiled format 1, with
+``pallas`` for the port's ``cuda`` path), so either package reads a plan
+directory the other wrote; the port also reads its earlier format
+``repro_torch/1``.
 """
 from __future__ import annotations
 
@@ -44,8 +51,8 @@ from repro_torch.kernels import tiling
 __all__ = ["operator_keys", "build_operators", "InferencePlan", "build_plan",
            "apply_plan", "CompiledStem", "CompiledBlock", "CompiledPlan",
            "compile_plan", "apply_compiled", "apply_compiled_packed",
-           "save_plan", "load_plan", "save_compiled_plan",
-           "load_compiled_plan"]
+           "capture_compiled", "save_plan", "load_plan",
+           "save_compiled_plan", "load_compiled_plan"]
 
 
 def operator_keys(params: Any, spec: resnetlib.ResNetSpec) -> list[str]:
@@ -124,6 +131,10 @@ class InferencePlan(NamedTuple):
     phi: int
     cfg: dispatchlib.DispatchConfig
     bands: dict[str, int]
+    #: how the band assignment was made (``{"bands_mode": "global" |
+    #: "explicit", ...}``, the reference's keys; ladder tiers add
+    #: ``tier_cap``)
+    provenance: Any = None
 
     @property
     def device(self) -> torch.device:
@@ -140,13 +151,15 @@ def build_plan(params: Any, state: Any, spec: resnetlib.ResNetSpec, *,
     per-key dict → explicit assignment.
     """
     phi = spec.phi if phi is None else phi
-    cfg = dispatch or dispatchlib.DispatchConfig()
+    cfg = dispatchlib.resolve_config(dispatch)
     folds = _fold_all(params, state, spec, eps=eps)
     ops = build_operators(params, spec, cfg, folds=folds, bands=bands)
     resolved = {k: _resolve_bands(bands, k, cfg)
                 for k in operator_keys(params, spec)}
+    provenance = {"bands_mode": "global" if bands is None else "explicit",
+                  "budget": None, "probe": False, "energy": None}
     return InferencePlan(ops, params["head"]["w"], params["head"]["b"],
-                         spec, phi, cfg, resolved)
+                         spec, phi, cfg, resolved, provenance)
 
 
 def apply_plan(plan: InferencePlan, coef: torch.Tensor,
@@ -408,16 +421,110 @@ def apply_compiled_packed(cp: CompiledPlan, packed: torch.Tensor,
     return _run_blocks(cp, h, cfg)
 
 
+def capture_compiled(cp: CompiledPlan, shape, *, packed: bool = False,
+                     device: str | torch.device | None = None, pool=None,
+                     on_capture=None):
+    """Pin the schedule to one input shape; returns ``call(x) -> logits``.
+
+    ``shape`` is the whole batch: ``(N, bh, bw, C, 64)`` coefficients, or
+    ``(N, bh, bw, C·stem.w_in)`` with ``packed=True``.  A call at any other
+    shape raises ``ValueError``.
+
+    On a CUDA device the walk runs once eagerly on a side stream, which
+    builds the kernels and fills every cached operand (the kernels'
+    ``lru_cache``s, ``jpeg_conv``'s SM count), then is captured into one
+    ``torch.cuda.CUDAGraph`` over a static input buffer.  ``call(x)``
+    copies ``x`` (device or pinned host memory, ``non_blocking``) into that
+    buffer, replays the graph and returns its static output buffer: the
+    next call overwrites it, so the caller copies or consumes it first.
+    ``pool`` (``torch.cuda.graph_pool_handle()``) lets several captures
+    share one memory pool for their intermediates; each keeps its own
+    static input and output alive, and replays on one stream never
+    overlap.  A failed capture raises: there is no eager fallback.
+
+    The kernel wrappers count launches on the host, so the capture's
+    calls record kernels into the graph and launch nothing: the counts
+    are put back as they were, and ``call.graph_launches`` holds what one
+    replay launches (kernel name → count).
+
+    On the CPU (the path the caller asked for with ``device="cpu"``) the
+    returned ``call`` runs the walk eagerly.  ``on_capture()`` fires once
+    per capture, the counterpart of the reference's compile accounting.
+    """
+    from repro_torch import kernels
+
+    shape = tuple(int(s) for s in shape)
+    apply_fn = apply_compiled_packed if packed else apply_compiled
+    dev = resolve_device(device)
+
+    def check(x):
+        if tuple(x.shape) != shape:
+            raise ValueError(
+                f"captured executable is pinned to shape {shape}, got "
+                f"{tuple(x.shape)}: route through the grid cell for that "
+                f"shape")
+
+    if dev.type != "cuda":
+        def call(x):
+            check(x)
+            with torch.inference_mode():
+                return apply_fn(cp, x)
+
+        call.graph, call.graph_launches = None, {}
+        if on_capture is not None:
+            on_capture()
+        return call
+
+    static_in = torch.zeros(shape, device=dev)
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.inference_mode(), torch.cuda.stream(side):
+        apply_fn(cp, static_in)
+    torch.cuda.current_stream(dev).wait_stream(side)
+    torch.cuda.synchronize(dev)
+    before = kernels.launch_counts()
+    graph = torch.cuda.CUDAGraph()
+    with torch.inference_mode(), torch.cuda.graph(
+            graph, pool=pool, capture_error_mode="thread_local"):
+        static_out = apply_fn(cp, static_in)
+    after = kernels.launch_counts()
+    kernels.set_launch_counts(before)
+
+    def call(x):
+        check(x)
+        static_in.copy_(x, non_blocking=True)
+        graph.replay()
+        return static_out
+
+    call.graph = graph
+    call.graph_launches = {k: after[k] - before[k] for k in after
+                           if after[k] != before[k]}
+    if on_capture is not None:
+        on_capture()
+    return call
+
+
 # --------------------------------------------------------------------------
 # Serialization through the checkpoint manager
 # --------------------------------------------------------------------------
 
-_OP_ARRAYS = ("xi", "kernel", "scale", "shift")
+_OP_ARRAYS = ("xi", "kernel", "scale", "shift", "bn_scale")
 _OP_STATIC = ("stride", "bands", "quality", "in_scaled", "out_scaled", "path")
 _PC_STATIC = ("stride", "ndy", "ndx", "cin", "w_in", "cout", "w_out")
 _PA_STATIC = ("w", "bands", "phi")
-_PLAN_FORMAT = "repro_torch/1"
-_COMPILED_FORMAT = "repro_torch/1"
+_CFG_FIELDS = ("path", "bands", "materialize_limit")
+#: the reference package's formats, which :func:`save_plan` and
+#: :func:`save_compiled_plan` write; the loaders also read the port's
+#: earlier ``repro_torch/1``
+_PLAN_FORMAT = 2
+_COMPILED_FORMAT = 1
+_PORT_FORMAT = "repro_torch/1"
+
+
+def _ref_path(path: str) -> str:
+    """A path name as the reference package spells it (``cuda`` →
+    ``pallas``), so that its loaders accept what the port saves."""
+    return "pallas" if path == "cuda" else path
 
 
 def _leaf_path(key: str) -> str:
@@ -428,6 +535,7 @@ def _leaf_path(key: str) -> str:
 def _op_save(key: str, op: dispatchlib.ConvOperator,
              arrays: dict[str, torch.Tensor]) -> dict[str, Any]:
     meta: dict[str, Any] = {f: getattr(op, f) for f in _OP_STATIC}
+    meta["path"] = _ref_path(op.path)
     for f in _OP_ARRAYS:
         val = getattr(op, f)
         meta[f"has_{f}"] = val is not None
@@ -439,9 +547,21 @@ def _op_save(key: str, op: dispatchlib.ConvOperator,
 def _op_load(key: str, meta: dict[str, Any],
              arr) -> dispatchlib.ConvOperator:
     fields = {f: meta[f] for f in _OP_STATIC}
-    for f in _OP_ARRAYS:
-        fields[f] = arr(f"{key}.{f}") if meta[f"has_{f}"] else None
+    fields["path"] = dispatchlib.canonical_path(fields["path"])
+    for f in _OP_ARRAYS:  # bn_scale is absent from repro_torch/1
+        fields[f] = arr(f"{key}.{f}") if meta.get(f"has_{f}") else None
     return dispatchlib.ConvOperator(**fields)
+
+
+def _cfg_save(cfg: dispatchlib.DispatchConfig) -> dict[str, Any]:
+    return dict(dataclasses.asdict(cfg), path=_ref_path(cfg.path))
+
+
+def _cfg_load(d: dict[str, Any]) -> dispatchlib.DispatchConfig:
+    # the reference's ``interpret`` forces the Pallas interpreter off-TPU;
+    # it has no meaning here and is dropped
+    return dispatchlib.DispatchConfig(
+        **{f: d[f] for f in _CFG_FIELDS if f in d})
 
 
 def _spec_json(spec: resnetlib.ResNetSpec) -> dict[str, Any]:
@@ -452,7 +572,7 @@ def _spec_from(d: dict[str, Any]) -> resnetlib.ResNetSpec:
     return resnetlib.ResNetSpec(**dict(d, widths=tuple(d["widths"])))
 
 
-def _restore(directory: str, step: int | None, kind: str, fmt: str,
+def _restore(directory: str, step: int | None, kind: str, formats: tuple,
              device) -> tuple[dict[str, Any], Any]:
     from repro_torch.checkpoint import CheckpointManager
 
@@ -460,9 +580,9 @@ def _restore(directory: str, step: int | None, kind: str, fmt: str,
     _, by_path, extra = CheckpointManager(directory).restore_tree(step)
     if extra.get("kind") != kind:
         raise ValueError(f"{directory} does not hold a {kind}")
-    if extra.get("format") != fmt:
+    if extra.get("format") not in formats:
         raise ValueError(f"unsupported {kind} format "
-                         f"{extra.get('format')!r} (want {fmt!r})")
+                         f"{extra.get('format')!r} (want one of {formats})")
 
     def arr(key):
         return torch.as_tensor(np.asarray(by_path[_leaf_path(key)])).to(dev)
@@ -470,32 +590,40 @@ def _restore(directory: str, step: int | None, kind: str, fmt: str,
     return extra, arr
 
 
+def _flat_ops(plan: InferencePlan) -> dict[str, dispatchlib.ConvOperator]:
+    out = {}
+    for name, entry in plan.operators.items():
+        if isinstance(entry, dict):
+            out.update({f"{name}/{slot}": op for slot, op in entry.items()})
+        else:
+            out[name] = entry
+    return out
+
+
 def save_plan(plan: InferencePlan, directory: str, step: int = 0,
               keep: int = 3) -> None:
-    """Persist a plan: its arrays through the checksummed, atomic store,
-    its static structure in the manifest's ``extra``."""
+    """Persist a plan in the reference's plan format 2: its arrays through
+    the checksummed, atomic store, its static structure in the manifest's
+    ``extra``."""
     from repro_torch.checkpoint import CheckpointManager
 
     arrays = {"head.w": plan.head_w, "head.b": plan.head_b}
-    meta_ops = {}
-    for name, entry in plan.operators.items():
-        ops = entry.items() if isinstance(entry, dict) else [(None, entry)]
-        for slot, op in ops:
-            key = name if slot is None else f"{name}/{slot}"
-            meta_ops[key] = _op_save(key, op, arrays)
+    meta_ops = {key: _op_save(key, op, arrays)
+                for key, op in _flat_ops(plan).items()}
     extra = {"kind": "jpeg_inference_plan", "format": _PLAN_FORMAT,
              "spec": _spec_json(plan.spec), "phi": plan.phi,
-             "cfg": dataclasses.asdict(plan.cfg), "bands": plan.bands,
-             "ops": meta_ops}
+             "cfg": _cfg_save(plan.cfg), "bands": plan.bands,
+             "provenance": plan.provenance, "ops": meta_ops}
     CheckpointManager(directory, keep=keep).save(step, arrays, extra=extra)
 
 
 def load_plan(directory: str, step: int | None = None,
               device: str | torch.device | None = None) -> InferencePlan:
-    """Restore an :class:`InferencePlan` saved by :func:`save_plan` onto
-    ``device`` (default CUDA); ``step=None`` is the newest valid step."""
+    """Restore an :class:`InferencePlan` that :func:`save_plan` or the
+    reference package's ``save_plan`` wrote, onto ``device`` (default
+    CUDA); ``step=None`` is the newest valid step."""
     extra, arr = _restore(directory, step, "jpeg_inference_plan",
-                          _PLAN_FORMAT, device)
+                          (_PLAN_FORMAT, _PORT_FORMAT), device)
     operators: dict[str, Any] = {}
     for key, meta in extra["ops"].items():
         op = _op_load(key, meta, arr)
@@ -506,15 +634,19 @@ def load_plan(directory: str, step: int | None = None,
             operators[key] = op
     return InferencePlan(operators, arr("head.w"), arr("head.b"),
                          _spec_from(extra["spec"]), int(extra["phi"]),
-                         dispatchlib.DispatchConfig(**extra["cfg"]),
-                         {k: int(v) for k, v in extra["bands"].items()})
+                         _cfg_load(extra["cfg"]),
+                         {k: int(v) for k, v in extra["bands"].items()},
+                         extra.get("provenance"))
 
 
 def save_compiled_plan(cp: CompiledPlan, directory: str, step: int = 0,
                        keep: int = 3) -> None:
-    """Persist a compiled schedule: the packed buffers through the array
-    store, the static schedule into ``extra``.  A restore serves the same
-    buffers with no recompile."""
+    """Persist a compiled schedule in the reference's compiled format 1:
+    the packed buffers through the array store, the static schedule into
+    ``extra``.  A restore serves the same buffers with no recompile.  Each
+    fused block's ``vmem_bytes`` (the reference's TPU budget, which the
+    port does not estimate) is written from ``meta["vmem"]`` where a
+    reference plan brought one, else 0."""
     from repro_torch.checkpoint import CheckpointManager
 
     arrays = {"head.w": cp.head_w, "head.b": cp.head_b}
@@ -529,6 +661,9 @@ def save_compiled_plan(cp: CompiledPlan, directory: str, step: int = 0,
         arrays[f"{prefix}.recon_t"] = pa.recon_t
         return {f: int(getattr(pa, f)) for f in _PA_STATIC}
 
+    meta = dict(cp.meta or {})
+    vmem = meta.get("vmem", {})
+    meta["path"] = _ref_path(meta.get("path", "reference"))
     st = cp.stem
     stem_meta = {"kind": st.kind, "cin": st.cin, "cout": st.cout,
                  "w_in": st.w_in, "w_out": st.w_out,
@@ -540,6 +675,8 @@ def save_compiled_plan(cp: CompiledPlan, directory: str, step: int = 0,
     blocks_meta = []
     for blk in cp.blocks:
         m = {f: getattr(blk, f) for f in CompiledBlock._fields[:9]}
+        m["path"] = _ref_path(blk.path)
+        m["vmem_bytes"] = int(vmem.get(blk.name, 0))
         m["ops"] = {slot: _op_save(f"{blk.name}.ops.{slot}", op, arrays)
                     for slot, op in blk.ops.items()}
         for slot, save in (("conv1", pc_save), ("asm_mid", pa_save),
@@ -550,18 +687,23 @@ def save_compiled_plan(cp: CompiledPlan, directory: str, step: int = 0,
         blocks_meta.append(m)
     extra = {"kind": "jpeg_compiled_plan", "format": _COMPILED_FORMAT,
              "spec": _spec_json(cp.spec), "phi": cp.phi,
-             "cfg": dataclasses.asdict(cp.cfg), "bands": cp.bands,
-             "meta": cp.meta, "stem": stem_meta, "blocks": blocks_meta}
+             "cfg": _cfg_save(cp.cfg), "bands": cp.bands,
+             "meta": meta, "stem": stem_meta, "blocks": blocks_meta}
     CheckpointManager(directory, keep=keep).save(step, arrays, extra=extra)
 
 
 def load_compiled_plan(directory: str, step: int | None = None,
                        device: str | torch.device | None = None
                        ) -> CompiledPlan:
-    """Restore a :class:`CompiledPlan` saved by :func:`save_compiled_plan`
-    onto ``device`` (default CUDA)."""
+    """Restore a :class:`CompiledPlan` that :func:`save_compiled_plan` or
+    the reference package's ``save_compiled_plan`` wrote, onto ``device``
+    (default CUDA).  A reference block's ``vmem_bytes`` (a TPU budget) is
+    kept in ``meta["vmem"]`` and ignored; ``meta["smem"]`` is filled in
+    for fused blocks where the directory has none."""
+    from repro_torch.kernels import fused_block as kfb
+
     extra, arr = _restore(directory, step, "jpeg_compiled_plan",
-                          _COMPILED_FORMAT, device)
+                          (_COMPILED_FORMAT, _PORT_FORMAT), device)
 
     def pc_load(prefix, meta):
         return tiling.PackedConv(arr(f"{prefix}.xi"), arr(f"{prefix}.shift"),
@@ -579,6 +721,9 @@ def load_compiled_plan(directory: str, step: int | None = None,
         pa_load("stem.asm", sm["asm"]) if packed else None,
         _op_load("stem.op", sm["op"], arr), int(sm["cin"]), int(sm["cout"]),
         int(sm["w_in"]), int(sm["w_out"]), int(sm["bands_out"]))
+    meta = dict(extra.get("meta") or {})
+    meta["path"] = dispatchlib.canonical_path(meta.get("path", "reference"))
+    vmem = {}
     blocks = []
     for m in extra["blocks"]:
         name = m["name"]
@@ -588,10 +733,21 @@ def load_compiled_plan(directory: str, step: int | None = None,
                                     ("asm_out", pa_load)) if slot in m}
         ops = {slot: _op_load(f"{name}.ops.{slot}", om, arr)
                for slot, om in m["ops"].items()}
-        blocks.append(CompiledBlock(
-            *(m[f] for f in CompiledBlock._fields[:9]), **parts, ops=ops))
+        common = [m[f] for f in CompiledBlock._fields[:9]]
+        common[8] = dispatchlib.canonical_path(common[8])
+        blocks.append(CompiledBlock(*common, **parts, ops=ops))
+        if "vmem_bytes" in m and m["kind"] == "fused":
+            vmem[name] = int(m["vmem_bytes"])
+    meta.setdefault("vmem", vmem)
+    meta.setdefault("fused", [b.name for b in blocks if b.kind == "fused"])
+    meta.setdefault("layers", {b.name: "factored operator" for b in blocks
+                               if b.kind == "layers"})
+    if "smem" not in meta:
+        meta["smem"] = {b.name: kfb.fused_smem_bytes(b.asm_mid, b.asm_out,
+                                                     b.proj)
+                        for b in blocks if b.kind == "fused"}
     return CompiledPlan(stem, tuple(blocks), arr("head.w"), arr("head.b"),
                         _spec_from(extra["spec"]), int(extra["phi"]),
-                        dispatchlib.DispatchConfig(**extra["cfg"]),
+                        _cfg_load(extra["cfg"]),
                         {k: int(v) for k, v in extra["bands"].items()},
-                        extra["meta"])
+                        meta)

@@ -157,7 +157,7 @@ def jpeg_apply(params, state, coef: torch.Tensor, *, training: bool,
     (``torch.utils.checkpoint``) instead of keeping its intermediates.
     """
     phi = spec.phi if phi is None else phi
-    cfg = dispatch or dispatchlib.DispatchConfig()
+    cfg = dispatchlib.resolve_config(dispatch)
     new_state = {}
 
     def bn(name, h):

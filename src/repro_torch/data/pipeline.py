@@ -5,15 +5,18 @@ state is two integers, so a restarted job replays exactly the batches it
 has not consumed.  :func:`jpeg_iterator` synthesises pixels on the host
 (numpy, the same images as the reference package) and JPEG-encodes them
 on the device through ``dispatch.block_dct`` — the block-DCT kernel on a
-CUDA device.  :func:`prefetch` overlaps batch production with the step in
-a background thread that it joins on close.
+CUDA device.  :func:`jpeg_file_iterator` serves real JPEG files
+(:func:`list_jpeg_files`) through the host codec with the same pure
+``(seed, step)`` batches.  :func:`prefetch` overlaps batch production with
+the step in a background thread that it joins on close.
 """
 from __future__ import annotations
 
+import os
 import queue
 import threading
 from dataclasses import dataclass
-from typing import Any, Callable, Iterator
+from typing import Any, Callable, Iterator, Sequence
 
 import numpy as np
 import torch
@@ -23,7 +26,8 @@ from repro_torch.core import dispatch as dispatchlib
 from repro_torch.core import jpeg as jpeglib
 from repro_torch.data import synthetic
 
-__all__ = ["DataIterator", "image_iterator", "jpeg_iterator", "prefetch"]
+__all__ = ["DataIterator", "image_iterator", "jpeg_iterator",
+           "list_jpeg_files", "jpeg_file_iterator", "prefetch"]
 
 
 @dataclass
@@ -79,6 +83,57 @@ def jpeg_iterator(seed: int, batch: int, size: int, channels: int = 3,
         if lossy:
             coef = torch.round(coef)
         labels = torch.as_tensor(b["labels"].astype(np.int64)).to(dev)
+        return {"coefficients": coef, "labels": labels}
+
+    return DataIterator(fn, seed)
+
+
+def list_jpeg_files(directory: str) -> list[str]:
+    """Sorted JPEG paths under ``directory`` (recursive): sorted, so the
+    list, and with it every ``(seed, step)`` batch, is reproducible."""
+    out = []
+    for root, _, names in os.walk(directory):
+        for name in names:
+            if name.lower().endswith((".jpg", ".jpeg", ".jfif")):
+                out.append(os.path.join(root, name))
+    return sorted(out)
+
+
+def jpeg_file_iterator(paths: Sequence[str] | str, batch: int, *,
+                       grid: tuple[int, int], channels: int = 3,
+                       quality: int = 50, seed: int = 0,
+                       label_fn: Callable[[str], int] | None = None,
+                       pack_width: int | None = None) -> DataIterator:
+    """Real JPEG files → canonical network coefficients, checkpointably.
+
+    ``paths`` is a directory (walked once, sorted) or a sequence; each
+    batch samples ``batch`` files with the same pure ``(seed, step)``
+    rule as the synthetic iterators.  Files go through the host codec
+    (entropy decode, quantization normalization, ``grid`` fit), so the
+    batch is numpy on the host, as ``codec.ingest_batch`` returns it:
+    ``{"coefficients": (B, bh, bw, C, 64)`` (or tile-packed ``(B, bh, bw,
+    C·pack_width)``) ``float32, "labels": (B,) int32}``; ``label_fn`` maps
+    a path to its class (default −1: unlabelled serving traffic).
+    """
+    from repro_torch.codec import ingest as ingestlib
+
+    if isinstance(paths, str):
+        paths = list_jpeg_files(paths)
+    paths = list(paths)
+    if not paths:
+        raise ValueError("jpeg_file_iterator: no files")
+
+    def fn(s, i):
+        idx = synthetic._rng(s, i).integers(0, len(paths), size=batch)
+        datas = []
+        for j in idx:
+            with open(paths[j], "rb") as f:
+                datas.append(f.read())
+        coef, _ = ingestlib.ingest_batch(
+            datas, quality=quality, grid=grid, channels=channels,
+            pack_width=pack_width, with_stats=False)
+        labels = np.asarray([label_fn(paths[j]) if label_fn else -1
+                             for j in idx], np.int32)
         return {"coefficients": coef, "labels": labels}
 
     return DataIterator(fn, seed)

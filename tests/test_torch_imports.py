@@ -25,7 +25,11 @@ def test_port_imports_no_jax_and_no_reference_package():
                  "data.pipeline", "tree", "models.layers",
                  "models.transformer", "kernels.flash_attention",
                  "configs.smollm_360m", "configs.granite_3_2b",
-                 "configs.starcoder2_3b", "configs.mistral_nemo_12b"):
+                 "configs.starcoder2_3b", "configs.mistral_nemo_12b",
+                 "serving", "serving.ladder", "serving.grid",
+                 "serving.scheduler", "serving.qos", "serving.metrics",
+                 "serving.breaker", "serving.trace", "codec.ingest",
+                 "data.pipeline"):
         assert "repro_torch." + want in names, want
     code = (
         "import importlib, sys\n"

@@ -62,7 +62,8 @@ def test_served_batches_match_reference_package(compiled):
     over as numpy, same bytes ingested by its codec) within 2e-4, and the
     port's plain runtime path on the same plan."""
     args = serve.parse_args(["--arch", "jpeg-resnet", "--reduced",
-                             "--device", "cpu", "--bands", "48",
+                             "--device", "cpu", "--ingest", "bytes",
+                             "--bands", "48",
                              "--batch", "2", "--requests", "3",
                              "--max-new", "1"]
                             + ([] if compiled else ["--no-compiled"]))
@@ -98,3 +99,19 @@ def test_served_batches_match_reference_package(compiled):
         again = (planlib.apply_compiled_packed(cp, x, plain_cfg) if compiled
                  else planlib.apply_plan(plan, x, plain_cfg))
         np.testing.assert_allclose(lg.numpy(), again.numpy(), atol=1e-5)
+
+
+@pytest.mark.parametrize("requests,batch,max_new", [(3, 2, 1), (16, 4, 2),
+                                                    (5, 8, 3)])
+def test_slot_schedule_serves_every_request_once(requests, batch, max_new):
+    """Every request completes exactly once, after 1..max_new images from
+    its slot; no more slots start than requests; the draws repeat for a
+    seed."""
+    steps = serve.slot_schedule(requests, batch, max_new, seed=0)
+    assert steps == serve.slot_schedule(requests, batch, max_new, seed=0)
+    assert all(1 <= n <= min(batch, requests) for n, _ in steps)
+    assert sum(len(done) for _, done in steps) == requests
+    images = sum(n for n, _ in steps)
+    assert requests <= images <= requests * max_new
+    if max_new == 1:
+        assert all(len(done) == n for n, done in steps)
