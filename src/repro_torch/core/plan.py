@@ -4,6 +4,15 @@
 conv's Ξ (scale into the output-channel axis, β/μ as a DC shift), explodes
 each conv once at its band count and resolves its apply path;
 :func:`apply_plan` walks the plan layer by layer (matmuls and ASM only).
+:func:`build_operators`/:func:`apply_operators` are the unfused walk with
+per-step batch norm (``resnet.precompute_operators`` /
+``resnet.jpeg_apply_precomputed``), the parity baseline of the fused plan.
+
+``bands="auto"`` autotunes the band count per layer
+(:func:`autotune_bands`): an energy budget over the quantization table's
+``1/q²`` (or over an empirical profile, ``codec.IngestStats.energy``)
+picks the start, and with a probe batch a parity sweep against the
+64-band reference path escalates, then tightens layer by layer.
 
 :func:`compile_plan` lowers a plan into a static schedule: a packed stem,
 then per residual block either one **fused** step over tile-packed banded
@@ -33,6 +42,7 @@ directory the other wrote; the port also reads its earlier format
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, NamedTuple
 
 import numpy as np
@@ -48,11 +58,199 @@ from repro_torch.core import resnet as resnetlib
 from repro_torch.core.conv import pad_bands
 from repro_torch.kernels import tiling
 
-__all__ = ["operator_keys", "build_operators", "InferencePlan", "build_plan",
-           "apply_plan", "CompiledStem", "CompiledBlock", "CompiledPlan",
+__all__ = ["BAND_LADDER", "qtable_band_energy", "bands_for_budget",
+           "bands_for_profile", "autotune_bands", "operator_keys",
+           "build_operators", "apply_operators", "InferencePlan",
+           "build_plan", "apply_plan", "CompiledStem", "CompiledBlock", "CompiledPlan",
            "compile_plan", "apply_compiled", "apply_compiled_packed",
            "capture_compiled", "save_plan", "load_plan",
            "save_compiled_plan", "load_compiled_plan"]
+
+
+#: candidate band counts the autotuner moves along (multiples of 8, the
+#: packed widths of the compiled schedule)
+BAND_LADDER = (8, 16, 24, 32, 40, 48, 56, 64)
+
+
+# --------------------------------------------------------------------------
+# Per-layer band autotuning
+# --------------------------------------------------------------------------
+
+
+@functools.lru_cache(maxsize=None)
+def qtable_band_energy(quality: int = 50) -> np.ndarray:
+    """Cumulative retained-energy fraction per zigzag prefix length (a
+    read-only array).
+
+    Quantization divides coefficient ``k`` by ``q[k]``, so under a flat
+    spectral prior the energy that survives it scales as ``1/q[k]²``;
+    ``out[b-1]`` is the share of that energy in the first ``b`` zigzag
+    coefficients (non-decreasing).
+    """
+    q = dctlib.quantization_table(quality)
+    w = 1.0 / (q * q)
+    out = np.cumsum(w) / np.sum(w)
+    out.setflags(write=False)
+    return out
+
+
+def _bands_from_cum(cum: np.ndarray, budget: float) -> int:
+    if not 0.0 < budget <= 1.0:
+        raise ValueError(f"budget must be in (0, 1], got {budget}")
+    b = int(np.searchsorted(cum, budget - 1e-12) + 1)
+    return min(dctlib.NFREQ, ((b + 7) // 8) * 8)
+
+
+def bands_for_budget(quality: int, budget: float) -> int:
+    """Smallest band count whose cumulative qtable energy reaches
+    ``budget``, rounded up to a multiple of 8; monotone in ``budget``."""
+    return _bands_from_cum(qtable_band_energy(quality), budget)
+
+
+def _profile_cum(profile: np.ndarray) -> np.ndarray:
+    p = np.asarray(profile, np.float64).reshape(dctlib.NFREQ)
+    if np.any(p < 0):
+        raise ValueError("energy profile must be non-negative")
+    total = p.sum()
+    if total <= 0:
+        raise ValueError("energy profile is all zero")
+    return np.cumsum(p) / total
+
+
+def bands_for_profile(profile: np.ndarray, budget: float) -> int:
+    """:func:`bands_for_budget` over an empirical per-zigzag energy profile
+    (``codec.IngestStats.energy`` of real traffic) instead of the ``1/q²``
+    prior."""
+    return _bands_from_cum(_profile_cum(profile), budget)
+
+
+def autotune_bands(params: Any, state: Any, spec: resnetlib.ResNetSpec, *,
+                   budget: float = 0.95,
+                   probe_coef: torch.Tensor | None = None,
+                   tol: float = 5e-2, ladder: tuple[int, ...] = BAND_LADDER,
+                   phi: int | None = None,
+                   profile: np.ndarray | None = None,
+                   occupancy: np.ndarray | None = None) -> dict[str, int]:
+    """Per-layer band assignment: an energy budget, refined by a parity
+    sweep when a probe batch is given.
+
+    Every conv starts at :func:`bands_for_budget` (or
+    :func:`bands_for_profile` over ``profile``).  With ``probe_coef``
+    (``(N, bh, bw, C, 64)`` coefficients on the parameters' device) the
+    assignment is held against the 64-band plan on the ``reference`` path
+    (the kernels' plain versions): parity is logits within ``tol`` and the
+    same top-1 on every probe image.
+
+    1. While parity fails, every layer moves one ``ladder`` step up.
+    2. Then, last layer to first, each layer moves down while parity
+       holds.
+
+    Trial plans are assembled from a cache of operators keyed by (layer,
+    band), so a trial explodes only the layer it changes; the cache keeps
+    no more than the accepted assignment and the trial in hand (a 40-band
+    stage 0 at full width is ~1 GB of Ξ).  With ``profile`` each layer's
+    choice is printed beside the energy it keeps and the nonzero
+    coefficients (``occupancy``) it drops.
+    """
+    base = (bands_for_profile(profile, budget) if profile is not None
+            else bands_for_budget(spec.quality, budget))
+    keys = operator_keys(params, spec)
+    bands = {k: base for k in keys}
+    if probe_coef is None:
+        _log_band_choice(bands, keys, profile, occupancy)
+        return bands
+
+    phi = spec.phi if phi is None else phi
+    ref_cfg = dispatchlib.DispatchConfig(path="reference",
+                                         bands=dctlib.NFREQ)
+    head_w, head_b = params["head"]["w"], params["head"]["b"]
+    probe = torch.as_tensor(probe_coef, device=head_w.device)
+    folds = _fold_all(params, state, spec)
+    convs = _convs(params, spec)
+    cache: dict[tuple[str, int], dispatchlib.ConvOperator] = {}
+
+    def op(key: str, b: int) -> dispatchlib.ConvOperator:
+        if (key, b) not in cache:
+            kernel, stride, kw = convs[key]
+            scale, shift = folds.get(key, (None, None))
+            cache[(key, b)] = dispatchlib.precompute_conv(
+                kernel, stride, bands=b, scale=scale, shift=shift,
+                cfg=ref_cfg, **kw)
+        return cache[(key, b)]
+
+    def forward(assign: dict[str, int]) -> torch.Tensor:
+        ops: dict[str, Any] = {}
+        for key in keys:
+            if "/" in key:
+                name, slot = key.split("/")
+                ops.setdefault(name, {})[slot] = op(key, assign[key])
+            else:
+                ops[key] = op(key, assign[key])
+        with torch.inference_mode():
+            return apply_plan(InferencePlan(ops, head_w, head_b, spec, phi,
+                                            ref_cfg, dict(assign)), probe)
+
+    def keep_only(assign: dict[str, int]) -> None:
+        for k in [k for k in cache if assign[k[0]] != k[1]]:
+            del cache[k]
+
+    ref = forward({k: dctlib.NFREQ for k in keys})
+    ref_top1 = ref.argmax(-1)
+    keep_only(bands)
+
+    def parity(assign: dict[str, int]) -> bool:
+        got = forward(assign)
+        return (float((got - ref).abs().max()) <= tol
+                and bool((got.argmax(-1) == ref_top1).all()))
+
+    def bump(b: int) -> int:
+        nxt = [v for v in ladder if v > b]
+        return nxt[0] if nxt else dctlib.NFREQ
+
+    while not parity(bands) and any(v < dctlib.NFREQ
+                                    for v in bands.values()):
+        bands = {k: bump(v) for k, v in bands.items()}
+        keep_only(bands)
+
+    for k in reversed(keys):
+        while True:
+            lower = [v for v in ladder if v < bands[k]]
+            if not lower:
+                break
+            trial = dict(bands)
+            trial[k] = lower[-1]
+            ok = parity(trial)
+            if ok:
+                bands = trial
+            keep_only(bands)
+            if not ok:
+                break
+    cache.clear()
+    _log_band_choice(bands, keys, profile, occupancy)
+    return bands
+
+
+def _log_band_choice(bands: dict[str, int], keys: list[str],
+                     profile: np.ndarray | None,
+                     occupancy: np.ndarray | None) -> None:
+    """Per layer, the empirical energy its cutoff keeps and the share of
+    nonzero coefficients it drops (only with a profile)."""
+    if profile is None:
+        return
+    cum = _profile_cum(profile)
+    occ_total = float(np.sum(occupancy)) if occupancy is not None else 0.0
+    for k in keys:
+        b = bands[k]
+        line = f"[autotune] {k}: bands={b} energy_kept={cum[b - 1]:.4f}"
+        if occupancy is not None and occ_total > 0:
+            dropped = float(np.sum(occupancy[b:])) / occ_total
+            line += f" occupancy_dropped={dropped:.2%}"
+        print(line, flush=True)
+
+
+# --------------------------------------------------------------------------
+# Operators and the two walks
+# --------------------------------------------------------------------------
 
 
 def operator_keys(params: Any, spec: resnetlib.ResNetSpec) -> list[str]:
@@ -85,23 +283,79 @@ def build_operators(params: Any, spec: resnetlib.ResNetSpec,
     (``cfg.bands``), an int, or a per-key dict.
     """
     folds = folds or {}
-
-    def pc(key, kernel, stride, **kw):
+    ops: dict[str, Any] = {}
+    for key, (kernel, stride, kw) in _convs(params, spec).items():
         scale, shift = folds.get(key, (None, None))
-        return dispatchlib.precompute_conv(
+        op = dispatchlib.precompute_conv(
             kernel, stride, bands=_resolve_bands(bands, key, cfg),
             scale=scale, shift=shift, cfg=cfg, **kw)
+        if "/" in key:
+            name, slot = key.split("/")
+            ops.setdefault(name, {})[slot] = op
+        else:
+            ops[key] = op
+    return ops
 
-    ops: dict[str, Any] = {"stem": pc("stem", params["stem"]["kernel"], 1,
-                                      in_scaled=True, quality=spec.quality)}
+
+def _convs(params: Any, spec: resnetlib.ResNetSpec
+           ) -> dict[str, tuple[torch.Tensor, int, dict[str, Any]]]:
+    """``{key: (kernel, stride, precompute_conv arguments)}`` of every
+    conv; a block's slots in the order conv1, conv2, proj."""
+    out = {"stem": (params["stem"]["kernel"], 1,
+                    {"in_scaled": True, "quality": spec.quality})}
     for name, s, cin, w in resnetlib._stages(spec):
         blk = params[name]
-        entry = {"conv1": pc(f"{name}/conv1", blk["conv1"], s),
-                 "conv2": pc(f"{name}/conv2", blk["conv2"], 1)}
+        out[f"{name}/conv1"] = (blk["conv1"], s, {})
+        out[f"{name}/conv2"] = (blk["conv2"], 1, {})
         if "proj" in blk:
-            entry["proj"] = pc(f"{name}/proj", blk["proj"], s)
-        ops[name] = entry
-    return ops
+            out[f"{name}/proj"] = (blk["proj"], s, {})
+    return out
+
+
+def apply_operators(params: Any, state: Any, ops: dict[str, Any],
+                    coef: torch.Tensor, *, spec: resnetlib.ResNetSpec,
+                    phi: int | None = None,
+                    cfg: dispatchlib.DispatchConfig | None = None
+                    ) -> torch.Tensor:
+    """Precomputed-operator inference with per-step batch norm from the
+    live ``state``: the unfused walk, the parity baseline of
+    :func:`apply_plan`.
+
+    Operators that carry a fused batch norm (built by :func:`build_plan`)
+    raise ``ValueError``: batch norm would run twice.
+    """
+    phi = spec.phi if phi is None else phi
+    cfg = dispatchlib.resolve_config(cfg)
+    stem = ops["stem"]
+    if any(v is not None for v in (stem.scale, stem.shift, stem.bn_scale)):
+        raise ValueError(
+            "operators carry a fused batch norm (built by build_plan); "
+            "applying per-step batch norm on top would run BN twice — "
+            "serve them through plan.apply_plan, or build unfused "
+            "operators with resnet.precompute_operators")
+
+    def bn(name, h):
+        h, _ = dispatchlib.batchnorm(h, *resnetlib._bn_args(params, state,
+                                                            name),
+                                     training=False)
+        return h
+
+    def relu(h):
+        return dispatchlib.asm_relu(h, phi, cfg=cfg)
+
+    h = relu(bn("stem_bn", dispatchlib.apply_conv(coef, stem, cfg=cfg)))
+    for name, s, cin, w in resnetlib._stages(spec):
+        op = ops[name]
+        short = h
+        if "proj" in op:
+            short = dispatchlib.apply_conv(h, op["proj"], cfg=cfg)
+        h = dispatchlib.apply_conv(h, op["conv1"], cfg=cfg)
+        h = relu(bn(name + "_bn1", h))
+        h = dispatchlib.apply_conv(h, op["conv2"], cfg=cfg)
+        h = bn(name + "_bn2", h)
+        h = relu(poollib.residual_add(h, short))
+    pooled = poollib.global_avg_pool_jpeg(h)
+    return pooled @ params["head"]["w"] + params["head"]["b"]
 
 
 def _fold_all(params: Any, state: Any, spec: resnetlib.ResNetSpec,
@@ -131,9 +385,9 @@ class InferencePlan(NamedTuple):
     phi: int
     cfg: dispatchlib.DispatchConfig
     bands: dict[str, int]
-    #: how the band assignment was made (``{"bands_mode": "global" |
-    #: "explicit", ...}``, the reference's keys; ladder tiers add
-    #: ``tier_cap``)
+    #: how the band assignment was made (``{"bands_mode": "auto" |
+    #: "global" | "explicit", ...}``, the reference's keys; ladder tiers
+    #: add ``tier_cap``)
     provenance: Any = None
 
     @property
@@ -144,20 +398,39 @@ class InferencePlan(NamedTuple):
 def build_plan(params: Any, state: Any, spec: resnetlib.ResNetSpec, *,
                phi: int | None = None,
                dispatch: dispatchlib.DispatchConfig | None = None,
-               bands: Any = None, eps: float = 1e-5) -> InferencePlan:
+               bands: Any = None, budget: float | None = None,
+               probe_coef: torch.Tensor | None = None,
+               profile: np.ndarray | None = None,
+               occupancy: np.ndarray | None = None,
+               eps: float = 1e-5) -> InferencePlan:
     """Fuse batch norm and explode the model, on the parameters' device.
 
     ``bands``: None → ``dispatch.bands`` for every layer; an int or a
-    per-key dict → explicit assignment.
+    per-key dict → explicit assignment; ``"auto"`` (or a ``budget``) →
+    :func:`autotune_bands` from the quantization table, or from an
+    empirical energy ``profile``, refined by the parity sweep when
+    ``probe_coef`` is given.  ``provenance`` records which.
     """
     phi = spec.phi if phi is None else phi
     cfg = dispatchlib.resolve_config(dispatch)
+    autotuned = (isinstance(bands, str) and bands == "auto") \
+        or budget is not None
+    if autotuned:
+        bands = autotune_bands(params, state, spec,
+                               budget=0.95 if budget is None else budget,
+                               probe_coef=probe_coef, phi=phi,
+                               profile=profile, occupancy=occupancy)
+    provenance = {
+        "bands_mode": ("auto" if autotuned
+                       else "global" if bands is None else "explicit"),
+        "budget": budget,
+        "probe": probe_coef is not None,
+        "energy": (("empirical" if profile is not None else "qtable")
+                   if autotuned else None)}
     folds = _fold_all(params, state, spec, eps=eps)
     ops = build_operators(params, spec, cfg, folds=folds, bands=bands)
     resolved = {k: _resolve_bands(bands, k, cfg)
                 for k in operator_keys(params, spec)}
-    provenance = {"bands_mode": "global" if bands is None else "explicit",
-                  "budget": None, "probe": False, "energy": None}
     return InferencePlan(ops, params["head"]["w"], params["head"]["b"],
                          spec, phi, cfg, resolved, provenance)
 

@@ -11,7 +11,9 @@ One parameter tree drives two equivalent apply functions:
 :func:`spatial_apply`, the ordinary NCHW network (the oracle), and
 :func:`jpeg_apply`, the same network on JPEG coefficients through
 ``core.dispatch`` — the training forward.  Inference runs the fused plan
-(``core.plan``).
+(``core.plan``); :func:`precompute_operators`,
+:func:`jpeg_apply_precomputed` and :func:`compile_for_inference` are thin
+wrappers over it, as in the reference package.
 """
 from __future__ import annotations
 
@@ -30,7 +32,8 @@ from repro_torch.core import dispatch as dispatchlib
 from repro_torch.core import pooling as poollib
 
 __all__ = ["ResNetSpec", "init_resnet", "params_from_numpy", "spatial_apply",
-           "jpeg_apply", "_stages"]
+           "jpeg_apply", "precompute_operators", "jpeg_apply_precomputed",
+           "compile_for_inference", "_stages"]
 
 
 class ResNetSpec(NamedTuple):
@@ -196,3 +199,45 @@ def jpeg_apply(params, state, coef: torch.Tensor, *, training: bool,
         new_state[name + "_bn2"] = _state_dict(st2)
     pooled = poollib.global_avg_pool_jpeg(h)
     return pooled @ params["head"]["w"] + params["head"]["b"], new_state
+
+
+# --------------------------------------------------------------------------
+# Precomputed-operator inference (paper §4.1: "can be precomputed")
+# --------------------------------------------------------------------------
+
+
+def precompute_operators(params, spec: ResNetSpec,
+                         dispatch: dispatchlib.DispatchConfig | None = None):
+    """Explode every convolution once, unfused (batch norm still runs per
+    step from the live ``state``): ``plan.build_operators`` with the
+    dispatch config resolved now (None = the global config)."""
+    from repro_torch.core import plan as planlib
+
+    return planlib.build_operators(params, spec,
+                                   dispatchlib.resolve_config(dispatch))
+
+
+def jpeg_apply_precomputed(params, state, ops, coef: torch.Tensor, *,
+                           spec: ResNetSpec, phi: int | None = None,
+                           dispatch: dispatchlib.DispatchConfig | None = None
+                           ) -> torch.Tensor:
+    """Inference over :func:`precompute_operators`' operators with
+    per-step batch norm (``plan.apply_operators``) → logits."""
+    from repro_torch.core import plan as planlib
+
+    return planlib.apply_operators(params, state, ops, coef, spec=spec,
+                                   phi=phi, cfg=dispatch)
+
+
+def compile_for_inference(params, state, spec: ResNetSpec, *,
+                          dispatch: dispatchlib.DispatchConfig | None = None,
+                          bands=None, probe_coef=None):
+    """Trained parameters → the compiled serving schedule:
+    ``plan.build_plan`` (fused batch norm, per-layer bands; ``"auto"``
+    autotunes) then ``plan.compile_plan``.  Serve it with
+    ``plan.apply_compiled``."""
+    from repro_torch.core import plan as planlib
+
+    plan = planlib.build_plan(params, state, spec, dispatch=dispatch,
+                              bands=bands, probe_coef=probe_coef)
+    return planlib.compile_plan(plan)

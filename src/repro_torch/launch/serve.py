@@ -9,6 +9,10 @@ config; without it the plan is built in-process from seeded random
 weights.  ``--dispatch`` (``reference`` / ``cuda`` / ``factored``, or the
 reference's ``pallas`` for ``cuda``) and ``--bands`` set the dispatch
 config for the run, defaulting to ``JPEG_DISPATCH`` / ``JPEG_BANDS``.
+``--autotune-bands`` builds the plan with per-layer bands
+(``plan.autotune_bands``), probed on one batch of the run's own traffic:
+for byte traffic its decoded coefficients and their ``IngestStats``
+energy profile; a restored plan that was not autotuned is rebuilt.
 
 Two request formats (``--ingest``): ``coefficients`` (the default, as in
 the reference: coefficient tensors from the synthetic pipeline) and
@@ -30,10 +34,20 @@ single-image requests are submitted as a burst; the report (also written
 to ``--report-out``) carries the reference's keys: latency percentiles,
 per-tier throughput, tier switches, capture accounting
 (``compiles_total`` / ``compiles_post_warmup``), ingest occupancy and
-health; ``--trace-out`` writes the flight recorder's Chrome trace.  The
-reference's ``--chaos*``, ``--metrics-out``/``--metrics-interval``,
-``--jax-profile``, ``--profile-grid``/``--hw-profile`` and
-``--autotune-bands`` are later slices (ROADMAP Queue 1).
+health; ``--trace-out`` writes the flight recorder's Chrome trace,
+``--metrics-out`` a Prometheus-style snapshot every ``--metrics-interval``
+seconds, and ``--jax-profile DIR`` (the reference's flag name) a
+``torch.profiler`` trace of the same window; all three are written on any
+exit.  ``--chaos`` (byte traffic only) turns the burst into the
+reference's fault drill (``serving.faults``): ``--chaos-rate`` of the
+requests carry corrupted bytes (``--chaos-seed``), one decode worker is
+killed before the third batch (``--chaos-kill-worker``), and
+``--chaos-exec-faults`` dispatches raise in the executor under a breaker
+that trips on two consecutive failures; the client retries through the
+open breaker and resubmits healthy requests that failed at the executor
+or ingest stage (up to 4 rounds), and the report's ``chaos`` entry counts
+what failed where.  ``--profile-grid`` and ``--hw-profile`` raise
+``NotImplementedError`` (ROADMAP Queue 1 item 6).
 
 Without ``--qos`` requests run through a pool of ``--batch`` slots: each
 request classifies a random number (1..``--max-new``) of images and a
@@ -91,8 +105,8 @@ from repro_torch.core import resnet as resnetlib
 from repro_torch.models.registry import build_model
 
 __all__ = ["BYTE_QUALITIES", "jpeg_byte_requests", "prepare_plan",
-           "prepare_ladder", "parse_buckets", "parse_tiers", "run_metadata",
-           "slot_schedule",
+           "autotune_probe", "prepare_ladder", "parse_buckets", "parse_tiers",
+           "run_metadata", "slot_schedule",
            "serve_jpeg_resnet", "serve_lm", "percentiles", "parse_args",
            "main"]
 
@@ -219,13 +233,17 @@ def prepare_plan(args, cfg, device: torch.device):
     either package saved) unless it holds none, or one for another spec,
     ``--dispatch`` or ``--bands``; then it is built from ``--seed``,
     saved, and served from the re-loaded copy, so the save → restore
-    round trip is on the serve path.  The compiled schedule comes from
-    ``DIR/compiled`` the same way (recompiled when missing, stale or
-    unreadable).  Without ``--plan-dir`` both are built in-process and
-    nothing is written (the reference defaults to ``plans/<arch>``)."""
+    round trip is on the serve path.  With ``--autotune-bands`` a restored
+    plan whose ``provenance["bands_mode"]`` is not ``auto`` is rebuilt,
+    with ``bands="auto"`` probed by :func:`autotune_probe`.  The compiled
+    schedule comes from ``DIR/compiled`` the same way (recompiled when
+    missing, stale or unreadable).  Without ``--plan-dir`` both are built
+    in-process and nothing is written (the reference defaults to
+    ``plans/<arch>``)."""
     spec = spec_of(cfg)
     dcfg = dataclasses.replace(dispatchlib.get_config(),
                                **_dispatch_changes(args))
+    autotune = bool(getattr(args, "autotune_bands", False))
     plan_dir = getattr(args, "plan_dir", None)
     plan, built = None, False
     if plan_dir:
@@ -239,14 +257,21 @@ def prepare_plan(args, cfg, device: torch.device):
                 or (dispatch is not None and plan.cfg.path
                     != dispatchlib.canonical_path(dispatch))
                 or (args.bands is not None
-                    and set(plan.bands.values()) != {args.bands})):
+                    and set(plan.bands.values()) != {args.bands})
+                or (autotune and (plan.provenance or {}).get("bands_mode")
+                    != "auto")):
             plan = None  # a plan for another config: rebuild
     if plan is None:
         built = True
         gen = torch.Generator().manual_seed(args.seed)
         params, state = resnetlib.init_resnet(gen, spec, device)
+        probe = profile = occupancy = None
+        if autotune:
+            probe, profile, occupancy = autotune_probe(args, cfg, device)
         plan = planlib.build_plan(params, state, spec, dispatch=dcfg,
-                                  bands=args.bands)
+                                  bands="auto" if autotune else args.bands,
+                                  probe_coef=probe, profile=profile,
+                                  occupancy=occupancy)
         if plan_dir:
             planlib.save_plan(plan, plan_dir)
             plan = planlib.load_plan(plan_dir, device=device)
@@ -270,13 +295,38 @@ def prepare_plan(args, cfg, device: torch.device):
             compiled = planlib.compile_plan(plan)
     info: dict[str, Any] = {"dir": plan_dir, "built": built,
                             "bands": plan.bands, "path": plan.cfg.path,
-                            "fused_bn": True, "compiled": compiled is not None}
+                            "provenance": plan.provenance, "fused_bn": True,
+                            "compiled": compiled is not None}
     if compiled is not None:
         info["schedule_path"] = compiled.meta["path"]
         info["fused_blocks"] = list(compiled.meta["fused"])
         info["fallback_steps"] = sorted(compiled.meta["layers"])
         info["smem_bytes"] = dict(compiled.meta["smem"])
     return plan, compiled, info
+
+
+def autotune_probe(args, cfg, device: torch.device):
+    """``(probe_coef, profile, occupancy)`` for ``--autotune-bands``: with
+    ``--ingest bytes`` one batch of the run's byte traffic (seed
+    ``--seed`` + 1) through ``codec.ingest_batch``, whose ``IngestStats``
+    energy and occupancy are the profile; else the first batch of 4 of
+    ``jpeg_iterator`` (no profile: the qtable prior)."""
+    if getattr(args, "ingest", "coefficients") == "bytes":
+        from repro_torch.codec import ingest as ingestlib
+
+        n = cfg.image_size // dctlib.BLOCK
+        coef, stats = ingestlib.ingest_batch(
+            jpeg_byte_requests(args.batch, cfg, args.seed + 1,
+                               getattr(args, "jpeg_dir", None))(0),
+            quality=spec_of(cfg).quality, grid=(n, n),
+            channels=cfg.in_channels)
+        return (torch.as_tensor(coef).to(device), stats.energy,
+                stats.occupancy)
+    from repro_torch.data.pipeline import jpeg_iterator
+
+    it = jpeg_iterator(args.seed + 1, 4, cfg.image_size, cfg.in_channels,
+                       cfg.num_classes, device=device)
+    return next(it)["coefficients"], None, None
 
 
 def parse_buckets(spec, batch: int) -> tuple | None:
@@ -391,16 +441,109 @@ def _warm_ingest_pool(payloads: list, cfg, spec) -> dict[str, Any]:
             else 0.0}
 
 
+def _chaos_faults(args, serving):
+    """The chaos drill's deterministic fault plan and breaker policy:
+    ``--chaos-rate`` of the request indices get bytes that must fail to
+    decode, one decode worker is killed before the third ingest batch,
+    and dispatches 2 .. 2 + ``--chaos-exec-faults`` raise in the executor.
+    The breaker opens after 2 consecutive service failures, half-opens
+    after 0.5 s and closes on the first good probe, so the burst trips it
+    and the run closes it again."""
+    n_exec = getattr(args, "chaos_exec_faults", 2)
+    spec = serving.FaultSpec(
+        seed=getattr(args, "chaos_seed", 1234),
+        corrupt_rate=getattr(args, "chaos_rate", 0.2),
+        kill_worker_before_batch=(
+            3 if getattr(args, "chaos_kill_worker", True) else None),
+        executor_fail_batches=(2, 2 + n_exec) if n_exec else None)
+    policy = serving.BreakerPolicy(window=16, failure_rate=0.5,
+                                   min_samples=8, max_consecutive=2,
+                                   open_s=0.5, half_open_successes=1)
+    return serving.FaultInjector(spec), policy
+
+
+def _submit_retry(sched, serving, payload, kind, deadline_s,
+                  timeout_s: float = 60.0):
+    """The chaos client's submit: retries through the open breaker's
+    fast rejections and admission control's, as a client's backoff
+    would; gives up (raises, or returns None) after ``timeout_s``."""
+    t0 = time.monotonic()
+    while True:
+        try:
+            r = sched.submit(payload, kind=kind, deadline_s=deadline_s)
+        except serving.ServiceUnavailable:
+            if time.monotonic() - t0 > timeout_s:
+                raise
+            time.sleep(0.05)  # breaker open: wait for the half-open probe
+            continue
+        if r is not None:
+            return r
+        if time.monotonic() - t0 > timeout_s:
+            return None
+        time.sleep(0.01)      # queue full: admission backpressure
+
+
+def _resubmit_failed(sched, serving, requests: list, faults, kind,
+                     deadline_s, rounds: int = 4) -> None:
+    """Up to ``rounds`` resubmit rounds, in place, for the healthy requests
+    the injected faults failed at the executor or ingest stage; a
+    corrupted request is never retried (its typed codec error is the
+    drill's expected outcome)."""
+    def retryable(i, r):
+        e = r.error()
+        return (isinstance(e, serving.RequestFailed)
+                and e.stage in ("executor", "ingest")
+                and i not in faults.corrupted)
+
+    for _ in range(rounds):
+        retry = [k for k, (i, _, r) in enumerate(requests)
+                 if retryable(i, r)]
+        if not retry:
+            return
+        for k in retry:
+            i, p, _ = requests[k]
+            nr = _submit_retry(sched, serving, p, kind, deadline_s)
+            if nr is not None:
+                requests[k] = (i, p, nr)
+        sched.drain()
+
+
+def _chaos_report(requests: list, faults, total: int) -> dict:
+    """The report's ``chaos`` entry, with the reference's keys."""
+    from repro_torch import serving
+
+    stages: dict[str, int] = {}
+    for _, _, r in requests:
+        e = r.error()
+        key = e.stage if isinstance(e, serving.RequestFailed) \
+            else type(e).__name__ if e is not None else None
+        if key is not None:
+            stages[key] = stages.get(key, 0) + 1
+    modes = list(faults.corrupted.values())
+    return {"corrupted": len(faults.corrupted),
+            "corrupt_modes": {m: modes.count(m) for m in set(modes)},
+            "killed_worker_pid": faults.killed_pid,
+            "failed_by_stage": stages,
+            "healthy_total": total - len(faults.corrupted),
+            "healthy_completed": sum(
+                1 for i, _, r in requests
+                if i not in faults.corrupted and r.tier is not None)}
+
+
 def _serve_jpeg_qos(args, cfg, plan, plan_info, device,
                     on_served=None) -> dict:
     """Serve a burst of ``--requests`` single-image requests through the
     band-elastic runtime: admission control, per-batch tier selection,
-    degradation under overload and recovery on drain.  ``on_served(ladder,
-    requests, grid)`` sees the ladder, every ``(index, payload, request)``
-    and the scheduler's ``PlanGrid`` (its captured cells) after the burst
-    drained."""
+    degradation under overload and recovery on drain; with ``--chaos``,
+    under the fault drill.  ``on_served(ladder, requests, grid)`` sees the
+    ladder, every ``(index, payload, request)`` (the last submission of a
+    resubmitted one) and the scheduler's ``PlanGrid`` (its captured
+    cells) after the burst drained."""
     from repro_torch import serving
 
+    chaos = bool(getattr(args, "chaos", False))
+    if chaos and getattr(args, "ingest", "coefficients") != "bytes":
+        raise ValueError("--chaos corrupts JPEG bytes; needs --ingest bytes")
     ladder, ladder_restored = prepare_ladder(args, cfg, plan,
                                              plan_info["dir"])
     names = [t.name for t in ladder.tiers]
@@ -423,19 +566,40 @@ def _serve_jpeg_qos(args, cfg, plan, plan_info, device,
             [payload_of(i) for i in range(min(args.batch, total))], cfg,
             plan.spec)
 
-    # the flight recorder is written on any exit, a crashed run included
-    obs = contextlib.ExitStack()
-    tracer = None
-    trace_path = getattr(args, "trace_out", None)
-    if trace_path:
-        tracer = serving.Tracer(
-            capacity=int(getattr(args, "trace_capacity", None) or 65536))
-        obs.callback(lambda: tracer.write(trace_path))
+    faults, breaker_policy = None, None
+    if chaos:
+        faults, breaker_policy = _chaos_faults(args, serving)
+        print(f"[serve] chaos: corrupt_rate={faults.spec.corrupt_rate:g} "
+              f"seed={faults.spec.seed} kill_worker_before_batch="
+              f"{faults.spec.kill_worker_before_batch} "
+              f"executor_fail_batches={faults.spec.executor_fail_batches}",
+              flush=True)
 
-    sched = serving.BandElasticScheduler(
-        ladder, batch=args.batch, metrics=metrics, max_pending=max_pending,
-        grid=(n_blocks, n_blocks), channels=cfg.in_channels, tracer=tracer)
-    with obs, sched:
+    # the sidecars (flight recorder, metrics snapshots, profiler window)
+    # are written on any exit, a crashed run included; the scheduler
+    # closes first
+    tracer, writer = None, None
+    trace_path = getattr(args, "trace_out", None)
+    metrics_path = getattr(args, "metrics_out", None)
+    with contextlib.ExitStack() as obs:
+        if trace_path:
+            tracer = serving.Tracer(
+                capacity=int(getattr(args, "trace_capacity", None) or 65536))
+            obs.callback(lambda: tracer.write(trace_path))
+        if metrics_path:
+            writer = serving.MetricsWriter(
+                metrics, metrics_path,
+                interval_s=float(getattr(args, "metrics_interval", None)
+                                 or 1.0))
+            t_writer = time.monotonic()
+            obs.callback(writer.close)
+        profile_path = obs.enter_context(serving.device_profile(
+            getattr(args, "jax_profile", None), device))
+        sched = obs.enter_context(serving.BandElasticScheduler(
+            ladder, batch=args.batch, metrics=metrics,
+            max_pending=max_pending, grid=(n_blocks, n_blocks),
+            channels=cfg.in_channels, breaker=breaker_policy, faults=faults,
+            tracer=tracer))
         t_w = time.perf_counter()
         sched.warmup(kinds=(kind,))
         warmup_s = time.perf_counter() - t_w
@@ -445,21 +609,30 @@ def _serve_jpeg_qos(args, cfg, plan, plan_info, device,
               f"({'CUDA graphs' if gs['cuda_graphs'] else 'eager, CPU'}; "
               f"{gs['host_staging_bytes'] / 2**20:.1f} MiB host staging) "
               f"in {warmup_s:.2f} s", flush=True)
-        # the client makes every payload before the burst: its image
-        # synthesis and encoding stay outside the server's clock
+        # the client makes (and corrupts) every payload before the burst:
+        # its image synthesis and encoding stay outside the server's clock
         payloads = [payload_of(i) for i in range(total)]
+        if faults is not None:
+            payloads = [faults.corrupt(i, p) for i, p in enumerate(payloads)]
         t0 = time.monotonic()
         requests = []  # (request index, payload, ServeRequest)
         for i, p in enumerate(payloads):
-            r = sched.submit(p, kind=kind, deadline_s=deadline_s)
+            if chaos:
+                r = _submit_retry(sched, serving, p, kind, deadline_s)
+            else:
+                r = sched.submit(p, kind=kind, deadline_s=deadline_s)
             if r is not None:
                 requests.append((i, p, r))
         sched.drain()
+        if chaos:
+            _resubmit_failed(sched, serving, requests, faults, kind,
+                             deadline_s)
         wall = time.monotonic() - t0
         health = sched.health()
         graph_launches = sched.grid_engine.graph_launches()
         replays = {c.name: c.hits for c in sched.grid_engine.cells()
                    if c.hits}
+    t_closed = time.monotonic()
 
     # top-tier fidelity probe: requests served at the top tier agree
     # (top-1) with the per-layer plan walk
@@ -519,6 +692,14 @@ def _serve_jpeg_qos(args, cfg, plan, plan_info, device,
                         "dropped": s["dropped"], "capacity": s["capacity"]}
         print(f"[serve] flight recorder: {s['events']} events "
               f"({s['dropped']} dropped) -> {trace_path}", flush=True)
+    if writer is not None:
+        out["metrics_out"] = metrics_path
+        out["metrics_writes"] = writer.writes
+        out["metrics_window_s"] = t_closed - t_writer
+    if profile_path is not None:
+        out["profile"] = profile_path
+    if chaos:
+        out["chaos"] = _chaos_report(requests, faults, total)
     _emit_report(args, out)
     return out
 
@@ -573,8 +754,17 @@ def serve_jpeg_resnet(args, *, prepared=None,
     ``on_batch(x, logits)`` sees every timed batch of the slot loop;
     ``on_served(ladder, requests, grid)`` the ``--qos`` run's requests
     and its grid of captured cells."""
+    _refuse_unported(args)
     with dispatchlib.override(**_dispatch_changes(args)):
         return _serve_jpeg_resnet(args, prepared, on_batch, on_served)
+
+
+def _refuse_unported(args) -> None:
+    if getattr(args, "profile_grid", False) \
+            or getattr(args, "hw_profile", None):
+        raise NotImplementedError(
+            "--profile-grid/--hw-profile (the grid's roofline sweep) are "
+            "not ported: ROADMAP Queue 1 item 6 (introspection)")
 
 
 def _serve_jpeg_resnet(args, prepared, on_batch, on_served) -> dict:
@@ -587,6 +777,11 @@ def _serve_jpeg_resnet(args, prepared, on_batch, on_served) -> dict:
     if getattr(args, "qos", False):
         return _serve_jpeg_qos(args, cfg, plan, info, device,
                                on_served=on_served)
+    if any(getattr(args, a, None) for a in ("trace_out", "metrics_out",
+                                            "jax_profile", "chaos")):
+        print("[serve] --trace-out/--metrics-out/--jax-profile/--chaos "
+              "instrument the QoS runtime; ignored without --qos",
+              flush=True)
     spec = plan.spec
     n_blocks = cfg.image_size // dctlib.BLOCK
     from_bytes = getattr(args, "ingest", "coefficients") == "bytes"
@@ -711,6 +906,7 @@ def serve_lm(args) -> dict:
     ``--seed`` and the same report keys.  As there, every slot shares the
     cache's one position index, so a refilled slot continues at the global
     index over the previous request's cache."""
+    _refuse_unported(args)
     device = resolve_device(args.device)
     cfg = reduced_config(args.arch) if args.reduced \
         else get_config(args.arch)
@@ -816,6 +1012,45 @@ def parse_args(argv=None) -> argparse.Namespace:
                          "trace-event JSON) here, on any exit")
     ap.add_argument("--trace-capacity", type=int, default=65536,
                     help="flight-recorder ring size in events")
+    ap.add_argument("--metrics-out", default=None,
+                    help="write Prometheus-style metrics snapshots of the "
+                         "--qos run to this path, every --metrics-interval "
+                         "seconds and on exit")
+    ap.add_argument("--metrics-interval", type=float, default=1.0,
+                    help="seconds between --metrics-out snapshots")
+    ap.add_argument("--jax-profile", default=None,
+                    help="directory for a torch.profiler trace (Chrome "
+                         "trace JSON, CPU and CUDA activity) of the --qos "
+                         "window; the reference's flag name, kept so that "
+                         "its command lines run unchanged")
+    ap.add_argument("--chaos", action="store_true",
+                    help="fault-drill the --qos byte stream: corrupt a "
+                         "share of the requests, kill a decode worker, "
+                         "fail a window of executor dispatches; healthy "
+                         "requests must still complete and every fault "
+                         "surface as a typed per-request error")
+    ap.add_argument("--chaos-rate", type=float, default=0.2,
+                    help="share of requests whose bytes --chaos corrupts")
+    ap.add_argument("--chaos-seed", type=int, default=1234,
+                    help="fault-injection seed: what is corrupted, and "
+                         "how, is a function of (seed, request index)")
+    ap.add_argument("--chaos-kill-worker", default=True,
+                    action=argparse.BooleanOptionalAction,
+                    help="SIGKILL one decode worker before the third "
+                         "ingest batch (needs JPEG_INGEST_WORKERS > 1)")
+    ap.add_argument("--chaos-exec-faults", type=int, default=2,
+                    help="dispatches (from dispatch 2 on) that raise an "
+                         "injected executor fault")
+    ap.add_argument("--autotune-bands", action="store_true",
+                    help="build the plan with per-layer bands from an "
+                         "energy budget and a parity sweep on one probe "
+                         "batch of the run's traffic")
+    ap.add_argument("--profile-grid", action="store_true",
+                    help="not ported: raises NotImplementedError "
+                         "(ROADMAP Queue 1 item 6)")
+    ap.add_argument("--hw-profile", default=None,
+                    help="not ported: raises NotImplementedError "
+                         "(ROADMAP Queue 1 item 6)")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--ctx", type=int, default=256,
                     help="LM decode cache slots")

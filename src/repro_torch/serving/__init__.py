@@ -13,15 +13,19 @@ on PyTorch, with one CUDA graph per grid cell on the card.
 * :mod:`~repro_torch.serving.qos` — the tier policy (queue depth and
   deadline slack, with hysteresis);
 * :mod:`~repro_torch.serving.metrics`, :mod:`~repro_torch.serving.trace`,
-  :mod:`~repro_torch.serving.breaker` — the reference's metrics report,
-  flight recorder and circuit breaker, kept as the port's own copies.
+  :mod:`~repro_torch.serving.breaker` — the reference's metrics report
+  (and its periodic snapshot writer), flight recorder and circuit breaker,
+  kept as the port's own copies; ``trace.device_profile`` is a
+  ``torch.profiler`` window;
+* :mod:`~repro_torch.serving.faults` — the reference's deterministic fault
+  injector (corrupt bytes, a killed decode worker, executor faults), which
+  drives the chaos drill.
 
-``launch/serve.py --qos`` is the command-line entry point.  The
-reference's fault injector (``faults.py``, ``--chaos``) comes in a later
-slice (ROADMAP Queue 1 item 3(b)); the scheduler's ``faults`` argument is
-a duck-typed hook until then.
+``launch/serve.py --qos`` is the command-line entry point (``--chaos``,
+``--metrics-out``, ``--jax-profile``).
 """
 from repro_torch.serving.breaker import BreakerPolicy, CircuitBreaker
+from repro_torch.serving.faults import FaultInjector, FaultSpec, InjectedFault
 from repro_torch.serving.grid import (
     GridCell,
     GridColumn,
@@ -60,6 +64,8 @@ from repro_torch.serving.trace import (
     NULL_TRACER,
     NullTracer,
     Tracer,
+    device_profile,
+    jax_profile,
     validate_trace,
 )
 
@@ -68,8 +74,9 @@ __all__ = [
     "batch_buckets", "bucket_for", "cover_buckets", "validate_buckets",
     "PlanLadder", "PlanTier", "build_ladder", "cap_plan", "save_ladder",
     "load_ladder", "Log2Histogram", "MetricsWriter", "NULL_TRACER",
-    "NullTracer", "ServeMetrics", "Tracer", "percentiles", "validate_trace",
-    "QosPolicy", "TierSelector", "BandElasticScheduler", "BreakerPolicy",
-    "CircuitBreaker", "DeadlineExceeded", "RequestFailed",
-    "SchedulerClosed", "ServeRequest", "ServiceUnavailable",
+    "NullTracer", "ServeMetrics", "Tracer", "device_profile", "jax_profile",
+    "percentiles", "validate_trace", "QosPolicy", "TierSelector",
+    "BandElasticScheduler", "BreakerPolicy", "CircuitBreaker",
+    "DeadlineExceeded", "FaultInjector", "FaultSpec", "InjectedFault",
+    "RequestFailed", "SchedulerClosed", "ServeRequest", "ServiceUnavailable",
 ]

@@ -503,6 +503,8 @@ class MetricsWriter:
 
     Writes are atomic (tmp file + ``os.replace``) so a scraper never
     reads a torn exposition; one final snapshot lands on :meth:`close`.
+    Snapshots fall every ``interval_s`` from construction, on a fixed
+    schedule; ``writes`` counts them.
     """
 
     def __init__(self, metrics: ServeMetrics, path: str,
@@ -510,20 +512,26 @@ class MetricsWriter:
         self.metrics = metrics
         self.path = path
         self.interval_s = max(float(interval_s), 0.05)
+        self.writes = 0
         self._stop = threading.Event()
         self._thread = threading.Thread(
             target=self._run, name="metrics-writer", daemon=True)
         self._thread.start()
 
     def _run(self) -> None:
-        while not self._stop.wait(self.interval_s):
+        # on a fixed schedule (the reference's waits a whole interval after
+        # each write, so its snapshots drift late under load)
+        due = time.monotonic() + self.interval_s
+        while not self._stop.wait(max(0.0, due - time.monotonic())):
             self._write()
+            due += self.interval_s
 
     def _write(self) -> None:
         tmp = f"{self.path}.tmp"
         with open(tmp, "w") as f:
             f.write(self.metrics.metrics_text())
         os.replace(tmp, self.path)
+        self.writes += 1
 
     def close(self) -> None:
         self._stop.set()

@@ -38,15 +38,16 @@ are exported relative to tracer construction in microseconds.
 :data:`NULL_TRACER` is the disabled no-op twin — the scheduler threads
 it unconditionally so tracing costs one attribute check when off.
 :func:`validate_trace` is the schema/chain checker CI and the tests
-share.  (The reference's ``jax_profile`` bracket becomes a
-``torch.profiler`` window in a later slice of the port: ROADMAP Queue 1
-item 3(b).)
+share.  :func:`device_profile` (also exported under the reference's name
+``jax_profile``) brackets the same window with ``torch.profiler``.
 """
 from __future__ import annotations
 
 import collections
+import contextlib
 import json
 import math
+import os
 import threading
 import time
 from typing import Any, Callable
@@ -57,6 +58,8 @@ __all__ = [
     "NULL_TRACER",
     "TRACKS",
     "validate_trace",
+    "device_profile",
+    "jax_profile",
 ]
 
 #: canonical component tracks, in display order (one Perfetto "process"
@@ -367,3 +370,51 @@ def validate_trace(obj: dict, *, require_closed: bool = True) -> dict:
         "device_span_s": span_sum_s.get("device/device-dispatch", 0.0),
         "ingest_span_s": span_sum_s.get("ingest/ingest-decode", 0.0),
     }
+
+
+# ---------------------------------------------------------------------------
+# device-profiler window
+# ---------------------------------------------------------------------------
+
+
+@contextlib.contextmanager
+def device_profile(trace_dir: str | None, device=None):
+    """Bracket a window with ``torch.profiler`` when ``trace_dir`` is set.
+
+    CPU activity, plus CUDA activity when ``device`` (default: CUDA) is a
+    CUDA device; on exit, after a device synchronise, the profile is
+    written as Chrome trace-event JSON to
+    ``trace_dir/torch_profile_<pid>.json`` (the path the ``with`` yields),
+    a crashed window included, so the host's spans in the flight recorder
+    and the kernels' device times can be read side by side.  ``None``
+    yields None and profiles nothing.  Unlike the reference's
+    ``jax_profile``, which degrades to a no-op when its backend is
+    unavailable, a profiler that fails to start or to write raises.
+    """
+    if not trace_dir:
+        yield None
+        return
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import resolve_device
+
+    dev = resolve_device(device)
+    activities = [ProfilerActivity.CPU]
+    if dev.type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(trace_dir, exist_ok=True)
+    path = os.path.join(trace_dir, f"torch_profile_{os.getpid()}.json")
+    prof = profile(activities=activities)
+    prof.start()
+    try:
+        yield path
+    finally:
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        prof.stop()
+        prof.export_chrome_trace(path)
+
+
+#: the reference package's name for the window (``repro.serving``)
+jax_profile = device_profile

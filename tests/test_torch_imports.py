@@ -29,7 +29,8 @@ def test_port_imports_no_jax_and_no_reference_package():
                  "serving", "serving.ladder", "serving.grid",
                  "serving.scheduler", "serving.qos", "serving.metrics",
                  "serving.breaker", "serving.trace", "codec.ingest",
-                 "data.pipeline"):
+                 "data.pipeline", "core.convert", "core.transform_linear",
+                 "serving.faults"):
         assert "repro_torch." + want in names, want
     code = (
         "import importlib, sys\n"
