@@ -40,7 +40,10 @@ Phases, each fatal on failure:
 7. ``serve --qos --ingest bytes``: full ``jpeg-resnet`` built at 40 bands
    (``QOS_BANDS``) into a ``--plan-dir``, the default ladder (top, 48, 32,
    24; b48 shares the top's schedule), batch 8, buckets 1, 2, 4, 8 (one
-   CUDA graph a cell), 32 single-image byte requests as one burst: every
+   CUDA graph a cell), 32 single-image byte requests as one burst under
+   ``--profile-grid --hw-profile h100`` (every warmed cell's predicted
+   and measured capacity before traffic, every ``device-dispatch`` span
+   carrying its cell's ``predicted_us``): every
    served request's logits held against its tier's plain path, no
    capture after warmup, a replayed graph for every tier served; each
    distinct tier's bucket-1 and bucket-8 cells of the grid that served,
@@ -75,24 +78,41 @@ Phases, each fatal on failure:
    the autotuned plan on the kernels against the 64-band reference path
    within the sweep's ``tol``; (e) ``fold_patch_embed`` on block-DCT
    coefficients against the pixel-patch projection;
-9. LM serving, fp32: full-width ``smollm-360m`` (random weights from seed
+9. plan introspection on the ``h100`` roofline profile: ``python -m
+   repro_torch.launch.inspect`` once (16 bands, batch 8, executor auto,
+   its report validated), then ``predicted_vs_measured`` on one batch of
+   8 at 16 bands (s0b0-s1b1 fused) and at 40 bands (s0 fused) for (i) the
+   ``cuda`` plan (the kernels), (ii) the same weights compiled on the
+   ``reference`` path (the spatial lowering: decode, cuDNN fp32, encode,
+   for the stem and each fused block; plain versions elsewhere) and (iii)
+   the ``cuda`` plan under ``executor="gemm"`` and a ``reference`` config
+   (the kernels' plain twin): each report validated, logits bit-identical
+   under profiling, per-step walls within ``RECONCILE_TOL`` of the
+   unprofiled wall, the steps' FLOPs within ``FLOPS_TOL`` of one counted
+   whole walk, (i) and (ii) within ``LOGIT_RTOL`` of (iii); printed per
+   step: FLOPs, bytes, predicted and measured µs, and per fused step the
+   banded kernels beside the spatial lowering; then one cuDNN fp32 3×3
+   conv at each stage's shape, on the heuristic's algorithm and on
+   ``cudnn.benchmark``'s;
+10. LM serving, fp32: full-width ``smollm-360m`` (random weights from seed
    0) prefills 4 prompts of 2048 tokens (cache grown to 2048 + 32) and
    decodes 32 steps, on the kernel path and on the plain path, both fed
    the plain path's greedy tokens: logits and the prefill's KV cache held
    within 1e-3 of the largest |value|, top-1 agreeing wherever the plain
    path's top-2 gap exceeds twice the logit error;
-10. the same in bf16 (the published dtype) from the same weights: the
-   kernel path's logit error against step 9's fp32 plain path at most 1.5×
+11. the same in bf16 (the published dtype) from the same weights: the
+   kernel path's logit error against step 10's fp32 plain path at most 1.5×
    the bf16 plain path's; prefill and decode tokens/s, 32 kernel launches
    per prefill and none per decode step, and a ``torch.profiler``
    breakdown of one prefill and one decode step;
-11. ``repro_torch.launch.serve --arch smollm-360m`` at the reference's
+12. ``repro_torch.launch.serve --arch smollm-360m`` at the reference's
    defaults but 8 requests (``LM_SERVE_REQUESTS``): all completed and its
    report line;
-12. one ``{"kernels": [...]}`` line, with each kernel's launches in phases
-   3, 4, 6, 7, 8, 9, 10 and 11 (each path driven with the counts set to 0
-   just before it and read just after), then the ``{"ok": true, ...}``
-   line last.  Every phase prints its seconds, and the script its total.
+13. one ``{"kernels": [...]}`` line, with each kernel's launches in phases
+   3, 4, 6, 7, 8, 9, 10, 11 and 12 (each path driven with the counts set
+   to 0 just before it and read just after), then the ``{"ok": true,
+   ...}`` line last.  Its bounds and phase 9's roofline read one count
+   of each kernel's work (``repro_torch.introspect.opcount``).  Every phase prints its seconds, and the script its total.
 
 It imports neither JAX nor the reference package, exits non-zero without
 CUDA, and needs one card.
@@ -112,12 +132,6 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 REPO_SRC = os.path.join(ROOT, "src")
 
-#: published H100 SXM peaks (NVIDIA data sheet): fp32 outside the tensor
-#: cores — the kernels use no TF32 — bf16 dense tensor cores, and HBM3
-#: bandwidth
-PEAK_FP32_FLOPS = 67e12
-PEAK_BF16_FLOPS = 989e12
-PEAK_BYTES = 3.35e12
 BANDS, BATCH = 16, 4
 #: the synthetic client's files, made once for every serving phase
 CLIENT_IMAGES = 32
@@ -152,6 +166,9 @@ ASM_RTOL = 2e-5
 BLOCK_RTOL = 1e-5
 #: served logits vs the plain path, relative to the largest logit
 LOGIT_RTOL = 1e-4
+#: phase 9: per-step walls against the unprofiled wall (the reference's CI
+#: bound), and the steps' counted FLOPs against one counted whole walk
+RECONCILE_TOL, FLOPS_TOL = 0.10, 0.05
 #: training step, kernel path vs plain path: the loss (relative), and each
 #: gradient tensor by relative norm — fp32 sums in another order through
 #: 20 layers, and ASM masks that may flip on pre-activations within
@@ -171,7 +188,7 @@ BF16_FACTOR = 1.5
 #: largest |value|
 LM_ARCH, LM_BATCH, LM_PROMPT, LM_DECODE = "smollm-360m", 4, 2048, 32
 LM_RTOL = 1e-3
-#: phase 11's requests (the reference's default is 16)
+#: phase 12's requests (the reference's default is 16)
 LM_SERVE_REQUESTS = 8
 JPEG_KERNELS = ("fused_block", "jpeg_conv", "asm_relu", "block_dct",
                 "block_idct")
@@ -281,13 +298,6 @@ def split_cost(label: str, fn, kernel: str, calls: int = 50) -> None:
         f"to issue a call")
 
 
-def bound(flops: float, nbytes: float,
-          peak: float = PEAK_FP32_FLOPS) -> tuple[float, str]:
-    t_ops, t_mem = flops / peak, nbytes / PEAK_BYTES
-    return max(t_ops, t_mem) * 1e3, "operations" if t_ops >= t_mem \
-        else "bytes"
-
-
 def compare(name: str, got, want, rtol: float) -> float:
     import torch
 
@@ -300,19 +310,6 @@ def compare(name: str, got, want, rtol: float) -> float:
     if not err <= tol:
         fail(f"{name}: max abs err {err:.3e} > tolerance {tol:.3e}")
     return err
-
-
-def conv_work(x_rows: int, cin: int, w_read: int, noff: int, w_in: int,
-              cout: int, w_b: int, w_o: int, out_rows: int):
-    """(flops, bytes) of one banded conv: the GEMM and each operand once."""
-    flops = 2.0 * out_rows * noff * cin * w_in * cout * w_b
-    nbytes = 4.0 * (x_rows * cin * w_read + noff * cin * w_in * cout * w_b
-                    + out_rows * cout * w_o)
-    return flops, nbytes
-
-
-def asm_flops(pairs: int, w: int) -> float:
-    return 2.0 * pairs * (w * 128 + 64 * w)
 
 
 def counts() -> dict[str, int]:
@@ -587,6 +584,8 @@ def attention_checks(dev, record) -> None:
     import torch
     import torch.nn.functional as F
 
+    from repro_torch.introspect.opcount import PEAK_BF16_FLOPS, \
+        PEAK_FP32_FLOPS
     from repro_torch.kernels import flash_attention as kfa
 
     bf16, fp32 = torch.bfloat16, torch.float32
@@ -693,7 +692,7 @@ def lm_run(model, params, prompts, feed=None) -> dict:
 
 
 def lm_phases(dev, card: str, launches: dict) -> None:
-    """Phases 8-10: smollm-360m prefill and decode on the kernel path
+    """Phases 10-12: smollm-360m prefill and decode on the kernel path
     against the plain path in fp32 and in bf16, then the LM server."""
     import torch
 
@@ -729,7 +728,7 @@ def lm_phases(dev, card: str, launches: dict) -> None:
     def max_err(a, b) -> float:
         return float((a - b).abs().max())
 
-    # --- phase 9: fp32, kernel path against plain path --------------------
+    # --- phase 10: fp32, kernel path against plain path -------------------
     p32 = lm_run(build_model(cfg32, dispatch=plain_cfg), params32, prompts)
     if p32["prefill_launches"] or p32["decode_launches"]:
         fail("the plain path launched the flash-attention kernel")
@@ -768,7 +767,7 @@ def lm_phases(dev, card: str, launches: dict) -> None:
         f"{p32['decode_s'] * 1e3:.1f} ms")
     del k32["kv"], p32["kv"]
 
-    # --- phase 10: bf16 from the same weights ------------------------------
+    # --- phase 11: bf16 from the same weights ------------------------------
     params16 = T.cast_params(params32, torch.bfloat16)
     del params32
     torch.cuda.empty_cache()
@@ -805,7 +804,7 @@ def lm_phases(dev, card: str, launches: dict) -> None:
     del params16, cache, model
     torch.cuda.empty_cache()
 
-    # --- phase 11: the LM server at the reference's defaults --------------
+    # --- phase 12: the LM server at the reference's defaults --------------
     report = drive("serve lm", (), launches,
                    lambda: serve.main(["--arch", LM_ARCH, "--requests",
                                        str(LM_SERVE_REQUESTS)]))
@@ -938,11 +937,13 @@ def qos_phase(cfg, dev, launches: dict, slot_reports: dict,
 
         trace1 = os.path.join(plan_dir, "trace1.json")
         r1 = run("serve --qos", ["--requests", str(QOS_REQUESTS),
-                                 "--trace-out", trace1], on_served=hold)
+                                 "--trace-out", trace1, "--profile-grid",
+                                 "--hw-profile", "h100"], on_served=hold)
         q = r1["qos"]
         if r1["completed"] != QOS_REQUESTS or q["compiles_post_warmup"] != 0:
             fail(f"qos: {r1['completed']} of {QOS_REQUESTS} served, "
                  f"{q['compiles_post_warmup']} captures after warmup")
+        profile_grid_gates(r1, served["grid"], trace1)
         # a tier that shares an earlier tier's schedule replays its cells
         column = {t.name: served["ladder"].tiers[t.shared_with].name
                   if t.shared_with is not None else t.name
@@ -1041,6 +1042,34 @@ def qos_phase(cfg, dev, launches: dict, slot_reports: dict,
     finally:
         shutil.rmtree(plan_dir, ignore_errors=True)
     torch.cuda.empty_cache()
+
+
+def profile_grid_gates(report: dict, grid_engine, trace_path: str) -> None:
+    """Phase 7 pass 1's ``--profile-grid --hw-profile h100``: every warmed
+    cell has a predicted and a measured capacity, and every
+    ``device-dispatch`` span of the flight recorder carries its cell's
+    ``predicted_us``."""
+    pg = report["profile_grid"]
+    rows = {c["cell"]: c for c in pg["cells"]}
+    want = {c.name for c in grid_engine.cells()}
+    if set(rows) != want or pg["hw_profile"]["name"] != "h100" or not all(
+            c["predicted_req_s"] > 0 and c["measured_req_s"] > 0
+            for c in rows.values()):
+        fail(f"qos --profile-grid: cells {sorted(rows)} against the "
+             f"warmed {sorted(want)}, profile {pg['hw_profile']}")
+    with open(trace_path) as f:
+        spans = [e for e in json.load(f)["traceEvents"]
+                 if e.get("ph") == "X" and e["name"] == "device-dispatch"]
+    bare = [e for e in spans if not e.get("args", {}).get("predicted_us")]
+    if not spans or bare:
+        fail(f"qos --profile-grid: {len(bare)} of {len(spans)} "
+             f"device-dispatch spans without predicted_us")
+    log(f"qos --profile-grid (h100 profile): sweep {pg['seconds']:.2f} s "
+        f"over {len(rows)} cells; predicted / measured images/s: "
+        + ", ".join(f"{k} {c['predicted_req_s']:.1f} / "
+                    f"{c['measured_req_s']:.1f}"
+                    for k, c in sorted(rows.items()))
+        + f"; {len(spans)} device-dispatch spans annotated")
 
 
 def chaos_pass(run, plan_dir: str, cfg, dev) -> None:
@@ -1413,6 +1442,136 @@ def conversion_phase(cfg, dev, launches: dict, jpeg_dir: str) -> None:
     log(f"conversion phase: {time.perf_counter() - t_phase:.2f} s")
 
 
+def introspection_phase(cfg, dev, launches: dict) -> None:
+    """Phase 9: ``launch.inspect`` once, then ``predicted_vs_measured`` on
+    the ``h100`` profile at 16 and 40 bands for (i) the ``cuda`` plan
+    (the kernels), (ii) the same weights compiled on the ``reference``
+    path (the spatial lowering for the stem and fused steps, the plain
+    versions elsewhere) and (iii) the ``cuda`` plan under
+    ``executor="gemm"`` and a ``reference`` config (the kernels' plain
+    twin); each report validated, its logits bit-identical under
+    profiling, its walls reconciled within ``RECONCILE_TOL``, its steps'
+    FLOPs within ``FLOPS_TOL`` of the whole walk's, and (i) and (ii)
+    within ``LOGIT_RTOL`` of (iii); then :func:`cudnn_probe`."""
+    import torch
+
+    from repro_torch import introspect
+    from repro_torch.core import dispatch as dsp
+    from repro_torch.core import plan as planlib
+    from repro_torch.data.pipeline import jpeg_iterator
+    from repro_torch.launch import inspect as inspectlib
+    from repro_torch.launch import serve
+
+    t_phase = time.perf_counter()
+    hw = introspect.PROFILES["h100"]
+    path = os.path.join(tempfile.mkdtemp(prefix="chip_smoke_inspect_"),
+                        "report.json")
+    atexit.register(shutil.rmtree, os.path.dirname(path), True)
+    drive("inspect CLI", JPEG_KERNELS, launches, lambda: inspectlib.main(
+        ["--arch", "jpeg-resnet", "--batch", str(TRAIN_BATCH), "--bands",
+         str(BANDS), "--executor", "auto", "--hw-profile", "h100",
+         "--report-out", path]))
+    with open(path) as f:
+        summary = introspect.validate_report(json.load(f))
+    log(f"inspect CLI (16 bands, batch {TRAIN_BATCH}, executor auto = the "
+        f"kernels): {summary}")
+
+    x = next(jpeg_iterator(0, TRAIN_BATCH, cfg.image_size, cfg.in_channels,
+                           cfg.num_classes, device=dev))["coefficients"]
+    for bands in (BANDS, QOS_BANDS):
+        args = serve.parse_args(["--arch", "jpeg-resnet", "--bands",
+                                 str(bands), "--seed", "0"])
+        _, cp, _ = serve.prepare_plan(args, cfg, dev)
+        args.dispatch = "reference"
+        _, cp_ref, _ = serve.prepare_plan(args, cfg, dev)
+        plain = cp._replace(cfg=dsp.DispatchConfig(path="reference",
+                                                   bands=bands))
+        runs = (("kernels", cp, None, JPEG_KERNELS),
+                ("spatial", cp_ref, None, ()),
+                ("gemm twin", plain, "gemm", ()))
+        reports, logits = {}, {}
+        for label, plan_, executor, required in runs:
+            rep = drive(f"introspect {bands} bands, {label}", required,
+                        launches, lambda: introspect.predicted_vs_measured(
+                            plan_, x, executor=executor, hw=hw))
+            introspect.validate_report(rep)
+            t = rep["totals"]
+            if not t["logits_match"] \
+                    or abs(t["reconciliation"] - 1) > RECONCILE_TOL \
+                    or abs(t["static_flops_ratio"] - 1) > FLOPS_TOL:
+                fail(f"introspect {bands} bands, {label}: logits_match "
+                     f"{t['logits_match']}, reconciliation "
+                     f"{t['reconciliation']:.4f}, steps' FLOPs / whole "
+                     f"{t['static_flops_ratio']:.4f}")
+            with torch.inference_mode():
+                logits[label] = planlib.apply_compiled(plan_, x,
+                                                       executor=executor)
+            reports[label] = rep
+            log(f"introspect {bands} bands, {label} "
+                f"(executor {executor}): predicted "
+                f"{t['predicted_us']:.1f} us, measured "
+                f"{t['measured_us']:.1f} us, unprofiled wall "
+                f"{t['unprofiled_wall_us']:.1f} us, reconciliation "
+                f"{t['reconciliation']:.4f}, steps' FLOPs / whole "
+                f"{t['static_flops_ratio']:.6f}, worst ratio "
+                f"{introspect.worst_ratio(rep):.2f}")
+            for b in rep["blocks"]:
+                log(f"  {b['name']:<5} {b['kind']:<6} {b['executor']:<7} "
+                    f"flops {b['flops']:.4g} bytes {b['bytes']:.4g} "
+                    f"smem {b['vmem_bytes']} predicted "
+                    f"{b['predicted_us']:.1f} us ({b['term']}) measured "
+                    f"{b['measured_us']:.1f} us ratio {b['ratio']:.2f}")
+        for label in ("kernels", "spatial"):
+            err = compare(f"introspect {bands} bands, {label} vs gemm twin",
+                          logits[label], logits["gemm twin"], LOGIT_RTOL)
+            log(f"introspect {bands} bands: {label} logits vs the gemm "
+                f"twin's: max abs err {err:.3e}")
+        by_step = {label: {b["name"]: b for b in rep["blocks"]}
+                   for label, rep in reports.items()}
+        for name in cp.meta["fused"]:
+            k, sp = by_step["kernels"][name], by_step["spatial"][name]
+            log(f"introspect {bands} bands, fused {name}: banded kernels "
+                f"{k['measured_us']:.1f} us (predicted "
+                f"{k['predicted_us']:.1f}) vs spatial lowering (cuDNN) "
+                f"{sp['measured_us']:.1f} us (predicted "
+                f"{sp['predicted_us']:.1f}); plain gemm twin "
+                f"{by_step['gemm twin'][name]['measured_us']:.1f} us")
+        del cp, cp_ref, plain, logits
+        torch.cuda.empty_cache()
+    cudnn_probe(dev)
+    log(f"introspection phase: {time.perf_counter() - t_phase:.2f} s")
+
+
+def cudnn_probe(dev) -> None:
+    """Phase 9's yardstick for the spatial lowering: one cuDNN fp32 3×3
+    conv (no TF32) at each stage's width and size, batch 8, on the
+    algorithm cuDNN's heuristic picks (what every walk runs) and on the
+    one ``cudnn.benchmark`` picks, beside the bound."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.introspect.opcount import bound
+
+    gen = torch.Generator(device=dev).manual_seed(7)
+    for c, px in ((64, 256), (128, 128), (256, 64), (512, 32)):
+        x = torch.randn((TRAIN_BATCH, c, px, px), generator=gen, device=dev)
+        w = torch.randn((c, c, 3, 3), generator=gen, device=dev)
+        with torch.inference_mode():
+            heuristic = cuda_ms(lambda: F.conv2d(x, w, padding=1))
+            prev = torch.backends.cudnn.benchmark
+            torch.backends.cudnn.benchmark = True
+            try:
+                tuned = cuda_ms(lambda: F.conv2d(x, w, padding=1))
+            finally:
+                torch.backends.cudnn.benchmark = prev
+        ms, by = bound(2.0 * x.numel() * c * 9, 4.0 * (2 * x.numel()
+                                                       + w.numel()))
+        log(f"cuDNN fp32 3x3 conv {c}->{c} at {px}x{px}, batch "
+            f"{TRAIN_BATCH}: heuristic {heuristic:.3f} ms, benchmark-picked "
+            f"{tuned:.3f} ms, bound {ms:.3f} ms ({by})")
+        del x, w
+
+
 def main() -> None:
     if not os.path.isdir(os.path.join(REPO_SRC, "repro_torch")):
         fail(f"no src/repro_torch beside {__file__}: run from a checkout")
@@ -1425,6 +1584,8 @@ def main() -> None:
     from repro_torch.configs import get_config
     from repro_torch.core import dispatch as dsp
     from repro_torch.core import plan as planlib
+    from repro_torch.introspect.opcount import PEAK_FP32_FLOPS, asm_work, \
+        block_matmul_work, bound, conv_work, fused_work
     from repro_torch.kernels import _build
     from repro_torch.kernels import asm_relu as kasm
     from repro_torch.kernels import block_dct as kbd
@@ -1515,15 +1676,12 @@ def main() -> None:
             err = compare(f"fused_block {name}", got, want, CONV_RTOL)
             out_rows = BATCH * (grid // blk.conv1.stride) ** 2
             convs = [pc for pc in (blk.conv1, blk.conv2, blk.proj) if pc]
-            flops = sum(2.0 * out_rows * pc.xi.numel() for pc in convs)
-            nbytes = 4.0 * (x.numel() + got.numel()
-                            + sum(pc.xi.numel() for pc in convs))
-            flops += asm_flops(out_rows * blk.cout, blk.asm_mid.w)
-            flops += asm_flops(out_rows * blk.cout, blk.asm_out.w)
             record("fused_block", f"{name} x{tuple(x.shape)}", err,
                    cuda_ms(lambda: kfb.fused_block(*ops)),
                    cuda_ms(lambda: kfb.fused_block_reference(*ops)),
-                   (flops, nbytes))
+                   fused_work(x.numel(), got.numel(), out_rows,
+                              [pc.xi.numel() for pc in convs], blk.cout,
+                              blk.asm_mid.w, blk.asm_out.w))
 
         # the s2b0 projection is the served path's one jpeg_conv with 64-row
         # tiles (kernels/jpeg_conv.py tile_rows)
@@ -1577,7 +1735,7 @@ def main() -> None:
                    cuda_ms(run),
                    cuda_ms(lambda: kasm.asm_relu_plain(x, cfg.asm_phi,
                                                        bands=w)),
-                   (asm_flops(n, w), 4.0 * n * (w + 64)))
+                   asm_work(n, w))
             if label in ("s2", "s3"):
                 split_cost(f"asm_relu {label} w={w} rows={n}", run,
                            "asm_kernel")
@@ -1601,7 +1759,7 @@ def main() -> None:
             x2, op = x.reshape(n, 64), kbd.operator(name, q, x)
             record(name, f"{label} rows={n}", err,
                    cuda_ms(lambda: fn(x, q)), cuda_ms(lambda: plain(x, q)),
-                   (2.0 * n * 64 * 64, 4.0 * (2 * n * 64 + 64 * 64)),
+                   block_matmul_work(n),
                    cuda_ms(lambda: torch.matmul(x2, op)))
             if q is not None:
                 split_cost(f"{name} {label} rows={n}", lambda: fn(x, q),
@@ -1659,7 +1817,10 @@ def main() -> None:
     # --- phase 8: the paper's conversion at full width ----------------------
     conversion_phase(cfg, dev, launches, client_dir)
 
-    # --- phases 9-11: LM serving --------------------------------------------
+    # --- phase 9: plan introspection on the h100 profile --------------------
+    introspection_phase(cfg, dev, launches)
+
+    # --- phases 10-12: LM serving -------------------------------------------
     lm_phases(dev, card, launches)
 
     kernels = []

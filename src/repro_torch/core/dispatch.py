@@ -28,6 +28,10 @@ operators (factored layers stay factored, with the plain block
 transforms), which is how a served batch is held against the plain walk
 on the same device.
 
+A fused block has no factored form: :func:`fused_lowering` maps its path
+to the kernels, their plain twin over the same packed operators, or the
+reference's spatial-resident lowering, as the reference routes it.
+
 Training calls the per-step :func:`conv`, which explodes Ξ from the live
 kernel on every call (differentiably) or goes factored above the limit,
 and :func:`batchnorm` with batch statistics.
@@ -53,7 +57,7 @@ __all__ = ["PATHS", "PATH_ALIASES", "DispatchConfig", "get_config",
            "configure", "override", "resolve_config", "canonical_path",
            "choose_path", "ConvOperator", "conv", "precompute_conv",
            "apply_conv", "asm_relu", "batchnorm", "block_dct", "block_idct",
-           "fused_block"]
+           "fused_lowering", "fused_block"]
 
 PATHS = ("reference", "cuda", "factored")
 #: other names of a path: the reference package's ``pallas`` is ``cuda``
@@ -327,14 +331,41 @@ def asm_relu(coef: torch.Tensor, phi: int = asmlib.EXACT_PHI,
     return asmlib.asm_relu(coef, phi, bands=bands)
 
 
-def fused_block(x: torch.Tensor, block, *, path: str,
-                cfg: DispatchConfig | None = None) -> torch.Tensor:
-    """One residual block of a compiled plan (``core.plan.CompiledBlock``):
-    the CUDA kernels on the ``cuda`` path, their plain version otherwise."""
+def fused_lowering(path: str | None, cfg: DispatchConfig | None = None, *,
+                   device: torch.device, executor: str | None = None) -> str:
+    """Which lowering :func:`fused_block` runs: ``cuda`` (the kernels),
+    ``gemm`` (their plain twin over the same packed operators) or
+    ``spatial`` (``kernels.fused_block.fused_block_spatial``).
+
+    A block compiled on the ``cuda`` path runs the kernels on a CUDA
+    tensor, and their twin under a ``reference`` config at apply time or
+    on a CPU tensor.  A block compiled on the ``reference`` path runs the
+    spatial lowering, as the reference's ``_fused_reference`` does, and so
+    does a ``factored`` one (there is no factored fused kernel).
+    ``executor="gemm"`` forces the packed-GEMM lowering: the kernels where
+    the path resolves to ``cuda`` on a CUDA tensor, their twin otherwise.
+    """
+    cfg = resolve_config(cfg)
+    path = choose_path("fused_block", cfg, device=device) if path is None \
+        else path
+    if _runtime_path(path, cfg) == "cuda" \
+            and torch.device(device).type == "cuda":
+        return "cuda"
+    return "gemm" if executor == "gemm" or path == "cuda" else "spatial"
+
+
+def fused_block(x: torch.Tensor, block, phi: int, *,
+                path: str | None = None, cfg: DispatchConfig | None = None,
+                executor: str | None = None) -> torch.Tensor:
+    """One residual block of a compiled plan (``core.plan.CompiledBlock``)
+    along :func:`fused_lowering`'s choice; ``path`` is normally the
+    block's compile-time resolution (None resolves it from ``cfg`` and
+    the tensor's device)."""
     from repro_torch.kernels import fused_block as kfb
 
-    args = (x, block.conv1, block.asm_mid, block.conv2, block.asm_out,
-            block.proj)
-    if _runtime_path(path, resolve_config(cfg)) == "cuda":
-        return kfb.fused_block(*args)
-    return kfb.fused_block_reference(*args)
+    low = fused_lowering(path, cfg, device=x.device, executor=executor)
+    if low == "spatial":
+        return kfb.fused_block_spatial(x, block, phi)
+    fn = kfb.fused_block if low == "cuda" else kfb.fused_block_reference
+    return fn(x, block.conv1, block.asm_mid, block.conv2, block.asm_out,
+              block.proj)

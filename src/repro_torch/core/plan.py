@@ -23,7 +23,12 @@ stay in the packed ``(N, bh, bw, C·w)`` layout.  Unlike the reference
 package, which demotes blocks whose operands do not fit a TPU core's VMEM,
 every materialised block is fused here: the kernels stream Ξ from device
 memory, so ``meta["smem"]`` records each fused block's per-CTA shared
-memory instead.
+memory instead.  A fused step runs one of three lowerings
+(``dispatch.fused_lowering``): the kernels on a ``cuda`` plan, the
+spatial-resident lowering on a ``reference`` plan (as the reference
+serves off-TPU), or, under ``executor="gemm"``, the packed GEMM.
+:func:`compiled_steps` is the schedule as a step list, which both apply
+functions fold, and :class:`StepProfile` times it step by step.
 
 :func:`capture_compiled` pins the schedule to one input shape: on a CUDA
 device one ``torch.cuda.CUDAGraph`` over static input and output buffers,
@@ -61,8 +66,9 @@ from repro_torch.kernels import tiling
 __all__ = ["BAND_LADDER", "qtable_band_energy", "bands_for_budget",
            "bands_for_profile", "autotune_bands", "operator_keys",
            "build_operators", "apply_operators", "InferencePlan",
-           "build_plan", "apply_plan", "CompiledStem", "CompiledBlock", "CompiledPlan",
-           "compile_plan", "apply_compiled", "apply_compiled_packed",
+           "build_plan", "apply_plan", "CompiledStem", "CompiledBlock",
+           "CompiledPlan", "compile_plan", "plan_executor", "compiled_steps",
+           "apply_compiled", "apply_compiled_packed", "StepProfile",
            "capture_compiled", "save_plan", "load_plan",
            "save_compiled_plan", "load_compiled_plan"]
 
@@ -587,15 +593,29 @@ def compile_plan(plan: InferencePlan) -> CompiledPlan:
                         spec, phi, cfg, dict(plan.bands), meta)
 
 
-def _apply_stem(stem: CompiledStem, coef: torch.Tensor, phi: int,
-                cfg: dispatchlib.DispatchConfig) -> torch.Tensor:
+def _packed_stem_runs(cp: CompiledPlan, executor: str | None) -> bool:
+    """Whether the stem runs as the packed GEMM (``gemm``, or a ``cuda``
+    plan) rather than spatial (a packed stem on the ``reference`` path)
+    or per layer (a factored stem)."""
+    path = (cp.meta or {}).get("path", "reference")
+    return cp.stem.kind == "packed" and (executor == "gemm"
+                                         or path == "cuda")
+
+
+def _apply_stem(cp: CompiledPlan, coef: torch.Tensor,
+                cfg: dispatchlib.DispatchConfig,
+                executor: str | None) -> torch.Tensor:
     """Stem from ``(N, bh, bw, C, 64)`` coefficients → packed activation."""
-    n, bh, bw = coef.shape[:3]
-    if stem.kind == "packed":
+    from repro_torch.kernels import fused_block as kfb
+
+    stem, n, (bh, bw) = cp.stem, coef.shape[0], coef.shape[1:3]
+    if _packed_stem_runs(cp, executor):
         h = coef[..., : stem.w_in].reshape(n, bh, bw, stem.cin * stem.w_in)
         return _packed_stem(stem, h)
+    if stem.kind == "packed":
+        return kfb.fused_stem_spatial(coef, stem.op, cp.phi, stem.w_out)
     h = dispatchlib.apply_conv(coef, stem.op, cfg=cfg)
-    h = dispatchlib.asm_relu(h, phi, cfg=cfg, bands=stem.bands_out)
+    h = dispatchlib.asm_relu(h, cp.phi, cfg=cfg, bands=stem.bands_out)
     return h[..., : stem.w_out].reshape(n, bh, bw, stem.cout * stem.w_out)
 
 
@@ -628,7 +648,8 @@ def _apply_layers_block(blk: CompiledBlock, h: torch.Tensor, phi: int,
                                        blk.cout * blk.w_out)
 
 
-def _block_steps(cp: CompiledPlan, cfg: dispatchlib.DispatchConfig):
+def _block_steps(cp: CompiledPlan, cfg: dispatchlib.DispatchConfig,
+                 executor: str | None):
     """The post-stem schedule as ``(name, fn)`` steps: one per residual
     block, then the DC-read head."""
 
@@ -637,8 +658,8 @@ def _block_steps(cp: CompiledPlan, cfg: dispatchlib.DispatchConfig):
             if blk.w_in != w_prev:
                 h = tiling.fit_width(h, blk.cin, blk.w_in)
             if blk.kind == "fused":
-                return dispatchlib.fused_block(h, blk, path=blk.path,
-                                               cfg=cfg)
+                return dispatchlib.fused_block(h, blk, cp.phi, path=blk.path,
+                                               cfg=cfg, executor=executor)
             return _apply_layers_block(blk, h, cp.phi, cfg)
 
         return fn
@@ -659,49 +680,163 @@ def _block_steps(cp: CompiledPlan, cfg: dispatchlib.DispatchConfig):
     return steps
 
 
-def _run_blocks(cp: CompiledPlan, h: torch.Tensor,
-                cfg: dispatchlib.DispatchConfig) -> torch.Tensor:
-    for _name, fn in _block_steps(cp, cfg):
-        h = fn(h)
-    return h
+def plan_executor(cp: CompiledPlan, executor: str | None) -> str | None:
+    """The executor ``cp`` runs under ``executor``: as asked, but always
+    ``gemm`` for a plan restored from the port's earlier format
+    (``meta["executor"]``), which cannot take the spatial lowering."""
+    if executor not in (None, "gemm"):
+        raise ValueError(f"unknown executor {executor!r} (None or 'gemm')")
+    return (cp.meta or {}).get("executor") or executor
+
+
+def compiled_steps(cp: CompiledPlan,
+                   cfg: dispatchlib.DispatchConfig | None = None, *,
+                   executor: str | None = None, packed: bool = False):
+    """The whole schedule as an explicit ``(name, fn)`` step list:
+    ``stem`` (coefficients, or the tile-packed stem input with
+    ``packed=True``, to packed activations), one step per residual
+    block, and ``head`` (packed activations to logits).
+
+    :func:`apply_compiled` and :func:`apply_compiled_packed` fold exactly
+    this list, so a per-step walk (attribution, profiled timing) runs the
+    production schedule's own closures.
+    """
+    cfg = cp.cfg if cfg is None else cfg
+    executor = plan_executor(cp, executor)
+    st = cp.stem
+
+    def stem_fn(x):
+        if not packed:
+            return _apply_stem(cp, x, cfg, executor)
+        n, bh, bw, k = x.shape
+        if k != st.cin * st.w_in:
+            raise ValueError(
+                f"packed input has per-channel width {k / st.cin:g}, "
+                f"stem expects w_in={st.w_in} (cin={st.cin})")
+        if _packed_stem_runs(cp, executor):
+            return _packed_stem(st, x)
+        # the spatial and per-layer stems read the 64-wide layout;
+        # unpacking is a zero pad (lanes past w_in >= stem.bands are
+        # dropped by the stem conv anyway)
+        return _apply_stem(cp, pad_bands(x.reshape(n, bh, bw, st.cin,
+                                                   st.w_in)), cfg, executor)
+
+    return [("stem", stem_fn)] + _block_steps(cp, cfg, executor)
+
+
+def _fold(steps, x: torch.Tensor) -> torch.Tensor:
+    for _name, fn in steps:
+        x = fn(x)
+    return x
 
 
 def apply_compiled(cp: CompiledPlan, coef: torch.Tensor,
-                   cfg: dispatchlib.DispatchConfig | None = None
-                   ) -> torch.Tensor:
-    """Run the schedule on ``(N, bh, bw, C, 64)`` coefficients."""
-    cfg = cp.cfg if cfg is None else cfg
-    return _run_blocks(cp, _apply_stem(cp.stem, coef, cp.phi, cfg), cfg)
+                   cfg: dispatchlib.DispatchConfig | None = None, *,
+                   executor: str | None = None,
+                   profile: "StepProfile | None" = None) -> torch.Tensor:
+    """Run the schedule on ``(N, bh, bw, C, 64)`` coefficients.
+
+    ``executor=None`` honours each step's compile-time path: the kernels
+    on a ``cuda`` plan (their plain twin under a ``reference`` config),
+    the spatial-resident lowering for fused blocks and a packed stem on a
+    ``reference`` plan.  ``executor="gemm"`` forces the packed-GEMM
+    lowering on the stem and every fused block: the kernels on a ``cuda``
+    plan with a card, ``kernels.fused_block.fused_block_reference``
+    otherwise; its cost, unlike the spatial lowering's, scales with the
+    packed band widths.
+
+    ``profile`` (a :class:`StepProfile`) runs the same step closures one
+    at a time, each fenced by a device synchronise, and records each
+    step's wall; the logits are bit-identical to the unprofiled walk's.
+    """
+    steps = compiled_steps(cp, cfg, executor=executor)
+    if profile is not None:
+        return _apply_profiled(steps, coef, profile)
+    return _fold(steps, coef)
 
 
 def apply_compiled_packed(cp: CompiledPlan, packed: torch.Tensor,
-                          cfg: dispatchlib.DispatchConfig | None = None
+                          cfg: dispatchlib.DispatchConfig | None = None, *,
+                          executor: str | None = None,
+                          profile: "StepProfile | None" = None
                           ) -> torch.Tensor:
     """Run the schedule on the tile-packed stem input ``(N, bh, bw,
-    Cin·stem.w_in)`` (``codec.ingest_batch(pack_width=cp.stem.w_in)``)."""
-    cfg = cp.cfg if cfg is None else cfg
-    st = cp.stem
-    n, bh, bw, k = packed.shape
-    if k != st.cin * st.w_in:
-        raise ValueError(
-            f"packed input has per-channel width {k / st.cin:g}, "
-            f"stem expects w_in={st.w_in} (cin={st.cin})")
-    if st.kind == "packed":
-        h = _packed_stem(st, packed)
-    else:
-        coef = pad_bands(packed.reshape(n, bh, bw, st.cin, st.w_in))
-        h = _apply_stem(st, coef, cp.phi, cfg)
-    return _run_blocks(cp, h, cfg)
+    Cin·stem.w_in)`` (``codec.ingest_batch(pack_width=cp.stem.w_in)``);
+    ``executor`` and ``profile`` as for :func:`apply_compiled`."""
+    steps = compiled_steps(cp, cfg, executor=executor, packed=True)
+    if profile is not None:
+        return _apply_profiled(steps, packed, profile)
+    return _fold(steps, packed)
+
+
+class StepProfile:
+    """Per-step walls of profiled compiled runs.
+
+    Pass one as ``apply_compiled(..., profile=prof)`` (or the packed
+    entry): the schedule runs step by step, each step fenced on both
+    sides by ``torch.cuda.synchronize()`` on the card (nothing on the
+    CPU, which runs synchronously) and timed by ``time.perf_counter``;
+    one sample per step is appended per call.  The first calls pay
+    one-time work (kernel builds, cached operands, cuDNN's first plans):
+    call once to warm, then :meth:`reset` before the measuring calls.
+    :meth:`summary` reduces the samples to per-step medians.
+    """
+
+    def __init__(self) -> None:
+        self.order: list[str] = []
+        self.samples: dict[str, list[float]] = {}
+        self.calls = 0
+
+    def record(self, name: str, seconds: float) -> None:
+        if name not in self.samples:
+            self.order.append(name)
+            self.samples[name] = []
+        self.samples[name].append(seconds)
+
+    def reset(self) -> None:
+        """Drop the recorded samples."""
+        self.order.clear()
+        self.samples.clear()
+        self.calls = 0
+
+    def summary(self) -> dict[str, float]:
+        """Per-step median wall (seconds), in schedule order."""
+        import statistics
+
+        return {name: statistics.median(self.samples[name])
+                for name in self.order}
+
+    def total_s(self) -> float:
+        return sum(self.summary().values())
+
+
+def _apply_profiled(steps, x: torch.Tensor,
+                    profile: StepProfile) -> torch.Tensor:
+    import time
+
+    def fence():
+        if x.device.type == "cuda":
+            torch.cuda.synchronize(x.device)
+
+    fence()
+    for name, fn in steps:
+        t0 = time.perf_counter()
+        x = fn(x)
+        fence()
+        profile.record(name, time.perf_counter() - t0)
+    profile.calls += 1
+    return x
 
 
 def capture_compiled(cp: CompiledPlan, shape, *, packed: bool = False,
+                     executor: str | None = None,
                      device: str | torch.device | None = None, pool=None,
                      on_capture=None):
     """Pin the schedule to one input shape; returns ``call(x) -> logits``.
 
     ``shape`` is the whole batch: ``(N, bh, bw, C, 64)`` coefficients, or
     ``(N, bh, bw, C·stem.w_in)`` with ``packed=True``.  A call at any other
-    shape raises ``ValueError``.
+    shape raises ``ValueError``.  ``executor`` is :func:`apply_compiled`'s.
 
     On a CUDA device the walk runs once eagerly on a side stream, which
     builds the kernels and fills every cached operand (the kernels'
@@ -727,7 +862,8 @@ def capture_compiled(cp: CompiledPlan, shape, *, packed: bool = False,
     from repro_torch import kernels
 
     shape = tuple(int(s) for s in shape)
-    apply_fn = apply_compiled_packed if packed else apply_compiled
+    entry = apply_compiled_packed if packed else apply_compiled
+    apply_fn = functools.partial(entry, executor=executor)
     dev = resolve_device(device)
 
     def check(x):
@@ -1012,6 +1148,10 @@ def load_compiled_plan(directory: str, step: int | None = None,
         if "vmem_bytes" in m and m["kind"] == "fused":
             vmem[name] = int(m["vmem_bytes"])
     meta.setdefault("vmem", vmem)
+    if extra["format"] == _PORT_FORMAT:
+        # repro_torch/1 keeps no bn_scale, which the spatial lowering
+        # re-derives each layer from: such a plan runs the packed GEMM
+        meta["executor"] = "gemm"
     meta.setdefault("fused", [b.name for b in blocks if b.kind == "fused"])
     meta.setdefault("layers", {b.name: "factored operator" for b in blocks
                                if b.kind == "layers"})

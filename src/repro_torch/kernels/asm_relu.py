@@ -29,6 +29,7 @@ import functools
 import torch
 import torch.nn.functional as F
 
+from repro_torch.introspect import opcount
 from repro_torch.kernels import _build
 from repro_torch.kernels.tiling import PackedAsm, pack_asm, packed_asm_apply
 
@@ -91,6 +92,8 @@ def _launch(coef: torch.Tensor, phi: int, bands: int | None) -> torch.Tensor:
         _build.stream_of(coef))
     _build.launch_check(err, "asm_relu")
     LAUNCHES += 1
+    if opcount.counting():
+        opcount.add_kernel_work(*opcount.asm_work(coef.numel() // nf, b, nf))
     return out
 
 

@@ -25,6 +25,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import dct as dctlib
+from repro_torch.introspect import opcount
 from repro_torch.kernels import _build
 
 __all__ = ["LAUNCHES", "block_dct", "block_idct", "block_dct_plain",
@@ -89,6 +90,8 @@ def _launch(rows: torch.Tensor, op: torch.Tensor, name: str) -> torch.Tensor:
         _build.stream_of(rows))
     _build.launch_check(err, name)
     LAUNCHES[name] += 1
+    if opcount.counting():
+        opcount.add_kernel_work(*opcount.block_matmul_work(rows.shape[0]))
     return out
 
 

@@ -28,6 +28,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core.conv import _offsets_from, apply_exploded
+from repro_torch.introspect import opcount
 from repro_torch.kernels import _build
 from repro_torch.kernels.tiling import PackedAsm
 
@@ -157,6 +158,10 @@ def _launch(coef: torch.Tensor, xi: torch.Tensor, stride: int,
         ndx=ndx, stride=stride, cout=cout, w_b=nf_out, w_o=w_o,
         shift=None if shift is None else _shift_row(shift, cout, nf_out))
     LAUNCHES += 1
+    if opcount.counting():
+        opcount.add_kernel_work(*opcount.conv_work(
+            n * bh * bw, cin, nf_in, ndy * ndx, nf_in, cout, nf_out, w_o,
+            out.shape[0] * out.shape[1] * out.shape[2]))
     return out.reshape(n, bh // stride, bw // stride, cout, w_o)
 
 

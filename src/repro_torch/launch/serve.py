@@ -46,8 +46,12 @@ killed before the third batch (``--chaos-kill-worker``), and
 that trips on two consecutive failures; the client retries through the
 open breaker and resubmits healthy requests that failed at the executor
 or ingest stage (up to 4 rounds), and the report's ``chaos`` entry counts
-what failed where.  ``--profile-grid`` and ``--hw-profile`` raise
-``NotImplementedError`` (ROADMAP Queue 1 item 6).
+what failed where.  ``--profile-grid`` sweeps the warmed grid before
+traffic (``introspect.profile_plan_grid`` against the ``--hw-profile``
+roofline: every cell's predicted and measured capacity, no capture): the
+capacities go to the ``serve_predicted_capacity`` gauges, each cell's
+FLOPs and predicted wall onto its ``device-dispatch`` spans, and the
+sweep into the report's ``profile_grid``.
 
 Without ``--qos`` requests run through a pool of ``--batch`` slots: each
 request classifies a random number (1..``--max-new``) of images and a
@@ -609,6 +613,9 @@ def _serve_jpeg_qos(args, cfg, plan, plan_info, device,
               f"({'CUDA graphs' if gs['cuda_graphs'] else 'eager, CPU'}; "
               f"{gs['host_staging_bytes'] / 2**20:.1f} MiB host staging) "
               f"in {warmup_s:.2f} s", flush=True)
+        profile_grid = None
+        if getattr(args, "profile_grid", False):
+            profile_grid = _profile_grid(args, sched, metrics)
         # the client makes (and corrupts) every payload before the burst:
         # its image synthesis and encoding stay outside the server's clock
         payloads = [payload_of(i) for i in range(total)]
@@ -698,9 +705,37 @@ def _serve_jpeg_qos(args, cfg, plan, plan_info, device,
         out["metrics_window_s"] = t_closed - t_writer
     if profile_path is not None:
         out["profile"] = profile_path
+    if profile_grid is not None:
+        out["profile_grid"] = profile_grid
     if chaos:
         out["chaos"] = _chaos_report(requests, faults, total)
     _emit_report(args, out)
+    return out
+
+
+def _profile_grid(args, sched, metrics) -> dict:
+    """``--profile-grid``: the pre-traffic capacity sweep over every
+    warmed cell (captured executors and eager walks only: no capture),
+    its capacities on the ``serve_predicted_capacity`` gauges and each
+    cell's FLOPs and predicted wall on the scheduler's device-dispatch
+    spans.  Returns the report's ``profile_grid`` section, with the
+    sweep's ``seconds``."""
+    from repro_torch import introspect
+
+    t0 = time.perf_counter()
+    hw = introspect.resolve_profile(getattr(args, "hw_profile", None))
+    out = introspect.profile_plan_grid(sched.grid_engine, hw=hw)
+    for c in out["cells"]:
+        metrics.record_predicted_capacity(c["cell"], c["predicted_req_s"])
+    sched.grid_engine.annotate_costs(
+        {c["cell"]: {"flops": c["flops"], "predicted_us": c["predicted_us"]}
+         for c in out["cells"]})
+    out["seconds"] = time.perf_counter() - t0
+    print(f"[serve] grid profile ({hw.name}, {out['seconds']:.2f} s): "
+          + "  ".join(f"{c['cell']}={c['predicted_req_s']:.0f}req/s "
+                      f"(measured {c['measured_req_s']:.0f})"
+                      for c in out["cells"][:6])
+          + ("  ..." if len(out["cells"]) > 6 else ""), flush=True)
     return out
 
 
@@ -754,17 +789,8 @@ def serve_jpeg_resnet(args, *, prepared=None,
     ``on_batch(x, logits)`` sees every timed batch of the slot loop;
     ``on_served(ladder, requests, grid)`` the ``--qos`` run's requests
     and its grid of captured cells."""
-    _refuse_unported(args)
     with dispatchlib.override(**_dispatch_changes(args)):
         return _serve_jpeg_resnet(args, prepared, on_batch, on_served)
-
-
-def _refuse_unported(args) -> None:
-    if getattr(args, "profile_grid", False) \
-            or getattr(args, "hw_profile", None):
-        raise NotImplementedError(
-            "--profile-grid/--hw-profile (the grid's roofline sweep) are "
-            "not ported: ROADMAP Queue 1 item 6 (introspection)")
 
 
 def _serve_jpeg_resnet(args, prepared, on_batch, on_served) -> dict:
@@ -778,10 +804,11 @@ def _serve_jpeg_resnet(args, prepared, on_batch, on_served) -> dict:
         return _serve_jpeg_qos(args, cfg, plan, info, device,
                                on_served=on_served)
     if any(getattr(args, a, None) for a in ("trace_out", "metrics_out",
-                                            "jax_profile", "chaos")):
-        print("[serve] --trace-out/--metrics-out/--jax-profile/--chaos "
-              "instrument the QoS runtime; ignored without --qos",
-              flush=True)
+                                            "jax_profile", "chaos",
+                                            "profile_grid")):
+        print("[serve] --trace-out/--metrics-out/--jax-profile/--chaos/"
+              "--profile-grid instrument the QoS runtime; ignored without "
+              "--qos", flush=True)
     spec = plan.spec
     n_blocks = cfg.image_size // dctlib.BLOCK
     from_bytes = getattr(args, "ingest", "coefficients") == "bytes"
@@ -906,7 +933,6 @@ def serve_lm(args) -> dict:
     ``--seed`` and the same report keys.  As there, every slot shares the
     cache's one position index, so a refilled slot continues at the global
     index over the previous request's cache."""
-    _refuse_unported(args)
     device = resolve_device(args.device)
     cfg = reduced_config(args.arch) if args.reduced \
         else get_config(args.arch)
@@ -1046,11 +1072,16 @@ def parse_args(argv=None) -> argparse.Namespace:
                          "energy budget and a parity sweep on one probe "
                          "batch of the run's traffic")
     ap.add_argument("--profile-grid", action="store_true",
-                    help="not ported: raises NotImplementedError "
-                         "(ROADMAP Queue 1 item 6)")
+                    help="after grid warmup, before traffic: every warmed "
+                         "cell's roofline-predicted and measured capacity "
+                         "(no capture) -> the serve_predicted_capacity "
+                         "gauges, device-dispatch span annotations and the "
+                         "report's profile_grid section")
     ap.add_argument("--hw-profile", default=None,
-                    help="not ported: raises NotImplementedError "
-                         "(ROADMAP Queue 1 item 6)")
+                    help="roofline hardware profile for --profile-grid: a "
+                         "registry name (h100, gpu, cpu, tpu-v5e, tpu-v4), "
+                         "a 'peak_flops,hbm_bw,link_bw' triple, or unset "
+                         "for $JPEG_HW_PROFILE / the detected device")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--ctx", type=int, default=256,
                     help="LM decode cache slots")

@@ -142,14 +142,18 @@ class GridCell:
     it first (the scheduler's ``_execute`` copies it to the host).
     ``hits`` counts served dispatches, ``replays`` every run of the
     executor (warm-up and timing included); ``graph_launches`` is what one
-    replay launches, by kernel.
+    replay launches, by kernel.  ``compiled``/``packed``/``executor`` are
+    the schedule the executor was captured from, which :meth:`profile`
+    walks step by step.
     """
 
     __slots__ = ("name", "bucket", "item_shape", "hits", "replays", "_fn",
-                 "_pool", "_shape", "_tracer")
+                 "_pool", "_shape", "_tracer", "_compiled", "_packed",
+                 "_executor")
 
     def __init__(self, name: str, bucket: int, item_shape, fn: Callable,
-                 pool: PinnedPool, tracer=None):
+                 pool: PinnedPool, tracer=None, *, compiled=None,
+                 packed: bool = False, executor: str | None = None):
         self.name = name
         self.bucket = int(bucket)
         self.item_shape = tuple(int(s) for s in item_shape)
@@ -157,6 +161,9 @@ class GridCell:
         self._fn = fn
         self._pool = pool
         self._tracer = tracer if tracer is not None else NULL_TRACER
+        self._compiled = compiled
+        self._packed = bool(packed)
+        self._executor = executor
         self.hits = 0
         self.replays = 0
 
@@ -168,20 +175,29 @@ class GridCell:
         self.replays += 1
         return self._fn(host)
 
-    def __call__(self, rows: np.ndarray, rids=None) -> torch.Tensor:
-        rows = np.asarray(rows, np.float32)
-        n = rows.shape[0]
-        if n > self.bucket or tuple(rows.shape[1:]) != self.item_shape:
-            raise ValueError(
-                f"cell {self.name} serves shape {self._shape}, "
-                f"got {tuple(rows.shape)}")
-        tr = self._tracer
-        ta = tr.now() if tr.enabled else 0.0
+    def _stage(self, rows) -> torch.Tensor:
+        """The pooled host buffer holding ``rows`` (numpy), zero-padded to
+        the bucket; all zeros when ``rows`` is None."""
         host = self._pool.get(self._shape)
         view = host.numpy()
-        view[:n] = rows
+        n = 0
+        if rows is not None:
+            rows = np.asarray(rows, np.float32)
+            n = rows.shape[0]
+            if n > self.bucket or tuple(rows.shape[1:]) != self.item_shape:
+                raise ValueError(
+                    f"cell {self.name} serves shape {self._shape}, "
+                    f"got {tuple(rows.shape)}")
+            view[:n] = rows
         if n < self.bucket:
             view[n:] = 0.0
+        return host
+
+    def __call__(self, rows: np.ndarray, rids=None) -> torch.Tensor:
+        tr = self._tracer
+        ta = tr.now() if tr.enabled else 0.0
+        n = np.asarray(rows).shape[0]
+        host = self._stage(rows)
         if tr.enabled:
             # nested under the scheduler's device-dispatch span: the
             # host-staging share of the dispatch
@@ -194,18 +210,14 @@ class GridCell:
     def warmup(self) -> None:
         """One run on a zero batch, waited for: a replay that faults
         shows here, before traffic."""
-        host = self._pool.get(self._shape)
-        host.zero_()
-        out = self._run(host)
+        out = self._run(self._stage(None))
         if out.device.type == "cuda":
             torch.cuda.synchronize(out.device)
 
-    def time_wall(self, *, iters: int = 3) -> float:
-        """Median seconds of one run on a zero batch: CUDA events around
-        the copy and the replay on a CUDA device, the host clock on the
-        CPU.  Runs only the captured executor: no new capture."""
-        host = self._pool.get(self._shape)
-        host.zero_()
+    def _wall(self, host: torch.Tensor, iters: int) -> float:
+        """Median seconds of one run of the executor on ``host``: CUDA
+        events around the copy and the replay on a CUDA device, the host
+        clock on the CPU.  Runs only the captured executor."""
         out = self._run(host)
         cuda = out.device.type == "cuda"
         walls = []
@@ -224,12 +236,51 @@ class GridCell:
                 walls.append(time.perf_counter() - t0)
         return statistics.median(walls)
 
-    def profile(self, *args, **kwargs) -> dict:
-        """Per-block walls of the cell's schedule: the reference's
-        ``StepProfile`` comes with the introspection modules."""
-        raise NotImplementedError(
-            "GridCell.profile needs core.plan.StepProfile and introspect/, "
-            "which are not ported yet: ROADMAP Queue 1 item 6")
+    def time_wall(self, *, iters: int = 3) -> float:
+        """Median seconds of one run on a zero batch (no new capture)."""
+        return self._wall(self._stage(None), iters)
+
+    def profile(self, rows: np.ndarray | None = None, *, iters: int = 3,
+                warmup: int = 1) -> dict:
+        """Per-step walls of this cell's schedule, and the whole cell's.
+
+        ``rows`` are staged as :meth:`__call__` stages them (zero-padded
+        to the bucket; an all-zero batch when None); the cell's schedule
+        runs eagerly step by step (``core.plan.StepProfile``), ``warmup``
+        discarded calls then ``iters`` timed ones, and the cell's own
+        captured executor is timed on the same staged input (no new
+        capture).  Returns ``{"cell", "bucket", "steps": [{"name",
+        "measured_us"}...], "profiled_total_us", "cell_wall_us",
+        "logits"}`` (medians; ``logits`` the profiled walk's, as numpy,
+        bit-identical to the executor's).
+        """
+        if self._compiled is None:
+            raise RuntimeError(
+                f"cell {self.name} was built without its compiled plan; "
+                f"profiling walks the schedule")
+        host = self._stage(rows)
+        x = host.to(self._compiled.head_w.device)
+        apply_fn = (planlib.apply_compiled_packed if self._packed
+                    else planlib.apply_compiled)
+        prof = planlib.StepProfile()
+        with torch.inference_mode():
+            for _ in range(max(1, warmup)):
+                apply_fn(self._compiled, x, executor=self._executor,
+                         profile=prof)
+            prof.reset()
+            for _ in range(max(1, iters)):
+                logits = apply_fn(self._compiled, x, executor=self._executor,
+                                  profile=prof)
+        steps = prof.summary()
+        return {
+            "cell": self.name,
+            "bucket": self.bucket,
+            "steps": [{"name": k, "measured_us": v * 1e6}
+                      for k, v in steps.items()],
+            "profiled_total_us": sum(steps.values()) * 1e6,
+            "cell_wall_us": self._wall(host, iters) * 1e6,
+            "logits": logits.cpu().numpy(),
+        }
 
 
 class GridColumn:
@@ -241,12 +292,14 @@ class GridColumn:
     :meth:`PlanGrid.warmup`.
     """
 
-    def __init__(self, compiled: planlib.CompiledPlan, *, buckets=None,
+    def __init__(self, compiled: planlib.CompiledPlan,
+                 executor: str | None = None, *, buckets=None,
                  pool: PinnedPool | None = None, device=None,
                  graph_pool=None,
                  on_compile: Callable[[str], None] | None = None,
                  tier_name: str = "tier", tracer=None):
         self.compiled = compiled
+        self.executor = executor
         self.w_in = compiled.stem.w_in
         self.buckets = None if buckets is None else validate_buckets(buckets)
         self.tier_name = tier_name
@@ -265,14 +318,17 @@ class GridColumn:
         if c is None:
             name = f"{self.tier_name}/{kind}/b{int(bucket)}"
             on_compile = self._on_compile
+            packed = kind == "bytes"
             fn = planlib.capture_compiled(
-                self.compiled, (int(bucket), *item_shape),
-                packed=(kind == "bytes"), device=self.device,
+                self.compiled, (int(bucket), *item_shape), packed=packed,
+                executor=self.executor, device=self.device,
                 pool=self.graph_pool,
                 on_capture=(None if on_compile is None
                             else (lambda: on_compile(name))))
-            c = self.cells[key] = GridCell(name, bucket, item_shape, fn,
-                                           self.pool, tracer=self.tracer)
+            c = self.cells[key] = GridCell(
+                name, bucket, item_shape, fn, self.pool, tracer=self.tracer,
+                compiled=self.compiled, packed=packed,
+                executor=self.executor)
         return c
 
     def _route(self, kind: str, rows: np.ndarray,
@@ -298,11 +354,13 @@ class PlanGrid:
     ``columns[i]`` serves ``ladder.tiers[i]``; tiers sharing a
     ``CompiledPlan`` share a column.  ``grid``/``channels`` fix the serving
     resolution so :meth:`warmup` can capture every cell before traffic.
-    The device is the ladder's.
+    ``executor`` is ``core.plan.apply_compiled``'s, for every cell.  The
+    device is the ladder's.
     """
 
     def __init__(self, ladder, *, batch: int, buckets=None,
                  grid: tuple[int, int] | None = None, channels: int = 3,
+                 executor: str | None = None,
                  on_compile: Callable[[str], None] | None = None,
                  tracer=None):
         if batch < 1:
@@ -324,12 +382,25 @@ class PlanGrid:
             key = id(tier.compiled)
             if key not in by_id:
                 by_id[key] = GridColumn(
-                    tier.compiled, buckets=self.buckets, pool=self.pool,
+                    tier.compiled, executor, buckets=self.buckets,
+                    pool=self.pool,
                     device=self.device, graph_pool=self.graph_pool,
                     on_compile=on_compile, tier_name=tier.name,
                     tracer=tracer)
             self.columns.append(by_id[key])
         self.distinct = list(by_id.values())
+        # per-cell cost annotations (``serve --profile-grid`` fills them
+        # from ``introspect.profile_plan_grid``): cell name -> {"flops",
+        # "predicted_us", ...}; the scheduler puts them on its
+        # device-dispatch spans
+        self.cell_costs: dict[str, dict] = {}
+
+    def annotate_costs(self, costs: dict[str, dict]) -> None:
+        """Attach per-cell cost annotations (merged by cell name)."""
+        self.cell_costs.update(costs)
+
+    def cost_for(self, cell_name: str) -> dict | None:
+        return self.cell_costs.get(cell_name)
 
     def bucket_for(self, n: int) -> int:
         return bucket_for(n, self.buckets)

@@ -190,12 +190,13 @@ class BandElasticScheduler:
     ``batch`` — see ``serving.grid.cover_buckets``); ``buckets=(batch,)``
     reproduces the pre-grid pad-to-``max_batch`` behaviour.
 
-    ``executor``: ``"auto"`` (or None) runs each tier's compiled plan on
-    the paths it was built with — the hand-written kernels on the card,
-    the port's counterpart of the reference's TPU branch, and their plain
-    versions on the CPU.  The reference's ``"gemm"`` lowering (its
-    packed-GEMM XLA executor, which it runs off-TPU) is not ported and
-    raises ``NotImplementedError``.
+    ``executor`` selects the compiled-plan lowering
+    (``core.plan.apply_compiled``): ``None`` runs each tier's plan on the
+    paths it was compiled with, ``"gemm"`` the packed-GEMM lowering, whose
+    cost, unlike the spatial lowering's, follows the band budget.
+    ``"auto"`` mirrors the reference's rule: ``None`` (the kernels) on a
+    CUDA ladder, as the reference does on its TPU, and ``"gemm"`` on the
+    CPU, as the reference does off-TPU.
 
     The device is the ladder's (``ladder.base.device``).
     """
@@ -216,14 +217,12 @@ class BandElasticScheduler:
             raise ValueError("batch must be >= 1")
         if executor_retries < 0:
             raise ValueError("executor_retries must be >= 0")
-        if executor == "gemm":
-            raise NotImplementedError(
-                "executor='gemm' (the reference's packed-GEMM lowering of "
-                "core/plan.py:705-821) is not ported: ROADMAP Queue 1 "
-                "item 5(c)")
-        if executor not in ("auto", None):
-            raise ValueError(f"unknown executor {executor!r}")
         self.device = ladder.base.device
+        if executor == "auto":
+            executor = None if self.device.type == "cuda" else "gemm"
+        if executor not in (None, "gemm"):
+            raise ValueError(f"unknown executor {executor!r}")
+        self.executor = executor
         self.ladder = ladder
         self.batch = batch
         self.metrics = metrics if metrics is not None else ServeMetrics()
@@ -256,8 +255,8 @@ class BandElasticScheduler:
         # captured executor (a CUDA graph on the card) per (kind, bucket)
         self.grid_engine = PlanGrid(
             ladder, batch=batch, buckets=buckets, grid=grid,
-            channels=channels, on_compile=self._note_compile,
-            tracer=self.tracer)
+            channels=channels, executor=executor,
+            on_compile=self._note_compile, tracer=self.tracer)
         self.buckets = self.grid_engine.buckets
         self._execs = self.grid_engine.columns
         self.tier_names = [t.name for t in ladder.tiers]
@@ -817,6 +816,15 @@ class BandElasticScheduler:
                           "kind": kind})
             dargs = {"tier": name, "n": n, "bucket": bucket,
                      "kind": kind, "rids": rids}
+            # --profile-grid annotations: the cell's counted FLOPs and
+            # roofline-predicted wall ride on the span, so predicted and
+            # measured sit on one track (a tier that shares another's
+            # schedule replays, and is annotated by, that column's cell)
+            cost = self.grid_engine.cost_for(
+                f"{ex.tier_name}/{kind}/b{bucket}")
+            if cost:
+                dargs.update({k: cost[k] for k in ("flops", "predicted_us")
+                              if k in cost})
             tr.span("device", "device-dispatch", t0s, t1s, args=dargs)
             for r in reqs:
                 # flow arrow: this request's queue row -> its batch slice

@@ -15,8 +15,8 @@ chaos contract of ``tests/test_chaos.py``, on the CPU.
   and reports the reference's ``chaos`` keys; ``--metrics-out`` holds the
   reference's metric families, ``--jax-profile`` a trace file; the
   parser takes every flag of the reference's, with its defaults;
-  ``--chaos`` without byte traffic, and the unported ``--profile-grid``
-  and ``--hw-profile``, raise.
+  ``--chaos`` without byte traffic raises; ``--profile-grid`` (with and
+  without ``--hw-profile``) writes the report's ``profile_grid``.
 """
 import json
 import os
@@ -402,10 +402,27 @@ def test_serve_takes_every_flag_of_the_references():
 
 
 @pytest.mark.parametrize("flag", [["--profile-grid"],
-                                  ["--hw-profile", "h100"]])
-def test_unported_grid_profile_flags_raise(flag):
+                                  ["--profile-grid", "--hw-profile", "cpu"]])
+def test_unported_grid_profile_flags_raise(flag, tmp_path):
+    """Named for what the flags did before they were ported: now each run
+    sweeps every warmed cell into the report's ``profile_grid`` (written
+    to ``--report-out``), with no capture after warmup."""
+    from repro_torch import introspect
     from repro_torch.launch import serve
 
-    with pytest.raises(NotImplementedError, match="item 6"):
-        serve.main(["--arch", "jpeg-resnet", "--reduced", "--device", "cpu",
-                    "--qos"] + flag)
+    path = str(tmp_path / "report.json")
+    out = serve.main(["--arch", "jpeg-resnet", "--reduced", "--device",
+                      "cpu", "--qos", "--bands", "16", "--tiers", "auto,8",
+                      "--batch", "2", "--requests", "4", "--report-out",
+                      path] + flag)
+    with open(path) as f:
+        pg = json.load(f)["profile_grid"]
+    assert pg["hw_profile"] == introspect.resolve_profile(
+        flag[2] if len(flag) > 1 else None).to_json()
+    cells = {c["cell"] for c in pg["cells"]}
+    assert cells == {f"{t}/coefficients/b{b}" for t in ("top", "b8")
+                     for b in (1, 2)}
+    assert all(c["predicted_req_s"] > 0 and c["measured_req_s"] > 0
+               for c in pg["cells"])
+    assert out["qos"]["compiles_post_warmup"] == 0
+    assert set(out["qos"]["predicted_capacity_req_s"]) == cells

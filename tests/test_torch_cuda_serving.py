@@ -1,7 +1,9 @@
 """The serving runtime's CUDA-only parts, on the card: graph capture of the
 compiled walk (``core.plan.capture_compiled``), pinned staging, one graph
-memory pool a grid, launch counts under replay, and the scheduler's
-worker thread replaying graphs on the ladder's device.
+memory pool a grid, launch counts under replay, the scheduler's worker
+thread replaying graphs on the ladder's device, the spatial lowering
+under a replay (bit-identical to its eager walk) and ``GridCell.profile``
+(bit-identical to the replay, no capture).
 
 Needs an NVIDIA GPU of compute capability 9.0 and ``nvcc``; skipped
 elsewhere.  No JAX: run on the card with
@@ -149,3 +151,50 @@ def test_scheduler_replays_graphs_from_its_worker_thread(dev, ladder):
             _close(torch.as_tensor(r.result()).to(dev)[None], want)
     hits = sum(c.hits for c in s.grid_engine.cells())
     assert hits == sum(t["batches"] for t in rep["per_tier"].values())
+
+
+@pytest.mark.parametrize("packed", [True, False])
+def test_spatial_replay_is_bit_identical_to_eager(dev, packed):
+    """A plan compiled on the ``reference`` path runs its stem and fused
+    blocks through the spatial lowering (cuDNN convs, fp32): a CUDA graph
+    replay of it equals its eager walk bit for bit (cuDNN's heuristic
+    picks the same algorithm in every walk)."""
+    spec = spec_of(reduced_config("jpeg-resnet"))
+    params, state = resnetlib.init_resnet(torch.Generator().manual_seed(0),
+                                          spec, dev)
+    cp = planlib.compile_plan(planlib.build_plan(
+        params, state, spec,
+        dispatch=dsp.DispatchConfig(path="reference", bands=16)))
+    assert cp.meta["path"] == "reference" and cp.meta["fused"]
+    shape = ((4, *GRID, 3 * cp.stem.w_in) if packed
+             else (4, *GRID, 3, 64))
+    fn = planlib.capture_compiled(cp, shape, packed=packed, device=dev)
+    apply = planlib.apply_compiled_packed if packed \
+        else planlib.apply_compiled
+    gen = torch.Generator(device=dev).manual_seed(5)
+    with torch.inference_mode():
+        for _ in range(2):
+            x = torch.randn(shape, generator=gen, device=dev)
+            got = fn(x).clone()
+            assert torch.equal(got, apply(cp, x))
+            prof = planlib.StepProfile()
+            assert torch.equal(got, apply(cp, x, profile=prof))
+
+
+@pytest.mark.parametrize("executor", [None, "gemm"])
+def test_cell_profile_on_the_card_is_inert(dev, ladder, executor):
+    """``GridCell.profile`` walks the cell's schedule eagerly: its logits
+    equal the cell's graph replay bit for bit, and it captures nothing."""
+    captured = []
+    g = serving.PlanGrid(ladder, batch=4, grid=GRID, executor=executor,
+                         on_compile=captured.append)
+    g.warmup(kinds=("bytes",))
+    n = len(captured)
+    col = g.columns[0]
+    cell = col.cells[("bytes", 4)]
+    rows = np.random.default_rng(6).normal(
+        size=(3, *GRID, 3 * col.w_in)).astype(np.float32)
+    want = cell(rows).cpu().numpy()
+    prof = cell.profile(rows, iters=2)
+    assert np.array_equal(prof["logits"], want)
+    assert prof["cell_wall_us"] > 0 and len(captured) == n

@@ -30,7 +30,10 @@ def test_port_imports_no_jax_and_no_reference_package():
                  "serving.scheduler", "serving.qos", "serving.metrics",
                  "serving.breaker", "serving.trace", "codec.ingest",
                  "data.pipeline", "core.convert", "core.transform_linear",
-                 "serving.faults"):
+                 "serving.faults", "introspect", "introspect.opcount",
+                 "introspect.roofline", "introspect.report",
+                 "introspect.attribution", "introspect.gridprof",
+                 "launch.inspect"):
         assert "repro_torch." + want in names, want
     code = (
         "import importlib, sys\n"

@@ -279,8 +279,12 @@ def test_cell_matches_unpadded_compiled_plan(served, model):
         fn(torch.as_tensor(packed))
     assert fn.graph is None and fn.graph_launches == {}
     assert cell.time_wall(iters=1) > 0.0
-    with pytest.raises(NotImplementedError, match="item 6"):
-        cell.profile()
+    prof = cell.profile(packed[:3], iters=1)
+    assert [s["name"] for s in prof["steps"]] == (
+        ["stem"] + [b.name for b in cp.blocks] + ["head"])
+    assert all(s["measured_us"] > 0 for s in prof["steps"])
+    assert np.array_equal(prof["logits"], cell(packed[:3]).numpy())
+    assert captures == ["top/bytes/b4", "top/bytes/b1"]
 
 
 def test_pinned_pool_reuses_buffers():
@@ -322,15 +326,18 @@ class _Forced(TierSelector):
 
 
 def _per_tier_reference(ladder, kind, reqs, payloads):
+    # the scheduler's "auto" executor on the CPU is the packed GEMM
     for r, pay in zip(reqs, payloads):
         cp = next(t.compiled for t in ladder.tiers if t.name == r.tier)
         if kind == "bytes":
             coef, _ = ing.ingest_batch([pay], quality=50, grid=GRID,
                                        parallel=False)
             want = plan.apply_compiled_packed(
-                cp, torch.as_tensor(ing.pack_tiles(coef, cp.stem.w_in)))
+                cp, torch.as_tensor(ing.pack_tiles(coef, cp.stem.w_in)),
+                executor="gemm")
         else:
-            want = plan.apply_compiled(cp, torch.as_tensor(pay[None]))
+            want = plan.apply_compiled(cp, torch.as_tensor(pay[None]),
+                                       executor="gemm")
         got = r.result(timeout=120)
         _close(got, want[0], SERVE_RTOL)
         assert got.argmax() == int(want[0].argmax())
@@ -381,9 +388,36 @@ def test_lazy_capture_is_counted_post_warmup(served, model):
     assert rep["post_warmup_compiles"] == ["top/coefficients/b1"]
 
 
-def test_gemm_executor_is_not_ported(served):
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-        _sched(served[1], executor="gemm")
+def test_gemm_executor_is_not_ported(served, model):
+    """Named for what ``executor="gemm"`` did before it was ported: the
+    scheduler now serves through the packed-GEMM lowering, and every
+    request's logits equal the reference's GEMM executor on the same
+    tier within SERVE_RTOL, top-1 agreeing; ``auto`` is ``gemm`` on the
+    CPU, and an unknown executor raises."""
+    params, state, *_ = model
+    p, ladder = served
+    ref = ref_plan.build_plan(_jax_tree(params), _jax_tree(state), REF_SPEC,
+                              dispatch=ref_dsp.DispatchConfig(bands=32))
+    ref_tiers = {t.name: t.compiled for t in ref_sv.build_ladder(
+        ref, caps=(None, 24, 16)).tiers}
+    with _sched(ladder, executor="gemm") as s:
+        s.selector = _Forced(len(ladder.tiers), tier_names=s.tier_names,
+                             on_switch=s._on_switch)
+        s.warmup(kinds=("coefficients",))
+        reqs = [s.submit(model[4][i % 6]) for i in range(6)]
+        s.drain(timeout=120)
+    assert s.executor == "gemm"
+    for i, r in enumerate(reqs):
+        want = np.asarray(ref_plan.apply_compiled(
+            ref_tiers[r.tier], jnp.asarray(model[4][i % 6][None]),
+            executor="gemm"))[0]
+        got = r.result(timeout=60)
+        _close(got, want, SERVE_RTOL)
+        assert got.argmax() == want.argmax()
+    with _sched(ladder) as auto:
+        assert auto.executor == "gemm"
+    with pytest.raises(ValueError, match="executor"):
+        _sched(ladder, executor="spatial")
 
 
 def test_admission_control_rejects_past_max_pending(served, model):
