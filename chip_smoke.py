@@ -25,7 +25,13 @@ Phases, each fatal on failure:
    port never calls); ASM also at the served walk's s2 and s3 row counts
    and a ragged one, where it and the q50 data encode also print the
    kernel's device time from ``torch.profiler`` beside the host's time to
-   issue a call;
+   issue a call; then, outside inference mode, the attention backward
+   kernels at the same attention cases: dq, dk and dv against the plain
+   backward fed by an fp32 ``attention_lse_plain`` (fp32 within
+   ``ATTN_BWD_RTOL`` of the largest |gradient|, bf16 at most
+   ``BF16_FACTOR`` × the bf16 plain backward's error), with ms, the plain
+   backward's ms, the bound and SDPA's backward through autograd as the
+   library time;
 3. the compiled server: full ``jpeg-resnet`` from the client's JPEG bytes
    at 16 bands, batch 4, decode double-buffered against the device; every
    batch's logits are held against the same plan run on the plain path;
@@ -108,9 +114,23 @@ Phases, each fatal on failure:
 12. ``repro_torch.launch.serve --arch smollm-360m`` at the reference's
    defaults but 8 requests (``LM_SERVE_REQUESTS``): all completed and its
    report line;
-13. one ``{"kernels": [...]}`` line, with each kernel's launches in phases
-   3, 4, 6, 7, 8, 9, 10, 11 and 12 (each path driven with the counts set
-   to 0 just before it and read just after), then the ``{"ok": true,
+13. LM training: (a) one ``loss_fn`` gradient of ``smollm-360m`` at full
+   width cut to ``LM_STEP_LAYERS`` layers (batch 2, seq 2048) on the
+   kernel path against the plain path: fp32 loss within
+   ``LM_LOSS_RTOL``, each gradient leaf within max(``LM_GRAD_FLOOR``,
+   ``LM_GRAD_FACTOR`` × the plain path's fp32-against-fp64 error) of its
+   largest entry; bf16 each leaf's error against the fp32 plain path at
+   most ``BF16_FACTOR`` × the bf16 plain path's; ``remat="full"`` giving
+   the gradients of ``"none"`` with the forward launched twice a layer;
+   (b) ``launch/train.py`` at full depth (batch 4, seq 2048, 4 AdamW
+   steps, checkpoints every 2): finite losses, the attention forward and
+   backward launched once a layer a step, a resume from step 2 repeating
+   steps 3-4's losses within ``LM_RESUME_RTOL``; tokens/s, step ms, host
+   batch time, and a ``torch.profiler`` split of one step (each backward
+   kernel seen once a layer) with the device's idle share;
+14. one ``{"kernels": [...]}`` line, with each kernel's launches in phases
+   3, 4, 6, 7, 8, 9, 10, 11, 12 and 13 (each path driven with the counts
+   set to 0 just before it and read just after), then the ``{"ok": true,
    ...}`` line last.  Its bounds and phase 9's roofline read one count
    of each kernel's work (``repro_torch.introspect.opcount``).  Every phase prints its seconds, and the script its total.
 
@@ -190,9 +210,40 @@ LM_ARCH, LM_BATCH, LM_PROMPT, LM_DECODE = "smollm-360m", 4, 2048, 32
 LM_RTOL = 1e-3
 #: phase 12's requests (the reference's default is 16)
 LM_SERVE_REQUESTS = 8
+#: the attention backward against its plain version in fp32, relative to
+#: the largest |gradient|: sums of up to T terms in another order
+ATTN_BWD_RTOL = 1e-4
+#: phase 13 (a): the one-step check's depth cut (the plain path's dense
+#: scores must fit) and batch; the loss's relative bound; each gradient
+#: leaf's bound relative to its largest entry: max(floor, factor × the
+#: plain path's own fp32-against-fp64 error)
+LM_STEP_LAYERS, LM_STEP_BATCH = 4, 2
+LM_LOSS_RTOL, LM_GRAD_FLOOR, LM_GRAD_FACTOR = 1e-5, 1e-4, 10.0
+#: remat="full" against "none": the same ops, but the embedding's
+#: backward may sum its rows in another order
+LM_REMAT_RTOL = 1e-6
+#: phase 13 (b): trainer steps, checkpoint interval, and the resumed
+#: losses' relative bound against the straight run
+LM_TRAIN_STEPS, LM_CKPT_EVERY, LM_RESUME_RTOL = 4, 2, 1e-5
 JPEG_KERNELS = ("fused_block", "jpeg_conv", "asm_relu", "block_dct",
                 "block_idct")
-KERNELS = JPEG_KERNELS + ("flash_attention",)
+KERNELS = JPEG_KERNELS + ("flash_attention", "flash_attention_bwd")
+#: the attention cases of phase 2, forward and backward: label, b, s, t,
+#: h, kvh, hd, causal, window, bf16 (else fp32)
+ATTN_CASES = (
+    ("smollm-360m prefill bf16", 4, 2048, 2048, 15, 5, 64, True, None,
+     True),
+    ("smollm-360m prefill fp32", 4, 2048, 2048, 15, 5, 64, True, None,
+     False),
+    ("mistral-nemo-12b heads bf16 (plain: chunked)", 1, 4096, 4096, 32, 8,
+     128, True, None, True),
+    ("window 256 bf16", 2, 1000, 1000, 15, 5, 64, True, 256, True),
+    ("window 256 fp32", 2, 1000, 1000, 15, 5, 64, True, 256, False),
+    ("not causal, S != T, bf16", 2, 300, 1000, 24, 2, 128, False, None,
+     True),
+    ("not causal, S != T, fp32", 2, 300, 1000, 24, 2, 128, False, None,
+     False),
+)
 
 
 def fail(msg: str) -> None:
@@ -233,7 +284,9 @@ def cuda_ms(fn, reps: int = 10, trials: int = 3, warmup: int = 2) -> float:
 
 #: device kernels of csrc/, longest name first (one contains another)
 DEVICE_KERNELS = ("flash_attention_tc_kernel", "flash_attention_kernel",
-                  "banded_conv_kernel", "block_matmul_kernel", "asm_kernel")
+                  "attn_bwd_preprocess_kernel", "attn_bwd_dkdv_kernel",
+                  "attn_bwd_dq_kernel", "banded_conv_kernel",
+                  "block_matmul_kernel", "asm_kernel")
 
 
 def ptxas_report(text: str) -> list[str]:
@@ -248,9 +301,12 @@ def ptxas_report(text: str) -> list[str]:
         if entry:
             mangled = entry.group(1)
             base = next((k for k in DEVICE_KERNELS if k in mangled), mangled)
-            args = re.search(base + r"I((?:L[ib]\d+E)+)E", mangled)
-            targs = re.findall(r"L[ib](\d+)E", args.group(1)) if args else []
-            name = base + (f"<{', '.join(targs)}>" if targs else "")
+            args = re.search(base + r"I(\w+?)E(?:v|P|S|i|f)", mangled)
+            targs = re.findall(r"L[ib](\d+)E|(f|13__nv_bfloat16)",
+                               args.group(1)) if args else []
+            names = [n or ("bf16" if "bfloat" in t else "float")
+                     for n, t in targs]
+            name = base + (f"<{', '.join(names)}>" if names else "")
             spill = ""
         elif "spill" in line:
             spill = line.split(":", 1)[-1].strip() if ":" in line \
@@ -446,7 +502,8 @@ def train_step_check(cfg, dev) -> None:
 
 #: device kernels grouped by name, for the training step's breakdown
 #: (first match wins; cuDNN's FFT engine runs complex GEMMs and FFTs)
-KERNEL_GROUPS = (("flash attention kernels", ("flash_attention",)),
+KERNEL_GROUPS = (("attention backward kernels", ("attn_bwd",)),
+                 ("flash attention kernels", ("flash_attention",)),
                  ("block transforms", ("block_matmul_kernel",)),
                  ("ASM kernel", ("asm_kernel",)),
                  ("jpeg_conv kernel", ("banded_conv_kernel",)),
@@ -457,10 +514,11 @@ KERNEL_GROUPS = (("flash attention kernels", ("flash_attention",)),
                   ("elementwise", "copy", "reduce", "vectorized")))
 
 
-def profile_step(label: str, step) -> None:
+def profile_step(label: str, step) -> dict[str, int]:
     """Device time of one call of ``step`` by kernel group, from a
     ``torch.profiler`` trace, and the device's idle share of its wall;
-    prints "not measured" where the trace has no device time."""
+    prints "not measured" where the trace has no device time.  Returns
+    each device kernel's launches in the trace."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -473,6 +531,7 @@ def profile_step(label: str, step) -> None:
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     per_kernel: dict[str, float] = {}
+    calls: dict[str, int] = {}
     for e in prof.key_averages():
         if e.device_type != DeviceType.CUDA:
             continue
@@ -480,11 +539,12 @@ def profile_step(label: str, step) -> None:
             "self_device_time_total", "device_time_total",
             "self_cuda_time_total", "cuda_time_total")) if v), 0.0)
         per_kernel[e.key] = per_kernel.get(e.key, 0.0) + t
+        calls[e.key] = calls.get(e.key, 0) + e.count
     busy = sum(per_kernel.values())
     if busy <= 0:
         log(f"{label} profile: device time not measured (the trace holds "
             f"no device events)")
-        return
+        return calls
     groups = {g: 0.0 for g, _ in KERNEL_GROUPS}
     groups["other"] = 0.0
     for name, t in per_kernel.items():
@@ -500,6 +560,7 @@ def profile_step(label: str, step) -> None:
     top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:12]
     for name, t in top:
         log(f"  {t / 1e3:8.3f} ms  {name[:110]}")
+    return calls
 
 
 def train_and_serve(cfg, dev, ckpt_dir: str, launches: dict,
@@ -567,16 +628,6 @@ def train_and_serve(cfg, dev, ckpt_dir: str, launches: dict,
     torch.cuda.empty_cache()
 
 
-def attention_pairs(s: int, t: int, causal: bool, window) -> int:
-    """(query, key) pairs the masks leave, per batch row and head."""
-    import numpy as np
-
-    qpos = np.arange(s)
-    hi = np.minimum(qpos, t - 1) if causal else np.full(s, t - 1)
-    lo = np.maximum(qpos - window + 1, 0) if window else np.zeros(s, int)
-    return int(np.clip(hi - lo + 1, 0, None).sum())
-
-
 def attention_checks(dev, record) -> None:
     """Phase 2, flash attention: the kernel against its plain version at
     the LM path's shapes and the mask cases; library_ms is SDPA (GQA,
@@ -585,26 +636,13 @@ def attention_checks(dev, record) -> None:
     import torch.nn.functional as F
 
     from repro_torch.introspect.opcount import PEAK_BF16_FLOPS, \
-        PEAK_FP32_FLOPS
+        PEAK_FP32_FLOPS, attention_pairs, attention_work
     from repro_torch.kernels import flash_attention as kfa
 
     bf16, fp32 = torch.bfloat16, torch.float32
-    cases = (  # label, b, s, t, h, kvh, hd, causal, window, dtype
-        ("smollm-360m prefill bf16", 4, 2048, 2048, 15, 5, 64, True, None,
-         bf16),
-        ("smollm-360m prefill fp32", 4, 2048, 2048, 15, 5, 64, True, None,
-         fp32),
-        ("mistral-nemo-12b heads bf16 (plain: chunked)", 1, 4096, 4096, 32,
-         8, 128, True, None, bf16),
-        ("window 256 bf16", 2, 1000, 1000, 15, 5, 64, True, 256, bf16),
-        ("window 256 fp32", 2, 1000, 1000, 15, 5, 64, True, 256, fp32),
-        ("not causal, S != T, bf16", 2, 300, 1000, 24, 2, 128, False, None,
-         bf16),
-        ("not causal, S != T, fp32", 2, 300, 1000, 24, 2, 128, False, None,
-         fp32),
-    )
     gen = torch.Generator(device=dev).manual_seed(2)
-    for label, b, s, t, h, kvh, hd, causal, window, dtype in cases:
+    for label, b, s, t, h, kvh, hd, causal, window, is16 in ATTN_CASES:
+        dtype = bf16 if is16 else fp32
         q = torch.randn((b, s, h, hd), generator=gen, device=dev).to(dtype)
         k = torch.randn((b, t, kvh, hd), generator=gen, device=dev).to(dtype)
         v = torch.randn((b, t, kvh, hd), generator=gen, device=dev).to(dtype)
@@ -628,29 +666,118 @@ def attention_checks(dev, record) -> None:
                  f"tolerance {tol:.3e}")
         del got, exact
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-        mask = None
-        if window is not None:
-            qpos = torch.arange(s, device=dev)[:, None]
-            kpos = torch.arange(t, device=dev)[None, :]
-            mask = (kpos > qpos - window) & (kpos <= qpos if causal
-                                              else True)
+        mask = sdpa_mask(s, t, causal, window, dev)
 
         def library():
             return F.scaled_dot_product_attention(
                 qt, kt, vt, attn_mask=mask,
                 is_causal=causal and mask is None, enable_gqa=True)
 
-        pairs = attention_pairs(s, t, causal, window)
-        nbytes = q.element_size() * 2.0 * (q.numel() + k.numel())
+        work = attention_work(b, h, hd,
+                              attention_pairs(s, t, causal, window),
+                              q.element_size(), q.numel(), k.numel())
         record("flash_attention",
                f"{label} q{tuple(q.shape)} kv{tuple(k.shape)} (tol "
                f"{tol:.2e})", err,
                cuda_ms(lambda: kfa.flash_attention(q, k, v, **kw)),
                cuda_ms(lambda: kfa.attention_plain(q, k, v, **kw), reps=3),
-               (4.0 * b * h * hd * pairs, nbytes), cuda_ms(library),
+               work, cuda_ms(library),
                PEAK_BF16_FLOPS if dtype == bf16 else PEAK_FP32_FLOPS)
         del q, k, v, qt, kt, vt
     torch.cuda.empty_cache()
+
+
+def sdpa_mask(s: int, t: int, causal: bool, window, dev):
+    """SDPA's boolean mask for a window (None otherwise: the causal flag
+    or no mask)."""
+    import torch
+
+    if window is None:
+        return None
+    qpos = torch.arange(s, device=dev)[:, None]
+    kpos = torch.arange(t, device=dev)[None, :]
+    return (kpos > qpos - window) & (kpos <= qpos if causal else True)
+
+
+def attention_backward_checks(dev, record) -> None:
+    """Phase 2, the attention backward kernels at the forward's cases: dq,
+    dk and dv from ``flash_attention_backward`` (fed by the kernel's own
+    forward and lse) against ``attention_backward_plain`` fed by an fp32
+    ``attention_lse_plain`` on fp32 copies.  fp32: within
+    ``ATTN_BWD_RTOL`` of the largest |gradient|; bf16: at most
+    ``BF16_FACTOR`` × the error of the plain backward run from the bf16
+    inputs and their bf16 plain forward.  library_ms is SDPA's backward
+    through autograd (a yardstick the port never calls)."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.introspect.opcount import PEAK_BF16_FLOPS, \
+        PEAK_FP32_FLOPS, attention_bwd_work, attention_pairs
+    from repro_torch.kernels import flash_attention as kfa
+
+    gen = torch.Generator(device=dev).manual_seed(4)
+    for label, b, s, t, h, kvh, hd, causal, window, is16 in ATTN_CASES:
+        dtype = torch.bfloat16 if is16 else torch.float32
+        q, k, v, do = (torch.randn(shape, generator=gen, device=dev).to(dtype)
+                       for shape in ((b, s, h, hd), (b, t, kvh, hd),
+                                     (b, t, kvh, hd), (b, s, h, hd)))
+        kw = dict(causal=causal, window=window)
+        out, lse = kfa.flash_attention_lse(q, k, v, **kw)
+
+        def kernel():
+            return kfa.flash_attention_backward(q, k, v, out, do, lse, **kw)
+
+        got = kernel()
+        f32 = [x.float() for x in (q, k, v, do)]
+        o32, l32 = kfa.attention_lse_plain(*f32[:3], **kw)
+        exact = kfa.attention_backward_plain(*f32[:3], o32, f32[3], l32,
+                                             **kw)
+        del o32, l32
+        o_p, l_p = kfa.attention_lse_plain(q, k, v, **kw)
+
+        def plain():
+            return kfa.attention_backward_plain(q, k, v, o_p, do, l_p, **kw)
+
+        torch.cuda.synchronize()
+        errs, tols = [], []
+        for name, g, want, p in zip("qkv", got, exact,
+                                    plain() if is16 else exact):
+            if g.shape != want.shape or g.dtype != dtype \
+                    or not bool(torch.isfinite(g).all()):
+                fail(f"flash_attention backward {label}: d{name} shape "
+                     f"{tuple(g.shape)}, dtype {g.dtype} or non-finite")
+            err = float((g.float() - want).abs().max())
+            tol = BF16_FACTOR * float((p.float() - want).abs().max()) \
+                if is16 else ATTN_BWD_RTOL * float(want.abs().max())
+            if not err <= tol:
+                fail(f"flash_attention backward {label}: d{name} max abs "
+                     f"err {err:.3e} > tolerance {tol:.3e}")
+            errs.append(err)
+            tols.append(tol)
+        del got, exact, f32
+        leaves = [x.transpose(1, 2).detach().requires_grad_(True)
+                  for x in (q, k, v)]
+        lib_out = F.scaled_dot_product_attention(
+            *leaves, attn_mask=sdpa_mask(s, t, causal, window, dev),
+            is_causal=causal and window is None, enable_gqa=True)
+        dot = do.transpose(1, 2)
+
+        def library():
+            return torch.autograd.grad(lib_out, leaves, dot,
+                                       retain_graph=True)
+
+        work = attention_bwd_work(b, h, hd,
+                                  attention_pairs(s, t, causal, window),
+                                  q.element_size(), q.numel(), k.numel(),
+                                  lse.numel())
+        record("flash_attention_bwd",
+               f"{label} q{tuple(q.shape)} kv{tuple(k.shape)} (dq, dk, dv "
+               f"errs {', '.join(f'{e:.2e}' for e in errs)}; tols "
+               f"{', '.join(f'{x:.2e}' for x in tols)})", max(errs),
+               cuda_ms(kernel), cuda_ms(plain, reps=3), work,
+               cuda_ms(library), PEAK_BF16_FLOPS if is16 else PEAK_FP32_FLOPS)
+        del q, k, v, do, out, lse, o_p, l_p, leaves, lib_out, dot
+        torch.cuda.empty_cache()
 
 
 def lm_run(model, params, prompts, feed=None) -> dict:
@@ -817,6 +944,223 @@ def lm_phases(dev, card: str, launches: dict) -> None:
         f"[{card}]: {report['decode_tokens']} decode tokens in "
         f"{report['wall_s']:.3f} s = {report['tokens_per_s']:.1f} tokens/s")
     torch.cuda.empty_cache()
+
+def lm_grad_check(dev, card: str) -> None:
+    """Phase 13 (a): one ``loss_fn`` gradient of full-width ``smollm-360m``
+    cut to ``LM_STEP_LAYERS`` layers, kernel path against plain path, in
+    fp32 (beside the plain path on fp64 parameters: its own rounding) and
+    in bf16, and ``remat="full"`` against ``"none"``."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.dispatch import DispatchConfig
+    from repro_torch.data.pipeline import token_iterator
+    from repro_torch.kernels import flash_attention as kfa
+    from repro_torch.launch import train
+    from repro_torch.models import transformer as T
+    from repro_torch.models.registry import build_model
+    from repro_torch.optim import value_and_grad
+    from repro_torch.tree import leaves_with_paths, tree_map
+
+    full = get_config(LM_ARCH)
+    cfg32 = dataclasses.replace(full, dtype="float32",
+                                n_layers=LM_STEP_LAYERS)
+    cfg16 = dataclasses.replace(full, n_layers=LM_STEP_LAYERS)
+    plain = DispatchConfig(path="reference")
+    params32 = build_model(cfg32).init_params(
+        torch.Generator(device=dev).manual_seed(0), dev)
+    batch = train.to_model_batch(full, next(token_iterator(
+        0, LM_STEP_BATCH, LM_PROMPT, full.vocab_size)), dev)
+
+    def grads(cfg, params, dispatch=None, remat="none"):
+        model = build_model(cfg, remat=remat, dispatch=dispatch)
+        n_fwd, n_bwd = kfa.LAUNCHES, kfa.BWD_LAUNCHES
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        loss, g = value_and_grad(lambda p, b: model.loss_fn(p, b)[0],
+                                 params, batch)
+        torch.cuda.synchronize()
+        return {"loss": float(loss), "grads": leaves_with_paths(g),
+                "ms": (time.perf_counter() - t0) * 1e3,
+                "gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+                "fwd": kfa.LAUNCHES - n_fwd, "bwd": kfa.BWD_LAUNCHES - n_bwd}
+
+    def amax(x) -> float:
+        return float(x.abs().max())
+
+    def rel(a, b) -> float:
+        return float((a.float() - b.float()).norm()) / float(b.float().norm())
+
+    grads(cfg32, params32)  # warm-up
+    kern = grads(cfg32, params32)
+    ref = grads(cfg32, params32, plain)
+    if (kern["fwd"], kern["bwd"], ref["fwd"], ref["bwd"]) \
+            != (LM_STEP_LAYERS, LM_STEP_LAYERS, 0, 0):
+        fail(f"lm grad fp32: attention launches {kern['fwd']}/{kern['bwd']}"
+             f" (kernel path) and {ref['fwd']}/{ref['bwd']} (plain path); "
+             f"want {LM_STEP_LAYERS} each and 0")
+    if not abs(kern["loss"] - ref["loss"]) <= LM_LOSS_RTOL * abs(ref["loss"]):
+        fail(f"lm grad fp32: loss {kern['loss']} (kernel path) vs "
+             f"{ref['loss']} (plain path)")
+    f64 = grads(cfg32, tree_map(lambda x: x.double(), params32), plain)
+    worst = (0.0, 0.0, "")
+    for (path, a), (_, b), (_, c) in zip(kern["grads"], ref["grads"],
+                                         f64["grads"]):
+        if not bool(torch.isfinite(a).all()):
+            fail(f"lm grad fp32: non-finite gradient at {path}")
+        scale = amax(b)
+        err = amax(a - b) / scale
+        floor = float((b.double() - c).abs().max()) / amax(c)
+        if not err <= max(LM_GRAD_FLOOR, LM_GRAD_FACTOR * floor):
+            fail(f"lm grad fp32: gradient at {path} differs by {err:.3e} of "
+                 f"its largest entry (> {LM_GRAD_FLOOR} and > "
+                 f"{LM_GRAD_FACTOR} × the plain path's fp32-vs-fp64 "
+                 f"{floor:.3e})")
+        worst = max(worst, (err, floor, path))
+    del f64
+    remat = grads(cfg32, params32, remat="full")
+    if (remat["fwd"], remat["bwd"]) != (2 * LM_STEP_LAYERS, LM_STEP_LAYERS):
+        fail(f"lm grad remat=full: {remat['fwd']} forward and "
+             f"{remat['bwd']} backward launches, want "
+             f"{2 * LM_STEP_LAYERS} and {LM_STEP_LAYERS}")
+    remat_err = max(amax(a - b) / amax(b) for (_, a), (_, b)
+                    in zip(remat["grads"], kern["grads"]))
+    identical = all(torch.equal(a, b) for (_, a), (_, b)
+                    in zip(remat["grads"], kern["grads"]))
+    if not (remat["loss"] == kern["loss"] and remat_err <= LM_REMAT_RTOL):
+        fail(f"lm grad remat=full: loss {remat['loss']} vs {kern['loss']}, "
+             f"gradients differ by {remat_err:.3e} of their largest entry")
+    log(f"lm grad fp32, {LM_ARCH} full width, {LM_STEP_LAYERS} layers, "
+        f"batch {LM_STEP_BATCH}, seq {LM_PROMPT} [{card}]: loss "
+        f"{kern['loss']:.6f} (kernel) vs {ref['loss']:.6f} (plain); worst "
+        f"gradient error {worst[0]:.3e} of its largest entry at {worst[2]} "
+        f"(plain path's fp32-vs-fp64 there {worst[1]:.3e}); value_and_grad "
+        f"{kern['ms']:.1f} ms kernel path, {ref['ms']:.1f} ms plain path, "
+        f"peak {kern['gib']:.2f} / {ref['gib']:.2f} GiB; remat=full: "
+        f"{remat['fwd']} forward launches, gradients "
+        f"{'bit-identical' if identical else f'within {remat_err:.3e}'}, "
+        f"{remat['ms']:.1f} ms, peak {remat['gib']:.2f} GiB")
+    del remat, kern
+
+    params16 = T.cast_params(params32, torch.bfloat16)
+    del params32
+    k16 = grads(cfg16, params16)
+    p16 = grads(cfg16, params16, plain)
+    worst16 = (0.0, 0.0, "")
+    for (path, a), (_, b), (_, c) in zip(k16["grads"], p16["grads"],
+                                         ref["grads"]):
+        e_k, e_p = rel(a, c), rel(b, c)
+        if not (bool(torch.isfinite(a).all()) and e_k <= BF16_FACTOR * e_p):
+            fail(f"lm grad bf16: gradient at {path}: kernel path's error "
+                 f"{e_k:.3e} (relative norm, against the fp32 plain path) > "
+                 f"{BF16_FACTOR} × the bf16 plain path's {e_p:.3e}")
+        worst16 = max(worst16, (e_k / e_p, e_k, path))
+    log(f"lm grad bf16 [{card}]: loss {k16['loss']:.6f} (kernel) vs "
+        f"{p16['loss']:.6f} (bf16 plain) vs {ref['loss']:.6f} (fp32 plain); "
+        f"largest ratio of the kernel path's gradient error to the bf16 "
+        f"plain path's {worst16[0]:.3f} at {worst16[2]} (kernel error "
+        f"{worst16[1]:.3e}); value_and_grad {k16['ms']:.1f} ms kernel path, "
+        f"{p16['ms']:.1f} ms plain path")
+    del k16, p16, ref, params16
+    torch.cuda.empty_cache()
+
+
+def lm_train_phase(dev, card: str, launches: dict) -> None:
+    """Phase 13: the gradient check, then ``launch/train.py`` on
+    full-depth ``smollm-360m`` (bf16, AdamW with fp32 master weights),
+    checkpointed, resumed, and one step profiled."""
+    import torch
+
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import token_iterator
+    from repro_torch.launch import train
+    from repro_torch.models.registry import build_model
+    from repro_torch.optim import make_optimizer, make_schedule
+
+    t_phase = time.perf_counter()
+    lm_grad_check(dev, card)
+    cfg = get_config(LM_ARCH)
+    ckpt = tempfile.mkdtemp(prefix="chip_smoke_lm_train_")
+    argv = ["--arch", LM_ARCH, "--seq", str(LM_PROMPT), "--batch",
+            str(LM_BATCH), "--steps", str(LM_TRAIN_STEPS), "--ckpt-every",
+            str(LM_CKPT_EVERY), "--log-every", "1", "--ckpt-dir", ckpt,
+            "--seed", "0"]
+
+    def run(label, steps_run):
+        result = drive(label, ("flash_attention", "flash_attention_bwd"),
+                       launches, lambda: train.main(argv))
+        got = counts()
+        want = cfg.n_layers * steps_run
+        if result["steps_run"] != steps_run or got["flash_attention"] != want \
+                or got["flash_attention_bwd"] != want:
+            fail(f"{label}: {result['steps_run']} steps, attention launches "
+                 f"{got['flash_attention']} forward and "
+                 f"{got['flash_attention_bwd']} backward; want {want} each")
+        losses = [v for _, v in result["losses"]]
+        if len(losses) != steps_run or not all(
+                v == v and abs(v) < 1e30 for v in losses):
+            fail(f"{label}: losses {losses}")
+        return result, losses
+
+    try:
+        straight, losses = run("train lm", LM_TRAIN_STEPS)
+        mgr = CheckpointManager(ckpt)
+        if mgr.steps() != [LM_CKPT_EVERY, LM_TRAIN_STEPS]:
+            fail(f"train lm: checkpoints {mgr.steps()}")
+        size = sum(f.stat().st_size for f in os.scandir(
+            os.path.join(ckpt, f"step_{LM_TRAIN_STEPS}")))
+        shutil.rmtree(os.path.join(ckpt, f"step_{LM_TRAIN_STEPS}"))
+        t0 = time.perf_counter()
+        resumed, again = run("train lm (resumed from step 2)",
+                             LM_TRAIN_STEPS - LM_CKPT_EVERY)
+        resume_s = time.perf_counter() - t0
+        tail = losses[LM_CKPT_EVERY:]
+        if not all(abs(a - b) <= LM_RESUME_RTOL * abs(b)
+                   for a, b in zip(again, tail)):
+            fail(f"train lm: resumed losses {again} vs straight {tail}")
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    step_ms = [t * 1e3 for t in straight["step_s"]]
+    steady = statistics.median(step_ms[1:])
+    tokens = LM_BATCH * LM_PROMPT
+    log(f"train lm, {LM_ARCH} full depth, bf16, batch {LM_BATCH}, seq "
+        f"{LM_PROMPT} [{card}]: step ms {[round(t, 1) for t in step_ms]} "
+        f"(first includes warm-up), median after the first {steady:.1f} ms "
+        f"= {tokens / steady * 1e3:.0f} tokens/s; host batch ms "
+        f"{[round(t * 1e3, 1) for t in straight['data_s']]}; losses "
+        f"{losses}; resumed from step {LM_CKPT_EVERY}: {again} "
+        f"(bit-identical: {again == tail}); loop wall "
+        f"{straight['wall_s']:.2f} s incl. checkpoints of "
+        f"{size / 2 ** 30:.2f} GiB; resumed run {resume_s:.2f} s incl. the "
+        f"restore")
+    del straight, resumed
+
+    # one step of the trainer's own step function, profiled
+    model = build_model(cfg)
+    params = model.init_params(torch.Generator(device=dev).manual_seed(1),
+                               dev)
+    opt = make_optimizer("adamw")
+    state = opt.init(params)
+    step = train.make_step(model, opt, make_schedule(
+        "cosine", 1e-3, 1, LM_TRAIN_STEPS), 1.0)
+    batch = train.to_model_batch(cfg, next(token_iterator(
+        2, LM_BATCH, LM_PROMPT, cfg.vocab_size)), dev)
+    params, state, _, _ = step(params, state, batch)  # warm-up
+    calls = profile_step("lm train step (kernel path)",
+                         lambda: step(params, state, batch))
+    seen = {k: sum(n for name, n in calls.items() if k in name)
+            for k in ("attn_bwd_preprocess_kernel", "attn_bwd_dkdv_kernel",
+                      "attn_bwd_dq_kernel", "flash_attention_tc_kernel")}
+    if calls and any(n != cfg.n_layers for n in seen.values()):
+        fail(f"lm train step profile: attention kernel launches {seen}, "
+             f"want {cfg.n_layers} each")
+    log(f"lm train step profile: launches by kernel {seen}")
+    del params, state, batch, model
+    torch.cuda.empty_cache()
+    log(f"lm training phase: {time.perf_counter() - t_phase:.2f} s")
+
 
 def trace_overlap(path: str) -> tuple[float, float, float]:
     """Seconds of ingest decode, of device dispatch, and of their overlap
@@ -1767,6 +2111,7 @@ def main() -> None:
             del x, x2, got
 
         attention_checks(dev, record)
+    attention_backward_checks(dev, record)
 
     # --- phases 3 and 4: the server, compiled and per-layer ---------------
     launches = {k: 0 for k in KERNELS}
@@ -1823,17 +2168,24 @@ def main() -> None:
     # --- phases 10-12: LM serving -------------------------------------------
     lm_phases(dev, card, launches)
 
+    # --- phase 13: LM training ----------------------------------------------
+    lm_train_phase(dev, card, launches)
+
     kernels = []
     src = {k: "src/repro_torch/csrc/jpeg_kernels.cu" for k in KERNELS}
     src["block_dct"] = src["block_idct"] = "src/repro_torch/csrc/block_dct.cu"
-    src["flash_attention"] = "src/repro_torch/csrc/flash_attention.cu"
+    src["flash_attention"] = src["flash_attention_bwd"] = \
+        "src/repro_torch/csrc/flash_attention.cu"
     replaces = {"fused_block": "src/repro/kernels/fused_block.py:143",
                 "jpeg_conv": "src/repro/kernels/jpeg_conv.py:112",
                 "asm_relu": "src/repro/kernels/asm_relu.py:65",
                 "block_dct": "src/repro/kernels/block_dct.py:37",
                 "block_idct": "src/repro/kernels/block_dct.py:37",
                 "flash_attention":
-                    "src/repro/kernels/flash_attention.py:96"}
+                    "src/repro/kernels/flash_attention.py:96",
+                # the reference differentiates it by XLA's autodiff
+                "flash_attention_bwd":
+                    "src/repro/kernels/flash_attention.py:96 (its gradient)"}
     for name in KERNELS:
         r = rows[name]
         if launches[name] <= 0:

@@ -14,8 +14,8 @@ ARCHS = {"jpeg-resnet": "jpeg_resnet", "granite-3-2b": "granite_3_2b",
          "mistral-nemo-12b": "mistral_nemo_12b",
          "smollm-360m": "smollm_360m", "starcoder2-3b": "starcoder2_3b"}
 
-#: the reference's language-model archs not ported yet → the ROADMAP item
-#: that holds them
+#: the reference's language-model archs not ported yet → the ROADMAP Queue 1
+#: item that holds them
 LM_ARCHS = {"granite-moe-3b-a800m": "7.3", "mixtral-8x7b": "7.3",
             "jamba-v0.1-52b": "7.3 and 7.4", "rwkv6-7b": "7.4",
             "internvl2-1b": "7.5", "whisper-small": "7.5"}

@@ -1,6 +1,6 @@
 // Flash attention (online softmax) with GQA and causal / sliding-window /
-// key-padding masks, for Hopper (sm_90a): two device kernels, chosen by
-// dtype.
+// key-padding masks, for Hopper (sm_90a): two forward kernels, chosen by
+// dtype, and the three kernels of its backward (see "backward" below).
 //
 // Replaces kernels/flash_attention.py:flash_attention_pallas.  Layout as in
 // models/layers.py:attention: q (B, S, H, hd), k and v (B, T, KVH, hd),
@@ -65,8 +65,12 @@
 //   CTA at hd 64, 100,352 at hd 128 (two CTAs an SM), above the 48 KB
 //   default, so the host raises the dynamic limit before each launch.
 //
-// The host function returns cudaGetLastError() so the Python wrapper can
-// raise; the launch goes on the caller's stream.
+// Both forward kernels write each row's log-sum-exp (m + ln l, fp32 (B, H,
+// S), −inf for a row with no valid key) when the caller passes a pointer
+// for it, which training does and serving does not.
+//
+// The host functions return cudaGetLastError() so the Python wrapper can
+// raise; the launches go on the caller's stream.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -111,8 +115,9 @@ __device__ __forceinline__ float4 load4(const float* p) {
 template <int HD>
 __global__ void __launch_bounds__(FA_THREADS, 2) flash_attention_kernel(
     const float* __restrict__ q, const float* __restrict__ k,
-    const float* __restrict__ v, float* __restrict__ out, int S, int Tn, int H,
-    int KVH, int causal, int window, int q_offset, float scale) {
+    const float* __restrict__ v, float* __restrict__ out,
+    float* __restrict__ lse, int S, int Tn, int H, int KVH, int causal,
+    int window, int q_offset, float scale) {
   static_assert(HD % 64 == 0 && HD <= 128, "head_dim 64 or 128");
   static_assert(FA_BQ * (HD + 4) >= FA_BQ * FA_LDP, "P must fit in K's tile");
   constexpr int LD = HD + 4;   // padded row stride of the Q and K tiles
@@ -279,6 +284,9 @@ __global__ void __launch_bounds__(FA_THREADS, 2) flash_attention_kernel(
   for (int i = 0; i < 4; ++i) {
     const int row = q0 + 4 * ty + i;
     if (row >= S) continue;
+    // m + log l in scaled-score units; -inf for a row with no valid key
+    if (lse != nullptr && tx == 0)
+      lse[((long long)b * H + h) * S + row] = m[i] + logf(l[i]);
     const float den = fmaxf(l[i], 1e-30f);
 #pragma unroll
     for (int jj = 0; jj < NV; ++jj) {
@@ -296,6 +304,7 @@ __global__ void __launch_bounds__(FA_THREADS, 2) flash_attention_kernel(
 constexpr int TC_BK = 64;      // keys per tile
 constexpr int TC_STAGES = 3;   // K/V ring: tile j (V), j + 1 (K), j + 2 (loading)
 constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
 
 typedef __nv_bfloat16 bf16;
 
@@ -391,7 +400,8 @@ __global__ void __launch_bounds__(TcShape<HD>::THREADS, TcShape<HD>::MINB)
     flash_attention_tc_kernel(const bf16* __restrict__ q,
                               const bf16* __restrict__ k,
                               const bf16* __restrict__ v,
-                              bf16* __restrict__ out, int S, int Tn, int H,
+                              bf16* __restrict__ out,
+                              float* __restrict__ lse, int S, int Tn, int H,
                               int KVH, int causal, int window, int q_offset,
                               float scale_log2) {
   static_assert(HD % 64 == 0 && HD <= 128, "head_dim 64 or 128");
@@ -624,8 +634,20 @@ __global__ void __launch_bounds__(TcShape<HD>::THREADS, TcShape<HD>::MINB)
   for (int rr = 0; rr < RR; ++rr) {
     l[rr] += __shfl_xor_sync(0xffffffffu, l[rr], 1);
     l[rr] += __shfl_xor_sync(0xffffffffu, l[rr], 2);
-    l[rr] = 1.f / fmaxf(l[rr], 1e-30f);
   }
+  // m·scale + ln l (m is in raw score units); -inf for a row with no
+  // valid key
+  if (lse != nullptr && tq == 0) {
+#pragma unroll
+    for (int rr = 0; rr < RR; ++rr) {
+      const int row = wrow + 8 * rr + g;  // rr = 2·mt + r: row 16·mt + 8·r
+      if (row < S)
+        lse[((long long)b * H + h) * S + row] =
+            (m[rr] * scale_log2 + log2f(l[rr])) * LN2;
+    }
+  }
+#pragma unroll
+  for (int rr = 0; rr < RR; ++rr) l[rr] = 1.f / fmaxf(l[rr], 1e-30f);
 #pragma unroll
   for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
@@ -641,12 +663,420 @@ __global__ void __launch_bounds__(TcShape<HD>::THREADS, TcShape<HD>::MINB)
     }
 }
 
+// ------------------------------------------------------------- backward
+//
+// FlashAttention-2's backward, recomputing P from q, k and the forward's
+// log-sum-exp (lse, fp32 (B, H, S)): with s = q·k and p = exp(s·scale −
+// lse) on the unmasked pairs (0 elsewhere),
+//   D = rowsum(dO ∘ O),  dV = Pᵀ dO,  dP = dO Vᵀ,  dS = P ∘ (dP − D),
+//   dQ = scale · dS K,   dK = scale · dSᵀ Q,
+// dK and dV summed over the G query heads of a KV head.  Three kernels:
+//
+// * attn_bwd_preprocess_kernel: D in fp32, one thread a (batch, position,
+//   head) row;
+// * attn_bwd_dkdv_kernel: one CTA per (batch, KV head, 64-key tile); K and
+//   V stay in shared memory while the CTA walks the G query heads of its
+//   group and, for each, the 64-row query tiles its causal and window
+//   masks reach; dK and dV accumulate in registers and are written once,
+//   so no atomics: the CTA owns its keys across the whole group;
+// * attn_bwd_dq_kernel: one CTA per (batch, query head, 64-row query
+//   tile), Q and dO resident, walking the key tiles its masks reach (the
+//   forward's walk) and writing dQ once.  Splitting dQ from dK/dV keeps
+//   every gradient deterministic (a resumed run repeats a straight one) at
+//   the price of computing Q·Kᵀ and dO·Vᵀ twice.
+//
+// Bound: five products of 2·hd operations per unmasked pair (10·hd; the
+// split makes it 14·hd as run) against ~hd·2 bytes a row per operand, so
+// operations bound the backward.  This first version runs every product
+// as fp32 FFMA for fp32 and bf16 operands alike (bf16 is widened as it is
+// staged in shared memory; gradients round to the operands' dtype once):
+// thread (ty, tx) of 256 owns rows 4·ty … 4·ty+3 and keys tx + 16·j (j <
+// 4) of the score and dP tiles, as the fp32 forward does, and for the
+// accumulating products rows (keys for dK/dV) 4·ty … 4·ty+3 and columns
+// 4·tx + 64·j' (j' < hd/64).  The tensor cores are later work.
+//
+// Masked pairs, rows past S and keys past T give p = 0 outright, so a row
+// with no valid key (lse = −inf) has zero gradients rather than NaN, and a
+// key no row sees gets dK = dV = 0.
+
+constexpr int BW_THREADS = 256;
+constexpr int BW_BQ = 64;  // query rows a tile
+constexpr int BW_BK = 64;  // keys a tile
+constexpr int BW_LDP = BW_BK + 4;
+
+__device__ __forceinline__ float4 ld4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+
+// four bf16 (8 bytes, lowest address first) → fp32, exactly
+__device__ __forceinline__ float4 ld4(const bf16* p) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  return make_float4(__uint_as_float(u.x << 16),
+                     __uint_as_float(u.x & 0xffff0000u),
+                     __uint_as_float(u.y << 16),
+                     __uint_as_float(u.y & 0xffff0000u));
+}
+
+__device__ __forceinline__ void st4(float* p, const float4& v) {
+  *reinterpret_cast<float4*>(p) = v;
+}
+
+__device__ __forceinline__ void st4(bf16* p, const float4& v) {
+  uint2 u;
+  u.x = pack_bf16(v.x, v.y);
+  u.y = pack_bf16(v.z, v.w);
+  *reinterpret_cast<uint2*>(p) = u;
+}
+
+// rows [0, 64) of a (positions, heads, HD) operand from position p0 into a
+// padded fp32 tile; rows at or past n are zero-filled
+template <typename T, int HD>
+__device__ __forceinline__ void stage_rows(float* dst, const T* src,
+                                           long long stride, int p0, int n,
+                                           int tid) {
+  constexpr int LD = HD + 4;
+  for (int i = tid; i < 64 * HD / 4; i += BW_THREADS) {
+    const int r = i / (HD / 4);
+    const int c4 = i % (HD / 4);
+    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (p0 + r < n) x = ld4(src + (long long)(p0 + r) * stride + 4 * c4);
+    st4(dst + r * LD + 4 * c4, x);
+  }
+}
+
+// the score and dP tiles: s[i][j] = a[4ty+i]·b[tx+16j], dp[i][j] =
+// c[4ty+i]·d[tx+16j] over HD (a, c: query rows; b, d: keys)
+template <int HD>
+__device__ __forceinline__ void score_tiles(const float* a, const float* bm,
+                                            const float* c, const float* d,
+                                            int ty, int tx, float (&s)[4][4],
+                                            float (&dp)[4][4]) {
+  constexpr int LD = HD + 4;
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
+#pragma unroll 2
+  for (int e = 0; e < HD; e += 4) {
+    float4 qa[4], ka[4], oa[4], va[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      qa[i] = ld4(a + (4 * ty + i) * LD + e);
+      oa[i] = ld4(c + (4 * ty + i) * LD + e);
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      ka[j] = ld4(bm + (tx + 16 * j) * LD + e);
+      va[j] = ld4(d + (tx + 16 * j) * LD + e);
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        s[i][j] = fmaf(qa[i].x, ka[j].x, s[i][j]);
+        s[i][j] = fmaf(qa[i].y, ka[j].y, s[i][j]);
+        s[i][j] = fmaf(qa[i].z, ka[j].z, s[i][j]);
+        s[i][j] = fmaf(qa[i].w, ka[j].w, s[i][j]);
+        dp[i][j] = fmaf(oa[i].x, va[j].x, dp[i][j]);
+        dp[i][j] = fmaf(oa[i].y, va[j].y, dp[i][j]);
+        dp[i][j] = fmaf(oa[i].z, va[j].z, dp[i][j]);
+        dp[i][j] = fmaf(oa[i].w, va[j].w, dp[i][j]);
+      }
+  }
+}
+
+// s ← p = exp(s·scale − lse) on valid pairs, else 0; dp ← dS = p·(dp − D).
+// Rows q0 + 4ty + i (positions + q_offset), keys k0 + tx + 16j.
+__device__ __forceinline__ void softmax_grad(
+    float (&s)[4][4], float (&dp)[4][4], const float* lse_s,
+    const float* d_s, int q0, int k0, int ty, int tx, int S, int Tn,
+    int causal, int window, int q_offset, float scale) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int row = q0 + 4 * ty + i;
+    const int qpos = row + q_offset;
+    const float li = lse_s[4 * ty + i], di = d_s[4 * ty + i];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int kpos = k0 + tx + 16 * j;
+      const bool valid = row < S && kpos < Tn && (!causal || kpos <= qpos) &&
+                         (window <= 0 || kpos > qpos - window);
+      const float p = valid ? expf(fmaf(s[i][j], scale, -li)) : 0.f;
+      s[i][j] = p;
+      dp[i][j] = p * (dp[i][j] - di);
+    }
+  }
+}
+
+template <typename T, int HD>
+__global__ void __launch_bounds__(BW_THREADS) attn_bwd_preprocess_kernel(
+    const T* __restrict__ out, const T* __restrict__ dout,
+    float* __restrict__ delta, int S, int H, long long rows) {
+  const long long r = (long long)blockIdx.x * BW_THREADS + threadIdx.x;
+  if (r >= rows) return;  // r = (b·S + i)·H + h
+  const T* o = out + r * HD;
+  const T* d = dout + r * HD;
+  float acc = 0.f;
+#pragma unroll 4
+  for (int e = 0; e < HD; e += 4) {
+    const float4 x = ld4(o + e), y = ld4(d + e);
+    acc = fmaf(x.x, y.x, acc);
+    acc = fmaf(x.y, y.y, acc);
+    acc = fmaf(x.z, y.z, acc);
+    acc = fmaf(x.w, y.w, acc);
+  }
+  const long long h = r % H, bi = r / H;
+  const long long b = bi / S, i = bi % S;
+  delta[(b * H + h) * S + i] = acc;
+}
+
+template <int HD>
+constexpr int dkdv_smem_floats() {
+  // K, V, Q, dO tiles; P and dS tiles; lse and D of the query tile
+  return 4 * 64 * (HD + 4) + 2 * BW_BQ * BW_LDP + 2 * BW_BQ;
+}
+
+template <typename T, int HD>
+__global__ void __launch_bounds__(BW_THREADS) attn_bwd_dkdv_kernel(
+    const T* __restrict__ q, const T* __restrict__ k,
+    const T* __restrict__ v, const T* __restrict__ dout,
+    const float* __restrict__ lse, const float* __restrict__ delta,
+    T* __restrict__ dk, T* __restrict__ dv, int S, int Tn, int H, int KVH,
+    int causal, int window, int q_offset, float scale) {
+  static_assert(HD % 64 == 0 && HD <= 128, "head_dim 64 or 128");
+  constexpr int LD = HD + 4;
+  constexpr int NV = HD / 64;
+  extern __shared__ __align__(16) float smem[];
+  float* ks = smem;                   // [BW_BK][LD]
+  float* vs = ks + BW_BK * LD;        // [BW_BK][LD]
+  float* qs = vs + BW_BK * LD;        // [BW_BQ][LD]
+  float* dos = qs + BW_BQ * LD;       // [BW_BQ][LD]
+  float* ps = dos + BW_BQ * LD;       // [BW_BQ][BW_LDP]
+  float* dss = ps + BW_BQ * BW_LDP;   // [BW_BQ][BW_LDP]
+  float* lse_s = dss + BW_BQ * BW_LDP;
+  float* d_s = lse_s + BW_BQ;
+
+  const int tid = threadIdx.x;
+  const int tx = tid & 15, ty = tid >> 4;
+  const int k0 = blockIdx.x * BW_BK;
+  const int n = blockIdx.y;
+  const int b = blockIdx.z;
+  const int G = H / KVH;
+
+  const long long q_stride = (long long)H * HD;
+  const long long kv_stride = (long long)KVH * HD;
+  const long long kv_off = ((long long)b * Tn * KVH + n) * HD;
+  stage_rows<T, HD>(ks, k + kv_off, kv_stride, k0, Tn, tid);
+  stage_rows<T, HD>(vs, v + kv_off, kv_stride, k0, Tn, tid);
+
+  float dka[4][4 * NV], dva[4][4 * NV];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int e = 0; e < 4 * NV; ++e) dka[i][e] = dva[i][e] = 0.f;
+
+  // the query rows that may see any of these keys
+  const int r_lo = causal ? max(0, k0 - q_offset) : 0;
+  const int r_hi =
+      window > 0 ? min(S - 1, k0 + BW_BK - 1 + window - 1 - q_offset) : S - 1;
+
+  for (int g = 0; g < G; ++g) {
+    const int h = n * G + g;
+    const long long q_off = ((long long)b * S * H + h) * HD;
+    const float* lse_h = lse + ((long long)b * H + h) * S;
+    const float* delta_h = delta + ((long long)b * H + h) * S;
+    for (int q0 = r_lo / BW_BQ * BW_BQ; q0 <= r_hi; q0 += BW_BQ) {
+      __syncthreads();  // K/V staged; the last tile's P, dS, Q, dO consumed
+      stage_rows<T, HD>(qs, q + q_off, q_stride, q0, S, tid);
+      stage_rows<T, HD>(dos, dout + q_off, q_stride, q0, S, tid);
+      if (tid < BW_BQ) {
+        const bool in = q0 + tid < S;
+        lse_s[tid] = in ? lse_h[q0 + tid] : 0.f;
+        d_s[tid] = in ? delta_h[q0 + tid] : 0.f;
+      }
+      __syncthreads();
+
+      float s[4][4], dp[4][4];
+      score_tiles<HD>(qs, ks, dos, vs, ty, tx, s, dp);
+      softmax_grad(s, dp, lse_s, d_s, q0, k0, ty, tx, S, Tn, causal, window,
+                   q_offset, scale);
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          ps[(4 * ty + i) * BW_LDP + tx + 16 * j] = s[i][j];
+          dss[(4 * ty + i) * BW_LDP + tx + 16 * j] = dp[i][j];
+        }
+      __syncthreads();
+
+      // dV[key] += Σ_r P[r][key] dO[r], dK[key] += Σ_r dS[r][key] Q[r]
+      // for keys 4ty + i and columns 4tx + 64j'
+#pragma unroll 2
+      for (int r = 0; r < BW_BQ; ++r) {
+        const float4 pr = ld4(ps + r * BW_LDP + 4 * ty);
+        const float4 dr = ld4(dss + r * BW_LDP + 4 * ty);
+#pragma unroll
+        for (int jj = 0; jj < NV; ++jj) {
+          const float4 o = ld4(dos + r * LD + 4 * tx + 64 * jj);
+          const float4 x = ld4(qs + r * LD + 4 * tx + 64 * jj);
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const float pv = comp(pr, i), dv_ = comp(dr, i);
+            dva[i][4 * jj + 0] = fmaf(pv, o.x, dva[i][4 * jj + 0]);
+            dva[i][4 * jj + 1] = fmaf(pv, o.y, dva[i][4 * jj + 1]);
+            dva[i][4 * jj + 2] = fmaf(pv, o.z, dva[i][4 * jj + 2]);
+            dva[i][4 * jj + 3] = fmaf(pv, o.w, dva[i][4 * jj + 3]);
+            dka[i][4 * jj + 0] = fmaf(dv_, x.x, dka[i][4 * jj + 0]);
+            dka[i][4 * jj + 1] = fmaf(dv_, x.y, dka[i][4 * jj + 1]);
+            dka[i][4 * jj + 2] = fmaf(dv_, x.z, dka[i][4 * jj + 2]);
+            dka[i][4 * jj + 3] = fmaf(dv_, x.w, dka[i][4 * jj + 3]);
+          }
+        }
+      }
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int key = k0 + 4 * ty + i;
+    if (key >= Tn) continue;
+    const long long off = kv_off + (long long)key * kv_stride + 4 * tx;
+#pragma unroll
+    for (int jj = 0; jj < NV; ++jj) {
+      st4(dk + off + 64 * jj,
+          make_float4(dka[i][4 * jj] * scale, dka[i][4 * jj + 1] * scale,
+                      dka[i][4 * jj + 2] * scale,
+                      dka[i][4 * jj + 3] * scale));
+      st4(dv + off + 64 * jj,
+          make_float4(dva[i][4 * jj], dva[i][4 * jj + 1], dva[i][4 * jj + 2],
+                      dva[i][4 * jj + 3]));
+    }
+  }
+}
+
+template <int HD>
+constexpr int dq_smem_floats() {
+  // Q, dO, K, V tiles; the dS tile; lse and D of the query tile
+  return 4 * 64 * (HD + 4) + BW_BQ * BW_LDP + 2 * BW_BQ;
+}
+
+template <typename T, int HD>
+__global__ void __launch_bounds__(BW_THREADS) attn_bwd_dq_kernel(
+    const T* __restrict__ q, const T* __restrict__ k,
+    const T* __restrict__ v, const T* __restrict__ dout,
+    const float* __restrict__ lse, const float* __restrict__ delta,
+    T* __restrict__ dq, int S, int Tn, int H, int KVH, int causal,
+    int window, int q_offset, float scale) {
+  static_assert(HD % 64 == 0 && HD <= 128, "head_dim 64 or 128");
+  constexpr int LD = HD + 4;
+  constexpr int NV = HD / 64;
+  extern __shared__ __align__(16) float smem[];
+  float* qs = smem;                   // [BW_BQ][LD]
+  float* dos = qs + BW_BQ * LD;       // [BW_BQ][LD]
+  float* ks = dos + BW_BQ * LD;       // [BW_BK][LD]
+  float* vs = ks + BW_BK * LD;        // [BW_BK][LD]
+  float* dss = vs + BW_BK * LD;       // [BW_BQ][BW_LDP]
+  float* lse_s = dss + BW_BQ * BW_LDP;
+  float* d_s = lse_s + BW_BQ;
+
+  const int tid = threadIdx.x;
+  const int tx = tid & 15, ty = tid >> 4;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * BW_BQ;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int n = h / (H / KVH);
+
+  const long long q_stride = (long long)H * HD;
+  const long long kv_stride = (long long)KVH * HD;
+  const long long q_off = ((long long)b * S * H + h) * HD;
+  const long long kv_off = ((long long)b * Tn * KVH + n) * HD;
+  stage_rows<T, HD>(qs, q + q_off, q_stride, q0, S, tid);
+  stage_rows<T, HD>(dos, dout + q_off, q_stride, q0, S, tid);
+  if (tid < BW_BQ) {
+    const bool in = q0 + tid < S;
+    const long long row = ((long long)b * H + h) * S + q0 + tid;
+    lse_s[tid] = in ? lse[row] : 0.f;
+    d_s[tid] = in ? delta[row] : 0.f;
+  }
+
+  float acc[4][4 * NV];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int e = 0; e < 4 * NV; ++e) acc[i][e] = 0.f;
+
+  // the keys any row of this tile may see (the forward's walk)
+  const int q_lo = q0 + q_offset;
+  const int q_hi = min(q0 + BW_BQ, S) - 1 + q_offset;
+  const int k_end = causal ? min(Tn, q_hi + 1) : Tn;
+  const int k_begin = window > 0 ? max(0, q_lo - window + 1) : 0;
+
+  for (int k0 = k_begin / BW_BK * BW_BK; k0 < k_end; k0 += BW_BK) {
+    __syncthreads();  // Q, dO staged; the last tile's K and dS consumed
+    stage_rows<T, HD>(ks, k + kv_off, kv_stride, k0, Tn, tid);
+    stage_rows<T, HD>(vs, v + kv_off, kv_stride, k0, Tn, tid);
+    __syncthreads();
+
+    float s[4][4], dp[4][4];
+    score_tiles<HD>(qs, ks, dos, vs, ty, tx, s, dp);
+    softmax_grad(s, dp, lse_s, d_s, q0, k0, ty, tx, S, Tn, causal, window,
+                 q_offset, scale);
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        dss[(4 * ty + i) * BW_LDP + tx + 16 * j] = dp[i][j];
+    __syncthreads();
+
+    // dQ[row] += Σ_key dS[row][key] K[key] for rows 4ty + i and columns
+    // 4tx + 64j'
+#pragma unroll 2
+    for (int c = 0; c < BW_BK; c += 4) {
+      float4 dr[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        dr[i] = ld4(dss + (4 * ty + i) * BW_LDP + c);
+#pragma unroll
+      for (int cc = 0; cc < 4; ++cc) {
+        float4 kk[NV];
+#pragma unroll
+        for (int jj = 0; jj < NV; ++jj)
+          kk[jj] = ld4(ks + (c + cc) * LD + 4 * tx + 64 * jj);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const float w = comp(dr[i], cc);
+#pragma unroll
+          for (int jj = 0; jj < NV; ++jj) {
+            acc[i][4 * jj + 0] = fmaf(w, kk[jj].x, acc[i][4 * jj + 0]);
+            acc[i][4 * jj + 1] = fmaf(w, kk[jj].y, acc[i][4 * jj + 1]);
+            acc[i][4 * jj + 2] = fmaf(w, kk[jj].z, acc[i][4 * jj + 2]);
+            acc[i][4 * jj + 3] = fmaf(w, kk[jj].w, acc[i][4 * jj + 3]);
+          }
+        }
+      }
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int row = q0 + 4 * ty + i;
+    if (row >= S) continue;
+    const long long off = q_off + (long long)row * q_stride + 4 * tx;
+#pragma unroll
+    for (int jj = 0; jj < NV; ++jj)
+      st4(dq + off + 64 * jj,
+          make_float4(acc[i][4 * jj] * scale, acc[i][4 * jj + 1] * scale,
+                      acc[i][4 * jj + 2] * scale,
+                      acc[i][4 * jj + 3] * scale));
+  }
+}
+
 // ------------------------------------------------------------- launches
 
 template <int HD>
 int launch_fp32(const void* q, const void* k, const void* v, void* out,
-                int b, int s, int t, int h, int kvh, int causal, int window,
-                int q_offset, float scale, cudaStream_t stream) {
+                float* lse, int b, int s, int t, int h, int kvh, int causal,
+                int window, int q_offset, float scale, cudaStream_t stream) {
   constexpr int bytes = smem_floats<HD>() * (int)sizeof(float);
   // above the 48 KB default: raise the limit (per device, so every launch)
   const cudaError_t err = cudaFuncSetAttribute(
@@ -657,15 +1087,15 @@ int launch_fp32(const void* q, const void* k, const void* v, void* out,
                   (unsigned)b);
   flash_attention_kernel<HD><<<grid, FA_THREADS, bytes, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(out), s, t, h, kvh,
-      causal, window, q_offset, scale);
+      static_cast<const float*>(v), static_cast<float*>(out), lse, s, t, h,
+      kvh, causal, window, q_offset, scale);
   return (int)cudaGetLastError();
 }
 
 template <int HD>
 int launch_bf16(const void* q, const void* k, const void* v, void* out,
-                int b, int s, int t, int h, int kvh, int causal, int window,
-                int q_offset, float scale, cudaStream_t stream) {
+                float* lse, int b, int s, int t, int h, int kvh, int causal,
+                int window, int q_offset, float scale, cudaStream_t stream) {
   constexpr int bytes = tc_smem_bytes<HD>();
   const cudaError_t err = cudaFuncSetAttribute(
       flash_attention_tc_kernel<HD>,
@@ -675,9 +1105,62 @@ int launch_bf16(const void* q, const void* k, const void* v, void* out,
   const dim3 grid((unsigned)((s + bq - 1) / bq), (unsigned)h, (unsigned)b);
   flash_attention_tc_kernel<HD><<<grid, threads, bytes, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<bf16*>(out), s, t, h, kvh,
-      causal, window, q_offset, scale * LOG2E);
+      static_cast<const bf16*>(v), static_cast<bf16*>(out), lse, s, t, h,
+      kvh, causal, window, q_offset, scale * LOG2E);
   return (int)cudaGetLastError();
+}
+
+// the three backward kernels in order on one stream
+template <typename T, int HD>
+int launch_bwd(const void* q, const void* k, const void* v, const void* out,
+               const void* dout, const float* lse, float* delta, void* dq,
+               void* dk, void* dv, int b, int s, int t, int h, int kvh,
+               int causal, int window, int q_offset, float scale,
+               cudaStream_t stream) {
+  const T* qt = static_cast<const T*>(q);
+  const T* kt = static_cast<const T*>(k);
+  const T* vt = static_cast<const T*>(v);
+  const T* dot = static_cast<const T*>(dout);
+  const long long rows = (long long)b * s * h;
+  cudaError_t err;
+  if (rows > 0) {
+    attn_bwd_preprocess_kernel<T, HD>
+        <<<(unsigned)((rows + BW_THREADS - 1) / BW_THREADS), BW_THREADS, 0,
+           stream>>>(static_cast<const T*>(out), dot, delta, s, h, rows);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  if (t > 0) {  // with s = 0 this writes dk = dv = 0
+    constexpr int bytes = dkdv_smem_floats<HD>() * (int)sizeof(float);
+    err = cudaFuncSetAttribute(attn_bwd_dkdv_kernel<T, HD>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               bytes);
+    if (err != cudaSuccess) return (int)err;
+    const dim3 grid((unsigned)((t + BW_BK - 1) / BW_BK), (unsigned)kvh,
+                    (unsigned)b);
+    attn_bwd_dkdv_kernel<T, HD><<<grid, BW_THREADS, bytes, stream>>>(
+        qt, kt, vt, dot, lse, delta, static_cast<T*>(dk), static_cast<T*>(dv),
+        s, t, h, kvh, causal, window, q_offset, scale);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  if (s == 0) return 0;
+  constexpr int bytes = dq_smem_floats<HD>() * (int)sizeof(float);
+  err = cudaFuncSetAttribute(attn_bwd_dq_kernel<T, HD>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             bytes);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((unsigned)((s + BW_BQ - 1) / BW_BQ), (unsigned)h,
+                  (unsigned)b);
+  attn_bwd_dq_kernel<T, HD><<<grid, BW_THREADS, bytes, stream>>>(
+      qt, kt, vt, dot, lse, delta, static_cast<T*>(dq), s, t, h, kvh, causal,
+      window, q_offset, scale);
+  return (int)cudaGetLastError();
+}
+
+bool bad_shape(int b, int s, int t, int h, int kvh) {
+  return b < 0 || s < 0 || t < 0 || h <= 0 || kvh <= 0 || h % kvh != 0 ||
+         h > 65535 || b > 65535;
 }
 
 }  // namespace
@@ -685,28 +1168,55 @@ int launch_bf16(const void* q, const void* k, const void* v, void* out,
 extern "C" {
 
 // dtype: 0 = float32 (the FFMA kernel), 1 = bfloat16 (the tensor-core
-// kernel), q, k, v and out alike; window <= 0 means no window.
+// kernel), q, k, v and out alike; window <= 0 means no window.  lse, when
+// not null, receives each row's log-sum-exp (fp32, (B, H, S)), which the
+// backward needs; serving passes null.
 int jk_flash_attention(const void* q, const void* k, const void* v,
-                       void* out, int b, int s, int t, int h, int kvh,
-                       int hd, int causal, int window, int q_offset,
+                       void* out, void* lse, int b, int s, int t, int h,
+                       int kvh, int hd, int causal, int window, int q_offset,
                        float scale, int dtype, void* stream) {
-  if (b < 0 || s < 0 || t < 0 || h <= 0 || kvh <= 0 || h % kvh != 0 ||
-      h > 65535 || b > 65535)
-    return (int)cudaErrorInvalidValue;
+  if (bad_shape(b, s, t, h, kvh)) return (int)cudaErrorInvalidValue;
   if (b == 0 || s == 0) return 0;
   const cudaStream_t st = (cudaStream_t)stream;
+  float* l = static_cast<float*>(lse);
   if (dtype == 0 && hd == 64)
-    return launch_fp32<64>(q, k, v, out, b, s, t, h, kvh, causal, window,
+    return launch_fp32<64>(q, k, v, out, l, b, s, t, h, kvh, causal, window,
                            q_offset, scale, st);
   if (dtype == 0 && hd == 128)
-    return launch_fp32<128>(q, k, v, out, b, s, t, h, kvh, causal, window,
-                            q_offset, scale, st);
+    return launch_fp32<128>(q, k, v, out, l, b, s, t, h, kvh, causal,
+                            window, q_offset, scale, st);
   if (dtype == 1 && hd == 64)
-    return launch_bf16<64>(q, k, v, out, b, s, t, h, kvh, causal, window,
+    return launch_bf16<64>(q, k, v, out, l, b, s, t, h, kvh, causal, window,
                            q_offset, scale, st);
   if (dtype == 1 && hd == 128)
-    return launch_bf16<128>(q, k, v, out, b, s, t, h, kvh, causal, window,
-                            q_offset, scale, st);
+    return launch_bf16<128>(q, k, v, out, l, b, s, t, h, kvh, causal,
+                            window, q_offset, scale, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The gradients of jk_flash_attention given dout (the output's gradient)
+// and the forward's out and lse: dq like q, dk and dv like k, all in the
+// operands' dtype (0 = float32, 1 = bfloat16); delta is fp32 (B, H, S)
+// scratch.  Three launches on the caller's stream.
+int jk_flash_attention_bwd(const void* q, const void* k, const void* v,
+                           const void* out, const void* dout,
+                           const void* lse, void* delta, void* dq, void* dk,
+                           void* dv, int b, int s, int t, int h, int kvh,
+                           int hd, int causal, int window, int q_offset,
+                           float scale, int dtype, void* stream) {
+  if (bad_shape(b, s, t, h, kvh)) return (int)cudaErrorInvalidValue;
+  if (b == 0) return 0;
+  const cudaStream_t st = (cudaStream_t)stream;
+  const float* l = static_cast<const float*>(lse);
+  float* d = static_cast<float*>(delta);
+#define JK_BWD(T, HD)                                                        \
+  return launch_bwd<T, HD>(q, k, v, out, dout, l, d, dq, dk, dv, b, s, t, h, \
+                           kvh, causal, window, q_offset, scale, st)
+  if (dtype == 0 && hd == 64) JK_BWD(float, 64);
+  if (dtype == 0 && hd == 128) JK_BWD(float, 128);
+  if (dtype == 1 && hd == 64) JK_BWD(bf16, 64);
+  if (dtype == 1 && hd == 128) JK_BWD(bf16, 128);
+#undef JK_BWD
   return (int)cudaErrorInvalidValue;
 }
 

@@ -2,7 +2,9 @@
 
 ``DataIterator`` is a pure function of ``(seed, step)``: its checkpoint
 state is two integers, so a restarted job replays exactly the batches it
-has not consumed.  :func:`jpeg_iterator` synthesises pixels on the host
+has not consumed.  :func:`token_iterator` gives the language models'
+synthetic token batches on the host (numpy, the reference's values);
+:func:`jpeg_iterator` synthesises pixels on the host
 (numpy, the same images as the reference package) and JPEG-encodes them
 on the device through ``dispatch.block_dct`` — the block-DCT kernel on a
 CUDA device.  :func:`jpeg_file_iterator` serves real JPEG files
@@ -26,7 +28,8 @@ from repro_torch.core import dispatch as dispatchlib
 from repro_torch.core import jpeg as jpeglib
 from repro_torch.data import synthetic
 
-__all__ = ["DataIterator", "image_iterator", "jpeg_iterator",
+__all__ = ["DataIterator", "token_iterator", "image_iterator",
+           "jpeg_iterator",
            "list_jpeg_files", "jpeg_file_iterator", "prefetch"]
 
 
@@ -52,6 +55,17 @@ class DataIterator:
     def load_state_dict(self, state: dict[str, int]) -> None:
         self.seed = int(state["seed"])
         self.step = int(state["step"])
+
+
+def token_iterator(seed: int, batch: int, seq_len: int,
+                   vocab: int) -> DataIterator:
+    """Host batches ``{"tokens": (B, S), "labels": (B, S)}`` int32 (numpy):
+    one ``(B, S + 1)`` draw of :func:`synthetic.token_batch`, the labels
+    the tokens shifted by one."""
+    def fn(s, i):
+        toks = synthetic.token_batch(s, i, batch, seq_len, vocab)["tokens"]
+        return {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    return DataIterator(fn, seed)
 
 
 def image_iterator(seed: int, batch: int, size: int, channels: int = 3,

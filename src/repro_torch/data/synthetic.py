@@ -1,19 +1,52 @@
-"""Deterministic synthetic image corpora (no downloads).
+"""Deterministic synthetic corpora (no downloads).
 
-Frequency-shaped Gaussian fields (power-law spectra per class) plus a
-class-specific low-frequency template: statistics that resemble natural
-images, so DCT energy compaction is realistic.  Everything is a pure
-function of ``(seed, index)``; the same values as the reference package.
+* Token streams: zipfian unigrams with injected bigram structure, so a
+  small LM can learn (its loss drops below the unigram entropy).
+* Images: frequency-shaped Gaussian fields (power-law spectra per class)
+  plus a class-specific low-frequency template: statistics that resemble
+  natural images, so DCT energy compaction is realistic.
+
+Everything is a pure function of ``(seed, index)``, with the reference
+package's numpy draws, so both give the same values.
 """
 from __future__ import annotations
 
 import numpy as np
 
-__all__ = ["image_batch"]
+__all__ = ["token_batch", "unigram_entropy", "image_batch"]
 
 
 def _rng(seed: int, index: int) -> np.random.Generator:
     return np.random.default_rng(np.random.SeedSequence([seed, index]))
+
+
+def _zipf(vocab: int) -> np.ndarray:
+    v = max(vocab - 2, 2)
+    p = 1.0 / np.arange(1, v + 1, dtype=np.float64)
+    return p / p.sum()
+
+
+def token_batch(seed: int, index: int, batch: int, seq_len: int,
+                vocab: int) -> dict[str, np.ndarray]:
+    """``{'tokens': (B, S+1) int32}``, to be shifted into inputs and
+    labels: zipfian unigrams over ``vocab − 2`` ids, and after token ``t``
+    with probability 1/2 the token ``(7t + 3) mod (vocab − 2)``, applied
+    position by position so it holds against the final previous token."""
+    rng = _rng(seed, index)
+    probs = _zipf(vocab)
+    v = probs.size
+    toks = rng.choice(v, size=(batch, seq_len + 1), p=probs).astype(np.int32)
+    follow_mask = rng.random((batch, seq_len)) < 0.5
+    for t in range(seq_len):
+        follow = (toks[:, t] * 7 + 3) % v
+        toks[:, t + 1] = np.where(follow_mask[:, t], follow, toks[:, t + 1])
+    return {"tokens": toks}
+
+
+def unigram_entropy(vocab: int) -> float:
+    """Entropy (nats) of :func:`token_batch`'s unigram distribution."""
+    p = _zipf(vocab)
+    return float(-(p * np.log(p)).sum())
 
 
 def image_batch(seed: int, index: int, batch: int, size: int,

@@ -17,9 +17,9 @@ PyTorch runs eagerly, so here a step is *run* once under :func:`count`, a
 The hand-written kernels launch through ``ctypes`` (``kernels/_build.py``)
 where no dispatch mode sees them, so each kernel wrapper adds its own
 analytic work (:func:`add_kernel_work`, from :func:`conv_work`,
-:func:`asm_work`, :func:`fused_work`, :func:`block_matmul_work`), the
-same formulas ``chip_smoke.py`` bounds its kernel table with
-(:func:`bound`).  A counter is never active inside a timed wall.
+:func:`asm_work`, :func:`fused_work`, :func:`block_matmul_work`,
+:func:`attention_work`, :func:`attention_bwd_work`), the same formulas
+``chip_smoke.py`` bounds its kernel table with (:func:`bound`).  A counter is never active inside a timed wall.
 """
 from __future__ import annotations
 
@@ -34,7 +34,8 @@ from torch.utils.flop_counter import flop_registry
 
 __all__ = ["PEAK_FP32_FLOPS", "PEAK_BF16_FLOPS", "PEAK_BYTES", "OpCost",
            "count", "counting", "add_kernel_work", "conv_work", "asm_flops",
-           "asm_work", "fused_work", "block_matmul_work", "bound"]
+           "asm_work", "fused_work", "block_matmul_work", "attention_pairs",
+           "attention_work", "attention_bwd_work", "bound"]
 
 #: published H100 SXM peaks (NVIDIA data sheet, 700 W): fp32 outside the
 #: tensor cores (the JPEG path runs no TF32), bf16 dense tensor cores, and
@@ -175,6 +176,39 @@ def fused_work(x_elems: int, out_elems: int, out_rows: int,
 def block_matmul_work(rows: int, nf: int = 64):
     """(flops, bytes) of one block transform: rows × a (64, 64) operator."""
     return 2.0 * rows * nf * nf, 4.0 * (2 * rows * nf + nf * nf)
+
+
+def attention_pairs(s: int, t: int, causal: bool, window: int | None,
+                    q_offset: int = 0) -> int:
+    """Unmasked (query, key) pairs of one batch row and head: query ``i``
+    at position ``i + q_offset`` sees keys ``<= position`` (causal) and
+    ``> position − window``."""
+    qpos = torch.arange(s, dtype=torch.int64) + q_offset
+    hi = torch.clamp(qpos, max=t - 1) if causal \
+        else torch.full((s,), t - 1, dtype=torch.int64)
+    lo = torch.clamp(qpos - window + 1, min=0) if window \
+        else torch.zeros(s, dtype=torch.int64)
+    return int(torch.clamp(hi - lo + 1, min=0).sum())
+
+
+def attention_work(b: int, h: int, hd: int, pairs: int, elem: int,
+                   q_elems: int, kv_elems: int, lse_elems: int = 0):
+    """(flops, bytes) of one attention forward: the score and P·V products,
+    4·hd operations per unmasked pair (``pairs`` per batch row and head);
+    q, k, v and the output once, in ``elem`` bytes each, and the fp32
+    log-sum-exp when it is written."""
+    return (4.0 * hd * b * h * pairs,
+            elem * 2.0 * (q_elems + kv_elems) + 4.0 * lse_elems)
+
+
+def attention_bwd_work(b: int, h: int, hd: int, pairs: int, elem: int,
+                       q_elems: int, kv_elems: int, lse_elems: int):
+    """(flops, bytes) of one attention backward: five products (S, dP, dV,
+    dQ, dK), 10·hd operations per unmasked pair; q, k, v, the output,
+    dO, dq, dk and dv once in ``elem`` bytes each, and the fp32
+    log-sum-exp."""
+    return (10.0 * hd * b * h * pairs,
+            elem * 4.0 * (q_elems + kv_elems) + 4.0 * lse_elems)
 
 
 def bound(flops: float, nbytes: float,

@@ -37,6 +37,17 @@ _LOG: dict[str, object] = {}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
+
+#: each entry point's argument types (every one returns a CUDA error code)
+_SIGNATURES = {
+    "jk_banded_conv": [_P] * 7 + [_I] * 16 + [_P],
+    "jk_banded_conv_smem": [_I, _I, _I],
+    "jk_asm": [_P] * 4 + [ctypes.c_longlong, _I, _I, _I, _P],
+    "jk_block_matmul": [_P] * 3 + [ctypes.c_longlong, _P],
+    "jk_flash_attention": [_P] * 5 + [_I] * 9 + [_F, _I, _P],
+    "jk_flash_attention_bwd": [_P] * 10 + [_I] * 9 + [_F, _I, _P],
+}
 
 
 def _nvcc() -> str:
@@ -112,17 +123,12 @@ def use(path: Path | str) -> ctypes.CDLL:
     launch every kernel through it from now on."""
     global _LIB
     lib = ctypes.CDLL(str(path))
-    lib.jk_banded_conv.argtypes = [_P] * 7 + [_I] * 16 + [_P]
-    lib.jk_banded_conv.restype = _I
-    lib.jk_banded_conv_smem.argtypes = [_I, _I, _I]
-    lib.jk_banded_conv_smem.restype = _I
-    lib.jk_asm.argtypes = [_P] * 4 + [ctypes.c_longlong, _I, _I, _I, _P]
-    lib.jk_asm.restype = _I
-    lib.jk_block_matmul.argtypes = [_P] * 3 + [ctypes.c_longlong, _P]
-    lib.jk_block_matmul.restype = _I
-    lib.jk_flash_attention.argtypes = [_P] * 4 + [_I] * 9 + [
-        ctypes.c_float, _I, _P]
-    lib.jk_flash_attention.restype = _I
+    for name, args in _SIGNATURES.items():
+        # a library built from an earlier source (kernel_variants.py
+        # --parent) may lack a later entry point
+        if hasattr(lib, name):
+            getattr(lib, name).argtypes = args
+            getattr(lib, name).restype = _I
     _LIB = lib
     return lib
 

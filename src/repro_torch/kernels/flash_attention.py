@@ -1,4 +1,5 @@
-"""Flash attention with GQA and causal / sliding-window masks — CUDA kernel.
+"""Flash attention with GQA and causal / sliding-window masks — CUDA kernel,
+forward and backward.
 
 Replaces ``repro/kernels/flash_attention.py:flash_attention_pallas``, and
 on the card it is the model's full-sequence attention too: the reference's
@@ -15,21 +16,38 @@ q_offset``.  Bound: the score and P·V products, 4·hd operations per
 unmasked (query, key) pair.  bf16 runs them on the tensor cores
 (``mma.sync``, FlashAttention-2 style, probabilities rounded to bf16 like
 the plain version's); fp32, the parity path, as fp32 FFMA.  Both kernels
-skip key tiles the masks remove whole.  They are inference-only: there is
-no backward yet.
+skip key tiles the masks remove whole.
+
+The gradient: the reference differentiates ``layers.attention`` with
+XLA's autodiff.  On the card full-sequence attention is the kernel, so
+the port writes the FlashAttention-2 backward by hand (the same ``.cu``):
+the forward saves each row's log-sum-exp, and three kernels recompute the
+probabilities from it (D = rowsum(dO ∘ O), then dK/dV, then dQ), in fp32
+FFMA for both dtypes.  :func:`attention_backward_plain` is their plain
+version, :func:`attention_lse_plain` the forward's with its log-sum-exp.
+A row with no valid key comes out 0 and has zero gradients (its lse is
+−inf).
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
+from repro_torch.introspect import opcount
 from repro_torch.kernels import _build
 
-__all__ = ["LAUNCHES", "DENSE_ATTN_ELEMS", "KV_CHUNK", "MAX_Q_CHUNKS",
-           "HEAD_DIMS", "attention_plain", "flash_attention", "gqa_scores"]
+__all__ = ["LAUNCHES", "BWD_LAUNCHES", "DENSE_ATTN_ELEMS", "KV_CHUNK",
+           "MAX_Q_CHUNKS", "HEAD_DIMS", "attention_plain",
+           "attention_lse_plain", "attention_backward_plain",
+           "flash_attention", "flash_attention_lse",
+           "flash_attention_backward", "gqa_scores"]
 
-#: kernel launches made by :func:`flash_attention`
+#: forward kernel launches made by :func:`flash_attention`
 LAUNCHES = 0
+#: backward launches made by :func:`flash_attention_backward` (one
+#: ``jk_flash_attention_bwd`` call: the preprocess, dK/dV and dQ kernels,
+#: one each)
+BWD_LAUNCHES = 0
 
 DENSE_ATTN_ELEMS = 2048 * 2048  # dense plain path for S·T up to this
 KV_CHUNK = 1024
@@ -140,6 +158,93 @@ def _attention_kv_chunked(qg, k, v, *, causal, window, q_offset,
     return out.permute(0, 3, 1, 2, 4)  # (B, S, KVH, G, hd)
 
 
+def _masked_scores(qg: torch.Tensor, k: torch.Tensor, qpos: torch.Tensor,
+                   causal: bool, window: int | None) -> torch.Tensor:
+    """fp32 scores (B, KVH, G, S', T) of scaled query rows ``qg`` at
+    positions ``qpos``, masked pairs −inf."""
+    kpos = torch.arange(k.shape[1], device=k.device)
+    mask = _mask(qpos, kpos, causal, window)
+    return gqa_scores(qg, k).masked_fill(~mask, float("-inf"))
+
+
+def _row_chunks(s: int, t: int) -> int:
+    """Query rows a chunk of the plain backward: all of them while S·T is
+    within ``DENSE_ATTN_ELEMS`` (read at call time), else as many as keep
+    one chunk's scores within it."""
+    return max(1, s) if s * t <= DENSE_ATTN_ELEMS \
+        else max(1, DENSE_ATTN_ELEMS // t)
+
+
+def attention_lse_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        *, causal: bool = True, window: int | None = None,
+                        q_offset: int = 0
+                        ) -> tuple[torch.Tensor, torch.Tensor]:
+    """:func:`attention_plain`'s output and each row's log-sum-exp of its
+    scaled, masked scores (fp32 ``(B, H, S)``; −inf for a row with no
+    valid key), the pair the kernel's forward saves for the backward."""
+    b, s, h, hd = q.shape
+    t, kvh = k.shape[1], k.shape[2]
+    g = h // kvh
+    qg = q.reshape(b, s, kvh, g, hd) * (hd ** -0.5)
+    rows = _row_chunks(s, t)
+    lse = []
+    for r0 in range(0, s, rows):
+        qpos = torch.arange(r0, min(s, r0 + rows), device=q.device) \
+            + q_offset
+        sc = _masked_scores(qg[:, r0: r0 + rows], k, qpos, causal, window)
+        lse.append(torch.logsumexp(sc, dim=-1))  # (B, KVH, G, S')
+    lse = torch.cat(lse, dim=-1) if lse else \
+        torch.empty((b, kvh, g, 0), device=q.device)
+    out = attention_plain(q, k, v, causal=causal, window=window,
+                          q_offset=q_offset)
+    return out, lse.reshape(b, h, s)
+
+
+def attention_backward_plain(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, out: torch.Tensor,
+                             dout: torch.Tensor, lse: torch.Tensor, *,
+                             causal: bool = True, window: int | None = None,
+                             q_offset: int = 0
+                             ) -> tuple[torch.Tensor, torch.Tensor,
+                                        torch.Tensor]:
+    """Plain version of the backward kernels: ``(dq, dk, dv)`` in q's dtype
+    from the forward's ``out`` and ``lse`` (``(B, H, S)`` fp32), by the
+    explicit formulas in fp32 — P = exp(S·scale − lse) on unmasked pairs,
+    dV = Pᵀ dO, dP = dO Vᵀ, D = rowsum(dO ∘ O), dS = P ∘ (dP − D), dQ =
+    scale · dS K, dK = scale · dSᵀ Q (Q scaled in its dtype, as
+    :func:`attention_plain` scales it), dK and dV summed over the G query
+    heads of a group.  Query rows go in chunks whose scores stay within
+    ``DENSE_ATTN_ELEMS`` (read at call time)."""
+    b, s, h, hd = q.shape
+    t, kvh = k.shape[1], k.shape[2]
+    g = h // kvh
+    scale = hd ** -0.5
+    qg = q.reshape(b, s, kvh, g, hd) * scale  # in q's dtype, as forward
+    kf, vf = k.float(), v.float()
+    dof = dout.float().reshape(b, s, kvh, g, hd)
+    delta = (dof * out.float().reshape(b, s, kvh, g, hd)).sum(-1)
+    lse = lse.float().reshape(b, kvh, g, s)
+    dq = torch.zeros((b, s, kvh, g, hd), device=q.device)
+    dk = torch.zeros((b, t, kvh, hd), device=q.device)
+    dv = torch.zeros((b, t, kvh, hd), device=q.device)
+    rows = _row_chunks(s, t)
+    for r0 in range(0, s, rows):
+        r1 = min(s, r0 + rows)
+        qpos = torch.arange(r0, r1, device=q.device) + q_offset
+        sc = _masked_scores(qg[:, r0:r1], k, qpos, causal, window)
+        # exp(−inf) = 0 on masked pairs, also where lse is −inf
+        p = torch.exp(sc - lse[..., r0:r1, None].masked_fill(
+            torch.isinf(lse[..., r0:r1, None]), 0.0))
+        do = dof[:, r0:r1]
+        dv += torch.einsum("bngst,bsngd->btnd", p, do)
+        dp = torch.einsum("bsngd,btnd->bngst", do, vf)
+        ds = p * (dp - delta[:, r0:r1].permute(0, 2, 3, 1)[..., None])
+        dq[:, r0:r1] = scale * torch.einsum("bngst,btnd->bsngd", ds, kf)
+        dk += torch.einsum("bngst,bsngd->btnd", ds, qg[:, r0:r1].float())
+    return (dq.reshape(b, s, h, hd).to(q.dtype), dk.to(q.dtype),
+            dv.to(q.dtype))
+
+
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
            window: int | None, q_offset: int) -> None:
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape \
@@ -168,32 +273,127 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError("flash_attention: operands must be 16-byte aligned")
 
 
-def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True, window: int | None = None,
-                    q_offset: int = 0) -> torch.Tensor:
-    """Attention of q ``(B, S, H, hd)`` over k, v ``(B, T, KVH, hd)`` →
-    ``(B, S, H, hd)`` in q's dtype.  A CPU tensor takes
-    :func:`attention_plain`; a CUDA tensor launches the kernel (fp32 or
-    bf16, head_dim 64 or 128, contiguous) or raises — also when autograd
-    would need a gradient, which the kernel does not have."""
+def _forward(q, k, v, causal, window, q_offset, lse=None) -> torch.Tensor:
+    """One launch of the forward kernel; fills ``lse`` when given."""
     global LAUNCHES
-    if q.device.type == "cpu":
-        return attention_plain(q, k, v, causal=causal, window=window,
-                               q_offset=q_offset)
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        raise NotImplementedError(
-            "flash_attention has no backward yet: LM training waits for "
-            "ROADMAP Queue 1 item 7.1 (run under torch.no_grad or "
-            "torch.inference_mode)")
     _check(q, k, v, window, q_offset)
     b, s, h, hd = q.shape
     t, kvh = k.shape[1], k.shape[2]
     out = torch.empty_like(q)
     err = _build.library().jk_flash_attention(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, s, t,
-        h, kvh, hd, int(causal), 0 if window is None else int(window),
-        int(q_offset), float(hd ** -0.5), _DTYPES[q.dtype],
-        _build.stream_of(q))
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        None if lse is None else lse.data_ptr(), b, s, t, h, kvh, hd,
+        int(causal), 0 if window is None else int(window), int(q_offset),
+        float(hd ** -0.5), _DTYPES[q.dtype], _build.stream_of(q))
     _build.launch_check(err, "flash_attention")
     LAUNCHES += 1
+    if opcount.counting():
+        opcount.add_kernel_work(*opcount.attention_work(
+            b, h, hd, opcount.attention_pairs(s, t, causal, window,
+                                              q_offset),
+            q.element_size(), q.numel(), k.numel(),
+            0 if lse is None else lse.numel()))
     return out
+
+
+def flash_attention_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        *, causal: bool = True, window: int | None = None,
+                        q_offset: int = 0
+                        ) -> tuple[torch.Tensor, torch.Tensor]:
+    """:func:`flash_attention`'s output and each row's log-sum-exp (fp32
+    ``(B, H, S)``), what the backward needs: one forward launch that also
+    writes the lse on a CUDA tensor, :func:`attention_lse_plain` on a CPU
+    one."""
+    if q.device.type == "cpu":
+        return attention_lse_plain(q, k, v, causal=causal, window=window,
+                                   q_offset=q_offset)
+    b, s, h, _ = q.shape
+    lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
+    return _forward(q, k, v, causal, window, q_offset, lse), lse
+
+
+def flash_attention_backward(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, out: torch.Tensor,
+                             dout: torch.Tensor, lse: torch.Tensor, *,
+                             causal: bool = True, window: int | None = None,
+                             q_offset: int = 0
+                             ) -> tuple[torch.Tensor, torch.Tensor,
+                                        torch.Tensor]:
+    """``(dq, dk, dv)`` in q's dtype from the forward's ``out`` and ``lse``
+    and the output's gradient ``dout`` (contiguous, q's dtype and shape):
+    one ``jk_flash_attention_bwd`` call on a CUDA tensor (the preprocess,
+    dK/dV and dQ kernels), :func:`attention_backward_plain` on a CPU
+    one."""
+    global BWD_LAUNCHES
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    if q.device.type == "cpu":
+        return attention_backward_plain(q, k, v, out, dout, lse, **kw)
+    _check(q, k, v, window, q_offset)
+    b, s, h, hd = q.shape
+    t, kvh = k.shape[1], k.shape[2]
+    if out.shape != q.shape or dout.shape != q.shape \
+            or lse.shape != (b, h, s):
+        raise ValueError(f"flash_attention_backward: out and dout must have "
+                         f"q's shape {tuple(q.shape)} and lse {(b, h, s)}; "
+                         f"got {tuple(out.shape)}, {tuple(dout.shape)}, "
+                         f"{tuple(lse.shape)}")
+    _build.check_device(q, out, dout, dtypes=(q.dtype,))
+    _build.check_device(lse, dtypes=(torch.float32,))
+    if lse.device != q.device or any(x.data_ptr() % 16 for x in (out, dout)):
+        raise ValueError("flash_attention_backward: lse must lie on q's "
+                         "device and out, dout be 16-byte aligned")
+    dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
+    delta = torch.empty_like(lse)
+    err = _build.library().jk_flash_attention_bwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+        dk.data_ptr(), dv.data_ptr(), b, s, t, h, kvh, hd, int(causal),
+        0 if window is None else int(window), int(q_offset),
+        float(hd ** -0.5), _DTYPES[q.dtype], _build.stream_of(q))
+    _build.launch_check(err, "flash_attention backward")
+    BWD_LAUNCHES += 1
+    if opcount.counting():
+        opcount.add_kernel_work(*opcount.attention_bwd_work(
+            b, h, hd, opcount.attention_pairs(s, t, causal, window,
+                                              q_offset),
+            q.element_size(), q.numel(), k.numel(), lse.numel()))
+    return dq, dk, dv
+
+
+class _FlashAttention(torch.autograd.Function):
+    """The kernel with its hand-written backward: the forward saves q, k,
+    v, the output and each row's log-sum-exp; the backward launches the
+    backward kernels and returns gradients in q's dtype."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, q_offset):
+        out, lse = flash_attention_lse(q, k, v, causal=causal,
+                                       window=window, q_offset=q_offset)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.masks = dict(causal=causal, window=window, q_offset=q_offset)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        # the o_proj matmul's backward may hand a strided gradient
+        dq, dk, dv = flash_attention_backward(
+            q, k, v, out, dout.to(q.dtype).contiguous(), lse, **ctx.masks)
+        return dq, dk, dv, None, None, None
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: int | None = None,
+                    q_offset: int = 0) -> torch.Tensor:
+    """Attention of q ``(B, S, H, hd)`` over k, v ``(B, T, KVH, hd)`` →
+    ``(B, S, H, hd)`` in q's dtype.  A CPU tensor takes
+    :func:`attention_plain` (autograd differentiates it); a CUDA tensor
+    launches the kernel (fp32 or bf16, head_dim 64 or 128, contiguous) or
+    raises, and when autograd needs a gradient of q, k or v it goes
+    through the kernel's hand-written backward."""
+    if q.device.type == "cpu":
+        return attention_plain(q, k, v, causal=causal, window=window,
+                               q_offset=q_offset)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return _FlashAttention.apply(q, k, v, causal, window, q_offset)
+    return _forward(q, k, v, causal, window, q_offset)

@@ -1,25 +1,36 @@
-"""Fault-tolerant training driver for ``jpeg-resnet``.
+"""Fault-tolerant training driver for ``jpeg-resnet`` and the dense
+language models.
 
-* synthetic images JPEG-encoded on the device (``data.jpeg_iterator``: the
-  block-DCT kernel on a CUDA device);
-* the forward through ``core.resnet.jpeg_apply`` — the stem's exploded conv,
-  every ReLU and every factored conv's block transforms in the hand-written
-  kernels on a CUDA device — and the gradient of the whole bundle
-  ``{"params", "bn_state"}``, as in the reference;
-* global-norm clipping, the optimizer (AdamW by default) and a warmup-cosine
-  schedule read at the optimizer's step before its increment;
+* data: for ``jpeg-resnet`` synthetic images JPEG-encoded on the device
+  (``data.jpeg_iterator``: the block-DCT kernel on a CUDA device); for a
+  language model synthetic token batches of ``--seq`` tokens
+  (``data.token_iterator``, host numpy, the reference's values) moved to
+  the device;
+* ``jpeg-resnet``'s forward through ``core.resnet.jpeg_apply`` — the
+  stem's exploded conv, every ReLU and every factored conv's block
+  transforms in the hand-written kernels on a CUDA device — and the
+  gradient of the whole bundle ``{"params", "bn_state"}``, as in the
+  reference; a language model's next-token loss through
+  ``models.transformer.loss_fn``, its attention the flash-attention kernel
+  with its hand-written backward on a CUDA device;
+* global-norm clipping, the optimizer (AdamW by default, fp32 master
+  weights) and a warmup-cosine schedule read at the optimizer's step
+  before its increment;
 * auto-resume from the newest valid checkpoint (damaged ones skipped), with
-  the data iterator's state inside the checkpoint;
+  the data iterator's state inside the checkpoint; a checkpoint the
+  reference's trainer wrote resumes here too (same leaf paths);
 * a SIGTERM/SIGINT hook that checkpoints and exits 0;
 * asynchronous checkpoint writes every ``--ckpt-every`` steps, keep-last-k;
 * a straggler watchdog: steps slower than ``--straggler-factor`` × the
   step-time EWMA are logged (device steps are timed to their end; the
   report keeps each step's time and the part spent producing its batch);
-* at the end, the trained weights fused into an inference plan and its
-  compiled schedule under ``<ckpt-dir>/plan``.
+* for ``jpeg-resnet``, at the end, the trained weights fused into an
+  inference plan and its compiled schedule under ``<ckpt-dir>/plan``.
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch jpeg-resnet \\
         --reduced --device cpu --steps 4 --batch 2 --ckpt-every 2
+    PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-360m \\
+        --reduced --device cpu --seq 32 --batch 4 --steps 3
 
 Runs on the CUDA device unless ``--device cpu`` is given; without CUDA it
 raises.
@@ -39,13 +50,14 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.checkpoint import CheckpointManager
 from repro_torch.configs import TrainConfig, get_config, reduced_config
-from repro_torch.data.pipeline import jpeg_iterator
+from repro_torch.data.pipeline import jpeg_iterator, token_iterator
 from repro_torch.models.registry import build_model, count_params, \
     jpeg_resnet_spec
 from repro_torch.optim import clip_by_global_norm, make_optimizer, \
     make_schedule, value_and_grad
 
-__all__ = ["export_plan", "train_loop", "parse_args", "main"]
+__all__ = ["export_plan", "build_iterator", "to_model_batch", "make_step",
+           "train_loop", "parse_args", "main"]
 
 
 def export_plan(cfg, bundle, ckpt_dir: str, *, step: int = 0) -> str:
@@ -67,6 +79,43 @@ def export_plan(cfg, bundle, ckpt_dir: str, *, step: int = 0) -> str:
     return plan_dir
 
 
+def build_iterator(cfg, batch: int, seq: int, seed: int, device):
+    """The training data: device-encoded JPEG coefficients for
+    ``jpeg-resnet``, host token batches of ``seq`` tokens for a language
+    model."""
+    if cfg.family == "jpeg_resnet":
+        return jpeg_iterator(seed, batch, cfg.image_size, cfg.in_channels,
+                             cfg.num_classes, device=device)
+    return token_iterator(seed, batch, seq, cfg.vocab_size)
+
+
+def to_model_batch(cfg, host_batch: dict, device) -> dict:
+    """A batch as the model takes it: every array a tensor on
+    ``device``."""
+    if cfg.family in ("vlm", "audio"):
+        raise NotImplementedError(
+            f"family {cfg.family!r}: VLM and audio batches wait for ROADMAP "
+            f"Queue 1 item 7.5")
+    return {k: torch.as_tensor(v).to(device) for k, v in host_batch.items()}
+
+
+def make_step(model, optimizer, schedule, grad_clip: float):
+    """One training step ``(params, opt_state, batch) → (params, opt_state,
+    loss, grad norm)``: the loss's gradient, global-norm clipping, and the
+    optimizer at the schedule's rate for its step."""
+    def loss_of(p, batch):
+        return model.loss_fn(p, batch)[0]
+
+    def step_fn(params, opt_state, batch):
+        loss, grads = value_and_grad(loss_of, params, batch)
+        grads, gnorm = clip_by_global_norm(grads, grad_clip)
+        lr = schedule(opt_state.step)
+        params, opt_state = optimizer.update(grads, opt_state, params, lr)
+        return params, opt_state, loss, gnorm
+
+    return step_fn
+
+
 def train_loop(args) -> dict:
     """Train as ``args`` (from :func:`parse_args`) says; returns the
     report (also written to ``--metrics-out``)."""
@@ -80,8 +129,8 @@ def train_loop(args) -> dict:
     schedule = make_schedule(tc.schedule, tc.learning_rate, tc.warmup_steps,
                              tc.total_steps)
 
-    it = jpeg_iterator(args.seed, args.batch, cfg.image_size,
-                       cfg.in_channels, cfg.num_classes, device=device)
+    it = build_iterator(cfg, args.batch, args.seq, args.seed, device)
+    exports_plan = cfg.family == "jpeg_resnet"
     manager = CheckpointManager(args.ckpt_dir, keep=args.keep)
 
     params = model.init_params(torch.Generator().manual_seed(args.seed),
@@ -97,16 +146,7 @@ def train_loop(args) -> dict:
         start_step = step0
         print(f"[train] resumed from step {step0}", flush=True)
 
-    def loss_of(p, batch):
-        return model.loss_fn(p, batch)[0]
-
-    def step_fn(params, opt_state, batch):
-        loss, grads = value_and_grad(loss_of, params, batch)
-        grads, gnorm = clip_by_global_norm(grads, tc.grad_clip)
-        lr = schedule(opt_state.step)
-        params, opt_state = optimizer.update(grads, opt_state, params, lr)
-        return params, opt_state, loss, gnorm
-
+    step_fn = make_step(model, optimizer, schedule, tc.grad_clip)
     interrupted = {"flag": False}
 
     def _preempt(signum, frame):
@@ -125,7 +165,7 @@ def train_loop(args) -> dict:
     try:
         for step in range(start_step, args.steps):
             t0 = time.perf_counter()
-            batch = next(it)
+            batch = to_model_batch(cfg, next(it), device)
             data_s.append(time.perf_counter() - t0)
             params, opt_state, loss, gnorm = step_fn(params, opt_state, batch)
             if device.type == "cuda":
@@ -152,7 +192,8 @@ def train_loop(args) -> dict:
                              extra={"data_state": it.state_dict()},
                              blocking=False)
                 every = args.export_plan_every
-                if every and ((step + 1) // args.ckpt_every) % every == 0:
+                if exports_plan and every \
+                        and ((step + 1) // args.ckpt_every) % every == 0:
                     export_plan(cfg, params, args.ckpt_dir, step=step + 1)
             if interrupted["flag"]:
                 break
@@ -164,7 +205,7 @@ def train_loop(args) -> dict:
     manager.save(final_step, {"params": params, "opt": opt_state},
                  extra={"data_state": it.state_dict()})
     plan_dir = None
-    if args.export_plan:
+    if exports_plan and args.export_plan:
         plan_dir = export_plan(cfg, params, args.ckpt_dir, step=final_step)
     result = {
         "arch": cfg.name, "device": str(device),
@@ -187,9 +228,11 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--arch", required=True)
     ap.add_argument("--reduced", action="store_true",
-                    help="the CIFAR-scale config instead of the full one")
+                    help="the arch's reduced config instead of the full one")
     ap.add_argument("--steps", type=int, default=100)
     ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--seq", type=int, default=64,
+                    help="tokens a sequence (language models)")
     ap.add_argument("--lr", type=float, default=1e-3)
     ap.add_argument("--optimizer", default="adamw",
                     choices=("adamw", "sgd", "lion"))
@@ -206,8 +249,9 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--metrics-out", default=None)
     ap.add_argument("--export-plan", default=True,
                     action=argparse.BooleanOptionalAction,
-                    help="fuse the final weights into an inference plan "
-                         "(+ compiled schedule) under <ckpt-dir>/plan")
+                    help="jpeg-resnet: fuse the final weights into an "
+                         "inference plan (+ compiled schedule) under "
+                         "<ckpt-dir>/plan")
     ap.add_argument("--export-plan-every", type=int, default=0,
                     help="also export the plan at every Nth periodic "
                          "checkpoint save (0 = the final save only)")

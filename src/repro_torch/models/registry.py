@@ -4,9 +4,10 @@
 trainer and the server talk only to it.  The port has two families:
 ``jpeg_resnet`` (whose trainable state is the bundle ``{"params",
 "bn_state"}``, as in the reference, which differentiates both) and the
-dense language models, which serve: ``prefill`` a prompt, then
-``decode_step`` from its cache.  The reference's other LM families wait
-(ROADMAP Queue 1 item 7).
+dense language models, which train (``loss_fn``, with the reference's
+``remat`` values) and serve: ``prefill`` a prompt, then ``decode_step``
+from its cache.  The reference's MoE, hybrid, recurrent, VLM and audio
+families wait (ROADMAP Queue 1 items 7.3-7.5).
 """
 from __future__ import annotations
 
@@ -73,17 +74,15 @@ def _lm_model(cfg: ModelConfig, remat: str,
               dispatch: dispatchlib.DispatchConfig | None) -> Model:
     from repro_torch.models import transformer as T
 
-    if remat != "none":
-        raise NotImplementedError(
-            "remat is for LM training, which the port does not run yet "
-            "(ROADMAP Queue 1 item 7.1)")
+    if remat not in T.REMAT:
+        raise ValueError(f"remat must be one of {T.REMAT}, got {remat!r}")
     plain = dispatch is not None and dispatch.path == "reference"
 
     def init_params(generator: torch.Generator, device=None):
         return T.init_params(generator, cfg, device)
 
     def loss(params, batch):
-        return T.loss_fn(params, cfg, batch, plain=plain)
+        return T.loss_fn(params, cfg, batch, plain=plain, remat=remat)
 
     def fwd(params, batch):
         return T.forward(params, cfg, batch, plain=plain)

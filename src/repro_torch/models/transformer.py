@@ -8,10 +8,13 @@ stacked over the repetitions under ``blocks/pos{j}`` with a leading
 checkpoint leaf paths read the same in both packages.  A Python loop over
 the layers takes the place of ``lax.scan``.
 
-Full-sequence attention (forward and prefill) runs
-``kernels/flash_attention.py``: the kernel on the card, its plain version
-on the CPU or with ``plain=True``.  Decode attends its single token with a
-dense product over the cache, as the reference does.
+Full-sequence attention (forward, loss and prefill) runs
+``kernels/flash_attention.py``: the kernel on the card, with its
+hand-written backward when autograd asks for a gradient, and its plain
+version on the CPU or with ``plain=True``.  Decode attends its single token
+with a dense product over the cache, as the reference does.  ``loss_fn``
+takes the reference's ``remat`` values (``none``, ``full``, ``dots``,
+``outputs``) through ``torch.utils.checkpoint``.
 
 Unlike the reference's pure functions, :func:`decode_step` writes the new
 token's keys and values into the cache's tensors in place (the returned
@@ -19,6 +22,7 @@ cache shares them and carries the next index).
 """
 from __future__ import annotations
 
+import functools
 from typing import Any
 
 import numpy as np
@@ -30,9 +34,12 @@ from repro_torch.configs import ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.tree import tree_map
 
-__all__ = ["layer_kinds", "pattern_period", "padded_vocab", "init_params",
-           "cast_params", "lm_params_from_numpy", "forward", "prefill",
-           "loss_fn", "init_cache", "decode_step"]
+__all__ = ["REMAT", "layer_kinds", "pattern_period", "padded_vocab",
+           "init_params", "cast_params", "lm_params_from_numpy", "forward",
+           "prefill", "loss_fn", "init_cache", "decode_step"]
+
+#: the reference's recomputation policies (``transformer.py:_run_stack``)
+REMAT = ("none", "full", "dots", "outputs")
 
 
 # --------------------------------------------------------------------------
@@ -46,7 +53,7 @@ def layer_kinds(cfg: ModelConfig) -> list[tuple[str, str]]:
     if cfg.family != "dense":
         raise NotImplementedError(
             f"family {cfg.family!r}: the port runs dense language models "
-            f"only (ROADMAP Queue 1 item 7)")
+            f"only (ROADMAP Queue 1 items 7.3-7.5)")
     return [("attn", "dense")] * cfg.n_layers
 
 
@@ -167,47 +174,111 @@ def _attn_block(h, p, cfg: ModelConfig, positions, *, causal, window,
     return out.reshape(b, s, cfg.q_dim) @ p["o_proj"], kv_cache
 
 
-def _apply_layer(h, p, cfg: ModelConfig, kind: tuple[str, str], positions,
-                 *, causal=True, want_cache=False, plain=False):
-    """Full-sequence layer (forward / prefill) → (h, aux, cache or None)."""
-    a, cache = _attn_block(L.rms_norm(h, p["ln1"], cfg.norm_eps), p["attn"],
-                           cfg, positions, causal=causal,
-                           window=cfg.sliding_window, want_cache=want_cache,
-                           plain=plain)
-    h = h + a
+def _mixer(h, p, cfg: ModelConfig, positions, *, causal, want_cache=False,
+           plain=False):
+    """The attention sub-block of a layer: norm, attention, projection →
+    (its output, the reference's ``mixer_out``; cache or None)."""
+    return _attn_block(L.rms_norm(h, p["ln1"], cfg.norm_eps), p["attn"], cfg,
+                       positions, causal=causal, window=cfg.sliding_window,
+                       want_cache=want_cache, plain=plain)
+
+
+def _ffn(h, p, cfg: ModelConfig):
+    """The FFN sub-block of a layer (its output is ``ffn_out``)."""
     f = p["ffn"]
-    h = h + L.swiglu_mlp(L.rms_norm(h, p["ln2"], cfg.norm_eps), f["w_gate"],
-                         f["w_in"], f["w_out"])
-    return h, 0.0, cache
+    return L.swiglu_mlp(L.rms_norm(h, p["ln2"], cfg.norm_eps), f["w_gate"],
+                        f["w_in"], f["w_out"])
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    """Selective checkpointing's ``dots``: keep the outputs of matrix
+    products without batch dims (the reference's
+    ``checkpoint_dots_with_no_batch_dims``), recompute the rest."""
+    from torch.utils.checkpoint import CheckpointPolicy
+
+    if op in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _checkpoint(fn, *args, policy=None):
+    """``fn(*args)`` recomputed in the backward (non-reentrant), keeping
+    what ``policy`` saves."""
+    from torch.utils import checkpoint as ckpt
+
+    kw = {}
+    if policy is not None:
+        kw["context_fn"] = functools.partial(
+            ckpt.create_selective_checkpoint_contexts, policy)
+    return ckpt.checkpoint(fn, *args, use_reentrant=False, **kw)
+
+
+def _apply_layer(h, p, cfg: ModelConfig, kind: tuple[str, str], positions,
+                 *, causal=True, want_cache=False, plain=False,
+                 remat="none"):
+    """Full-sequence layer (forward / prefill) → (h, aux, cache or None).
+    ``remat="outputs"`` checkpoints the attention and FFN sub-blocks each
+    on its own, so their outputs are what the backward keeps."""
+    if remat == "outputs":
+        a = _checkpoint(lambda x: _mixer(x, p, cfg, positions, causal=causal,
+                                         plain=plain)[0], h)
+        h = h + a
+        return h + _checkpoint(lambda x: _ffn(x, p, cfg), h), 0.0, None
+    a, cache = _mixer(h, p, cfg, positions, causal=causal,
+                      want_cache=want_cache, plain=plain)
+    h = h + a
+    return h + _ffn(h, p, cfg), 0.0, cache
 
 
 def _run_stack(h, blocks, cfg: ModelConfig, kinds, period, positions, *,
-               causal=True, want_cache=False, cache_len=None, plain=False):
+               causal=True, want_cache=False, cache_len=None, plain=False,
+               remat="none"):
     """All layers in order → (h, total aux, caches or None).
 
-    With ``want_cache`` each layer's keys and values are written into
-    stacked ``(n_periods, B, T, KVH, hd)`` caches allocated at the first
-    layer, ``T`` the larger of the layer's cache length and ``cache_len``
-    (the slots past it stay zero)."""
+    ``remat`` (:data:`REMAT`) recomputes in the backward: ``full`` each
+    repetition of the pattern whole, ``dots`` the same keeping the matrix
+    products' outputs, ``outputs`` each sub-block keeping its output.  With
+    ``want_cache`` each layer's keys and values are written into stacked
+    ``(n_periods, B, T, KVH, hd)`` caches allocated at the first layer,
+    ``T`` the larger of the layer's cache length and ``cache_len`` (the
+    slots past it stay zero)."""
+    if remat not in REMAT:
+        raise ValueError(f"remat must be one of {REMAT}, got {remat!r}")
     n_periods = cfg.n_layers // period
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
     caches: dict[str, dict[str, torch.Tensor]] = {}
-    for i in range(n_periods):
+
+    def body(x, i):
+        """Repetition ``i`` → (x, its aux, each position's cache)."""
+        aux_i, out = 0.0, []
         for j in range(period):
-            h, a, c = _apply_layer(h, _layer(blocks, j, i), cfg, kinds[j],
-                                   positions, causal=causal,
-                                   want_cache=want_cache, plain=plain)
+            x, a, c = _apply_layer(
+                x, _layer(blocks, j, i), cfg, kinds[j], positions,
+                causal=causal, want_cache=want_cache, plain=plain,
+                remat="outputs" if remat == "outputs" else "none")
+            aux_i = aux_i + a
+            out.append(c)
+        return x, aux_i, out
+
+    for i in range(n_periods):
+        if remat in ("full", "dots"):
+            h, a = _checkpoint(lambda x, i=i: body(x, i)[:2], h,
+                               policy=_dots_policy if remat == "dots"
+                               else None)
             aux = aux + a
-            if want_cache:
-                if i == 0:
-                    b, t = c["k"].shape[:2]
-                    shape = (n_periods, b, max(t, cache_len or 0)) \
-                        + tuple(c["k"].shape[2:])
-                    caches[f"pos{j}"] = {
-                        n: torch.zeros(shape, dtype=c[n].dtype,
-                                       device=c[n].device) for n in c}
-                for n, x in c.items():
-                    caches[f"pos{j}"][n][i, :, :x.shape[1]] = x
+            continue
+        h, a, out = body(h, i)
+        aux = aux + a
+        for j, c in enumerate(out if want_cache else ()):
+            if i == 0:
+                b, t = c["k"].shape[:2]
+                shape = (n_periods, b, max(t, cache_len or 0)) \
+                    + tuple(c["k"].shape[2:])
+                caches[f"pos{j}"] = {
+                    n: torch.zeros(shape, dtype=c[n].dtype,
+                                   device=c[n].device) for n in c}
+            for n, x in c.items():
+                caches[f"pos{j}"][n][i, :, :x.shape[1]] = x
     return h, aux, (caches if want_cache else None)
 
 
@@ -227,16 +298,17 @@ def _positions(b: int, s: int, device) -> torch.Tensor:
     return torch.arange(s, device=device)[None].expand(b, s)
 
 
-def forward(params, cfg: ModelConfig, batch: dict, *, plain: bool = False):
+def forward(params, cfg: ModelConfig, batch: dict, *, plain: bool = False,
+            remat: str = "none"):
     """Full-sequence forward of ``batch['tokens']`` (B, S) → (logits (B, S,
-    V) fp32, aux).  Inference only on the card: the attention kernel has
-    no backward yet."""
+    V) fp32, aux), differentiable on the card and on the CPU; ``remat``
+    (:data:`REMAT`) picks what the backward recomputes."""
     tokens = batch["tokens"]
     h = _embed_tokens(params, cfg, tokens)
     b, s, _ = h.shape
     h, aux, _ = _run_stack(h, params["blocks"], cfg, layer_kinds(cfg),
                            pattern_period(cfg), _positions(b, s, h.device),
-                           causal=True, plain=plain)
+                           causal=True, plain=plain, remat=remat)
     h = L.rms_norm(h, params["ln_f"], cfg.norm_eps)
     return _lm_head(params, cfg, h), aux
 
@@ -262,11 +334,13 @@ def prefill(params, cfg: ModelConfig, batch: dict, pad_to: int | None = None,
 
 
 def loss_fn(params, cfg: ModelConfig, batch: dict, *,
-            aux_weight: float = 0.01, plain: bool = False):
+            aux_weight: float = 0.01, plain: bool = False,
+            remat: str = "none"):
     """Next-token cross-entropy of ``forward`` against ``batch['labels']``
-    (masked by ``batch['loss_mask']`` when given) → (loss, metrics).  Its
-    value only: on the card the attention kernel refuses a gradient."""
-    logits, aux = forward(params, cfg, batch, plain=plain)
+    (masked by ``batch['loss_mask']`` when given) → (loss, metrics), as the
+    reference computes it; differentiable, with ``remat`` as in
+    :func:`forward`."""
+    logits, aux = forward(params, cfg, batch, plain=plain, remat=remat)
     logp = F.log_softmax(logits, dim=-1)
     nll = -logp.gather(-1, batch["labels"].long()[..., None])[..., 0]
     mask = batch.get("loss_mask")

@@ -12,7 +12,11 @@ kinds and both strides of the fused block, the banded conv's 16-byte and
 operators, the launch counters, the autograd wrappers' gradients against
 those of the plain versions, and flash attention in fp32 and bf16 (ragged
 tiles and the tensor-core kernel's tile edges, S != T, windows, a query
-offset, bad operands, a small model's prefill).
+offset, bad operands, a small model's prefill), its backward kernels
+against the plain backward on the same cases and the backward's own tile
+edges (rows without keys giving zero gradients among them), the autograd
+function against autograd through the plain version, and a small model's
+gradient under every ``remat``.
 """
 import numpy as np
 import pytest
@@ -405,8 +409,154 @@ def test_kernel_refuses_bad_operands_and_gradients(dev):
         kfa.flash_attention(q, k[:, :, :1].repeat(1, 1, 3, 1), v)
     with pytest.raises(ValueError, match="window"):
         kfa.flash_attention(q, k, v, window=0)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7.1"):
-        kfa.flash_attention(q.requires_grad_(), k, v)
+    # a gradient is no longer refused: the hand-written backward runs
+    _hold_function_gradient(dev, 1, 64, 64, 4, 2, 64, True, None, 0)
+
+
+#: the backward kernels' cases beside CARD: 64-row query and 64-key tiles,
+#: ragged past them, G 8, a long ragged prefill at hd 128, a query offset
+#: past many key tiles, a window whose first key tile a row cannot see,
+#: three keys in all (one key would make dq exactly 0, leaving only
+#: rounding to compare)
+BWD_EDGES = [  # b, s, t, h, kvh, hd, causal, window, q_offset
+    (2, 191, 191, 8, 1, 64, True, None, 0),
+    (1, 2049, 2049, 2, 1, 128, True, None, 0),
+    (1, 127, 2049, 8, 1, 64, True, None, 1922),
+    (1, 191, 191, 3, 3, 128, True, 70, 0),
+    (1, 65, 3, 2, 1, 64, False, None, 0),
+]
+
+
+def _hold_backward_against_plain(dev, dtype, b, s, t, h, kvh, hd, causal,
+                                 window, q_offset):
+    """The Function's gradients (one forward and one backward launch)
+    against ``attention_backward_plain`` fed by an fp32
+    ``attention_lse_plain`` on fp32 copies of the same inputs.  fp32:
+    1e-4 of the largest |gradient| (fp32 sums of up to T terms in another
+    order).  bf16: the kernel's error at most 1.5× that of the plain
+    backward run from the bf16 inputs and their bf16 forward."""
+    q, k, v = _card_qkv(dev, b, s, t, h, kvh, hd, dtype, s + t + h)
+    do = torch.randn(q.shape, generator=torch.Generator(
+        device=dev).manual_seed(9), device=dev).to(dtype)
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    n_fwd, n_bwd = kfa.LAUNCHES, kfa.BWD_LAUNCHES
+    kfa.flash_attention(*leaves, **kw).backward(do)
+    torch.cuda.synchronize()
+    assert (kfa.LAUNCHES, kfa.BWD_LAUNCHES) == (n_fwd + 1, n_bwd + 1)
+    got = [x.grad for x in leaves]
+    f32 = [x.float() for x in (q, k, v, do)]
+    o32, l32 = kfa.attention_lse_plain(*f32[:3], **kw)
+    exact = kfa.attention_backward_plain(*f32[:3], o32, f32[3], l32, **kw)
+    if dtype == torch.bfloat16:
+        o16, l16 = kfa.attention_lse_plain(q, k, v, **kw)
+        plain = kfa.attention_backward_plain(q, k, v, o16, do, l16, **kw)
+    for i, name in enumerate("qkv"):
+        assert got[i].dtype == dtype and got[i].shape == exact[i].shape
+        assert torch.isfinite(got[i]).all(), name
+        err = float((got[i].float() - exact[i]).abs().max())
+        if dtype == torch.float32:
+            tol = 1e-4 * max(1e-30, float(exact[i].abs().max()))
+        else:
+            tol = 1.5 * float((plain[i].float() - exact[i]).abs().max())
+        assert err <= tol, (name, err, tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,t,h,kvh,hd,causal,window,q_offset",
+                         CARD + BWD_EDGES)
+def test_backward_kernels_match_plain_on_card(dev, dtype, b, s, t, h, kvh,
+                                              hd, causal, window,
+                                              q_offset):
+    _hold_backward_against_plain(dev, dtype, b, s, t, h, kvh, hd, causal,
+                                 window, q_offset)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hd", [64, 128])
+def test_rows_without_keys_get_zero_gradients_on_card(dev, dtype, hd):
+    """Causal queries at positions −30 … 69: the first 30 rows see no key.
+    The forward gives them 0 and an lse of −inf; the backward gives them
+    zero dq and takes nothing from their dO into dk or dv."""
+    q, k, v = _card_qkv(dev, 1, 100, 100, 4, 2, hd, dtype, 5)
+    do = torch.randn(q.shape, device=dev).to(dtype)
+    kw = dict(causal=True, q_offset=-30)
+    leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    out = kfa.flash_attention(*leaves, **kw)
+    out.backward(do)
+    torch.cuda.synchronize()
+    assert torch.equal(out[:, :30], torch.zeros_like(out[:, :30]))
+    for x in leaves:
+        assert torch.isfinite(x.grad).all()
+    assert torch.equal(leaves[0].grad[:, :30],
+                       torch.zeros_like(leaves[0].grad[:, :30]))
+    kept = do.clone()
+    kept[:, :30] = 0
+    again = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    kfa.flash_attention(*again, **kw).backward(kept)
+    for a, b in zip(leaves[1:], again[1:]):
+        assert torch.equal(a.grad, b.grad)
+
+
+def _hold_function_gradient(dev, b, s, t, h, kvh, hd, causal, window,
+                            q_offset):
+    """fp32: gradients of a loss through the kernel against autograd
+    through the plain version, with dO arriving non-contiguous (the loss
+    reads the output transposed); 1e-4 of the largest |gradient|."""
+    q, k, v = _card_qkv(dev, b, s, t, h, kvh, hd, torch.float32, 11)
+    w = torch.randn((b, h, s, hd), device=dev)
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    grads = []
+    for fn in (kfa.flash_attention, kfa.attention_plain):
+        leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+        (fn(*leaves, **kw).transpose(1, 2) * w).sum().backward()
+        grads.append([x.grad for x in leaves])
+    torch.cuda.synchronize()
+    for got, want in zip(*grads):
+        err = float((got - want).abs().max())
+        assert err <= 1e-4 * float(want.abs().max()), err
+
+
+@pytest.mark.parametrize("b,s,t,h,kvh,hd,causal,window,q_offset", CARD)
+def test_function_gradient_matches_autograd_of_plain(dev, b, s, t, h, kvh,
+                                                      hd, causal, window,
+                                                      q_offset):
+    _hold_function_gradient(dev, b, s, t, h, kvh, hd, causal, window,
+                            q_offset)
+
+
+def test_checkpointed_model_gradient_on_card(dev):
+    """A small dense config (head_dim 64) on the card: remat="full" gives
+    the gradients of "none" with twice the forward launches, and "dots"
+    and "outputs" the same gradients too."""
+    from repro_torch.configs import ModelConfig
+    from repro_torch.models.registry import build_model
+    from repro_torch.optim import value_and_grad
+    from repro_torch.tree import leaves_with_paths
+
+    cfg = ModelConfig(name="tiny", family="dense", n_layers=2, d_model=256,
+                      n_heads=6, n_kv_heads=2, head_dim=64, d_ff=512,
+                      vocab_size=1000, dtype="float32")
+    params = build_model(cfg).init_params(
+        torch.Generator(device=dev).manual_seed(0))
+    toks = torch.randint(0, 1000, (2, 130), device=dev)
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    out = {}
+    for remat in ("none", "full", "dots", "outputs"):
+        model = build_model(cfg, remat=remat)
+        n_fwd, n_bwd = kfa.LAUNCHES, kfa.BWD_LAUNCHES
+        loss, grads = value_and_grad(lambda p, bt: model.loss_fn(p, bt)[0],
+                                     params, batch)
+        torch.cuda.synchronize()
+        out[remat] = (loss, grads, kfa.LAUNCHES - n_fwd,
+                      kfa.BWD_LAUNCHES - n_bwd)
+    assert out["none"][2:] == (2, 2)
+    assert out["full"][2:] == (4, 2)
+    for remat in ("full", "dots", "outputs"):
+        assert float(out[remat][0]) == float(out["none"][0])
+        for (path, a), (_, b) in zip(leaves_with_paths(out[remat][1]),
+                                     leaves_with_paths(out["none"][1])):
+            assert torch.equal(a, b), (remat, path)
 
 
 def test_model_prefill_runs_the_kernel_on_card(dev):

@@ -29,6 +29,7 @@ from repro_torch.configs import get_config, reduced_config
 from repro_torch.launch import serve
 from repro_torch.models import registry
 from repro_torch.models import transformer as T
+from repro_torch.optim import value_and_grad
 from repro_torch.tree import leaves_with_paths
 
 DENSE = ["smollm-360m", "granite-3-2b", "starcoder2-3b", "mistral-nemo-12b"]
@@ -203,8 +204,19 @@ def test_model_bundle_families():
     jr = registry.build_model(reduced_config("jpeg-resnet"))
     assert jr.prefill is None and jr.decode_step is None \
         and jr.init_cache is None
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7.1"):
-        registry.build_model(reduced_config("smollm-360m"), remat="full")
+    # remat="full" builds and differentiates (the gradients themselves are
+    # held against "none" and the reference in test_torch_lm_train.py)
+    cfg = reduced_config("smollm-360m")
+    full = registry.build_model(cfg, remat="full")
+    params = full.init_params(torch.Generator().manual_seed(0), "cpu")
+    toks = torch.randint(0, cfg.vocab_size, (2, 9),
+                         generator=torch.Generator().manual_seed(1))
+    loss, grads = value_and_grad(
+        lambda p, b: full.loss_fn(p, b)[0], params,
+        {"tokens": toks[:, :-1], "labels": toks[:, 1:]})
+    assert torch.isfinite(loss)
+    assert all(torch.isfinite(g).all() for _, g in leaves_with_paths(grads))
+    assert float(grads["blocks"]["pos0"]["attn"]["q_proj"].abs().sum()) > 0
 
 
 @pytest.mark.parametrize("arch", ["smollm-360m", "starcoder2-3b"])

@@ -175,7 +175,7 @@ def attention_cases(dev):
     import torch
     import torch.nn.functional as F
 
-    import chip_smoke as cs
+    from repro_torch.introspect import opcount
 
     g = torch.Generator(device=dev).manual_seed(2)
     cases = []
@@ -188,7 +188,7 @@ def attention_cases(dev):
         want = F.scaled_dot_product_attention(
             *(x.transpose(1, 2) for x in (q, k, v)), is_causal=True,
             enable_gqa=True).transpose(1, 2).float()
-        flops = 4.0 * b * h * hd * cs.attention_pairs(s, s, True, None)
+        flops = 4.0 * b * h * hd * opcount.attention_pairs(s, s, True, None)
         cases.append((label, (q, k, v), want, flops))
     return cases
 
