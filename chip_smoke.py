@@ -26,7 +26,8 @@ Phases, each fatal on failure:
    and a ragged one, where it and the q50 data encode also print the
    kernel's device time from ``torch.profiler`` beside the host's time to
    issue a call; then, outside inference mode, the attention backward
-   kernels at the same attention cases: dq, dk and dv against the plain
+   kernels at the same attention cases (bf16 the tensor-core dK/dV and dQ
+   kernels, fp32 the FFMA ones): dq, dk and dv against the plain
    backward fed by an fp32 ``attention_lse_plain`` (fp32 within
    ``ATTN_BWD_RTOL`` of the largest |gradient|, bf16 at most
    ``BF16_FACTOR`` × the bf16 plain backward's error), with ms, the plain
@@ -127,7 +128,8 @@ Phases, each fatal on failure:
    backward launched once a layer a step, a resume from step 2 repeating
    steps 3-4's losses within ``LM_RESUME_RTOL``; tokens/s, step ms, host
    batch time, and a ``torch.profiler`` split of one step (each backward
-   kernel seen once a layer) with the device's idle share;
+   kernel seen once a layer, dK/dV and dQ timed apart, no FFMA backward
+   kernel launched) with the device's idle share;
 14. one ``{"kernels": [...]}`` line, with each kernel's launches in phases
    3, 4, 6, 7, 8, 9, 10, 11, 12 and 13 (each path driven with the counts
    set to 0 just before it and read just after), then the ``{"ok": true,
@@ -284,9 +286,15 @@ def cuda_ms(fn, reps: int = 10, trials: int = 3, warmup: int = 2) -> float:
 
 #: device kernels of csrc/, longest name first (one contains another)
 DEVICE_KERNELS = ("flash_attention_tc_kernel", "flash_attention_kernel",
-                  "attn_bwd_preprocess_kernel", "attn_bwd_dkdv_kernel",
+                  "attn_bwd_preprocess_kernel", "attn_bwd_dkdv_tc_kernel",
+                  "attn_bwd_dq_tc_kernel", "attn_bwd_dkdv_kernel",
                   "attn_bwd_dq_kernel", "banded_conv_kernel",
                   "block_matmul_kernel", "asm_kernel")
+#: the bf16 attention backward's kernels (tensor cores) and the fp32 ones
+#: (FFMA), which a bf16 step must never launch
+BWD_TC_KERNELS = ("attn_bwd_preprocess_kernel", "attn_bwd_dkdv_tc_kernel",
+                  "attn_bwd_dq_tc_kernel")
+BWD_FFMA_KERNELS = ("attn_bwd_dkdv_kernel", "attn_bwd_dq_kernel")
 
 
 def ptxas_report(text: str) -> list[str]:
@@ -502,7 +510,9 @@ def train_step_check(cfg, dev) -> None:
 
 #: device kernels grouped by name, for the training step's breakdown
 #: (first match wins; cuDNN's FFT engine runs complex GEMMs and FFTs)
-KERNEL_GROUPS = (("attention backward kernels", ("attn_bwd",)),
+KERNEL_GROUPS = (("attention backward dK/dV", ("attn_bwd_dkdv",)),
+                 ("attention backward dQ", ("attn_bwd_dq",)),
+                 ("attention backward D", ("attn_bwd_preprocess",)),
                  ("flash attention kernels", ("flash_attention",)),
                  ("block transforms", ("block_matmul_kernel",)),
                  ("ASM kernel", ("asm_kernel",)),
@@ -514,11 +524,12 @@ KERNEL_GROUPS = (("attention backward kernels", ("attn_bwd",)),
                   ("elementwise", "copy", "reduce", "vectorized")))
 
 
-def profile_step(label: str, step) -> dict[str, int]:
+def profile_step(label: str, step
+                 ) -> tuple[dict[str, int], dict[str, float]]:
     """Device time of one call of ``step`` by kernel group, from a
     ``torch.profiler`` trace, and the device's idle share of its wall;
     prints "not measured" where the trace has no device time.  Returns
-    each device kernel's launches in the trace."""
+    each device kernel's launches and device µs in the trace."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -544,7 +555,7 @@ def profile_step(label: str, step) -> dict[str, int]:
     if busy <= 0:
         log(f"{label} profile: device time not measured (the trace holds "
             f"no device events)")
-        return calls
+        return calls, per_kernel
     groups = {g: 0.0 for g, _ in KERNEL_GROUPS}
     groups["other"] = 0.0
     for name, t in per_kernel.items():
@@ -560,7 +571,7 @@ def profile_step(label: str, step) -> dict[str, int]:
     top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:12]
     for name, t in top:
         log(f"  {t / 1e3:8.3f} ms  {name[:110]}")
-    return calls
+    return calls, per_kernel
 
 
 def train_and_serve(cfg, dev, ckpt_dir: str, launches: dict,
@@ -1148,15 +1159,26 @@ def lm_train_phase(dev, card: str, launches: dict) -> None:
     batch = train.to_model_batch(cfg, next(token_iterator(
         2, LM_BATCH, LM_PROMPT, cfg.vocab_size)), dev)
     params, state, _, _ = step(params, state, batch)  # warm-up
-    calls = profile_step("lm train step (kernel path)",
-                         lambda: step(params, state, batch))
+    calls, device_us = profile_step("lm train step (kernel path)",
+                                    lambda: step(params, state, batch))
+    names = BWD_TC_KERNELS + BWD_FFMA_KERNELS + ("flash_attention_tc_kernel",)
     seen = {k: sum(n for name, n in calls.items() if k in name)
-            for k in ("attn_bwd_preprocess_kernel", "attn_bwd_dkdv_kernel",
-                      "attn_bwd_dq_kernel", "flash_attention_tc_kernel")}
-    if calls and any(n != cfg.n_layers for n in seen.values()):
+            for k in names}
+    ms = {k: sum(t for name, t in device_us.items() if k in name) / 1e3
+          for k in names}
+    if calls and (any(seen[k] != cfg.n_layers for k in BWD_TC_KERNELS
+                      + ("flash_attention_tc_kernel",))
+                  or any(seen[k] for k in BWD_FFMA_KERNELS)):
         fail(f"lm train step profile: attention kernel launches {seen}, "
-             f"want {cfg.n_layers} each")
-    log(f"lm train step profile: launches by kernel {seen}")
+             f"want {cfg.n_layers} each of the tensor-core kernels and "
+             f"none of the FFMA backward")
+    log(f"lm train step profile: launches by kernel {seen}; backward "
+        f"device ms: dK/dV {ms['attn_bwd_dkdv_tc_kernel']:.3f}, dQ "
+        f"{ms['attn_bwd_dq_tc_kernel']:.3f}, D "
+        f"{ms['attn_bwd_preprocess_kernel']:.3f} (per layer "
+        f"{ms['attn_bwd_dkdv_tc_kernel'] / cfg.n_layers:.3f}, "
+        f"{ms['attn_bwd_dq_tc_kernel'] / cfg.n_layers:.3f}, "
+        f"{ms['attn_bwd_preprocess_kernel'] / cfg.n_layers:.3f})")
     del params, state, batch, model
     torch.cuda.empty_cache()
     log(f"lm training phase: {time.perf_counter() - t_phase:.2f} s")

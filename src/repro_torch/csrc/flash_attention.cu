@@ -1,6 +1,7 @@
 // Flash attention (online softmax) with GQA and causal / sliding-window /
 // key-padding masks, for Hopper (sm_90a): two forward kernels, chosen by
-// dtype, and the three kernels of its backward (see "backward" below).
+// dtype, and the three launches of its backward, also chosen by dtype (see
+// "backward" below).
 //
 // Replaces kernels/flash_attention.py:flash_attention_pallas.  Layout as in
 // models/layers.py:attention: q (B, S, H, hd), k and v (B, T, KVH, hd),
@@ -75,6 +76,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -670,30 +673,62 @@ __global__ void __launch_bounds__(TcShape<HD>::THREADS, TcShape<HD>::MINB)
 // lse) on the unmasked pairs (0 elsewhere),
 //   D = rowsum(dO ∘ O),  dV = Pᵀ dO,  dP = dO Vᵀ,  dS = P ∘ (dP − D),
 //   dQ = scale · dS K,   dK = scale · dSᵀ Q,
-// dK and dV summed over the G query heads of a KV head.  Three kernels:
+// dK and dV summed over the G query heads of a KV head.  Three launches,
+// for either dtype:
 //
-// * attn_bwd_preprocess_kernel: D in fp32, one thread a (batch, position,
-//   head) row;
-// * attn_bwd_dkdv_kernel: one CTA per (batch, KV head, 64-key tile); K and
-//   V stay in shared memory while the CTA walks the G query heads of its
-//   group and, for each, the 64-row query tiles its causal and window
-//   masks reach; dK and dV accumulate in registers and are written once,
-//   so no atomics: the CTA owns its keys across the whole group;
-// * attn_bwd_dq_kernel: one CTA per (batch, query head, 64-row query
-//   tile), Q and dO resident, walking the key tiles its masks reach (the
-//   forward's walk) and writing dQ once.  Splitting dQ from dK/dV keeps
-//   every gradient deterministic (a resumed run repeats a straight one) at
-//   the price of computing Q·Kᵀ and dO·Vᵀ twice.
+// * attn_bwd_preprocess_kernel: D in fp32, a group of 8–32 threads a
+//   (batch, position, head) row reading 16 bytes each;
+// * dK/dV: one CTA per (batch, KV head, key tile), walking the G query
+//   heads of its group and, for each, the query tiles its causal and
+//   window masks reach; dK and dV accumulate in registers and are written
+//   once, so no atomics: the CTA owns its keys across the whole group.
+//   Key tile 0 sees the most queries under the causal mask, and the grid
+//   starts with it;
+// * dQ: one CTA per (batch, query head, query tile), walking the key tiles
+//   its masks reach (the forward's walk, last query tile first) and
+//   writing dQ once.  Splitting dQ from dK/dV keeps every gradient
+//   deterministic (two calls give the same bits; a resumed run repeats a
+//   straight one) at the price of computing Q·Kᵀ and dO·Vᵀ twice.
 //
 // Bound: five products of 2·hd operations per unmasked pair (10·hd; the
 // split makes it 14·hd as run) against ~hd·2 bytes a row per operand, so
-// operations bound the backward.  This first version runs every product
-// as fp32 FFMA for fp32 and bf16 operands alike (bf16 is widened as it is
-// staged in shared memory; gradients round to the operands' dtype once):
-// thread (ty, tx) of 256 owns rows 4·ty … 4·ty+3 and keys tx + 16·j (j <
-// 4) of the score and dP tiles, as the fp32 forward does, and for the
-// accumulating products rows (keys for dK/dV) 4·ty … 4·ty+3 and columns
-// 4·tx + 64·j' (j' < hd/64).  The tensor cores are later work.
+// operations bound the backward.
+//
+// bf16 (attn_bwd_dkdv_tc_kernel, attn_bwd_dq_tc_kernel) runs all five
+// products on the tensor cores, mma.sync m16n8k16 with fp32 accumulators
+// and the forward's fragment tools:
+//
+// * dK/dV makes keys the M dimension: each warp owns 16 keys (one m16
+//   tile) and computes Sᵀ = K·Qᵀ and dPᵀ = V·dOᵀ with K and V as the A
+//   operands (held in registers at hd 64, reloaded from shared memory each
+//   k16 step at hd 128, where dK's and dV's 128 accumulators leave no room)
+//   and the query tile's Q and dO as col-major B operands, read by
+//   ldmatrix as stored (query, hd);
+// * Pᵀ = 2^(sᵀ·c − lse·log2 e) (one FFMA and one MUFU op) and dSᵀ = Pᵀ ∘
+//   (dPᵀ − D) are formed on the accumulator fragments, lse and D per query
+//   column, rounded to bf16 and used directly as the A fragments of dV +=
+//   Pᵀ·dO and dK += dSᵀ·Q (a pair of n8 accumulator tiles is an m16k16 A
+//   fragment), whose B operands are the same Q and dO tiles read with
+//   ldmatrix.trans: no trip through shared memory;
+// * the Q and dO tiles, with their lse and D, stream through a cp.async
+//   ring one tile ahead of the one computed, one barrier a tile; rows past
+//   S are zero-filled and get lse = +inf, so p = 0 there;
+// * dQ is the forward's structure: warps of 16 query rows with Q and dO as
+//   A fragments (registers at hd 64, reloaded at hd 128), K and V tiles of
+//   64 keys through a cp.async ring, S = Q·Kᵀ and dP = dO·Vᵀ with K and V
+//   as col-major B operands, dS formed on the accumulators and used as the
+//   A fragment of dQ += dS·K, K read with ldmatrix.trans;
+// * masks are applied only on the tiles where a warp needs them, and a
+//   warp skips a tile its keys (or rows) cannot see at all.
+//
+// Like FlashAttention-2, the bf16 path rounds P and dS to bf16 (nearest
+// even) before their products; every sum is fp32 and each gradient rounds
+// to bf16 once.  fp32 (attn_bwd_dkdv_kernel, attn_bwd_dq_kernel) is the
+// parity path and runs every product as fp32 FFMA: thread (ty, tx) of 256
+// owns rows 4·ty … 4·ty+3 and keys tx + 16·j (j < 4) of the score and dP
+// tiles, as the fp32 forward does, and for the accumulating products rows
+// (keys for dK/dV) 4·ty … 4·ty+3 and columns 4·tx + 64·j' (j' < hd/64),
+// with 64-row query and 64-key tiles staged in shared memory.
 //
 // Masked pairs, rows past S and keys past T give p = 0 outright, so a row
 // with no valid key (lse = −inf) has zero gradients rather than NaN, and a
@@ -721,17 +756,10 @@ __device__ __forceinline__ void st4(float* p, const float4& v) {
   *reinterpret_cast<float4*>(p) = v;
 }
 
-__device__ __forceinline__ void st4(bf16* p, const float4& v) {
-  uint2 u;
-  u.x = pack_bf16(v.x, v.y);
-  u.y = pack_bf16(v.z, v.w);
-  *reinterpret_cast<uint2*>(p) = u;
-}
-
 // rows [0, 64) of a (positions, heads, HD) operand from position p0 into a
 // padded fp32 tile; rows at or past n are zero-filled
-template <typename T, int HD>
-__device__ __forceinline__ void stage_rows(float* dst, const T* src,
+template <int HD>
+__device__ __forceinline__ void stage_rows(float* dst, const float* src,
                                            long long stride, int p0, int n,
                                            int tid) {
   constexpr int LD = HD + 4;
@@ -808,26 +836,38 @@ __device__ __forceinline__ void softmax_grad(
   }
 }
 
+// D = rowsum(dO ∘ O) in fp32: a group of HD·sizeof(T)/16 neighbouring
+// threads a (batch, position, head) row, 16 bytes of each operand a
+// thread, so a warp's loads are contiguous; a shuffle tree in the group
 template <typename T, int HD>
 __global__ void __launch_bounds__(BW_THREADS) attn_bwd_preprocess_kernel(
     const T* __restrict__ out, const T* __restrict__ dout,
     float* __restrict__ delta, int S, int H, long long rows) {
-  const long long r = (long long)blockIdx.x * BW_THREADS + threadIdx.x;
-  if (r >= rows) return;  // r = (b·S + i)·H + h
-  const T* o = out + r * HD;
-  const T* d = dout + r * HD;
+  constexpr int E = 16 / (int)sizeof(T);  // elements a thread
+  constexpr int L = HD / E;               // threads a row
+  static_assert(L <= 32 && 32 % L == 0, "a row's threads share a warp");
+  const long long r = ((long long)blockIdx.x * BW_THREADS + threadIdx.x) / L;
+  const int c = threadIdx.x % L;
   float acc = 0.f;
-#pragma unroll 4
-  for (int e = 0; e < HD; e += 4) {
-    const float4 x = ld4(o + e), y = ld4(d + e);
-    acc = fmaf(x.x, y.x, acc);
-    acc = fmaf(x.y, y.y, acc);
-    acc = fmaf(x.z, y.z, acc);
-    acc = fmaf(x.w, y.w, acc);
+  if (r < rows) {  // r = (b·S + i)·H + h
+#pragma unroll
+    for (int e = 0; e < E; e += 4) {
+      const float4 x = ld4(out + r * HD + c * E + e);
+      const float4 y = ld4(dout + r * HD + c * E + e);
+      acc = fmaf(x.x, y.x, acc);
+      acc = fmaf(x.y, y.y, acc);
+      acc = fmaf(x.z, y.z, acc);
+      acc = fmaf(x.w, y.w, acc);
+    }
   }
-  const long long h = r % H, bi = r / H;
-  const long long b = bi / S, i = bi % S;
-  delta[(b * H + h) * S + i] = acc;
+#pragma unroll
+  for (int off = L / 2; off > 0; off >>= 1)
+    acc += __shfl_xor_sync(0xffffffffu, acc, off);
+  if (r < rows && c == 0) {
+    const long long h = r % H, bi = r / H;
+    const long long b = bi / S, i = bi % S;
+    delta[(b * H + h) * S + i] = acc;
+  }
 }
 
 template <int HD>
@@ -836,13 +876,13 @@ constexpr int dkdv_smem_floats() {
   return 4 * 64 * (HD + 4) + 2 * BW_BQ * BW_LDP + 2 * BW_BQ;
 }
 
-template <typename T, int HD>
+template <int HD>
 __global__ void __launch_bounds__(BW_THREADS) attn_bwd_dkdv_kernel(
-    const T* __restrict__ q, const T* __restrict__ k,
-    const T* __restrict__ v, const T* __restrict__ dout,
+    const float* __restrict__ q, const float* __restrict__ k,
+    const float* __restrict__ v, const float* __restrict__ dout,
     const float* __restrict__ lse, const float* __restrict__ delta,
-    T* __restrict__ dk, T* __restrict__ dv, int S, int Tn, int H, int KVH,
-    int causal, int window, int q_offset, float scale) {
+    float* __restrict__ dk, float* __restrict__ dv, int S, int Tn, int H,
+    int KVH, int causal, int window, int q_offset, float scale) {
   static_assert(HD % 64 == 0 && HD <= 128, "head_dim 64 or 128");
   constexpr int LD = HD + 4;
   constexpr int NV = HD / 64;
@@ -866,8 +906,8 @@ __global__ void __launch_bounds__(BW_THREADS) attn_bwd_dkdv_kernel(
   const long long q_stride = (long long)H * HD;
   const long long kv_stride = (long long)KVH * HD;
   const long long kv_off = ((long long)b * Tn * KVH + n) * HD;
-  stage_rows<T, HD>(ks, k + kv_off, kv_stride, k0, Tn, tid);
-  stage_rows<T, HD>(vs, v + kv_off, kv_stride, k0, Tn, tid);
+  stage_rows<HD>(ks, k + kv_off, kv_stride, k0, Tn, tid);
+  stage_rows<HD>(vs, v + kv_off, kv_stride, k0, Tn, tid);
 
   float dka[4][4 * NV], dva[4][4 * NV];
 #pragma unroll
@@ -887,8 +927,8 @@ __global__ void __launch_bounds__(BW_THREADS) attn_bwd_dkdv_kernel(
     const float* delta_h = delta + ((long long)b * H + h) * S;
     for (int q0 = r_lo / BW_BQ * BW_BQ; q0 <= r_hi; q0 += BW_BQ) {
       __syncthreads();  // K/V staged; the last tile's P, dS, Q, dO consumed
-      stage_rows<T, HD>(qs, q + q_off, q_stride, q0, S, tid);
-      stage_rows<T, HD>(dos, dout + q_off, q_stride, q0, S, tid);
+      stage_rows<HD>(qs, q + q_off, q_stride, q0, S, tid);
+      stage_rows<HD>(dos, dout + q_off, q_stride, q0, S, tid);
       if (tid < BW_BQ) {
         const bool in = q0 + tid < S;
         lse_s[tid] = in ? lse_h[q0 + tid] : 0.f;
@@ -960,12 +1000,12 @@ constexpr int dq_smem_floats() {
   return 4 * 64 * (HD + 4) + BW_BQ * BW_LDP + 2 * BW_BQ;
 }
 
-template <typename T, int HD>
+template <int HD>
 __global__ void __launch_bounds__(BW_THREADS) attn_bwd_dq_kernel(
-    const T* __restrict__ q, const T* __restrict__ k,
-    const T* __restrict__ v, const T* __restrict__ dout,
+    const float* __restrict__ q, const float* __restrict__ k,
+    const float* __restrict__ v, const float* __restrict__ dout,
     const float* __restrict__ lse, const float* __restrict__ delta,
-    T* __restrict__ dq, int S, int Tn, int H, int KVH, int causal,
+    float* __restrict__ dq, int S, int Tn, int H, int KVH, int causal,
     int window, int q_offset, float scale) {
   static_assert(HD % 64 == 0 && HD <= 128, "head_dim 64 or 128");
   constexpr int LD = HD + 4;
@@ -990,8 +1030,8 @@ __global__ void __launch_bounds__(BW_THREADS) attn_bwd_dq_kernel(
   const long long kv_stride = (long long)KVH * HD;
   const long long q_off = ((long long)b * S * H + h) * HD;
   const long long kv_off = ((long long)b * Tn * KVH + n) * HD;
-  stage_rows<T, HD>(qs, q + q_off, q_stride, q0, S, tid);
-  stage_rows<T, HD>(dos, dout + q_off, q_stride, q0, S, tid);
+  stage_rows<HD>(qs, q + q_off, q_stride, q0, S, tid);
+  stage_rows<HD>(dos, dout + q_off, q_stride, q0, S, tid);
   if (tid < BW_BQ) {
     const bool in = q0 + tid < S;
     const long long row = ((long long)b * H + h) * S + q0 + tid;
@@ -1013,8 +1053,8 @@ __global__ void __launch_bounds__(BW_THREADS) attn_bwd_dq_kernel(
 
   for (int k0 = k_begin / BW_BK * BW_BK; k0 < k_end; k0 += BW_BK) {
     __syncthreads();  // Q, dO staged; the last tile's K and dS consumed
-    stage_rows<T, HD>(ks, k + kv_off, kv_stride, k0, Tn, tid);
-    stage_rows<T, HD>(vs, v + kv_off, kv_stride, k0, Tn, tid);
+    stage_rows<HD>(ks, k + kv_off, kv_stride, k0, Tn, tid);
+    stage_rows<HD>(vs, v + kv_off, kv_stride, k0, Tn, tid);
     __syncthreads();
 
     float s[4][4], dp[4][4];
@@ -1071,6 +1111,571 @@ __global__ void __launch_bounds__(BW_THREADS) attn_bwd_dq_kernel(
   }
 }
 
+// ---------------------------------------- bf16 backward on the tensor cores
+
+// Tile shapes of the bf16 backward (timed on the H100 with
+// tools/kernel_variants.py attention_bwd; PERF.md).  dK/dV: WARPS warps of
+// 16·MT keys, query tiles of BQ rows through a STAGES-deep ring, K and V's
+// A fragments in registers (KREG) or reloaded each k16 step.
+template <int HD>
+struct DkdvShape {
+  static constexpr int MT = 1;  // m16 key tiles a warp
+  static constexpr int WARPS = 4;
+  static constexpr int BQ = 64;
+  static constexpr int STAGES = 2;
+  static constexpr bool KREG = HD == 64;
+  static constexpr int MINB = 2;
+  static constexpr int THREADS = 32 * WARPS;
+  static constexpr int BK = 16 * MT * WARPS;  // keys a CTA
+};
+
+// dQ: WARPS warps of 16·MT query rows, 64-key tiles (TC_BK) through a
+// STAGES-deep ring, Q and dO's A fragments in registers (QREG) or
+// reloaded each k16 step.
+template <int HD>
+struct DqShape {
+  static constexpr int MT = 1;  // m16 row tiles a warp
+  static constexpr int WARPS = 4;
+  static constexpr int STAGES = HD == 64 ? 3 : 2;
+  static constexpr bool QREG = HD == 64;
+  static constexpr int MINB = 2;
+  static constexpr int THREADS = 32 * WARPS;
+  static constexpr int BQ = 16 * MT * WARPS;  // query rows a CTA
+};
+
+template <int HD>
+constexpr int dkdv_tc_smem_bytes() {
+  // K and V of the CTA, the Q and dO ring (rows padded by 8 bf16), and
+  // the ring's lse·log2 e and D
+  using C = DkdvShape<HD>;
+  return (2 * C::BK + 2 * C::STAGES * C::BQ) * (HD + 8) * (int)sizeof(bf16) +
+         2 * C::STAGES * C::BQ * (int)sizeof(float);
+}
+
+template <int HD>
+constexpr int dq_tc_smem_bytes() {
+  // Q and dO of the CTA, then the K and V rings
+  using C = DqShape<HD>;
+  return (2 * C::BQ + 2 * C::STAGES * TC_BK) * (HD + 8) * (int)sizeof(bf16);
+}
+
+// lse in the units of ex2, +inf for a row past S or with no valid key, so
+// that p = 2^(s·c − lse) = 0 there
+__device__ __forceinline__ float lse_log2(const float* lse, long long row,
+                                          bool in) {
+  const float l = in ? lse[row] : INFINITY;
+  return l == -INFINITY ? INFINITY : l * LOG2E;
+}
+
+// a, b ≈ hi + lo as two bf16 pairs (each rounded to nearest even): hi
+// keeps 8 significant bits, lo the next 8, so a product split in two
+// carries P or dS to ~2^-17 where one bf16 operand would carry 2^-9
+__device__ __forceinline__ void split_bf16(float a, float b, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = pack_bf16(a, b);
+  lo = pack_bf16(a - __uint_as_float(hi << 16),
+                 b - __uint_as_float(hi & 0xffff0000u));
+}
+
+// Fragment layouts as in flash_attention_tc_kernel.  Keys are the M
+// dimension: a thread holds keys g and g + 8 of each of the warp's m16
+// tiles and query columns 2t, 2t + 1 of each n8 tile of Sᵀ and dPᵀ.
+template <int HD>
+__global__ void __launch_bounds__(DkdvShape<HD>::THREADS,
+                                  DkdvShape<HD>::MINB)
+    attn_bwd_dkdv_tc_kernel(const bf16* __restrict__ q,
+                            const bf16* __restrict__ k,
+                            const bf16* __restrict__ v,
+                            const bf16* __restrict__ dout,
+                            const float* __restrict__ lse,
+                            const float* __restrict__ delta,
+                            bf16* __restrict__ dk, bf16* __restrict__ dv,
+                            int S, int Tn, int H, int KVH, int causal,
+                            int window, int q_offset, float scale) {
+  static_assert(HD % 64 == 0 && HD <= 128, "head_dim 64 or 128");
+  using C = DkdvShape<HD>;
+  constexpr int MT = C::MT, NTHR = C::THREADS, BK = C::BK, BQ = C::BQ;
+  constexpr int ST = C::STAGES;
+  constexpr int LD = HD + 8;   // padded row stride, in bf16
+  constexpr int KT = HD / 16;  // k16 steps of K·Qᵀ
+  constexpr int NT = HD / 8;   // n8 tiles of dK and dV
+  constexpr int NQ = BQ / 8;   // n8 tiles (queries) of Sᵀ and dPᵀ
+  constexpr int CH = HD / 8;   // 16-byte chunks of a row
+  constexpr int WK = 16 * MT;  // keys a warp
+  static_assert(ST >= 2 && BQ % 16 == 0 && BQ <= NTHR &&
+                    (BQ * CH) % NTHR == 0 && (BK * CH) % NTHR == 0,
+                "tile shape");
+  extern __shared__ __align__(16) unsigned char bw_smem[];
+  bf16* ks = reinterpret_cast<bf16*>(bw_smem);  // [BK][LD]
+  bf16* vs = ks + BK * LD;                       // [BK][LD]
+  bf16* qs = vs + BK * LD;                       // [ST][BQ][LD]
+  bf16* dos = qs + ST * BQ * LD;                 // [ST][BQ][LD]
+  float* ls = reinterpret_cast<float*>(dos + ST * BQ * LD);  // [ST][BQ]
+  float* dl = ls + ST * BQ;                                  // [ST][BQ]
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, tq = lane & 3;
+  const int k0 = blockIdx.x * BK;
+  const int n = blockIdx.y;
+  const int b = blockIdx.z;
+  const int G = H / KVH;
+  const float scale_log2 = scale * LOG2E;
+
+  const long long q_stride = (long long)H * HD;
+  const long long kv_stride = (long long)KVH * HD;
+  const long long kv_off = ((long long)b * Tn * KVH + n) * HD;
+
+  // the query rows that may see any of these keys, in tiles of BQ, for
+  // each of the G heads
+  const int r_lo = causal ? max(0, k0 - q_offset) : 0;
+  const int r_hi =
+      window > 0 ? min(S - 1, k0 + BK - 1 + window - 1 - q_offset) : S - 1;
+  const int q_first = r_lo / BQ * BQ;
+  const int nq = r_hi >= r_lo ? (r_hi - q_first) / BQ + 1 : 0;
+  const int ntiles = G * nq;
+
+  auto load_tile = [&](int it) {
+    const int h = n * G + it / nq;
+    const int q0 = q_first + (it % nq) * BQ;
+    const int st = it % ST;
+    const long long q_off = ((long long)b * S * H + h) * HD;
+    bf16* qd = qs + st * BQ * LD;
+    bf16* dd = dos + st * BQ * LD;
+#pragma unroll
+    for (int j = 0; j < BQ * CH / NTHR; ++j) {
+      const int i = tid + j * NTHR;
+      const int r = i / CH, c = i % CH;
+      const bool ok = q0 + r < S;
+      const long long off =
+          q_off + (long long)(ok ? q0 + r : 0) * q_stride + 8 * c;
+      cp_async16(smem_addr(qd + r * LD + 8 * c), q + off, ok);
+      cp_async16(smem_addr(dd + r * LD + 8 * c), dout + off, ok);
+    }
+    if (tid < BQ) {
+      const bool in = q0 + tid < S;
+      const long long row = ((long long)b * H + h) * S + q0 + tid;
+      ls[st * BQ + tid] = lse_log2(lse, row, in);
+      dl[st * BQ + tid] = in ? delta[row] : 0.f;
+    }
+  };
+
+  // group 0: K, V and query tile 0; then tiles 1 … ST − 2
+#pragma unroll
+  for (int j = 0; j < BK * CH / NTHR; ++j) {
+    const int i = tid + j * NTHR;
+    const int r = i / CH, c = i % CH;
+    const bool ok = k0 + r < Tn;
+    const long long off =
+        kv_off + (long long)(ok ? k0 + r : 0) * kv_stride + 8 * c;
+    cp_async16(smem_addr(ks + r * LD + 8 * c), k + off, ok);
+    cp_async16(smem_addr(vs + r * LD + 8 * c), v + off, ok);
+  }
+  if (ntiles > 0) load_tile(0);
+  cp_async_commit();
+#pragma unroll
+  for (int s = 1; s < ST - 1; ++s) {
+    if (s < ntiles) load_tile(s);
+    cp_async_commit();
+  }
+
+  float dka[MT][NT][4] = {}, dva[MT][NT][4] = {};
+  uint32_t kf[MT][KT][4], vf[MT][KT][4];  // K's and V's A fragments (KREG)
+  // this warp's keys: rows WK·warp … of ks and vs
+  const int wk = k0 + WK * warp;
+  auto a_frag = [&](uint32_t (&r)[4], const bf16* base, int mt, int kk) {
+    ldsm_x4(r, smem_addr(base + (WK * warp + 16 * mt + (lane & 15)) * LD +
+                         16 * kk + 8 * (lane >> 4)));
+  };
+
+  // The ring runs ST − 1 tiles ahead of the one computed; one barrier a
+  // tile guards it.
+  for (int it = 0; it < ntiles; ++it) {
+    cp_async_wait<ST - 2>();
+    // tile it landed for every thread; every warp is done with tile it −
+    // 1, whose stage tile it + ST − 1 takes
+    __syncthreads();
+    if (it + ST - 1 < ntiles) load_tile(it + ST - 1);
+    cp_async_commit();
+    if constexpr (C::KREG) {
+      if (it == 0) {
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+          for (int kk = 0; kk < KT; ++kk) {
+            a_frag(kf[mt][kk], ks, mt, kk);
+            a_frag(vf[mt][kk], vs, mt, kk);
+          }
+      }
+    }
+    const int q0 = q_first + (it % nq) * BQ;
+    const int st = it % ST;
+    const int qp_lo = q0 + q_offset;
+    const int qp_hi = min(q0 + BQ, S) - 1 + q_offset;
+    // a tile none of the warp's keys can see adds nothing
+    if (wk >= Tn || (causal && wk > qp_hi) ||
+        (window > 0 && wk + WK - 1 <= qp_lo - window))
+      continue;
+
+    // Sᵀ = K·Qᵀ and dPᵀ = V·dOᵀ: WK keys × BQ queries
+    const bf16* qt = qs + st * BQ * LD;
+    const bf16* dt = dos + st * BQ * LD;
+    float sc[MT][NQ][4] = {}, dp[MT][NQ][4] = {};
+#pragma unroll
+    for (int kk = 0; kk < KT; ++kk) {
+      uint32_t ka[MT][4], va[MT][4];
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+        if constexpr (C::KREG) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            ka[mt][e] = kf[mt][kk][e];
+            va[mt][e] = vf[mt][kk][e];
+          }
+        } else {
+          a_frag(ka[mt], ks, mt, kk);
+          a_frag(va[mt], vs, mt, kk);
+        }
+      }
+#pragma unroll
+      for (int np = 0; np < NQ / 2; ++np) {
+        // queries 16·np + 0..7 and + 8..15, hd 16·kk + 0..15
+        const int off = (16 * np + (lane & 7) + 8 * (lane >> 4)) * LD +
+                        16 * kk + 8 * ((lane >> 3) & 1);
+        uint32_t bq[4], bd[4];
+        ldsm_x4(bq, smem_addr(qt + off));
+        ldsm_x4(bd, smem_addr(dt + off));
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) {
+          mma_bf16(sc[mt][2 * np], ka[mt], bq[0], bq[1]);
+          mma_bf16(sc[mt][2 * np + 1], ka[mt], bq[2], bq[3]);
+          mma_bf16(dp[mt][2 * np], va[mt], bd[0], bd[1]);
+          mma_bf16(dp[mt][2 * np + 1], va[mt], bd[2], bd[3]);
+        }
+      }
+    }
+
+    // Pᵀ = 2^(sᵀ·c − lse·log2 e) and dSᵀ = Pᵀ ∘ (dPᵀ − D), per query
+    // column; masked pairs give p = 0
+    const bool edge = wk + WK > Tn || (causal && wk + WK - 1 > qp_lo) ||
+                      (window > 0 && wk <= qp_hi - window);
+    const float* lt = ls + st * BQ;
+    const float* dlt = dl + st * BQ;
+#pragma unroll
+    for (int j = 0; j < NQ; ++j) {
+      const float2 l2 = *reinterpret_cast<const float2*>(lt + 8 * j + 2 * tq);
+      const float2 d2 =
+          *reinterpret_cast<const float2*>(dlt + 8 * j + 2 * tq);
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float p = ex2(fmaf(sc[mt][j][e], scale_log2, e & 1 ? -l2.y : -l2.x));
+          if (edge) {
+            const int key = wk + 16 * mt + 8 * (e >> 1) + g;
+            const int qp = qp_lo + 8 * j + 2 * tq + (e & 1);
+            if (!(key < Tn && (!causal || key <= qp) &&
+                  (window <= 0 || key > qp - window)))
+              p = 0.f;
+          }
+          sc[mt][j][e] = p;
+          dp[mt][j][e] = p * (dp[mt][j][e] - (e & 1 ? d2.y : d2.x));
+        }
+    }
+
+    // dV += Pᵀ·dO and dK += dSᵀ·Q: the accumulator fragments are the A
+    // fragments, each as a bf16 hi + lo pair; dO and Q are the B operands
+    // through ldmatrix.trans, each fragment feeding both halves
+#pragma unroll
+    for (int kc = 0; kc < NQ / 2; ++kc) {
+      uint32_t ph[MT][4], pl[MT][4], sh[MT][4], sl[MT][4];
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          // a0 … a3: tile 2kc rows g, g + 8, then tile 2kc + 1
+          const float* x = sc[mt][2 * kc + (i >> 1)] + 2 * (i & 1);
+          const float* y = dp[mt][2 * kc + (i >> 1)] + 2 * (i & 1);
+          split_bf16(x[0], x[1], ph[mt][i], pl[mt][i]);
+          split_bf16(y[0], y[1], sh[mt][i], sl[mt][i]);
+        }
+#pragma unroll
+      for (int np = 0; np < NT / 2; ++np) {
+        // queries 16·kc + 0..15, hd 16·np + 0..7 and + 8..15
+        const int off = (16 * kc + (lane & 7) + 8 * ((lane >> 3) & 1)) * LD +
+                        16 * np + 8 * (lane >> 4);
+        uint32_t bo[4], bq[4];
+        ldsm_x4_trans(bo, smem_addr(dt + off));
+        ldsm_x4_trans(bq, smem_addr(qt + off));
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) {
+          mma_bf16(dva[mt][2 * np], ph[mt], bo[0], bo[1]);
+          mma_bf16(dva[mt][2 * np + 1], ph[mt], bo[2], bo[3]);
+          mma_bf16(dka[mt][2 * np], sh[mt], bq[0], bq[1]);
+          mma_bf16(dka[mt][2 * np + 1], sh[mt], bq[2], bq[3]);
+          mma_bf16(dva[mt][2 * np], pl[mt], bo[0], bo[1]);
+          mma_bf16(dva[mt][2 * np + 1], pl[mt], bo[2], bo[3]);
+          mma_bf16(dka[mt][2 * np], sl[mt], bq[0], bq[1]);
+          mma_bf16(dka[mt][2 * np + 1], sl[mt], bq[2], bq[3]);
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();  // nothing stays in flight
+
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int key = wk + 16 * mt + 8 * r + g;
+      if (key >= Tn) continue;
+      const long long off = kv_off + (long long)key * kv_stride + 2 * tq;
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        *reinterpret_cast<uint32_t*>(dk + off + 8 * j) = pack_bf16(
+            dka[mt][j][2 * r] * scale, dka[mt][j][2 * r + 1] * scale);
+        *reinterpret_cast<uint32_t*>(dv + off + 8 * j) =
+            pack_bf16(dva[mt][j][2 * r], dva[mt][j][2 * r + 1]);
+      }
+    }
+}
+
+// Rows are the M dimension, as in the forward: a thread holds rows g and
+// g + 8 of each of the warp's m16 tiles, rr = 2·mt + (0 or 1).
+template <int HD>
+__global__ void __launch_bounds__(DqShape<HD>::THREADS, DqShape<HD>::MINB)
+    attn_bwd_dq_tc_kernel(const bf16* __restrict__ q,
+                          const bf16* __restrict__ k,
+                          const bf16* __restrict__ v,
+                          const bf16* __restrict__ dout,
+                          const float* __restrict__ lse,
+                          const float* __restrict__ delta,
+                          bf16* __restrict__ dq, int S, int Tn, int H,
+                          int KVH, int causal, int window, int q_offset,
+                          float scale) {
+  static_assert(HD % 64 == 0 && HD <= 128, "head_dim 64 or 128");
+  using C = DqShape<HD>;
+  constexpr int MT = C::MT, NTHR = C::THREADS, BQ = C::BQ, BK = TC_BK;
+  constexpr int ST = C::STAGES;
+  constexpr int NK = BK / 8;    // n8 tiles (keys) of S and dP
+  constexpr int LD = HD + 8;    // padded row stride, in bf16
+  constexpr int KT = HD / 16;   // k16 steps of Q·Kᵀ
+  constexpr int NT = HD / 8;    // n8 tiles of dQ
+  constexpr int CH = HD / 8;    // 16-byte chunks of a row
+  constexpr int WR = 16 * MT;   // query rows a warp
+  constexpr int RR = 2 * MT;    // rows a thread
+  static_assert(ST >= 2 && (BQ * CH) % NTHR == 0 && (BK * CH) % NTHR == 0,
+                "tile shape");
+  extern __shared__ __align__(16) unsigned char bw_smem[];
+  bf16* qs = reinterpret_cast<bf16*>(bw_smem);  // [BQ][LD]
+  bf16* dos = qs + BQ * LD;                      // [BQ][LD]
+  bf16* ks = dos + BQ * LD;                      // [ST][BK][LD]
+  bf16* vs = ks + ST * BK * LD;                  // [ST][BK][LD]
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, tq = lane & 3;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int n = h / (H / KVH);
+  const float scale_log2 = scale * LOG2E;
+
+  const long long q_stride = (long long)H * HD;
+  const long long kv_stride = (long long)KVH * HD;
+  const long long q_off = ((long long)b * S * H + h) * HD;
+  const bf16* kb = k + ((long long)b * Tn * KVH + n) * HD;
+  const bf16* vb = v + ((long long)b * Tn * KVH + n) * HD;
+
+  // the keys any row of this tile may see
+  const int q_lo = q0 + q_offset;
+  const int q_hi = min(q0 + BQ, S) - 1 + q_offset;
+  const int k_end = causal ? min(Tn, q_hi + 1) : Tn;
+  const int k_first = (window > 0 ? max(0, q_lo - window + 1) : 0) / BK * BK;
+  const int ntiles = k_end > k_first ? (k_end - k_first + BK - 1) / BK : 0;
+
+  auto load_kv = [&](int tile) {
+    const int kt0 = k_first + tile * BK;
+    bf16* kd = ks + (tile % ST) * BK * LD;
+    bf16* vd = vs + (tile % ST) * BK * LD;
+#pragma unroll
+    for (int j = 0; j < BK * CH / NTHR; ++j) {
+      const int i = tid + j * NTHR;
+      const int r = i / CH, c = i % CH;
+      const bool ok = kt0 + r < Tn;
+      const long long off = (long long)(ok ? kt0 + r : 0) * kv_stride + 8 * c;
+      cp_async16(smem_addr(kd + r * LD + 8 * c), kb + off, ok);
+      cp_async16(smem_addr(vd + r * LD + 8 * c), vb + off, ok);
+    }
+  };
+
+  // group 0: Q, dO and key tile 0; then tiles 1 … ST − 2
+#pragma unroll
+  for (int j = 0; j < BQ * CH / NTHR; ++j) {
+    const int i = tid + j * NTHR;
+    const int r = i / CH, c = i % CH;
+    const bool ok = q0 + r < S;
+    const long long off =
+        q_off + (long long)(ok ? q0 + r : 0) * q_stride + 8 * c;
+    cp_async16(smem_addr(qs + r * LD + 8 * c), q + off, ok);
+    cp_async16(smem_addr(dos + r * LD + 8 * c), dout + off, ok);
+  }
+  if (ntiles > 0) load_kv(0);
+  cp_async_commit();
+#pragma unroll
+  for (int s = 1; s < ST - 1; ++s) {
+    if (s < ntiles) load_kv(s);
+    cp_async_commit();
+  }
+
+  // this warp's rows, and the thread's rows' lse (ex2 units) and D
+  const int wrow = q0 + WR * warp;
+  const int wpos_lo = wrow + q_offset, wpos_hi = wpos_lo + WR - 1;
+  float l2[RR], d2[RR];
+#pragma unroll
+  for (int rr = 0; rr < RR; ++rr) {
+    const int row = wrow + 8 * rr + g;  // rr = 2·mt + r: row 16·mt + 8·r
+    const long long at = ((long long)b * H + h) * S + row;
+    l2[rr] = lse_log2(lse, at, row < S);
+    d2[rr] = row < S ? delta[at] : 0.f;
+  }
+
+  float dqa[MT][NT][4] = {};
+  uint32_t qf[MT][KT][4], of[MT][KT][4];  // Q's and dO's A fragments (QREG)
+  auto a_frag = [&](uint32_t (&r)[4], const bf16* base, int mt, int kk) {
+    ldsm_x4(r, smem_addr(base + (WR * warp + 16 * mt + (lane & 15)) * LD +
+                         16 * kk + 8 * (lane >> 4)));
+  };
+
+  for (int it = 0; it < ntiles; ++it) {
+    cp_async_wait<ST - 2>();
+    // tile it landed for every thread; every warp is done with tile it −
+    // 1, whose stage tile it + ST − 1 takes
+    __syncthreads();
+    if (it + ST - 1 < ntiles) load_kv(it + ST - 1);
+    cp_async_commit();
+    if constexpr (C::QREG) {
+      if (it == 0) {
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+          for (int kk = 0; kk < KT; ++kk) {
+            a_frag(qf[mt][kk], qs, mt, kk);
+            a_frag(of[mt][kk], dos, mt, kk);
+          }
+      }
+    }
+    const int k0 = k_first + it * BK;
+    // a tile none of the warp's rows can see adds nothing
+    if (wrow >= S || (causal && k0 > wpos_hi) ||
+        (window > 0 && k0 + BK - 1 <= wpos_lo - window))
+      continue;
+
+    // S = Q·Kᵀ and dP = dO·Vᵀ: WR rows × BK keys
+    const bf16* kt = ks + (it % ST) * BK * LD;
+    const bf16* vt = vs + (it % ST) * BK * LD;
+    float sc[MT][NK][4] = {}, dp[MT][NK][4] = {};
+#pragma unroll
+    for (int kk = 0; kk < KT; ++kk) {
+      uint32_t qa[MT][4], oa[MT][4];
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+        if constexpr (C::QREG) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            qa[mt][e] = qf[mt][kk][e];
+            oa[mt][e] = of[mt][kk][e];
+          }
+        } else {
+          a_frag(qa[mt], qs, mt, kk);
+          a_frag(oa[mt], dos, mt, kk);
+        }
+      }
+#pragma unroll
+      for (int np = 0; np < NK / 2; ++np) {
+        // keys 16·np + 0..7 and + 8..15, hd 16·kk + 0..15
+        const int off = (16 * np + (lane & 7) + 8 * (lane >> 4)) * LD +
+                        16 * kk + 8 * ((lane >> 3) & 1);
+        uint32_t bk[4], bv[4];
+        ldsm_x4(bk, smem_addr(kt + off));
+        ldsm_x4(bv, smem_addr(vt + off));
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) {
+          mma_bf16(sc[mt][2 * np], qa[mt], bk[0], bk[1]);
+          mma_bf16(sc[mt][2 * np + 1], qa[mt], bk[2], bk[3]);
+          mma_bf16(dp[mt][2 * np], oa[mt], bv[0], bv[1]);
+          mma_bf16(dp[mt][2 * np + 1], oa[mt], bv[2], bv[3]);
+        }
+      }
+    }
+
+    // dS = P ∘ (dP − D), P = 2^(s·c − lse·log2 e) per row; masked pairs
+    // give p = 0
+    const bool edge = k0 + BK > Tn || (causal && k0 + BK - 1 > wpos_lo) ||
+                      (window > 0 && k0 <= wpos_hi - window);
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int j = 0; j < NK; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int rr = 2 * mt + (e >> 1);
+          float p = ex2(fmaf(sc[mt][j][e], scale_log2, -l2[rr]));
+          if (edge) {
+            const int kpos = k0 + 8 * j + 2 * tq + (e & 1);
+            const int qp = wpos_lo + 16 * mt + 8 * (e >> 1) + g;
+            if (!(kpos < Tn && (!causal || kpos <= qp) &&
+                  (window <= 0 || kpos > qp - window)))
+              p = 0.f;
+          }
+          sc[mt][j][e] = p * (dp[mt][j][e] - d2[rr]);
+        }
+
+    // dQ += dS·K: dS's accumulator fragments are the A fragments, as a
+    // bf16 hi + lo pair; K is the B operand through ldmatrix.trans
+#pragma unroll
+    for (int kc = 0; kc < NK / 2; ++kc) {
+      uint32_t sh[MT][4], sl[MT][4];
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const float* x = sc[mt][2 * kc + (i >> 1)] + 2 * (i & 1);
+          split_bf16(x[0], x[1], sh[mt][i], sl[mt][i]);
+        }
+#pragma unroll
+      for (int np = 0; np < NT / 2; ++np) {
+        // keys 16·kc + 0..15, hd 16·np + 0..7 and + 8..15
+        uint32_t bk[4];
+        ldsm_x4_trans(bk, smem_addr(kt + (16 * kc + (lane & 7) +
+                                          8 * ((lane >> 3) & 1)) * LD +
+                                    16 * np + 8 * (lane >> 4)));
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) {
+          mma_bf16(dqa[mt][2 * np], sh[mt], bk[0], bk[1]);
+          mma_bf16(dqa[mt][2 * np + 1], sh[mt], bk[2], bk[3]);
+          mma_bf16(dqa[mt][2 * np], sl[mt], bk[0], bk[1]);
+          mma_bf16(dqa[mt][2 * np + 1], sl[mt], bk[2], bk[3]);
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();  // nothing stays in flight
+
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = wrow + 16 * mt + 8 * r + g;
+      if (row >= S) continue;
+      bf16* drow = dq + q_off + (long long)row * q_stride + 2 * tq;
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+        *reinterpret_cast<uint32_t*>(drow + 8 * j) = pack_bf16(
+            dqa[mt][j][2 * r] * scale, dqa[mt][j][2 * r + 1] * scale);
+    }
+}
+
 // ------------------------------------------------------------- launches
 
 template <int HD>
@@ -1110,13 +1715,15 @@ int launch_bf16(const void* q, const void* k, const void* v, void* out,
   return (int)cudaGetLastError();
 }
 
-// the three backward kernels in order on one stream
+// the three backward kernels in order on one stream: bf16 on the tensor
+// cores, fp32 on FFMA
 template <typename T, int HD>
 int launch_bwd(const void* q, const void* k, const void* v, const void* out,
                const void* dout, const float* lse, float* delta, void* dq,
                void* dk, void* dv, int b, int s, int t, int h, int kvh,
                int causal, int window, int q_offset, float scale,
                cudaStream_t stream) {
+  constexpr bool tc = std::is_same<T, bf16>::value;
   const T* qt = static_cast<const T*>(q);
   const T* kt = static_cast<const T*>(k);
   const T* vt = static_cast<const T*>(v);
@@ -1124,37 +1731,64 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* out,
   const long long rows = (long long)b * s * h;
   cudaError_t err;
   if (rows > 0) {
+    constexpr long long per_row = HD * (long long)sizeof(T) / 16;
     attn_bwd_preprocess_kernel<T, HD>
-        <<<(unsigned)((rows + BW_THREADS - 1) / BW_THREADS), BW_THREADS, 0,
-           stream>>>(static_cast<const T*>(out), dot, delta, s, h, rows);
+        <<<(unsigned)((rows * per_row + BW_THREADS - 1) / BW_THREADS),
+           BW_THREADS, 0, stream>>>(static_cast<const T*>(out), dot, delta,
+                                    s, h, rows);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }
   if (t > 0) {  // with s = 0 this writes dk = dv = 0
-    constexpr int bytes = dkdv_smem_floats<HD>() * (int)sizeof(float);
-    err = cudaFuncSetAttribute(attn_bwd_dkdv_kernel<T, HD>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               bytes);
-    if (err != cudaSuccess) return (int)err;
-    const dim3 grid((unsigned)((t + BW_BK - 1) / BW_BK), (unsigned)kvh,
+    constexpr int bk = tc ? DkdvShape<HD>::BK : BW_BK;
+    const dim3 grid((unsigned)((t + bk - 1) / bk), (unsigned)kvh,
                     (unsigned)b);
-    attn_bwd_dkdv_kernel<T, HD><<<grid, BW_THREADS, bytes, stream>>>(
-        qt, kt, vt, dot, lse, delta, static_cast<T*>(dk), static_cast<T*>(dv),
-        s, t, h, kvh, causal, window, q_offset, scale);
+    if constexpr (tc) {
+      constexpr int bytes = dkdv_tc_smem_bytes<HD>();
+      err = cudaFuncSetAttribute(attn_bwd_dkdv_tc_kernel<HD>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 bytes);
+      if (err != cudaSuccess) return (int)err;
+      attn_bwd_dkdv_tc_kernel<HD>
+          <<<grid, DkdvShape<HD>::THREADS, bytes, stream>>>(
+              qt, kt, vt, dot, lse, delta, static_cast<T*>(dk),
+              static_cast<T*>(dv), s, t, h, kvh, causal, window, q_offset,
+              scale);
+    } else {
+      constexpr int bytes = dkdv_smem_floats<HD>() * (int)sizeof(float);
+      err = cudaFuncSetAttribute(attn_bwd_dkdv_kernel<HD>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 bytes);
+      if (err != cudaSuccess) return (int)err;
+      attn_bwd_dkdv_kernel<HD><<<grid, BW_THREADS, bytes, stream>>>(
+          qt, kt, vt, dot, lse, delta, static_cast<T*>(dk),
+          static_cast<T*>(dv), s, t, h, kvh, causal, window, q_offset, scale);
+    }
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }
   if (s == 0) return 0;
-  constexpr int bytes = dq_smem_floats<HD>() * (int)sizeof(float);
-  err = cudaFuncSetAttribute(attn_bwd_dq_kernel<T, HD>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             bytes);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((unsigned)((s + BW_BQ - 1) / BW_BQ), (unsigned)h,
-                  (unsigned)b);
-  attn_bwd_dq_kernel<T, HD><<<grid, BW_THREADS, bytes, stream>>>(
-      qt, kt, vt, dot, lse, delta, static_cast<T*>(dq), s, t, h, kvh, causal,
-      window, q_offset, scale);
+  constexpr int bq = tc ? DqShape<HD>::BQ : BW_BQ;
+  const dim3 grid((unsigned)((s + bq - 1) / bq), (unsigned)h, (unsigned)b);
+  if constexpr (tc) {
+    constexpr int bytes = dq_tc_smem_bytes<HD>();
+    err = cudaFuncSetAttribute(attn_bwd_dq_tc_kernel<HD>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               bytes);
+    if (err != cudaSuccess) return (int)err;
+    attn_bwd_dq_tc_kernel<HD><<<grid, DqShape<HD>::THREADS, bytes, stream>>>(
+        qt, kt, vt, dot, lse, delta, static_cast<T*>(dq), s, t, h, kvh,
+        causal, window, q_offset, scale);
+  } else {
+    constexpr int bytes = dq_smem_floats<HD>() * (int)sizeof(float);
+    err = cudaFuncSetAttribute(attn_bwd_dq_kernel<HD>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               bytes);
+    if (err != cudaSuccess) return (int)err;
+    attn_bwd_dq_kernel<HD><<<grid, BW_THREADS, bytes, stream>>>(
+        qt, kt, vt, dot, lse, delta, static_cast<T*>(dq), s, t, h, kvh,
+        causal, window, q_offset, scale);
+  }
   return (int)cudaGetLastError();
 }
 
@@ -1196,8 +1830,9 @@ int jk_flash_attention(const void* q, const void* k, const void* v,
 
 // The gradients of jk_flash_attention given dout (the output's gradient)
 // and the forward's out and lse: dq like q, dk and dv like k, all in the
-// operands' dtype (0 = float32, 1 = bfloat16); delta is fp32 (B, H, S)
-// scratch.  Three launches on the caller's stream.
+// operands' dtype (0 = float32: the FFMA kernels, 1 = bfloat16: the
+// tensor-core kernels); delta is fp32 (B, H, S) scratch.  Three launches
+// on the caller's stream.
 int jk_flash_attention_bwd(const void* q, const void* k, const void* v,
                            const void* out, const void* dout,
                            const void* lse, void* delta, void* dq, void* dk,

@@ -21,10 +21,13 @@ skip key tiles the masks remove whole.
 The gradient: the reference differentiates ``layers.attention`` with
 XLA's autodiff.  On the card full-sequence attention is the kernel, so
 the port writes the FlashAttention-2 backward by hand (the same ``.cu``):
-the forward saves each row's log-sum-exp, and three kernels recompute the
-probabilities from it (D = rowsum(dO ∘ O), then dK/dV, then dQ), in fp32
-FFMA for both dtypes.  :func:`attention_backward_plain` is their plain
-version, :func:`attention_lse_plain` the forward's with its log-sum-exp.
+the forward saves each row's log-sum-exp, and three launches recompute
+the probabilities from it (D = rowsum(dO ∘ O), then dK/dV, then dQ; no
+atomics, so two calls give the same bits): bf16 runs all five products on
+the tensor cores (``mma.sync``, P and dS as bf16 hi + lo pairs, so the
+gradients stay within the bf16 plain backward's error), fp32 as fp32
+FFMA.  :func:`attention_backward_plain` is their plain version,
+:func:`attention_lse_plain` the forward's with its log-sum-exp.
 A row with no valid key comes out 0 and has zero gradients (its lse is
 −inf).
 """

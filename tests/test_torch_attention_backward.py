@@ -14,6 +14,14 @@ on purpose: its lse is −inf and its gradients are 0 (the reference's
 softmax over −1e30 scores spreads such a row evenly).  The kernels
 themselves are held against these plain versions on the card by
 ``tests/test_torch_cuda_kernels.py``.
+
+The bf16 backward kernels' arithmetic is modelled here in torch
+(:func:`_tensor_core_model`) and held to the card's bf16 gate: its error
+against the fp32 plain backward at most ``BF16_FACTOR`` × the bf16 plain
+backward's.  The model decided the kernels' rounding before any chip run:
+P and dS rounded once to bf16, as FlashAttention-2 rounds them, put dV
+(P) and dQ and dK (dS) up to 1.7× and 2.8× over the plain error on these
+cases, so both enter their products as bf16 hi + lo pairs.
 """
 import numpy as np
 import jax
@@ -155,3 +163,108 @@ def test_rows_without_keys_have_zero_gradients():
                        (leaves[0].grad[:, 30:], leaves[1].grad,
                         leaves[2].grad)):
         _close(g.numpy(), leaf.numpy(), "rows with keys")
+
+
+# ------------------------------------- the bf16 tensor-core kernels' model
+
+BF16_FACTOR = 1.5
+LOG2E = 1.4426950408889634
+
+#: small versions of the card's cases: b, s, t, h, kvh, hd, causal,
+#: window, q_offset
+MODEL_CASES = [
+    (2, 200, 200, 4, 4, 64, True, None, 0),     # G 1, ragged tiles
+    (1, 256, 256, 3, 1, 64, True, None, 0),     # G 3
+    (2, 191, 191, 8, 1, 64, True, None, 0),     # G 8
+    (1, 512, 512, 2, 1, 128, True, None, 0),    # hd 128
+    (1, 191, 191, 3, 3, 128, True, 70, 0),      # window 70
+    (1, 130, 300, 8, 2, 128, False, None, 0),   # not causal, S != T
+    (1, 127, 512, 8, 1, 64, True, None, 385),   # q_offset past 6 key tiles
+    (1, 65, 3, 2, 1, 64, False, None, 0),       # three keys
+]
+MODEL_IDS = ["g1", "g3", "g8", "hd128", "window70", "s!=t", "q-offset",
+             "three-keys"]
+
+
+def _bf16(x):
+    return x.to(torch.bfloat16).float()
+
+
+def _hi_lo(x):
+    """x as the kernels feed it to the tensor cores: a bf16 hi + lo pair,
+    each rounded to nearest even."""
+    hi = _bf16(x)
+    return hi + _bf16(x - hi)
+
+
+def _tensor_core_model(q, k, v, do, causal, window, q_offset, tile=64):
+    """The bf16 kernels' arithmetic on bf16 ``q, k, v, do``: the forward
+    (products exact in fp32, P = exp(s·scale − row max) rounded to bf16
+    before P·V, O rounded once) and the backward (D from the bf16 O and
+    dO; P = 2^(s·scale·log2 e − lse·log2 e) on valid pairs; dS = P ∘ (dP −
+    D); P and dS as hi + lo pairs; fp32 sums over ``tile``-row query tiles,
+    head by head, for dK and dV and over ``tile``-key tiles for dQ, as the
+    kernels walk them; each gradient rounded to bf16 once)."""
+    b, s, h, hd = q.shape
+    t, kvh = k.shape[1], k.shape[2]
+    g = h // kvh
+    scale = hd ** -0.5
+    qg = q.float().reshape(b, s, kvh, g, hd)
+    dog = do.float().reshape(b, s, kvh, g, hd)
+    kf, vf = k.float(), v.float()
+    sc = torch.einsum("bsngd,btnd->bngst", qg, kf)
+    qpos = torch.arange(s) + q_offset
+    valid = kfa._mask(qpos, torch.arange(t), causal, window)
+    scm = torch.where(valid, sc * scale, float("-inf"))
+    lse = torch.logsumexp(scm, -1)
+    seen = torch.isfinite(lse)
+    mx = torch.where(seen, scm.amax(-1), 0.0)
+    pu = torch.exp(scm - mx[..., None])
+    den = torch.clamp(pu.sum(-1), min=1e-30).permute(0, 3, 1, 2)[..., None]
+    out = _bf16(torch.einsum("bngst,btnd->bsngd", _bf16(pu), vf) / den)
+    delta = (dog * out).sum(-1).permute(0, 2, 3, 1)
+    l2 = torch.where(seen, lse * LOG2E, float("inf"))
+    p = torch.where(valid, torch.exp2(sc * (scale * LOG2E) - l2[..., None]),
+                    0.0)
+    dp = torch.einsum("bsngd,btnd->bngst", dog, vf)
+    ds = _hi_lo(p * (dp - delta[..., None]))
+    p = _hi_lo(p)
+    dk = torch.zeros((b, t, kvh, hd))
+    dv = torch.zeros((b, t, kvh, hd))
+    for gi in range(g):
+        for r0 in range(0, s, tile):
+            rows = slice(r0, r0 + tile)
+            dv += torch.einsum("bnst,bsnd->btnd", p[:, :, gi, rows],
+                               dog[:, rows, :, gi])
+            dk += torch.einsum("bnst,bsnd->btnd", ds[:, :, gi, rows],
+                               qg[:, rows, :, gi])
+    dq = torch.zeros((b, s, kvh, g, hd))
+    for k0 in range(0, t, tile):
+        keys = slice(k0, k0 + tile)
+        dq += torch.einsum("bngst,btnd->bsngd", ds[..., keys], kf[:, keys])
+    return (_bf16(scale * dq.reshape(b, s, h, hd)), _bf16(scale * dk),
+            _bf16(dv))
+
+
+@pytest.mark.parametrize("b,s,t,h,kvh,hd,causal,window,q_offset",
+                         MODEL_CASES, ids=MODEL_IDS)
+def test_tensor_core_rounding_within_the_bf16_gate(b, s, t, h, kvh, hd,
+                                                   causal, window,
+                                                   q_offset):
+    """The model's dq, dk and dv against the fp32 plain backward on fp32
+    copies of the bf16 inputs: each max error at most BF16_FACTOR × that
+    of the plain backward run from the bf16 inputs and their bf16 plain
+    forward (the card's gate, ``_hold_backward_against_plain``)."""
+    q, k, v, do = (torch.from_numpy(x).to(torch.bfloat16)
+                   for x in _inputs(s + t + h, b, s, t, h, kvh, hd))
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    f32 = [x.float() for x in (q, k, v, do)]
+    o32, l32 = kfa.attention_lse_plain(*f32[:3], **kw)
+    exact = kfa.attention_backward_plain(*f32[:3], o32, f32[3], l32, **kw)
+    o16, l16 = kfa.attention_lse_plain(q, k, v, **kw)
+    plain = kfa.attention_backward_plain(q, k, v, o16, do, l16, **kw)
+    model = _tensor_core_model(q, k, v, do, **kw)
+    for name, got, p, want in zip("qkv", model, plain, exact):
+        err = float((got - want).abs().max())
+        tol = BF16_FACTOR * float((p.float() - want).abs().max())
+        assert err <= tol, (f"d{name}", err, tol)

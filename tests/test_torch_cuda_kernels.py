@@ -14,7 +14,8 @@ those of the plain versions, and flash attention in fp32 and bf16 (ragged
 tiles and the tensor-core kernel's tile edges, S != T, windows, a query
 offset, bad operands, a small model's prefill), its backward kernels
 against the plain backward on the same cases and the backward's own tile
-edges (rows without keys giving zero gradients among them), the autograd
+edges (rows without keys giving zero gradients among them), two bf16
+backward calls giving the same bits, the autograd
 function against autograd through the plain version, and a small model's
 gradient under every ``remat``.
 """
@@ -470,6 +471,27 @@ def test_backward_kernels_match_plain_on_card(dev, dtype, b, s, t, h, kvh,
                                               q_offset):
     _hold_backward_against_plain(dev, dtype, b, s, t, h, kvh, hd, causal,
                                  window, q_offset)
+
+
+@pytest.mark.parametrize("b,s,t,h,kvh,hd,causal,window,q_offset", [
+    (4, 2048, 2048, 15, 5, 64, True, None, 0),  # smollm-360m's training
+    BWD_EDGES[1],
+], ids=["smollm-360m", "long-ragged-hd128"])
+def test_bf16_backward_is_deterministic_on_card(dev, b, s, t, h, kvh, hd,
+                                                causal, window, q_offset):
+    """No atomics: every gradient is written once by the CTA that owns
+    it, so two bf16 backward calls on the same inputs give the same
+    bits."""
+    q, k, v = _card_qkv(dev, b, s, t, h, kvh, hd, torch.bfloat16, 3)
+    do = torch.randn(q.shape, device=dev).to(torch.bfloat16)
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    out, lse = kfa.flash_attention_lse(q, k, v, **kw)
+    first = kfa.flash_attention_backward(q, k, v, out, do, lse, **kw)
+    second = kfa.flash_attention_backward(q, k, v, out, do, lse, **kw)
+    torch.cuda.synchronize()
+    for name, a, b_ in zip("qkv", first, second):
+        assert torch.isfinite(a).all(), name
+        assert torch.equal(a, b_), name
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
