@@ -19,7 +19,8 @@ Phases, each fatal on failure:
    factored decode and encode; flash attention at ``smollm-360m``'s
    prefill in bf16 and fp32, ``mistral-nemo-12b``'s heads, and a window of
    256 and a non-causal S != T case, each in bf16 (the tensor-core
-   kernel) and fp32 (the FFMA kernel)): error, kernel ms, plain ms, the least
+   kernel) and fp32 (the FFMA kernel); ``granite-moe-3b-a800m``'s prefill
+   and ``mixtral-8x7b``'s 4096 window at a prompt of 4608, in bf16): error, kernel ms, plain ms, the least
    time the card could take (bound) and, where one PyTorch call computes
    the same function, that call's ms (``library_ms``, a yardstick the
    port never calls); ASM also at the served walk's s2 and s3 row counts
@@ -129,19 +130,49 @@ Phases, each fatal on failure:
    steps 3-4's losses within ``LM_RESUME_RTOL``; tokens/s, step ms, host
    batch time, and a ``torch.profiler`` split of one step (each backward
    kernel seen once a layer, dK/dV and dQ timed apart, no FFMA backward
-   kernel launched) with the device's idle share;
-14. one ``{"kernels": [...]}`` line, with each kernel's launches in phases
-   3, 4, 6, 7, 8, 9, 10, 11, 12 and 13 (each path driven with the counts
-   set to 0 just before it and read just after), then the ``{"ok": true,
-   ...}`` line last.  Its bounds and phase 9's roofline read one count
-   of each kernel's work (``repro_torch.introspect.opcount``).  Every phase prints its seconds, and the script its total.
+   kernel launched) with the device's idle share; (a) also holds two bf16
+   gradient calls to the same bits;
+14. MoE serving: full ``granite-moe-3b-a800m`` (32 layers, 40 experts,
+   top-8; 3.3 B parameters, random from seed 0) through phases 10-11's
+   gates at the same batch, prompt and decode steps (every leaf of the
+   prefill cache held; 32 kernel launches a prefill, none a decode step),
+   prefill and decode tokens/s, a ``torch.profiler`` split of one bf16
+   prefill and decode step by the MoE's ranges (``moe_route``,
+   ``moe_experts``, ``moe_combine``), flash attention and the rest; then
+   ``serve --arch granite-moe-3b-a800m`` with ``LM_SERVE_REQUESTS``
+   requests, all completed;
+15. ``mixtral-8x7b`` at full width cut to ``MIXTRAL_LAYERS`` layers, one
+   prompt of ``MIXTRAL_PROMPT`` tokens (past the 4096 window and not a
+   multiple of it), ``MIXTRAL_DECODE`` steps: first the repaired ring
+   cache (fp32 plain path: decode equals ``forward`` over the whole
+   sequence), then the gates of 14 (the kernel's window path at hd 128)
+   and a profiled bf16 prefill;
+16. ``jamba-v0.1-52b`` at full width cut to ``JAMBA_LAYERS`` layers (one
+   period: Mamba mixers but attention at layer 4, MoE at the odd layers;
+   13.3 B parameters, 53 GB in fp32, cast to bf16 leaf by leaf), one
+   prompt of ``JAMBA_PROMPT``, ``JAMBA_DECODE`` steps, the gates of 14
+   (Mamba's conv and SSM states among the cache leaves) and a profiled
+   bf16 prefill;
+17. phase 13 (a)'s gradient check on ``granite-moe-3b-a800m`` cut to
+   ``LM_STEP_LAYERS`` layers (the kernel path's calls counted), the aux
+   term finite on both paths and within ``LM_LOSS_RTOL``;
+18. one ``{"kernels": [...]}`` line, with each kernel's launches in phases
+   3, 4, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15, 16 and 17 (each path driven
+   with the counts set to 0 just before it and read just after), then the
+   ``{"ok": true, ...}`` line last.  Its bounds and phase 9's roofline
+   read one count of each kernel's work
+   (``repro_torch.introspect.opcount``).  Every phase prints its seconds
+   (phases 5-17 also their device memory peak), and the script its
+   total.
 
 It imports neither JAX nor the reference package, exits non-zero without
 CUDA, and needs one card.
 """
 import atexit
+import contextlib
 import dataclasses
 import json
+import math
 import os
 import shutil
 import statistics
@@ -227,6 +258,22 @@ LM_REMAT_RTOL = 1e-6
 #: phase 13 (b): trainer steps, checkpoint interval, and the resumed
 #: losses' relative bound against the straight run
 LM_TRAIN_STEPS, LM_CKPT_EVERY, LM_RESUME_RTOL = 4, 2, 1e-5
+#: phases 14-17, the MoE and Mamba-hybrid LMs: granite-moe-3b-a800m at full
+#: width and depth (LM_BATCH prompts of LM_PROMPT tokens, LM_DECODE steps)
+#: and its gradient at LM_STEP_LAYERS layers; mixtral-8x7b at full width
+#: cut to MIXTRAL_LAYERS layers (the whole model, ~93 GB in bf16, does not
+#: fit), one prompt longer than its 4096 window and not a multiple of it;
+#: jamba-v0.1-52b at full width cut to JAMBA_LAYERS layers, one period of
+#: its pattern (attention at layer 4, MoE at the odd layers)
+MOE_ARCH = "granite-moe-3b-a800m"
+MIXTRAL_LAYERS, MIXTRAL_PROMPT, MIXTRAL_DECODE = 2, 4608, 16
+JAMBA_LAYERS, JAMBA_PROMPT, JAMBA_DECODE = 8, 2048, 16
+#: the MoE FFN's profiler ranges (src/repro_torch/models/moe.py)
+MOE_RANGES = ("moe_route", "moe_experts", "moe_combine")
+#: a routing choice that differs between two fp32 paths must sit at a
+#: near-tie: the plain path's k-th and (k+1)-th router probabilities
+#: closer than this (fp32 noise moves them ~1e-7; typical gaps are ~1e-2)
+FLIP_GAP = 1e-4
 JPEG_KERNELS = ("fused_block", "jpeg_conv", "asm_relu", "block_dct",
                 "block_idct")
 KERNELS = JPEG_KERNELS + ("flash_attention", "flash_attention_bwd")
@@ -245,6 +292,10 @@ ATTN_CASES = (
      True),
     ("not causal, S != T, fp32", 2, 300, 1000, 24, 2, 128, False, None,
      False),
+    ("granite-moe-3b-a800m prefill bf16", 4, 2048, 2048, 24, 8, 64, True,
+     None, True),
+    ("mixtral-8x7b window 4096 bf16 (plain: chunked)", 1, 4608, 4608, 32, 8,
+     128, True, 4096, True),
 )
 
 
@@ -524,12 +575,14 @@ KERNEL_GROUPS = (("attention backward dK/dV", ("attn_bwd_dkdv",)),
                   ("elementwise", "copy", "reduce", "vectorized")))
 
 
-def profile_step(label: str, step
+def profile_step(label: str, step, ranges=()
                  ) -> tuple[dict[str, int], dict[str, float]]:
     """Device time of one call of ``step`` by kernel group, from a
     ``torch.profiler`` trace, and the device's idle share of its wall;
-    prints "not measured" where the trace has no device time.  Returns
-    each device kernel's launches and device µs in the trace."""
+    prints "not measured" where the trace has no device time.  With
+    ``ranges`` (``record_function`` names) also the device time inside
+    each, the flash-attention kernels' and the rest.  Returns each device
+    kernel's launches and device µs in the trace."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -543,14 +596,28 @@ def profile_step(label: str, step
         wall_us = (time.perf_counter() - t0) * 1e6
     per_kernel: dict[str, float] = {}
     calls: dict[str, int] = {}
+    span = {r: 0.0 for r in ranges}
     for e in prof.key_averages():
         if e.device_type != DeviceType.CUDA:
             continue
         t = next((v for v in (getattr(e, a, 0) for a in (
             "self_device_time_total", "device_time_total",
             "self_cuda_time_total", "cuda_time_total")) if v), 0.0)
+        if e.key in MOE_RANGES or getattr(e, "is_user_annotation", False):
+            if e.key in span:  # a range's extent on the device, not a kernel
+                span[e.key] += t
+            continue
         per_kernel[e.key] = per_kernel.get(e.key, 0.0) + t
         calls[e.key] = calls.get(e.key, 0) + e.count
+    # the kernels each range launched: up each launching op's parents
+    in_range = {r: 0.0 for r in ranges}
+    for ev in prof.events() if ranges else ():
+        kernels = getattr(ev, "kernels", None)
+        up = ev
+        while kernels and up is not None and up.name not in in_range:
+            up = up.cpu_parent
+        if kernels and up is not None:
+            in_range[up.name] += sum(k.duration for k in kernels)
     busy = sum(per_kernel.values())
     if busy <= 0:
         log(f"{label} profile: device time not measured (the trace holds "
@@ -568,6 +635,19 @@ def profile_step(label: str, step
         f"share {max(0.0, 1 - busy / wall_us):.3f}; by group (ms, share of "
         f"busy): " + ", ".join(f"{g} {t / 1e3:.2f} ({t / busy:.3f})"
                                for g, t in groups.items()))
+    if ranges:
+        attn = sum(t for name, t in per_kernel.items()
+                   if "flash_attention" in name)
+        rest = busy - attn - sum(in_range.values())
+        log(f"{label} split (ms of kernel time, share of busy; the range's "
+            f"extent on the device in brackets): "
+            + ", ".join(f"{r} {t / 1e3:.2f} ({t / busy:.3f}) "
+                        f"[{span[r] / 1e3:.2f}]" for r, t in in_range.items())
+            + f", flash attention {attn / 1e3:.2f} ({attn / busy:.3f}), "
+            f"the rest (dense products, norms, elementwise) "
+            f"{rest / 1e3:.2f} ({rest / busy:.3f})"
+            + ("" if all(in_range.values()) else
+               "; a range with 0 ms: its kernel time not measured"))
     top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:12]
     for name, t in top:
         log(f"  {t / 1e3:8.3f} ms  {name[:110]}")
@@ -791,31 +871,132 @@ def attention_backward_checks(dev, record) -> None:
         torch.cuda.empty_cache()
 
 
-def lm_run(model, params, prompts, feed=None) -> dict:
-    """Prefill ``prompts`` (cache grown by LM_DECODE slots), then LM_DECODE
-    decode steps, each fed ``feed[:, i]`` or, without ``feed``, the greedy
-    token of the step before.  Returns the logits of every position (B,
-    1 + LM_DECODE, V), the prefill's KV cache (copies), the tokens fed,
-    wall times and flash-attention launches of each part."""
+def logged_routing(log: list, force: list | None = None):
+    """A context in which every MoE call appends its routing to ``log``:
+    each token's top-k experts as a sorted set (T, k), which of them kept
+    a slot (T, k), and the gap between its k-th and (k+1)-th router
+    probability (T,).  With ``force`` (another run's log) each call routes
+    every token to the experts the same call chose there, weighted by its
+    own probabilities.  It wraps ``models.moe._routing``, which
+    ``moe_ffn`` looks up at each call."""
+    import torch
+
+    from repro_torch.models import moe
+
+    real = moe._routing
+
+    def routing(probs, cfg, cap):
+        k = cfg.experts_per_token
+        vals = torch.sort(probs, dim=-1, descending=True).values
+        gap = vals[:, k - 1] - vals[:, k]
+        own = probs
+        if force is not None:  # the chosen set ranks first, in own order
+            probs = probs + torch.zeros_like(probs).scatter_(
+                1, force[len(log)][0], 2.0)
+        out = real(probs, cfg, cap)
+        idx = torch.sort(probs, dim=-1, descending=True, stable=True)[1]
+        if force is not None:
+            w = own.gather(1, idx[:, :k])
+            out = (w / torch.clamp(w.sum(-1, keepdim=True), min=1e-9),) \
+                + out[1:]
+        order = idx[:, :k].argsort(-1)
+        kept = out[2] < cfg.n_experts * cap
+        log.append((idx[:, :k].gather(-1, order), kept.gather(-1, order),
+                    gap.detach()))
+        return out
+
+    @contextlib.contextmanager
+    def patched():
+        moe._routing = routing
+        try:
+            yield
+        finally:
+            moe._routing = real
+
+    return patched()
+
+
+def first_divergence(plain: list, kern: list, b: int, s: int, label: str):
+    """Each row's first position whose MoE routing differs between two
+    runs of ``lm_run`` (logs from :func:`logged_routing`; ``s`` + decode
+    steps where none does), and the counts of choices that differ.  A
+    token's state depends only on its row's earlier tokens and its own
+    routing, so the positions before its row's first divergence compare
+    continuously.  Fails unless each row's first divergence is explained:
+    a top-k set that differs (a flip) where the plain path's k-th and
+    (k+1)-th probabilities are within ``FLIP_GAP``, or a kept slot that
+    differs under the same set (a displacement) behind a flip at a lower
+    token of the same call (an expert's slots go in token order)."""
+    import torch
+
+    if len(plain) != len(kern):
+        fail(f"{label}: {len(plain)} MoE calls on the plain path, "
+             f"{len(kern)} on the kernel path")
+    n_prefill = sum(e.shape[0] == b * s for e, _, _ in plain)  # MoE layers
+    events = []  # (row, position, call, token, is a flip, gap, explained)
+    flips = displaced = 0
+    for c, ((ea, ka, gap), (eb, kb, _)) in enumerate(zip(plain, kern)):
+        flip = (ea != eb).any(-1)
+        disp = ~flip & (ka != kb).any(-1)
+        flips += int(flip.sum())
+        displaced += int(disp.sum())
+        first_flip = int(flip.nonzero()[0, 0]) if bool(flip.any()) \
+            else ea.shape[0]
+        for t in (flip | disp).nonzero()[:, 0].tolist():
+            if c < n_prefill:
+                row, pos = divmod(t, s)
+            else:
+                row, pos = t, s + (c - n_prefill) // n_prefill
+            ok = float(gap[t]) < FLIP_GAP if bool(flip[t]) \
+                else first_flip < t
+            events.append((row, pos, c, t, bool(flip[t]), float(gap[t]), ok))
+    first = torch.full((b,), 10 ** 9, dtype=torch.long)
+    for row in range(b):
+        mine = sorted(e for e in events if e[0] == row)
+        if not mine:
+            continue
+        _, pos, c, t, is_flip, g, ok = mine[0]
+        if not ok:
+            fail(f"{label}: row {row}'s first routing difference (position "
+                 f"{pos}, MoE call {c}, token {t}) is "
+                 + (f"a flip at a top-k gap of {g:.3e} (>= {FLIP_GAP})"
+                    if is_flip else "a displacement behind no earlier flip"))
+        first[row] = pos
+    return first, flips, displaced
+
+
+def lm_run(model, params, prompts, decode: int = LM_DECODE, feed=None,
+           routing: list | None = None, force: list | None = None) -> dict:
+    """Prefill ``prompts`` (B, S) (cache grown by ``decode`` slots), then
+    ``decode`` decode steps, each fed ``feed[:, i]`` or, without ``feed``,
+    the greedy token of the step before.  Returns the logits of every
+    position (B, 1 + decode, V), every leaf of the prefill's cache (copies
+    keyed ``pos{j}/name``; keys and values cut to S slots), the tokens fed,
+    wall times and flash-attention launches of each part; with
+    ``routing`` every MoE call's routing is appended to it (``force``: the
+    experts another run's log chose, as :func:`logged_routing` says)."""
     import torch
 
     from repro_torch.kernels import flash_attention as kfa
 
-    with torch.inference_mode():
+    s = prompts.shape[1]
+    with torch.inference_mode(), (logged_routing(routing, force) if routing
+                                  is not None else contextlib.nullcontext()):
         torch.cuda.synchronize()
         n0 = kfa.LAUNCHES
         t0 = time.perf_counter()
         last, cache = model.prefill(params, {"tokens": prompts},
-                                    pad_to=LM_PROMPT + LM_DECODE)
+                                    pad_to=s + decode)
         torch.cuda.synchronize()
         t1 = time.perf_counter()
         n1 = kfa.LAUNCHES
-        kv = {n: x[:, :, :LM_PROMPT].clone()
-              for n, x in cache["pos0"].items()}
+        kv = {f"{pos}/{n}": (x[:, :, :s] if n in ("k", "v") else x).clone()
+              for pos, c in cache.items() if pos.startswith("pos")
+              for n, x in c.items()}
         logits, fed = [last[:, 0]], []
         torch.cuda.synchronize()
         t2 = time.perf_counter()
-        for i in range(LM_DECODE):
+        for i in range(decode):
             tok = feed[:, i] if feed is not None else logits[-1].argmax(-1)
             fed.append(tok)
             step, cache = model.decode_step(params, cache,
@@ -829,117 +1010,217 @@ def lm_run(model, params, prompts, feed=None) -> dict:
             "decode_launches": kfa.LAUNCHES - n1}
 
 
+def cast_in_place(tree: dict, dtype) -> None:
+    """Cast ``tree``'s leaves as ``cast_params`` does (norms, router,
+    a_log and d_skip stay fp32), one leaf at a time, so each fp32 leaf is
+    freed before the next is cast: a model whose fp32 and bf16 weights do
+    not fit side by side."""
+    from repro_torch.models import transformer as T
+
+    for k in list(tree):
+        if isinstance(tree[k], dict):
+            cast_in_place(tree[k], dtype)
+        else:
+            tree[k] = tree[k].to(T.leaf_dtype(k, dtype))
+
+
+def lm_gates(label: str, cfg16, params, prompts, decode: int, card: str,
+             launches: dict) -> dict:
+    """Prefill and decode of one LM on the kernel path against the plain
+    path: in fp32 (``params``, cast here to bf16 in place afterwards) the
+    logits and every leaf of the prefill cache within ``LM_RTOL`` of the
+    largest |value|, top-1 agreeing wherever the plain path's top-2 gap
+    exceeds twice the logit error; in bf16 the kernel path's logit error
+    against the fp32 plain path at most ``BF16_FACTOR`` × the bf16 plain
+    path's.  Both paths are fed the fp32 plain path's greedy tokens; the
+    kernel path launches flash attention once an attention layer a
+    prefill and never in decode.
+
+    An MoE's routing is discontinuous: where two experts' router
+    probabilities tie within the paths' rounding, the paths may pick
+    different experts, and that token and its row's later ones part by
+    O(1).  So in fp32 the positions from each row's first routing
+    difference on (explained by :func:`first_divergence`, or the phase
+    fails) are left out of the max-abs gates, as are the Mamba states of
+    such a row; and in bf16, where both paths flip thousands of choices
+    against fp32, an MoE's errors are relative norms over every logit,
+    not a maximum set by whichever token flipped.  Returns the bf16
+    kernel path's run."""
+    import torch
+
+    from repro_torch.core.dispatch import DispatchConfig
+    from repro_torch.models import transformer as T
+    from repro_torch.models.registry import build_model
+
+    cfg32 = dataclasses.replace(cfg16, dtype="float32")
+    plain_cfg = DispatchConfig(path="reference")
+    n_attn = sum(m == "attn" for m, _ in T.layer_kinds(cfg16))
+    b, s = prompts.shape
+    dev = prompts.device
+    shape = f"batch {b}, prompt {s}, {decode} decode steps"
+
+    def kernel_run(phase, cfg, feed, routing=None, force=None):
+        def fn():
+            out = lm_run(build_model(cfg), params, prompts, decode, feed,
+                         routing, force)
+            if out["prefill_launches"] != n_attn \
+                    or out["decode_launches"] != 0:
+                fail(f"{phase}: {out['prefill_launches']} flash_attention "
+                     f"launches in the prefill (want {n_attn}) and "
+                     f"{out['decode_launches']} in {decode} decode steps "
+                     f"(want 0)")
+            return out
+        return drive(phase, ("flash_attention",), launches, fn)
+
+    def max_err(a, c) -> float:
+        return float((a - c).abs().max())
+
+    # fp32, kernel path against plain path
+    r_plain, r_kern = [], []
+    p32 = lm_run(build_model(cfg32, dispatch=plain_cfg), params, prompts,
+                 decode, routing=r_plain)
+    if p32["prefill_launches"] or p32["decode_launches"]:
+        fail(f"{label}: the plain path launched the flash-attention kernel")
+    k32 = kernel_run(f"{label} fp32 (kernel path)", cfg32, p32["fed"],
+                     r_kern)
+    first, flips, displaced = first_divergence(r_plain, r_kern, b, s,
+                                               f"{label} fp32")
+    want = p32["logits"]
+
+    def hold_cache(run, first, what) -> dict:
+        """Every prefill cache leaf of ``run`` within LM_RTOL of the
+        plain path's at the positions before each row's ``first``
+        routing difference (a row's Mamba states: its whole prompt)."""
+        errs = {}
+        for n, x in p32["kv"].items():
+            y = run["kv"][n]
+            if n.endswith(("/k", "/v")):   # (n_periods, B, T, KVH, hd)
+                t = x.shape[2]  # a window's ring: position p in slot p % t
+                at = (s - t) + (torch.arange(t, device=dev) - (s - t)) % t
+                m = (at[None] < first[:, None])[None, :, :, None, None]
+            else:
+                m = (first >= s).view((1, b) + (1,) * (x.dim() - 2))
+            m = m.expand_as(x)
+            if not bool(m.any()):
+                continue
+            e, sc = float((y - x).abs()[m].max()), float(x.abs().max())
+            if not e <= LM_RTOL * sc:
+                fail(f"{label} fp32{what}: prefill cache {n} differs by "
+                     f"{e:.3e} (> {LM_RTOL} × {sc:.3e})")
+            errs[n] = e / sc if sc else 0.0
+        return errs
+
+    routing_note = ""
+    if flips + displaced:
+        first = first.to(dev)
+        held = torch.arange(s, device=dev)[None] < first[:, None]
+        free = hold_cache(k32, first, " (own routing)")
+        routing_note = (
+            f"; own routing: {flips} choices flipped at near-ties and "
+            f"{displaced} displaced behind them, rows part at positions "
+            f"{[p if p < s + decode else None for p in first.tolist()]}, "
+            f"prefill cache held at the {int(held.sum())} of {held.numel()} "
+            f"positions before, relative err "
+            + ", ".join(f"{n} {e:.2e}" for n, e in free.items())
+            + "; the gates below: the kernel path given the plain path's "
+            "expert choices")
+        del k32
+        k32 = kernel_run(f"{label} fp32 (kernel path, the plain path's "
+                         f"expert choices)", cfg32, p32["fed"], [], r_plain)
+    del r_plain, r_kern
+    if not bool(torch.isfinite(k32["logits"]).all()):
+        fail(f"{label} fp32: non-finite logits on the kernel path")
+    err = max_err(k32["logits"], want)
+    scale = float(want.abs().max())
+    pos_err = (k32["logits"] - want).abs().amax(-1)
+    if not err <= LM_RTOL * scale:
+        fail(f"{label} fp32: logits differ by {err:.3e} (> {LM_RTOL} × "
+             f"{scale:.3e}); positions (batch, step) past it: "
+             f"{(pos_err > LM_RTOL * scale).nonzero().tolist()[:16]}")
+    top2 = want.topk(2, dim=-1).values
+    decided = (top2[..., 0] - top2[..., 1]) > 2 * err
+    agree = k32["logits"].argmax(-1) == want.argmax(-1)
+    if not bool(agree[decided].all()):
+        fail(f"{label} fp32: top-1 differs at "
+             f"{int((~agree & decided).sum())} positions whose top-2 gap "
+             f"exceeds 2 × {err:.3e}")
+    cache_errs = hold_cache(k32, torch.full((b,), s, device=dev), "")
+    log(f"{label} fp32, {shape} [{card}]: logits max abs err {err:.3e} of "
+        f"max |logit| {scale:.3e} ({err / scale:.2e} relative); top-1 "
+        f"agrees at {int(agree.sum())} of {agree.numel()} positions "
+        f"({int(decided.sum())} decided by a gap > 2 × err, all agree); "
+        f"prefill cache relative err "
+        + ", ".join(f"{n} {e:.2e}" for n, e in cache_errs.items())
+        + f"; kernel path prefill {k32['prefill_s'] * 1e3:.1f} ms, decode "
+        f"{k32['decode_s'] * 1e3:.1f} ms; plain path prefill "
+        f"{p32['prefill_s'] * 1e3:.1f} ms, decode "
+        f"{p32['decode_s'] * 1e3:.1f} ms{routing_note}")
+    del k32, p32["kv"]
+
+    # bf16 from the same weights
+    cast_in_place(params, torch.bfloat16)
+    torch.cuda.empty_cache()
+    p16 = lm_run(build_model(cfg16, dispatch=plain_cfg), params, prompts,
+                 decode, p32["fed"])
+    k16 = kernel_run(f"{label} bf16 (kernel path)", cfg16, p32["fed"])
+    e_k, e_p = max_err(k16["logits"], want), max_err(p16["logits"], want)
+    what = "max abs"
+    if cfg16.n_experts:
+        n_k, n_p = (float((x["logits"] - want).norm() / want.norm())
+                    for x in (k16, p16))
+        what = (f"relative norm (max abs {e_k:.3e} kernel path, {e_p:.3e} "
+                f"bf16 plain path)")
+        e_k, e_p = n_k, n_p
+    if not (bool(torch.isfinite(k16["logits"]).all())
+            and e_k <= BF16_FACTOR * e_p):
+        fail(f"{label} bf16: kernel path's logit error {e_k:.3e} against "
+             f"the fp32 plain path > {BF16_FACTOR} × the bf16 plain path's "
+             f"{e_p:.3e} ({what})")
+    agree16 = int((k16["logits"].argmax(-1) == want.argmax(-1)).sum())
+    log(f"{label} bf16, {shape} [{card}]: logit err vs the fp32 plain path "
+        f"{e_k:.3e} (kernel path) vs {e_p:.3e} (bf16 plain path), {what}; "
+        f"top-1 "
+        f"agrees with fp32 at {agree16} of {want.shape[0] * want.shape[1]}; "
+        f"kernel path prefill {k16['prefill_s'] * 1e3:.1f} ms = "
+        f"{b * s / k16['prefill_s']:.0f} tokens/s, decode "
+        f"{k16['decode_s'] * 1e3:.1f} ms for {decode} steps = "
+        f"{b * decode / k16['decode_s']:.1f} tokens/s "
+        f"({k16['decode_s'] / decode * 1e3:.2f} ms a step); plain path "
+        f"prefill {p16['prefill_s'] * 1e3:.1f} ms, decode "
+        f"{p16['decode_s'] * 1e3:.1f} ms")
+    del p16, p32, want
+    torch.cuda.empty_cache()
+    return k16
+
+
 def lm_phases(dev, card: str, launches: dict) -> None:
     """Phases 10-12: smollm-360m prefill and decode on the kernel path
     against the plain path in fp32 and in bf16, then the LM server."""
     import torch
 
     from repro_torch.configs import get_config
-    from repro_torch.core.dispatch import DispatchConfig
     from repro_torch.launch import serve
-    from repro_torch.models import transformer as T
     from repro_torch.models.registry import build_model
 
     cfg16 = get_config(LM_ARCH)
     cfg32 = dataclasses.replace(cfg16, dtype="float32")
-    plain_cfg = DispatchConfig(path="reference")
     gen = torch.Generator(device=dev).manual_seed(0)
-    params32 = build_model(cfg32).init_params(gen, dev)
+    params = build_model(cfg32).init_params(gen, dev)
     prompts = torch.randint(0, cfg16.vocab_size, (LM_BATCH, LM_PROMPT),
                             generator=gen, device=dev)
-    layers = cfg16.n_layers
-    shape = (f"{LM_ARCH} full width, batch {LM_BATCH}, prompt {LM_PROMPT}, "
-             f"{LM_DECODE} decode steps")
 
-    def kernel_run(phase, cfg, params, feed):
-        def fn():
-            out = lm_run(build_model(cfg), params, prompts, feed)
-            if out["prefill_launches"] != layers \
-                    or out["decode_launches"] != 0:
-                fail(f"{phase}: {out['prefill_launches']} flash_attention "
-                     f"launches in the prefill (want {layers}) and "
-                     f"{out['decode_launches']} in {LM_DECODE} decode steps "
-                     f"(want 0)")
-            return out
-        return drive(phase, ("flash_attention",), launches, fn)
-
-    def max_err(a, b) -> float:
-        return float((a - b).abs().max())
-
-    # --- phase 10: fp32, kernel path against plain path -------------------
-    p32 = lm_run(build_model(cfg32, dispatch=plain_cfg), params32, prompts)
-    if p32["prefill_launches"] or p32["decode_launches"]:
-        fail("the plain path launched the flash-attention kernel")
-    k32 = kernel_run("lm fp32 (kernel path)", cfg32, params32, p32["fed"])
-    want = p32["logits"]
-    if not bool(torch.isfinite(k32["logits"]).all()):
-        fail("lm fp32: non-finite logits on the kernel path")
-    err = max_err(k32["logits"], want)
-    scale = float(want.abs().max())
-    if not err <= LM_RTOL * scale:
-        fail(f"lm fp32: logits differ by {err:.3e} (> {LM_RTOL} × "
-             f"{scale:.3e})")
-    top2 = want.topk(2, dim=-1).values
-    decided = (top2[..., 0] - top2[..., 1]) > 2 * err
-    agree = k32["logits"].argmax(-1) == want.argmax(-1)
-    if not bool(agree[decided].all()):
-        fail(f"lm fp32: top-1 differs at {int((~agree & decided).sum())} "
-             f"positions whose top-2 gap exceeds 2 × {err:.3e}")
-    kv_errs = {}
-    for n in ("k", "v"):
-        e, sc = max_err(k32["kv"][n], p32["kv"][n]), \
-            float(p32["kv"][n].abs().max())
-        if not e <= LM_RTOL * sc:
-            fail(f"lm fp32: prefill cache {n} differs by {e:.3e} (> "
-                 f"{LM_RTOL} × {sc:.3e})")
-        kv_errs[n] = e / sc
-    log(f"lm fp32, {shape} [{card}]: logits max abs err {err:.3e} of "
-        f"max |logit| {scale:.3e} ({err / scale:.2e} relative); top-1 "
-        f"agrees at {int(agree.sum())} of {agree.numel()} positions "
-        f"({int(decided.sum())} decided by a gap > 2 × err, all agree); "
-        f"prefill cache relative err k {kv_errs['k']:.2e} v "
-        f"{kv_errs['v']:.2e}; kernel path prefill "
-        f"{k32['prefill_s'] * 1e3:.1f} ms, decode "
-        f"{k32['decode_s'] * 1e3:.1f} ms; plain path prefill "
-        f"{p32['prefill_s'] * 1e3:.1f} ms, decode "
-        f"{p32['decode_s'] * 1e3:.1f} ms")
-    del k32["kv"], p32["kv"]
-
-    # --- phase 11: bf16 from the same weights ------------------------------
-    params16 = T.cast_params(params32, torch.bfloat16)
-    del params32
-    torch.cuda.empty_cache()
-    p16 = lm_run(build_model(cfg16, dispatch=plain_cfg), params16, prompts,
-                 p32["fed"])
-    k16 = kernel_run("lm bf16 (kernel path)", cfg16, params16, p32["fed"])
-    e_k, e_p = max_err(k16["logits"], want), max_err(p16["logits"], want)
-    if not (bool(torch.isfinite(k16["logits"]).all())
-            and e_k <= BF16_FACTOR * e_p):
-        fail(f"lm bf16: kernel path's logit error {e_k:.3e} against the "
-             f"fp32 plain path > {BF16_FACTOR} × the bf16 plain path's "
-             f"{e_p:.3e}")
-    agree16 = int((k16["logits"].argmax(-1) == want.argmax(-1)).sum())
-    log(f"lm bf16, {shape} [{card}]: logit err vs the fp32 plain path "
-        f"{e_k:.3e} (kernel path) vs {e_p:.3e} (bf16 plain path); top-1 "
-        f"agrees with fp32 at {agree16} of {want.shape[0] * want.shape[1]}; "
-        f"kernel path prefill {k16['prefill_s'] * 1e3:.1f} ms = "
-        f"{LM_BATCH * LM_PROMPT / k16['prefill_s']:.0f} tokens/s, decode "
-        f"{k16['decode_s'] * 1e3:.1f} ms for {LM_DECODE} steps = "
-        f"{LM_BATCH * LM_DECODE / k16['decode_s']:.1f} tokens/s "
-        f"({k16['decode_s'] / LM_DECODE * 1e3:.2f} ms a step); plain path "
-        f"prefill {p16['prefill_s'] * 1e3:.1f} ms, decode "
-        f"{p16['decode_s'] * 1e3:.1f} ms")
-    del p16, k16, p32, k32, want
+    # --- phases 10 and 11: fp32 and bf16, kernel path against plain path --
+    lm_gates(LM_ARCH, cfg16, params, prompts, LM_DECODE, card, launches)
     model = build_model(cfg16)
     with torch.inference_mode():
         profile_step("lm bf16 prefill (kernel path)", lambda: model.prefill(
-            params16, {"tokens": prompts}, pad_to=LM_PROMPT + LM_DECODE))
-        _, cache = model.prefill(params16, {"tokens": prompts},
+            params, {"tokens": prompts}, pad_to=LM_PROMPT + LM_DECODE))
+        _, cache = model.prefill(params, {"tokens": prompts},
                                  pad_to=LM_PROMPT + LM_DECODE)
         tok = prompts[:, -1:]
         profile_step("lm bf16 decode step", lambda: model.decode_step(
-            params16, cache, {"tokens": tok}))
-    del params16, cache, model
+            params, cache, {"tokens": tok}))
+    del params, cache, model
     torch.cuda.empty_cache()
 
     # --- phase 12: the LM server at the reference's defaults --------------
@@ -956,11 +1237,16 @@ def lm_phases(dev, card: str, launches: dict) -> None:
         f"{report['wall_s']:.3f} s = {report['tokens_per_s']:.1f} tokens/s")
     torch.cuda.empty_cache()
 
-def lm_grad_check(dev, card: str) -> None:
-    """Phase 13 (a): one ``loss_fn`` gradient of full-width ``smollm-360m``
-    cut to ``LM_STEP_LAYERS`` layers, kernel path against plain path, in
-    fp32 (beside the plain path on fp64 parameters: its own rounding) and
-    in bf16, and ``remat="full"`` against ``"none"``."""
+def lm_grad_check(dev, card: str, arch: str = LM_ARCH,
+                  launches: dict | None = None) -> None:
+    """Phase 13 (a) (``smollm-360m``) and 17 (``granite-moe-3b-a800m``):
+    one ``loss_fn`` gradient of ``arch`` at full width cut to
+    ``LM_STEP_LAYERS`` layers, kernel path against plain path, in fp32
+    (beside the plain path on fp64 parameters: its own rounding) and in
+    bf16, ``remat="full"`` against ``"none"``, and two bf16 calls giving
+    the same bits.  An MoE's aux term must be finite on both paths and
+    agree within ``LM_LOSS_RTOL``.  With ``launches`` the kernel path's
+    calls are driven (their launches counted)."""
     import torch
 
     from repro_torch.configs import get_config
@@ -973,7 +1259,7 @@ def lm_grad_check(dev, card: str) -> None:
     from repro_torch.optim import value_and_grad
     from repro_torch.tree import leaves_with_paths, tree_map
 
-    full = get_config(LM_ARCH)
+    full = get_config(arch)
     cfg32 = dataclasses.replace(full, dtype="float32",
                                 n_layers=LM_STEP_LAYERS)
     cfg16 = dataclasses.replace(full, n_layers=LM_STEP_LAYERS)
@@ -983,19 +1269,40 @@ def lm_grad_check(dev, card: str) -> None:
     batch = train.to_model_batch(full, next(token_iterator(
         0, LM_STEP_BATCH, LM_PROMPT, full.vocab_size)), dev)
 
-    def grads(cfg, params, dispatch=None, remat="none"):
+    label = f"lm grad ({arch})"
+    peak = [0.0]
+
+    def grads(cfg, params, dispatch=None, remat="none", routing=None,
+              force=None):
         model = build_model(cfg, remat=remat, dispatch=dispatch)
-        n_fwd, n_bwd = kfa.LAUNCHES, kfa.BWD_LAUNCHES
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        t0 = time.perf_counter()
-        loss, g = value_and_grad(lambda p, b: model.loss_fn(p, b)[0],
-                                 params, batch)
-        torch.cuda.synchronize()
-        return {"loss": float(loss), "grads": leaves_with_paths(g),
-                "ms": (time.perf_counter() - t0) * 1e3,
-                "gib": torch.cuda.max_memory_allocated() / 2 ** 30,
-                "fwd": kfa.LAUNCHES - n_fwd, "bwd": kfa.BWD_LAUNCHES - n_bwd}
+        metrics = {}
+
+        def loss_of(p, b):
+            loss, metrics["m"] = model.loss_fn(p, b)
+            return loss
+
+        def run():
+            n_fwd, n_bwd = kfa.LAUNCHES, kfa.BWD_LAUNCHES
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            with (logged_routing(routing, force) if routing is not None
+                  else contextlib.nullcontext()):
+                loss, g = value_and_grad(loss_of, params, batch)
+            torch.cuda.synchronize()
+            gib = torch.cuda.max_memory_allocated() / 2 ** 30
+            peak[0] = max(peak[0], gib)
+            return {"loss": float(loss), "grads": leaves_with_paths(g),
+                    "aux": float(metrics["m"]["aux"].detach()),
+                    "ms": (time.perf_counter() - t0) * 1e3, "gib": gib,
+                    "fwd": kfa.LAUNCHES - n_fwd,
+                    "bwd": kfa.BWD_LAUNCHES - n_bwd}
+
+        if launches is None or dispatch is not None:
+            return run()
+        return drive(f"{label} {cfg.dtype} remat={remat} (kernel path)",
+                     ("flash_attention", "flash_attention_bwd"), launches,
+                     run)
 
     def amax(x) -> float:
         return float(x.abs().max())
@@ -1004,17 +1311,37 @@ def lm_grad_check(dev, card: str) -> None:
         return float((a.float() - b.float()).norm()) / float(b.float().norm())
 
     grads(cfg32, params32)  # warm-up
-    kern = grads(cfg32, params32)
-    ref = grads(cfg32, params32, plain)
+    # an MoE's expert choices may flip at near-ties between any two fp32
+    # runs (lm_gates): the kernel path and the fp64 floor are given the
+    # plain path's, and the kernel path's own run is held to remat="full"
+    moe_log = [] if full.n_experts else None
+
+    def forced() -> dict:
+        return dict(routing=[], force=moe_log) if full.n_experts else {}
+
+    ref = grads(cfg32, params32, plain, routing=moe_log)
+    kern = grads(cfg32, params32, **forced())
+    own_log = []
+    own = grads(cfg32, params32, routing=own_log) if full.n_experts \
+        else kern
+    flipped = sum(int((a[0] != b[0]).any(-1).sum())
+                  for a, b in zip(own_log, moe_log or ()))
+    n_attn = sum(m == "attn" for m, _ in T.layer_kinds(cfg32))
     if (kern["fwd"], kern["bwd"], ref["fwd"], ref["bwd"]) \
-            != (LM_STEP_LAYERS, LM_STEP_LAYERS, 0, 0):
+            != (n_attn, n_attn, 0, 0):
         fail(f"lm grad fp32: attention launches {kern['fwd']}/{kern['bwd']}"
              f" (kernel path) and {ref['fwd']}/{ref['bwd']} (plain path); "
-             f"want {LM_STEP_LAYERS} each and 0")
+             f"want {n_attn} each and 0")
     if not abs(kern["loss"] - ref["loss"]) <= LM_LOSS_RTOL * abs(ref["loss"]):
         fail(f"lm grad fp32: loss {kern['loss']} (kernel path) vs "
              f"{ref['loss']} (plain path)")
-    f64 = grads(cfg32, tree_map(lambda x: x.double(), params32), plain)
+    if full.n_experts and not (
+            math.isfinite(kern["aux"]) and math.isfinite(ref["aux"])
+            and abs(kern["aux"] - ref["aux"]) <= LM_LOSS_RTOL * ref["aux"]):
+        fail(f"{label} fp32: aux {kern['aux']} (kernel path) vs "
+             f"{ref['aux']} (plain path)")
+    f64 = grads(cfg32, tree_map(lambda x: x.double(), params32), plain,
+                **forced())
     worst = (0.0, 0.0, "")
     for (path, a), (_, b), (_, c) in zip(kern["grads"], ref["grads"],
                                          f64["grads"]):
@@ -1031,20 +1358,26 @@ def lm_grad_check(dev, card: str) -> None:
         worst = max(worst, (err, floor, path))
     del f64
     remat = grads(cfg32, params32, remat="full")
-    if (remat["fwd"], remat["bwd"]) != (2 * LM_STEP_LAYERS, LM_STEP_LAYERS):
+    if (remat["fwd"], remat["bwd"]) != (2 * n_attn, n_attn):
         fail(f"lm grad remat=full: {remat['fwd']} forward and "
-             f"{remat['bwd']} backward launches, want "
-             f"{2 * LM_STEP_LAYERS} and {LM_STEP_LAYERS}")
+             f"{remat['bwd']} backward launches, want {2 * n_attn} and "
+             f"{n_attn}")
     remat_err = max(amax(a - b) / amax(b) for (_, a), (_, b)
-                    in zip(remat["grads"], kern["grads"]))
+                    in zip(remat["grads"], own["grads"]))
     identical = all(torch.equal(a, b) for (_, a), (_, b)
-                    in zip(remat["grads"], kern["grads"]))
-    if not (remat["loss"] == kern["loss"] and remat_err <= LM_REMAT_RTOL):
-        fail(f"lm grad remat=full: loss {remat['loss']} vs {kern['loss']}, "
+                    in zip(remat["grads"], own["grads"]))
+    if not (remat["loss"] == own["loss"] and remat_err <= LM_REMAT_RTOL):
+        fail(f"lm grad remat=full: loss {remat['loss']} vs {own['loss']}, "
              f"gradients differ by {remat_err:.3e} of their largest entry")
-    log(f"lm grad fp32, {LM_ARCH} full width, {LM_STEP_LAYERS} layers, "
+    log(f"{label} fp32, full width, {LM_STEP_LAYERS} layers, "
         f"batch {LM_STEP_BATCH}, seq {LM_PROMPT} [{card}]: loss "
-        f"{kern['loss']:.6f} (kernel) vs {ref['loss']:.6f} (plain); worst "
+        f"{kern['loss']:.6f} (kernel) vs {ref['loss']:.6f} (plain), aux "
+        f"{kern['aux']:.6f} vs {ref['aux']:.6f}"
+        + (f" (the kernel path given the plain path's expert choices; on "
+           f"its own it flipped {flipped} of "
+           f"{sum(a[0].shape[0] for a in own_log)} token-layer choices, "
+           f"loss {own['loss']:.6f})" if full.n_experts else "")
+        + "; worst "
         f"gradient error {worst[0]:.3e} of its largest entry at {worst[2]} "
         f"(plain path's fp32-vs-fp64 there {worst[1]:.3e}); value_and_grad "
         f"{kern['ms']:.1f} ms kernel path, {ref['ms']:.1f} ms plain path, "
@@ -1057,7 +1390,18 @@ def lm_grad_check(dev, card: str) -> None:
     params16 = T.cast_params(params32, torch.bfloat16)
     del params32
     k16 = grads(cfg16, params16)
+    again = grads(cfg16, params16)
     p16 = grads(cfg16, params16, plain)
+    differ = [path for (path, a), (_, b) in zip(k16["grads"], again["grads"])
+              if not torch.equal(a.view(torch.int16), b.view(torch.int16))]
+    if differ or again["loss"] != k16["loss"]:
+        fail(f"{label} bf16: two calls differ: loss {k16['loss']} vs "
+             f"{again['loss']}, gradients at {differ[:8]}")
+    del again
+    if full.n_experts and not (math.isfinite(k16["aux"])
+                               and math.isfinite(p16["aux"])):
+        fail(f"{label} bf16: aux {k16['aux']} (kernel path) vs "
+             f"{p16['aux']} (plain path)")
     worst16 = (0.0, 0.0, "")
     for (path, a), (_, b), (_, c) in zip(k16["grads"], p16["grads"],
                                          ref["grads"]):
@@ -1067,12 +1411,15 @@ def lm_grad_check(dev, card: str) -> None:
                  f"{e_k:.3e} (relative norm, against the fp32 plain path) > "
                  f"{BF16_FACTOR} × the bf16 plain path's {e_p:.3e}")
         worst16 = max(worst16, (e_k / e_p, e_k, path))
-    log(f"lm grad bf16 [{card}]: loss {k16['loss']:.6f} (kernel) vs "
+    log(f"{label} bf16 [{card}]: loss {k16['loss']:.6f} (kernel) vs "
         f"{p16['loss']:.6f} (bf16 plain) vs {ref['loss']:.6f} (fp32 plain); "
+        f"aux {k16['aux']:.6f} vs {p16['aux']:.6f}; "
         f"largest ratio of the kernel path's gradient error to the bf16 "
         f"plain path's {worst16[0]:.3f} at {worst16[2]} (kernel error "
-        f"{worst16[1]:.3e}); value_and_grad {k16['ms']:.1f} ms kernel path, "
-        f"{p16['ms']:.1f} ms plain path")
+        f"{worst16[1]:.3e}); two kernel-path calls bit-identical; "
+        f"value_and_grad {k16['ms']:.1f} ms kernel path, "
+        f"{p16['ms']:.1f} ms plain path; peak over the gradient calls "
+        f"{peak[0]:.2f} GiB")
     del k16, p16, ref, params16
     torch.cuda.empty_cache()
 
@@ -1182,6 +1529,149 @@ def lm_train_phase(dev, card: str, launches: dict) -> None:
     del params, state, batch, model
     torch.cuda.empty_cache()
     log(f"lm training phase: {time.perf_counter() - t_phase:.2f} s")
+
+
+def timed(label: str, card: str, fn) -> None:
+    """Run one phase, then print its seconds and the device memory peak
+    since its start (a phase that resets the peak itself prints its
+    calls' own)."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    log(f"{label}: {time.perf_counter() - t0:.2f} s, peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB [{card}]")
+
+
+def moe_serving_phase(dev, card: str, launches: dict) -> None:
+    """Phase 14: full ``granite-moe-3b-a800m`` (32 MoE layers, random
+    weights from seed 0) through ``lm_gates`` at LM_BATCH prompts of
+    LM_PROMPT tokens and LM_DECODE steps, a profiled bf16 prefill and
+    decode step (split by the MoE's ranges), then ``serve --arch``."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models.registry import build_model
+
+    cfg16 = get_config(MOE_ARCH)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = build_model(dataclasses.replace(cfg16, dtype="float32")
+                         ).init_params(gen, dev)
+    prompts = torch.randint(0, cfg16.vocab_size, (LM_BATCH, LM_PROMPT),
+                            generator=gen, device=dev)
+    lm_gates(MOE_ARCH, cfg16, params, prompts, LM_DECODE, card, launches)
+    model = build_model(cfg16)
+    with torch.inference_mode():
+        profile_step(f"{MOE_ARCH} bf16 prefill (kernel path)",
+                     lambda: model.prefill(params, {"tokens": prompts},
+                                           pad_to=LM_PROMPT + LM_DECODE),
+                     MOE_RANGES)
+        _, cache = model.prefill(params, {"tokens": prompts},
+                                 pad_to=LM_PROMPT + LM_DECODE)
+        tok = prompts[:, -1:]
+        profile_step(f"{MOE_ARCH} bf16 decode step",
+                     lambda: model.decode_step(params, cache,
+                                               {"tokens": tok}), MOE_RANGES)
+    del params, cache, model
+    torch.cuda.empty_cache()
+    report = drive(f"serve lm {MOE_ARCH}", (), launches,
+                   lambda: serve.main(["--arch", MOE_ARCH, "--requests",
+                                       str(LM_SERVE_REQUESTS)]))
+    if report["completed"] != LM_SERVE_REQUESTS \
+            or report["decode_tokens"] <= 0:
+        fail(f"serve lm {MOE_ARCH}: completed {report['completed']} of "
+             f"{LM_SERVE_REQUESTS}")
+    log(f"serve lm ({MOE_ARCH}, bf16, batch 4, ctx 256, "
+        f"{LM_SERVE_REQUESTS} requests) [{card}]: "
+        f"{report['decode_tokens']} decode tokens in {report['wall_s']:.3f} "
+        f"s = {report['tokens_per_s']:.1f} tokens/s")
+    torch.cuda.empty_cache()
+
+
+def ring_check(cfg16, params, prompts, decode: int, card: str) -> None:
+    """The repaired sliding-window ring at full width, fp32 plain path:
+    after a prompt longer than the window and not a multiple of it, each
+    decode step's logits equal ``forward``'s over the whole sequence at
+    that position, within ``LM_RTOL`` of the largest |logit|.  A decode
+    step routes its token with its own capacity and the forward its S
+    tokens with theirs, so both get a capacity of T (capacity_factor =
+    E / k: nothing dropped); and prefill and decode take the forward's
+    expert choices (:func:`logged_routing`), which their other attention
+    numerics could flip at near-ties."""
+    import torch
+
+    from repro_torch.core.dispatch import DispatchConfig
+    from repro_torch.models.registry import build_model
+
+    cfg = dataclasses.replace(
+        cfg16, dtype="float32",
+        capacity_factor=cfg16.n_experts / cfg16.experts_per_token)
+    model = build_model(cfg, dispatch=DispatchConfig(path="reference"))
+    b, s = prompts.shape
+    feed = torch.randint(0, cfg16.vocab_size, (b, decode),
+                         generator=torch.Generator(device=prompts.device
+                                                   ).manual_seed(3),
+                         device=prompts.device)
+    fwd_log = []
+    with torch.inference_mode(), logged_routing(fwd_log):
+        full, _ = model.forward(params, {"tokens": torch.cat(
+            [prompts, feed], 1)})
+    force = [(e.view(b, s + decode, -1)[:, :s].reshape(b * s, -1),)
+             for e, _, _ in fwd_log]
+    for i in range(decode):
+        force += [(e.view(b, s + decode, -1)[:, s + i],)
+                  for e, _, _ in fwd_log]
+    run = lm_run(model, params, prompts, decode, feed, [], force)
+    want = full[:, s - 1:s - 1 + decode]
+    err, scale = float((run["logits"][:, :decode] - want).abs().max()), \
+        float(want.abs().max())
+    if not err <= LM_RTOL * scale:
+        fail(f"ring cache: decode after a prompt of {s} (window "
+             f"{cfg16.sliding_window}) differs from forward by {err:.3e} (> "
+             f"{LM_RTOL} × {scale:.3e})")
+    log(f"ring cache, window {cfg16.sliding_window}, prompt {s}, {decode} "
+        f"decode steps [{card}]: decode against forward max abs err "
+        f"{err:.3e} of max |logit| {scale:.3e}")
+    del full, run, fwd_log, force
+
+
+def moe_cut_phase(arch: str, layers: int, prompt: int, decode: int, dev,
+                  card: str, launches: dict) -> None:
+    """Phases 15 and 16: ``arch`` at full width cut to ``layers`` layers,
+    batch 1, random weights from seed 0 (fp32, cast in place to bf16 by
+    ``lm_gates``: jamba's do not fit side by side), a windowed config's
+    ring checked first; then a profiled bf16 prefill."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.registry import build_model
+    from repro_torch.tree import leaves
+
+    cfg16 = dataclasses.replace(get_config(arch), n_layers=layers)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = build_model(dataclasses.replace(cfg16, dtype="float32")
+                         ).init_params(gen, dev)
+    prompts = torch.randint(0, cfg16.vocab_size, (1, prompt), generator=gen,
+                            device=dev)
+    n = sum(x.numel() for x in leaves(params))
+    log(f"{arch}, {layers} layers at full width: {n / 1e9:.3f} B "
+        f"parameters, {n * 4 / 2 ** 30:.2f} GiB in fp32 [{card}]")
+    if cfg16.sliding_window:
+        ring_check(cfg16, params, prompts, decode, card)
+    lm_gates(f"{arch} ({layers} layers)", cfg16, params, prompts, decode,
+             card, launches)
+    model = build_model(cfg16)
+    with torch.inference_mode():
+        profile_step(f"{arch} ({layers} layers) bf16 prefill (kernel path)",
+                     lambda: model.prefill(params, {"tokens": prompts},
+                                           pad_to=prompt + decode),
+                     MOE_RANGES)
+    del params, model
+    torch.cuda.empty_cache()
 
 
 def trace_overlap(path: str) -> tuple[float, float, float]:
@@ -2169,29 +2659,43 @@ def main() -> None:
     torch.cuda.empty_cache()
 
     # --- phase 5: one training step, kernel path against plain path -------
-    train_step_check(cfg, dev)
+    timed("phase 5", card, lambda: train_step_check(cfg, dev))
 
     # --- phase 6: the trainer, then serving from its exported plan ---------
     ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_train_")
     try:
-        train_and_serve(cfg, dev, ckpt_dir, launches, client_dir)
+        timed("phase 6", card, lambda: train_and_serve(
+            cfg, dev, ckpt_dir, launches, client_dir))
     finally:
         shutil.rmtree(ckpt_dir, ignore_errors=True)
 
     # --- phase 7: serve --qos, CUDA graphs over the ladder -----------------
-    qos_phase(cfg, dev, launches, slot_reports, client_dir)
+    timed("phase 7", card, lambda: qos_phase(cfg, dev, launches,
+                                             slot_reports, client_dir))
 
     # --- phase 8: the paper's conversion at full width ----------------------
-    conversion_phase(cfg, dev, launches, client_dir)
+    timed("phase 8", card, lambda: conversion_phase(cfg, dev, launches,
+                                                    client_dir))
 
     # --- phase 9: plan introspection on the h100 profile --------------------
-    introspection_phase(cfg, dev, launches)
+    timed("phase 9", card, lambda: introspection_phase(cfg, dev, launches))
 
     # --- phases 10-12: LM serving -------------------------------------------
-    lm_phases(dev, card, launches)
+    timed("phases 10-12", card, lambda: lm_phases(dev, card, launches))
 
     # --- phase 13: LM training ----------------------------------------------
-    lm_train_phase(dev, card, launches)
+    timed("phase 13", card, lambda: lm_train_phase(dev, card, launches))
+
+    # --- phases 14-17: the MoE and Mamba-hybrid LMs -------------------------
+    timed("phase 14", card, lambda: moe_serving_phase(dev, card, launches))
+    timed("phase 15", card, lambda: moe_cut_phase(
+        "mixtral-8x7b", MIXTRAL_LAYERS, MIXTRAL_PROMPT, MIXTRAL_DECODE, dev,
+        card, launches))
+    timed("phase 16", card, lambda: moe_cut_phase(
+        "jamba-v0.1-52b", JAMBA_LAYERS, JAMBA_PROMPT, JAMBA_DECODE, dev,
+        card, launches))
+    timed("phase 17", card, lambda: lm_grad_check(dev, card, MOE_ARCH,
+                                                  launches))
 
     kernels = []
     src = {k: "src/repro_torch/csrc/jpeg_kernels.cu" for k in KERNELS}

@@ -1,5 +1,6 @@
 """Model and training configurations of the port: ``jpeg-resnet`` and the
-reference's dense language models (full and reduced)."""
+reference's dense, MoE and hybrid (Mamba) language models (full and
+reduced)."""
 from __future__ import annotations
 
 import dataclasses
@@ -11,24 +12,26 @@ __all__ = ["ModelConfig", "TrainConfig", "ARCHS", "LM_ARCHS", "get_config",
 
 #: arch → config module of the port
 ARCHS = {"jpeg-resnet": "jpeg_resnet", "granite-3-2b": "granite_3_2b",
+         "granite-moe-3b-a800m": "granite_moe_3b_a800m",
+         "jamba-v0.1-52b": "jamba_v01_52b",
          "mistral-nemo-12b": "mistral_nemo_12b",
+         "mixtral-8x7b": "mixtral_8x7b",
          "smollm-360m": "smollm_360m", "starcoder2-3b": "starcoder2_3b"}
 
 #: the reference's language-model archs not ported yet → the ROADMAP Queue 1
 #: item that holds them
-LM_ARCHS = {"granite-moe-3b-a800m": "7.3", "mixtral-8x7b": "7.3",
-            "jamba-v0.1-52b": "7.3 and 7.4", "rwkv6-7b": "7.4",
-            "internvl2-1b": "7.5", "whisper-small": "7.5"}
+LM_ARCHS = {"rwkv6-7b": "7.4", "internvl2-1b": "7.5",
+            "whisper-small": "7.5"}
 
 
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     """The reference's ``repro/configs/base.py:ModelConfig`` fields that the
-    port reads: the dense LM fields and the jpeg-resnet ones, same
-    defaults."""
+    port reads: the LM fields (dense, MoE, Mamba hybrid) and the
+    jpeg-resnet ones, same defaults."""
 
     name: str
-    family: str = "jpeg_resnet"  # dense | jpeg_resnet
+    family: str = "jpeg_resnet"  # dense | moe | hybrid | jpeg_resnet
     n_layers: int = 0
     d_model: int = 0
     n_heads: int = 0
@@ -36,9 +39,23 @@ class ModelConfig:
     head_dim: int = 0
     d_ff: int = 0
     vocab_size: int = 0
+    # --- MoE ---
+    n_experts: int = 0
+    experts_per_token: int = 0
+    moe_every: int = 1  # MoE FFN on layers where i % moe_every == moe_offset
+    moe_offset: int = 0
+    capacity_factor: float = 1.25
+    # --- attention ---
     rope_theta: float = 10_000.0
     sliding_window: Optional[int] = None
+    attn_every: int = 1  # hybrid: attention where i % attn_every == offset
+    attn_offset: int = 0
     use_rope: bool = True
+    # --- SSM ---
+    ssm_kind: Optional[str] = None  # 'mamba' | 'rwkv6'
+    d_state: int = 16
+    d_conv: int = 4
+    expand: int = 2
     # --- jpeg-resnet ---
     image_size: int = 32
     in_channels: int = 3
@@ -59,6 +76,12 @@ class ModelConfig:
     @property
     def kv_dim(self) -> int:
         return self.n_kv_heads * self.head_dim
+
+    def is_attn_layer(self, i: int) -> bool:
+        return (i % self.attn_every) == self.attn_offset
+
+    def is_moe_layer(self, i: int) -> bool:
+        return self.n_experts > 0 and (i % self.moe_every) == self.moe_offset
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1,0 +1,163 @@
+"""Mixture-of-Experts FFN: sort-based grouped dispatch with static capacity.
+
+A port of ``repro/models/moe.py``'s path without a mesh (global dispatch).
+Each token's router picks its top ``k`` experts (fp32 router and softmax,
+weights renormalised); the (token, expert) pairs are sorted by expert
+(stable), each expert keeps its first ``capacity`` pairs and drops the
+rest, and the kept tokens go through three grouped products over ``(E, C,
+d)`` buffers.  Nothing here is a kernel of ours: the reference computes the
+same products with XLA einsums outside any Pallas kernel.
+
+Dispatch and combine move rows with gathers only, forward and backward.
+The reference fills its buffer with a scatter and combines with a
+scatter-add; on the card a float scatter-add (``index_add_``,
+``scatter_add_``, or an accumulating ``index_put_`` in a backward) uses
+atomics and sums in whatever order they land.  Here the dispatch gathers
+each slot's token, and its backward gathers each token's ``k`` slots
+(:class:`_GatherRows`, the inverse permutation); the combine gathers each
+pair's expert output and sums a token's ``k`` weighted slots in a fixed
+order.  So two gradient calls give the same bits.
+
+Three profiler ranges split the FFN's device time: ``moe_route`` (router,
+top-k, sort and the dispatch gather), ``moe_experts`` (the grouped
+products and their SwiGLU) and ``moe_combine``.
+
+The expert-parallel ``shard_map`` path (``moe.py:117-196``) waits for
+ROADMAP Queue 1 item 7.6.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch.profiler import record_function
+
+from repro_torch.configs import ModelConfig
+
+__all__ = ["init_moe", "capacity", "moe_ffn"]
+
+
+def init_moe(normal, cfg: ModelConfig) -> dict:
+    """One MoE FFN's parameters in the reference's layout and scales
+    (``moe.py:37-47``).  ``normal(shape, scale, dtype=None)`` draws a
+    weight in the model's dtype unless ``dtype`` says otherwise (the
+    router is fp32)."""
+    d, f, e = cfg.d_model, cfg.d_ff, cfg.n_experts
+    return {
+        "router": normal((d, e), d ** -0.5, torch.float32),
+        "w_gate": normal((e, d, f), d ** -0.5),
+        "w_in": normal((e, d, f), d ** -0.5),
+        "w_out": normal((e, f, d), f ** -0.5),
+    }
+
+
+def capacity(t: int, cfg: ModelConfig) -> int:
+    """Slots per expert for ``t`` tokens: the reference's expression on
+    host numbers, ⌈t·k·cf / E⌉ clamped to [1, t]."""
+    e, k = cfg.n_experts, cfg.experts_per_token
+    cap = int(-(-t * k * cfg.capacity_factor // e))
+    return max(min(cap, t), 1)
+
+
+def _gather_rows(src: torch.Tensor, index: torch.Tensor) -> torch.Tensor:
+    """``out[i] = Σ_j src[index[i, j]]``, summed in ``j`` order; an index of
+    ``len(src)`` reads a zero row."""
+    pad = torch.cat([src, src.new_zeros((1,) + src.shape[1:])])
+    out = pad[index[:, 0]]
+    for j in range(1, index.shape[1]):
+        out = out + pad[index[:, j]]
+    return out
+
+
+class _GatherRows(torch.autograd.Function):
+    """:func:`_gather_rows` whose backward is a gather too: ``inverse``
+    lists, for every row of ``src``, the output rows that read it (padded
+    with ``len(out)``), so the gradient of a row is a fixed-order sum and
+    no float atomics run."""
+
+    @staticmethod
+    def forward(ctx, src, index, inverse):
+        ctx.save_for_backward(inverse)
+        return _gather_rows(src, index)
+
+    @staticmethod
+    def backward(ctx, grad):
+        inverse, = ctx.saved_tensors
+        return _gather_rows(grad, inverse), None, None
+
+
+def _routing(probs: torch.Tensor, cfg: ModelConfig, cap: int):
+    """The routing of ``probs`` (T, E) → (top-k weights (T, k), for each
+    slot of the ``(E·cap)`` buffer the token it holds (``T`` if empty), for
+    each pair its slot (``E·cap`` if dropped), for each slot its pair
+    (``T·k`` if empty), per-expert pair counts before the drop)."""
+    t, e = probs.shape
+    k = cfg.experts_per_token
+    dev = probs.device
+    # jax.lax.top_k puts the lower index first on ties; a stable descending
+    # sort does the same (torch.topk promises no order)
+    vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    top_w, top_e = vals[:, :k], idx[:, :k]
+    top_w = top_w / torch.clamp(top_w.sum(-1, keepdim=True), min=1e-9)
+
+    pair_e = top_e.reshape(-1)
+    order = torch.argsort(pair_e, stable=True)
+    sorted_e = pair_e[order]
+    # an int index_add_ (bincount would wait for the device to size its
+    # output)
+    counts = torch.zeros(e, dtype=torch.long, device=dev).index_add_(
+        0, pair_e, torch.ones_like(pair_e))
+    starts = torch.cumsum(counts, 0) - counts
+    rank = torch.arange(t * k, device=dev) - starts[sorted_e]
+    sink = e * cap
+    slot = torch.where(rank < cap, sorted_e * cap + rank,
+                       torch.full_like(rank, sink))
+    # int scatters: the dropped pairs all land on the sink entry, cut off
+    tok_of_slot = torch.full((sink + 1,), t, dtype=torch.long, device=dev)
+    tok_of_slot[slot] = order // k
+    pair_of_slot = torch.full((sink + 1,), t * k, dtype=torch.long,
+                              device=dev)
+    pair_of_slot[slot] = order
+    slot_of_pair = torch.empty_like(slot)
+    slot_of_pair[order] = slot
+    return (top_w, tok_of_slot[:sink], slot_of_pair.reshape(t, k),
+            pair_of_slot[:sink], counts)
+
+
+def _aux_loss(counts: torch.Tensor, probs_sum: torch.Tensor, t: int,
+              e: int, k: int) -> torch.Tensor:
+    """The Switch load-balance loss, counting every pair before the drop
+    (``moe.py:98-101``)."""
+    frac_tokens = counts.float() / max(t * k, 1.0)
+    frac_probs = probs_sum / max(t, 1.0)
+    return e * torch.sum(frac_tokens * frac_probs)
+
+
+def moe_ffn(x: torch.Tensor, params: dict,
+            cfg: ModelConfig) -> tuple[torch.Tensor, torch.Tensor]:
+    """``x`` (B, S, D) → (out (B, S, D), aux loss): top-k with renormalised
+    weights (the Mixtral convention), capacity over the B·S tokens, overflow
+    dropped."""
+    b, s, d = x.shape
+    t = b * s
+    e, k = cfg.n_experts, cfg.experts_per_token
+    cap = capacity(t, cfg)
+    xf = x.reshape(t, d)
+    with record_function("moe_route"):
+        acc = torch.promote_types(x.dtype, torch.float32)  # fp32 at least
+        logits = xf.to(acc) @ params["router"].to(acc)  # (T, E)
+        probs = torch.softmax(logits, dim=-1)
+        top_w, tok_of_slot, slot_of_pair, pair_of_slot, counts = _routing(
+            probs, cfg, cap)
+        grouped = _GatherRows.apply(xf, tok_of_slot[:, None], slot_of_pair)
+    with record_function("moe_experts"):
+        grouped = grouped.reshape(e, cap, d)
+        gate = F.silu(torch.bmm(grouped, params["w_gate"]))
+        up = torch.bmm(grouped, params["w_in"])
+        y = torch.bmm(gate * up, params["w_out"]).reshape(e * cap, d)
+    with record_function("moe_combine"):
+        y_pairs = _GatherRows.apply(y, slot_of_pair.reshape(-1, 1),
+                                    pair_of_slot[:, None])
+        w = top_w.to(x.dtype)
+        out = (y_pairs.reshape(t, k, d) * w[..., None]).sum(1)
+    aux = _aux_loss(counts, probs.sum(0), t, e, k)
+    return out.reshape(b, s, d), aux

@@ -4,10 +4,12 @@
 trainer and the server talk only to it.  The port has two families:
 ``jpeg_resnet`` (whose trainable state is the bundle ``{"params",
 "bn_state"}``, as in the reference, which differentiates both) and the
-dense language models, which train (``loss_fn``, with the reference's
+language models of the dense, MoE (``granite-moe-3b-a800m``,
+``mixtral-8x7b``) and Mamba-hybrid (``jamba-v0.1-52b``) families, which
+train (``loss_fn``, its MoE aux term included, with the reference's
 ``remat`` values) and serve: ``prefill`` a prompt, then ``decode_step``
-from its cache.  The reference's MoE, hybrid, recurrent, VLM and audio
-families wait (ROADMAP Queue 1 items 7.3-7.5).
+from its cache.  The reference's recurrent (RWKV), VLM and audio families
+wait (ROADMAP Queue 1 items 7.4-7.5).
 """
 from __future__ import annotations
 
@@ -103,9 +105,9 @@ def build_model(cfg: ModelConfig, remat: str = "none", *,
                 dispatch: dispatchlib.DispatchConfig | None = None) -> Model:
     """The model bundle for ``cfg``.  ``dispatch`` picks the op paths of
     its forward (None: ``auto``, the kernels on a CUDA device); for a
-    language model a ``reference`` path runs the plain attention on any
-    device.  Configs of LM families the port does not run are refused
-    earlier, by ``configs.get_config``."""
+    language model (dense, MoE or Mamba hybrid) a ``reference`` path runs
+    the plain attention on any device.  Configs of LM families the port
+    does not run are refused earlier, by ``configs.get_config``."""
     if cfg.family == "jpeg_resnet":
         return _jpeg_resnet_model(cfg, remat, dispatch)
     return _lm_model(cfg, remat, dispatch)

@@ -306,8 +306,8 @@ def test_prefetch_yields_in_order_and_joins():
 
 
 def test_lm_arch_names_the_roadmap_item():
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7.3"):
-        get_config("mixtral-8x7b")
+    with pytest.raises(NotImplementedError, match="Queue 1 item 7.4"):
+        get_config("rwkv6-7b")
     with pytest.raises(KeyError):
         get_config("no-such-arch")
 
