@@ -20,7 +20,10 @@ Phases, each fatal on failure:
    prefill in bf16 and fp32, ``mistral-nemo-12b``'s heads, and a window of
    256 and a non-causal S != T case, each in bf16 (the tensor-core
    kernel) and fp32 (the FFMA kernel); ``granite-moe-3b-a800m``'s prefill
-   and ``mixtral-8x7b``'s 4096 window at a prompt of 4608, in bf16): error, kernel ms, plain ms, the least
+   and ``mixtral-8x7b``'s 4096 window at a prompt of 4608, in bf16;
+   ``whisper-small``'s encoder (S = T = 1500, in bf16 and fp32) and
+   cross-attention (448 over 1500), ``internvl2-1b``'s prefill (14 heads
+   over 2), in bf16): error, kernel ms, plain ms, the least
    time the card could take (bound) and, where one PyTorch call computes
    the same function, that call's ms (``library_ms``, a yardstick the
    port never calls); ASM also at the served walk's s2 and s3 row counts
@@ -156,14 +159,44 @@ Phases, each fatal on failure:
 17. phase 13 (a)'s gradient check on ``granite-moe-3b-a800m`` cut to
    ``LM_STEP_LAYERS`` layers (the kernel path's calls counted), the aux
    term finite on both paths and within ``LM_LOSS_RTOL``;
-18. one ``{"kernels": [...]}`` line, with each kernel's launches in phases
-   3, 4, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15, 16 and 17 (each path driven
-   with the counts set to 0 just before it and read just after), then the
-   ``{"ok": true, ...}`` line last.  Its bounds and phase 9's roofline
-   read one count of each kernel's work
-   (``repro_torch.introspect.opcount``).  Every phase prints its seconds
-   (phases 5-17 also their device memory peak), and the script its
-   total.
+18. ``rwkv6-7b`` in full (32 layers, d 4096; 7.58 B parameters drawn in
+   fp32, 28 GiB): 4 prompts of 2048 tokens, then 33 decode steps fed the
+   next tokens, against ``forward`` over all 2081 (a length the reference
+   cannot run) within 1e-3 of the largest |logit|, every state leaf
+   finite; then bf16 (cast leaf by leaf), its relative-norm error against
+   fp32 printed, and its logits against fp32 at most 1.5 × the plain
+   scan's error (relative norm) at full depth over the first 256 tokens
+   and at 4 layers over the prompts; prefill and decode tokens/s and a
+   profiled prefill and decode step split by the WKV scan's range
+   (``rwkv_wkv``) against the products and the rest; then ``serve --arch rwkv6-7b``, 4 requests;
+19. ``internvl2-1b`` in full: each of 4 prompts one random 256² image,
+   block-DCT encoded by the kernel into 256 vision embeddings through
+   ``fold_patch_embed``, then 1792 tokens; its fp32 logits within 1e-3
+   of those on the pixel patch embedding (the reference's integration
+   test); phases 10-11's gates on that prefix (32 decode steps), a
+   profiled bf16 prefill, then ``serve --arch internvl2-1b``, 4 requests;
+20. ``whisper-small`` in full (12 + 12 layers) on 4 × 1500 random frames
+   and 448 decoder tokens (its published ``max_target_positions``): the
+   encoder and the whole ``forward`` under phases 10-11's gates, 32 decode
+   steps from index 0 against the cross cache written from the encoder
+   output (``cross_cache``) equal to ``forward``'s first positions, a
+   profiled bf16 forward, then ``serve --arch whisper-small``, 4 requests;
+21. training: phase 13 (a)'s gradient check at full depth for
+   ``internvl2-1b`` and ``whisper-small`` (the plain path's layers
+   recomputed in its backward, so its dense scores fit); ``launch/
+   train.py`` on each for 4 steps at batch 4 × 2048 tokens (whisper:
+   448), finite losses, the attention forward and backward launched once
+   an attention call a step; ``rwkv6-7b`` cut to ``LM_STEP_LAYERS``
+   layers, its fp32 gradient against the same code in fp64 (beside the
+   plain path's over 512 tokens, whose WKV scan is the step recurrence:
+   the floor) and two bf16 gradients bit-identical;
+22. one ``{"kernels": [...]}`` line, with each kernel's launches in phases
+   3, 4, 6-21 but 5 (each path driven with the counts set to 0 just
+   before it and read just after), then the ``{"ok": true, ...}`` line
+   last.  Its bounds and phase 9's roofline read one count of each
+   kernel's work (``repro_torch.introspect.opcount``).  Every phase prints
+   its seconds (phases 5-21 also their device memory peak), and the
+   script its total.
 
 It imports neither JAX nor the reference package, exits non-zero without
 CUDA, and needs one card.
@@ -243,6 +276,9 @@ LM_ARCH, LM_BATCH, LM_PROMPT, LM_DECODE = "smollm-360m", 4, 2048, 32
 LM_RTOL = 1e-3
 #: phase 12's requests (the reference's default is 16)
 LM_SERVE_REQUESTS = 8
+#: phases 18-20's servers: one batch of 4 (the run's time is held near
+#: what it was before them)
+FAMILY_SERVE_REQUESTS = 4
 #: the attention backward against its plain version in fp32, relative to
 #: the largest |gradient|: sums of up to T terms in another order
 ATTN_BWD_RTOL = 1e-4
@@ -270,6 +306,26 @@ MIXTRAL_LAYERS, MIXTRAL_PROMPT, MIXTRAL_DECODE = 2, 4608, 16
 JAMBA_LAYERS, JAMBA_PROMPT, JAMBA_DECODE = 8, 2048, 16
 #: the MoE FFN's profiler ranges (src/repro_torch/models/moe.py)
 MOE_RANGES = ("moe_route", "moe_experts", "moe_combine")
+#: phases 18-21, the RWKV, VLM and audio families at full width and depth:
+#: rwkv6-7b's RWKV_DECODE teacher-forced steps after LM_PROMPT tokens (the
+#: forward over both ends in a ragged chunk); internvl2-1b's vision prefix
+#: from one VLM_IMAGE² image a prompt (256 patches of PATCH), its logits
+#: on the JPEG-domain prefix against the pixel one within VLM_FOLD_RTOL
+#: (the reference's integration test); whisper-small's encoder over
+#: WHISPER_FRAMES frames and WHISPER_TOKENS decoder tokens (its published
+#: max_target_positions)
+RWKV_ARCH, VLM_ARCH, AUDIO_ARCH = "rwkv6-7b", "internvl2-1b", "whisper-small"
+RWKV_DECODE = 33
+#: phase 18's bf16 gates, each the chunked scan's logits against fp32 at
+#: most BF16_FACTOR × the plain scan's (relative norms): the full depth
+#: over the first RWKV_GATE_TOKENS tokens, and the first RWKV_GATE_LAYERS
+#: layers over the whole prompt (where the drift is not saturated);
+#: phase 21's plain-scan floor is taken over RWKV_FLOOR_SEQ tokens
+RWKV_GATE_TOKENS, RWKV_GATE_LAYERS, RWKV_FLOOR_SEQ = 256, 4, 512
+VLM_IMAGE, VLM_FOLD_RTOL = 256, 1e-3
+WHISPER_FRAMES, WHISPER_TOKENS = 1500, 448
+#: the RWKV time mix's profiler range (src/repro_torch/models/rwkv.py)
+RWKV_RANGES = ("rwkv_wkv",)
 #: a routing choice that differs between two fp32 paths must sit at a
 #: near-tie: the plain path's k-th and (k+1)-th router probabilities
 #: closer than this (fp32 noise moves them ~1e-7; typical gaps are ~1e-2)
@@ -296,6 +352,14 @@ ATTN_CASES = (
      None, True),
     ("mixtral-8x7b window 4096 bf16 (plain: chunked)", 1, 4608, 4608, 32, 8,
      128, True, 4096, True),
+    ("whisper-small encoder bf16", 4, 1500, 1500, 12, 12, 64, False, None,
+     True),
+    ("whisper-small encoder fp32", 4, 1500, 1500, 12, 12, 64, False, None,
+     False),
+    ("whisper-small cross-attention bf16", 4, 448, 1500, 12, 12, 64, False,
+     None, True),
+    ("internvl2-1b prefill bf16 (G = 7)", 4, 2048, 2048, 14, 2, 64, True,
+     None, True),
 )
 
 
@@ -603,14 +667,21 @@ def profile_step(label: str, step, ranges=()
         t = next((v for v in (getattr(e, a, 0) for a in (
             "self_device_time_total", "device_time_total",
             "self_cuda_time_total", "cuda_time_total")) if v), 0.0)
-        if e.key in MOE_RANGES or getattr(e, "is_user_annotation", False):
+        if e.key in MOE_RANGES + RWKV_RANGES \
+                or getattr(e, "is_user_annotation", False):
             if e.key in span:  # a range's extent on the device, not a kernel
                 span[e.key] += t
             continue
         per_kernel[e.key] = per_kernel.get(e.key, 0.0) + t
         calls[e.key] = calls.get(e.key, 0) + e.count
+    def group(name: str) -> str:
+        low = name.lower()
+        return next((g for g, keys in KERNEL_GROUPS
+                     if any(k in low for k in keys)), "other")
+
     # the kernels each range launched: up each launching op's parents
     in_range = {r: 0.0 for r in ranges}
+    gemm_in_range = 0.0
     for ev in prof.events() if ranges else ():
         kernels = getattr(ev, "kernels", None)
         up = ev
@@ -618,6 +689,8 @@ def profile_step(label: str, step, ranges=()
             up = up.cpu_parent
         if kernels and up is not None:
             in_range[up.name] += sum(k.duration for k in kernels)
+            gemm_in_range += sum(k.duration for k in kernels
+                                 if group(k.name) == "cuBLAS GEMM")
     busy = sum(per_kernel.values())
     if busy <= 0:
         log(f"{label} profile: device time not measured (the trace holds "
@@ -626,10 +699,7 @@ def profile_step(label: str, step, ranges=()
     groups = {g: 0.0 for g, _ in KERNEL_GROUPS}
     groups["other"] = 0.0
     for name, t in per_kernel.items():
-        low = name.lower()
-        g = next((g for g, keys in KERNEL_GROUPS
-                  if any(k in low for k in keys)), "other")
-        groups[g] += t
+        groups[group(name)] += t
     log(f"{label} profile (torch.profiler): wall "
         f"{wall_us / 1e3:.1f} ms, device busy {busy / 1e3:.1f} ms, idle "
         f"share {max(0.0, 1 - busy / wall_us):.3f}; by group (ms, share of "
@@ -639,13 +709,15 @@ def profile_step(label: str, step, ranges=()
         attn = sum(t for name, t in per_kernel.items()
                    if "flash_attention" in name)
         rest = busy - attn - sum(in_range.values())
+        products = groups["cuBLAS GEMM"] - gemm_in_range
         log(f"{label} split (ms of kernel time, share of busy; the range's "
             f"extent on the device in brackets): "
             + ", ".join(f"{r} {t / 1e3:.2f} ({t / busy:.3f}) "
                         f"[{span[r] / 1e3:.2f}]" for r, t in in_range.items())
             + f", flash attention {attn / 1e3:.2f} ({attn / busy:.3f}), "
-            f"the rest (dense products, norms, elementwise) "
-            f"{rest / 1e3:.2f} ({rest / busy:.3f})"
+            f"the rest {rest / 1e3:.2f} ({rest / busy:.3f}): its dense "
+            f"products {products / 1e3:.2f} ({products / busy:.3f}), "
+            f"norms and elementwise {(rest - products) / 1e3:.2f}"
             + ("" if all(in_range.values()) else
                "; a range with 0 ms: its kernel time not measured"))
     top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:12]
@@ -722,7 +794,9 @@ def train_and_serve(cfg, dev, ckpt_dir: str, launches: dict,
 def attention_checks(dev, record) -> None:
     """Phase 2, flash attention: the kernel against its plain version at
     the LM path's shapes and the mask cases; library_ms is SDPA (GQA,
-    causal flag or a boolean mask for the window)."""
+    causal flag or a boolean mask for the window).  The training forward
+    (which also writes lse and, in bf16, the output's rounding residual)
+    is timed beside the serving one."""
     import torch
     import torch.nn.functional as F
 
@@ -767,10 +841,14 @@ def attention_checks(dev, record) -> None:
         work = attention_work(b, h, hd,
                               attention_pairs(s, t, causal, window),
                               q.element_size(), q.numel(), k.numel())
+        serve_ms = cuda_ms(lambda: kfa.flash_attention(q, k, v, **kw))
+        train_ms = cuda_ms(lambda: kfa.flash_attention_lse(q, k, v, **kw))
+        log(f"flash_attention {label}: serving forward {serve_ms:.4f} ms, "
+            f"training forward (lse{', out_lo' if is16 else ''}) "
+            f"{train_ms:.4f} ms")
         record("flash_attention",
                f"{label} q{tuple(q.shape)} kv{tuple(k.shape)} (tol "
-               f"{tol:.2e})", err,
-               cuda_ms(lambda: kfa.flash_attention(q, k, v, **kw)),
+               f"{tol:.2e})", err, serve_ms,
                cuda_ms(lambda: kfa.attention_plain(q, k, v, **kw), reps=3),
                work, cuda_ms(library),
                PEAK_BF16_FLOPS if dtype == bf16 else PEAK_FP32_FLOPS)
@@ -813,10 +891,11 @@ def attention_backward_checks(dev, record) -> None:
                        for shape in ((b, s, h, hd), (b, t, kvh, hd),
                                      (b, t, kvh, hd), (b, s, h, hd)))
         kw = dict(causal=causal, window=window)
-        out, lse = kfa.flash_attention_lse(q, k, v, **kw)
+        out, lse, lo = kfa.flash_attention_lse(q, k, v, **kw)
 
         def kernel():
-            return kfa.flash_attention_backward(q, k, v, out, do, lse, **kw)
+            return kfa.flash_attention_backward(q, k, v, out, do, lse,
+                                                out_lo=lo, **kw)
 
         got = kernel()
         f32 = [x.float() for x in (q, k, v, do)]
@@ -867,7 +946,7 @@ def attention_backward_checks(dev, record) -> None:
                f"{', '.join(f'{x:.2e}' for x in tols)})", max(errs),
                cuda_ms(kernel), cuda_ms(plain, reps=3), work,
                cuda_ms(library), PEAK_BF16_FLOPS if is16 else PEAK_FP32_FLOPS)
-        del q, k, v, do, out, lse, o_p, l_p, leaves, lib_out, dot
+        del q, k, v, do, out, lse, lo, o_p, l_p, leaves, lib_out, dot
         torch.cuda.empty_cache()
 
 
@@ -966,27 +1045,32 @@ def first_divergence(plain: list, kern: list, b: int, s: int, label: str):
 
 
 def lm_run(model, params, prompts, decode: int = LM_DECODE, feed=None,
-           routing: list | None = None, force: list | None = None) -> dict:
-    """Prefill ``prompts`` (B, S) (cache grown by ``decode`` slots), then
-    ``decode`` decode steps, each fed ``feed[:, i]`` or, without ``feed``,
-    the greedy token of the step before.  Returns the logits of every
-    position (B, 1 + decode, V), every leaf of the prefill's cache (copies
-    keyed ``pos{j}/name``; keys and values cut to S slots), the tokens fed,
-    wall times and flash-attention launches of each part; with
-    ``routing`` every MoE call's routing is appended to it (``force``: the
-    experts another run's log chose, as :func:`logged_routing` says)."""
+           routing: list | None = None, force: list | None = None,
+           vision=None) -> dict:
+    """Prefill ``prompts`` (B, S) (a VLM's after its ``vision`` embeddings
+    (B, Sv, D); cache grown by ``decode`` slots), then ``decode`` decode
+    steps, each fed ``feed[:, i]`` or, without ``feed``, the greedy token
+    of the step before.  Returns the logits of every position (B, 1 +
+    decode, V), every leaf of the prefill's cache (copies keyed
+    ``pos{j}/name``; keys and values cut to Sv + S slots) and the cache
+    after the last step, the tokens fed, wall times and flash-attention
+    launches of each part; with ``routing`` every MoE call's routing is
+    appended to it (``force``: the experts another run's log chose, as
+    :func:`logged_routing` says)."""
     import torch
 
     from repro_torch.kernels import flash_attention as kfa
 
-    s = prompts.shape[1]
+    batch = {"tokens": prompts}
+    if vision is not None:
+        batch["vision_embeds"] = vision
+    s = prompts.shape[1] + (0 if vision is None else vision.shape[1])
     with torch.inference_mode(), (logged_routing(routing, force) if routing
                                   is not None else contextlib.nullcontext()):
         torch.cuda.synchronize()
         n0 = kfa.LAUNCHES
         t0 = time.perf_counter()
-        last, cache = model.prefill(params, {"tokens": prompts},
-                                    pad_to=s + decode)
+        last, cache = model.prefill(params, batch, pad_to=s + decode)
         torch.cuda.synchronize()
         t1 = time.perf_counter()
         n1 = kfa.LAUNCHES
@@ -1004,7 +1088,7 @@ def lm_run(model, params, prompts, decode: int = LM_DECODE, feed=None,
             logits.append(step[:, 0])
         torch.cuda.synchronize()
         t3 = time.perf_counter()
-    return {"logits": torch.stack(logits, 1), "kv": kv,
+    return {"logits": torch.stack(logits, 1), "kv": kv, "cache": cache,
             "fed": torch.stack(fed, 1), "prefill_s": t1 - t0,
             "decode_s": t3 - t2, "prefill_launches": n1 - n0,
             "decode_launches": kfa.LAUNCHES - n1}
@@ -1025,7 +1109,7 @@ def cast_in_place(tree: dict, dtype) -> None:
 
 
 def lm_gates(label: str, cfg16, params, prompts, decode: int, card: str,
-             launches: dict) -> dict:
+             launches: dict, vision=None) -> dict:
     """Prefill and decode of one LM on the kernel path against the plain
     path: in fp32 (``params``, cast here to bf16 in place afterwards) the
     logits and every leaf of the prefill cache within ``LM_RTOL`` of the
@@ -1034,7 +1118,8 @@ def lm_gates(label: str, cfg16, params, prompts, decode: int, card: str,
     against the fp32 plain path at most ``BF16_FACTOR`` × the bf16 plain
     path's.  Both paths are fed the fp32 plain path's greedy tokens; the
     kernel path launches flash attention once an attention layer a
-    prefill and never in decode.
+    prefill and never in decode.  A VLM's prompts follow its ``vision``
+    embeddings (fp32, cast by the model).
 
     An MoE's routing is discontinuous: where two experts' router
     probabilities tie within the paths' rounding, the paths may pick
@@ -1049,20 +1134,21 @@ def lm_gates(label: str, cfg16, params, prompts, decode: int, card: str,
     import torch
 
     from repro_torch.core.dispatch import DispatchConfig
-    from repro_torch.models import transformer as T
     from repro_torch.models.registry import build_model
 
     cfg32 = dataclasses.replace(cfg16, dtype="float32")
     plain_cfg = DispatchConfig(path="reference")
-    n_attn = sum(m == "attn" for m, _ in T.layer_kinds(cfg16))
+    n_attn = attn_calls(cfg16)
     b, s = prompts.shape
+    if vision is not None:
+        s += vision.shape[1]
     dev = prompts.device
     shape = f"batch {b}, prompt {s}, {decode} decode steps"
 
     def kernel_run(phase, cfg, feed, routing=None, force=None):
         def fn():
             out = lm_run(build_model(cfg), params, prompts, decode, feed,
-                         routing, force)
+                         routing, force, vision)
             if out["prefill_launches"] != n_attn \
                     or out["decode_launches"] != 0:
                 fail(f"{phase}: {out['prefill_launches']} flash_attention "
@@ -1078,7 +1164,7 @@ def lm_gates(label: str, cfg16, params, prompts, decode: int, card: str,
     # fp32, kernel path against plain path
     r_plain, r_kern = [], []
     p32 = lm_run(build_model(cfg32, dispatch=plain_cfg), params, prompts,
-                 decode, routing=r_plain)
+                 decode, routing=r_plain, vision=vision)
     if p32["prefill_launches"] or p32["decode_launches"]:
         fail(f"{label}: the plain path launched the flash-attention kernel")
     k32 = kernel_run(f"{label} fp32 (kernel path)", cfg32, p32["fed"],
@@ -1161,7 +1247,7 @@ def lm_gates(label: str, cfg16, params, prompts, decode: int, card: str,
     cast_in_place(params, torch.bfloat16)
     torch.cuda.empty_cache()
     p16 = lm_run(build_model(cfg16, dispatch=plain_cfg), params, prompts,
-                 decode, p32["fed"])
+                 decode, p32["fed"], vision=vision)
     k16 = kernel_run(f"{label} bf16 (kernel path)", cfg16, p32["fed"])
     e_k, e_p = max_err(k16["logits"], want), max_err(p16["logits"], want)
     what = "max abs"
@@ -1199,7 +1285,6 @@ def lm_phases(dev, card: str, launches: dict) -> None:
     import torch
 
     from repro_torch.configs import get_config
-    from repro_torch.launch import serve
     from repro_torch.models.registry import build_model
 
     cfg16 = get_config(LM_ARCH)
@@ -1224,29 +1309,39 @@ def lm_phases(dev, card: str, launches: dict) -> None:
     torch.cuda.empty_cache()
 
     # --- phase 12: the LM server at the reference's defaults --------------
-    report = drive("serve lm", (), launches,
-                   lambda: serve.main(["--arch", LM_ARCH, "--requests",
-                                       str(LM_SERVE_REQUESTS)]))
-    if report["completed"] != LM_SERVE_REQUESTS \
-            or report["decode_tokens"] <= 0:
-        fail(f"serve lm: completed {report['completed']} of "
-             f"{LM_SERVE_REQUESTS}")
-    log(f"serve lm ({LM_ARCH}, bf16, batch 4, ctx 256, "
-        f"{LM_SERVE_REQUESTS} requests) "
-        f"[{card}]: {report['decode_tokens']} decode tokens in "
-        f"{report['wall_s']:.3f} s = {report['tokens_per_s']:.1f} tokens/s")
+    serve_phase(LM_ARCH, card, launches)
     torch.cuda.empty_cache()
 
+def attn_calls(cfg) -> int:
+    """Full-sequence attention calls of one forward: each attention layer
+    of the decoder, and an encoder-decoder's encoder layers and its
+    decoder's cross-attentions."""
+    from repro_torch.models import transformer as T
+
+    n = sum(m == "attn" for m, _ in T.layer_kinds(cfg))
+    return n + (cfg.n_encoder_layers + cfg.n_layers
+                if cfg.encoder_decoder else 0)
+
+
 def lm_grad_check(dev, card: str, arch: str = LM_ARCH,
-                  launches: dict | None = None) -> None:
-    """Phase 13 (a) (``smollm-360m``) and 17 (``granite-moe-3b-a800m``):
-    one ``loss_fn`` gradient of ``arch`` at full width cut to
-    ``LM_STEP_LAYERS`` layers, kernel path against plain path, in fp32
-    (beside the plain path on fp64 parameters: its own rounding) and in
-    bf16, ``remat="full"`` against ``"none"``, and two bf16 calls giving
-    the same bits.  An MoE's aux term must be finite on both paths and
-    agree within ``LM_LOSS_RTOL``.  With ``launches`` the kernel path's
-    calls are driven (their launches counted)."""
+                  launches: dict | None = None,
+                  layers: int | None = LM_STEP_LAYERS,
+                  seq: int | None = None, plain_remat: str = "none") -> None:
+    """Phase 13 (a) (``smollm-360m``), 17 (``granite-moe-3b-a800m``) and
+    21 (a) (``internvl2-1b``, ``whisper-small``): one ``loss_fn`` gradient
+    of ``arch`` at full width cut to ``layers`` layers (None: full depth)
+    on ``LM_STEP_BATCH`` sequences of ``seq`` tokens (default
+    ``LM_PROMPT``; the trainer's batch: a VLM's sinusoidal vision
+    prefix, an encoder-decoder's zero frames), kernel
+    path against plain path, in fp32 (beside the plain path on fp64
+    parameters: its own rounding) and in bf16, ``remat="full"`` against
+    ``"none"``, and two bf16 calls giving the same bits.  An MoE's aux
+    term must be finite on both paths and agree within ``LM_LOSS_RTOL``.
+    With ``launches`` the kernel path's calls are driven (their launches
+    counted).  ``plain_remat="full"`` recomputes the plain path's layers
+    in its backward (the same gradients), so that its dense attention
+    scores are kept one layer at a time; an MoE's runs keep "none", since
+    a recomputed forward would route, and log its routing, again."""
     import torch
 
     from repro_torch.configs import get_config
@@ -1260,20 +1355,23 @@ def lm_grad_check(dev, card: str, arch: str = LM_ARCH,
     from repro_torch.tree import leaves_with_paths, tree_map
 
     full = get_config(arch)
-    cfg32 = dataclasses.replace(full, dtype="float32",
-                                n_layers=LM_STEP_LAYERS)
-    cfg16 = dataclasses.replace(full, n_layers=LM_STEP_LAYERS)
+    depth = layers or full.n_layers
+    seq = seq or LM_PROMPT
+    cfg32 = dataclasses.replace(full, dtype="float32", n_layers=depth)
+    cfg16 = dataclasses.replace(full, n_layers=depth)
     plain = DispatchConfig(path="reference")
     params32 = build_model(cfg32).init_params(
         torch.Generator(device=dev).manual_seed(0), dev)
     batch = train.to_model_batch(full, next(token_iterator(
-        0, LM_STEP_BATCH, LM_PROMPT, full.vocab_size)), dev)
+        0, LM_STEP_BATCH, seq, full.vocab_size)), dev)
 
     label = f"lm grad ({arch})"
     peak = [0.0]
 
     def grads(cfg, params, dispatch=None, remat="none", routing=None,
               force=None):
+        if dispatch is not None:
+            remat = plain_remat
         model = build_model(cfg, remat=remat, dispatch=dispatch)
         metrics = {}
 
@@ -1326,7 +1424,7 @@ def lm_grad_check(dev, card: str, arch: str = LM_ARCH,
         else kern
     flipped = sum(int((a[0] != b[0]).any(-1).sum())
                   for a, b in zip(own_log, moe_log or ()))
-    n_attn = sum(m == "attn" for m, _ in T.layer_kinds(cfg32))
+    n_attn = attn_calls(cfg32)
     if (kern["fwd"], kern["bwd"], ref["fwd"], ref["bwd"]) \
             != (n_attn, n_attn, 0, 0):
         fail(f"lm grad fp32: attention launches {kern['fwd']}/{kern['bwd']}"
@@ -1369,8 +1467,8 @@ def lm_grad_check(dev, card: str, arch: str = LM_ARCH,
     if not (remat["loss"] == own["loss"] and remat_err <= LM_REMAT_RTOL):
         fail(f"lm grad remat=full: loss {remat['loss']} vs {own['loss']}, "
              f"gradients differ by {remat_err:.3e} of their largest entry")
-    log(f"{label} fp32, full width, {LM_STEP_LAYERS} layers, "
-        f"batch {LM_STEP_BATCH}, seq {LM_PROMPT} [{card}]: loss "
+    log(f"{label} fp32, full width, {depth} layers, "
+        f"batch {LM_STEP_BATCH}, seq {seq} [{card}]: loss "
         f"{kern['loss']:.6f} (kernel) vs {ref['loss']:.6f} (plain), aux "
         f"{kern['aux']:.6f} vs {ref['aux']:.6f}"
         + (f" (the kernel path given the plain path's expert choices; on "
@@ -1554,7 +1652,6 @@ def moe_serving_phase(dev, card: str, launches: dict) -> None:
     import torch
 
     from repro_torch.configs import get_config
-    from repro_torch.launch import serve
     from repro_torch.models.registry import build_model
 
     cfg16 = get_config(MOE_ARCH)
@@ -1578,17 +1675,7 @@ def moe_serving_phase(dev, card: str, launches: dict) -> None:
                                                {"tokens": tok}), MOE_RANGES)
     del params, cache, model
     torch.cuda.empty_cache()
-    report = drive(f"serve lm {MOE_ARCH}", (), launches,
-                   lambda: serve.main(["--arch", MOE_ARCH, "--requests",
-                                       str(LM_SERVE_REQUESTS)]))
-    if report["completed"] != LM_SERVE_REQUESTS \
-            or report["decode_tokens"] <= 0:
-        fail(f"serve lm {MOE_ARCH}: completed {report['completed']} of "
-             f"{LM_SERVE_REQUESTS}")
-    log(f"serve lm ({MOE_ARCH}, bf16, batch 4, ctx 256, "
-        f"{LM_SERVE_REQUESTS} requests) [{card}]: "
-        f"{report['decode_tokens']} decode tokens in {report['wall_s']:.3f} "
-        f"s = {report['tokens_per_s']:.1f} tokens/s")
+    serve_phase(MOE_ARCH, card, launches)
     torch.cuda.empty_cache()
 
 
@@ -1672,6 +1759,517 @@ def moe_cut_phase(arch: str, layers: int, prompt: int, decode: int, dev,
                      MOE_RANGES)
     del params, model
     torch.cuda.empty_cache()
+
+
+def rwkv_phase(dev, card: str, launches: dict) -> None:
+    """Phase 18: full ``rwkv6-7b`` (32 layers, random weights from seed 0,
+    drawn in fp32): LM_BATCH prompts of LM_PROMPT tokens, then RWKV_DECODE
+    decode steps fed the next tokens, held against ``forward`` over all
+    LM_PROMPT + RWKV_DECODE tokens within LM_RTOL of the largest |logit|,
+    every state leaf finite; then bf16 from the same weights (cast leaf by
+    leaf): its relative-norm error against fp32 printed, and two gates
+    (:func:`rwkv_bf16_gate`, RWKV_GATE_TOKENS at full depth and
+    RWKV_GATE_LAYERS layers over the prompt); tokens/s, a profiled bf16
+    prefill and decode step (the WKV scan's range against the products
+    and the rest); then ``serve --arch rwkv6-7b``."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.registry import build_model
+    from repro_torch.tree import leaves, leaves_with_paths, tree_map
+
+    def cut(p, layers):  # the first ``layers`` layers, as views
+        return {**p, "blocks": tree_map(lambda x: x[:layers], p["blocks"])}
+
+    cfg16 = get_config(RWKV_ARCH)
+    cfg32 = dataclasses.replace(cfg16, dtype="float32")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = build_model(cfg32).init_params(gen, dev)
+    n = sum(x.numel() for x in leaves(params))
+    total = LM_PROMPT + RWKV_DECODE
+    tokens = torch.randint(0, cfg16.vocab_size, (LM_BATCH, total),
+                           generator=gen, device=dev)
+    prompts, feed = tokens[:, :LM_PROMPT], tokens[:, LM_PROMPT:]
+    model = build_model(cfg32)
+    with torch.inference_mode():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        full, _ = model.forward(params, {"tokens": tokens})
+        torch.cuda.synchronize()
+        fwd_s = time.perf_counter() - t0
+        want = full[:, LM_PROMPT - 1:].clone()
+        want_head = full[:, :RWKV_GATE_TOKENS].clone()
+        del full
+        cfg_cut = dataclasses.replace(cfg32, n_layers=RWKV_GATE_LAYERS)
+        want_cut, _ = build_model(cfg_cut).forward(
+            cut(params, RWKV_GATE_LAYERS), {"tokens": prompts})
+    r32 = drive(f"{RWKV_ARCH} fp32", (), launches,
+                lambda: lm_run(model, params, prompts, RWKV_DECODE, feed))
+    got = r32["logits"]
+    err, scale = float((got - want).abs().max()), float(want.abs().max())
+    bad = [p for p, x in leaves_with_paths(r32["cache"])
+           if x.is_floating_point() and not bool(torch.isfinite(x).all())]
+    if not (bool(torch.isfinite(got).all()) and err <= LM_RTOL * scale) \
+            or bad:
+        fail(f"{RWKV_ARCH} fp32: prefill + {RWKV_DECODE} decode steps "
+             f"against forward over {total} tokens: max abs err {err:.3e} "
+             f"(> {LM_RTOL} × {scale:.3e}?), non-finite states {bad}")
+    log(f"{RWKV_ARCH} fp32, {n / 1e9:.3f} B parameters "
+        f"({n * 4 / 2 ** 30:.2f} GiB), batch {LM_BATCH}, prompt "
+        f"{LM_PROMPT}, {RWKV_DECODE} decode steps [{card}]: logits against "
+        f"forward over {total} tokens max abs err {err:.3e} of max |logit| "
+        f"{scale:.3e} ({err / scale:.2e} relative); every state leaf "
+        f"finite; forward {fwd_s * 1e3:.1f} ms, prefill "
+        f"{r32['prefill_s'] * 1e3:.1f} ms, decode "
+        f"{r32['decode_s'] / RWKV_DECODE * 1e3:.2f} ms a step")
+    del r32, model
+    cast_in_place(params, torch.bfloat16)
+    torch.cuda.empty_cache()
+    model = build_model(cfg16)
+    r16 = drive(f"{RWKV_ARCH} bf16", (), launches,
+                lambda: lm_run(model, params, prompts, RWKV_DECODE, feed))
+    rel = float((r16["logits"] - want).norm() / want.norm())
+    if not bool(torch.isfinite(r16["logits"]).all()):
+        fail(f"{RWKV_ARCH} bf16: non-finite logits")
+    agree = int((r16["logits"].argmax(-1) == want.argmax(-1)).sum())
+    positions = want.shape[0] * want.shape[1]
+    rwkv_bf16_gate(f"{RWKV_ARCH} bf16, {cfg16.n_layers} layers, first "
+                   f"{RWKV_GATE_TOKENS} tokens", cfg16, params,
+                   prompts[:, :RWKV_GATE_TOKENS], want_head, card)
+    rwkv_bf16_gate(f"{RWKV_ARCH} bf16, first {RWKV_GATE_LAYERS} layers, "
+                   f"{LM_PROMPT} tokens",
+                   dataclasses.replace(cfg16, n_layers=RWKV_GATE_LAYERS),
+                   cut(params, RWKV_GATE_LAYERS), prompts, want_cut, card)
+    del want_head, want_cut
+    log(f"{RWKV_ARCH} bf16 [{card}]: logits' relative-norm error against "
+        f"fp32 {rel:.3e} (prefill's last position and the decode steps), "
+        f"top-1 agrees at {agree} of {positions}; prefill "
+        f"{r16['prefill_s'] * 1e3:.1f} ms = "
+        f"{LM_BATCH * LM_PROMPT / r16['prefill_s']:.0f} tokens/s, decode "
+        f"{r16['decode_s'] * 1e3:.1f} ms for {RWKV_DECODE} steps = "
+        f"{LM_BATCH * RWKV_DECODE / r16['decode_s']:.1f} tokens/s "
+        f"({r16['decode_s'] / RWKV_DECODE * 1e3:.2f} ms a step)")
+    del r16, want
+    with torch.inference_mode():
+        profile_step(f"{RWKV_ARCH} bf16 prefill", lambda: model.prefill(
+            params, {"tokens": prompts}), RWKV_RANGES)
+        _, cache = model.prefill(params, {"tokens": prompts})
+        profile_step(f"{RWKV_ARCH} bf16 decode step", lambda: model.decode_step(
+            params, cache, {"tokens": feed[:, :1]}), RWKV_RANGES)
+    del params, cache, model
+    torch.cuda.empty_cache()
+    serve_phase(RWKV_ARCH, card, launches, FAMILY_SERVE_REQUESTS)
+
+
+def rwkv_bf16_gate(label: str, cfg16, params, tokens, want,
+                   card: str) -> None:
+    """The bf16 ``forward`` over ``tokens`` on the chunked scan and on the
+    plain scan (``reference`` dispatch: the one-step recurrence), each
+    against the fp32 logits ``want``: the chunked scan's relative-norm
+    error at most BF16_FACTOR × the plain scan's."""
+    import torch
+
+    from repro_torch.core.dispatch import DispatchConfig
+    from repro_torch.models.registry import build_model
+
+    errs, secs = [], []
+    with torch.inference_mode():
+        for dispatch in (None, DispatchConfig(path="reference")):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got, _ = build_model(cfg16, dispatch=dispatch).forward(
+                params, {"tokens": tokens})
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+            if not bool(torch.isfinite(got).all()):
+                fail(f"{label}: non-finite logits "
+                     f"({'plain' if dispatch else 'chunked'} scan)")
+            errs.append(float((got.float() - want).norm() / want.norm()))
+            del got
+    if not errs[0] <= BF16_FACTOR * errs[1]:
+        fail(f"{label}: the chunked scan's logit error against fp32 "
+             f"{errs[0]:.3e} > {BF16_FACTOR} × the plain scan's {errs[1]:.3e}"
+             f" (relative norm)")
+    log(f"{label} [{card}]: logits' relative-norm error against fp32 "
+        f"{errs[0]:.3e} (chunked scan) vs {errs[1]:.3e} (plain scan), "
+        f"within {BF16_FACTOR} ×; forward {secs[0] * 1e3:.1f} / "
+        f"{secs[1] * 1e3:.1f} ms")
+
+
+def serve_phase(arch: str, card: str, launches: dict,
+                requests: int = LM_SERVE_REQUESTS) -> None:
+    """``serve --arch`` at the reference's defaults but ``requests``
+    requests: all completed."""
+    from repro_torch.launch import serve
+
+    report = drive(f"serve lm {arch}", (), launches,
+                   lambda: serve.main(["--arch", arch, "--requests",
+                                       str(requests)]))
+    if report["completed"] != requests or report["decode_tokens"] <= 0:
+        fail(f"serve lm {arch}: completed {report['completed']} of "
+             f"{requests}")
+    log(f"serve lm ({arch}, bf16, batch 4, ctx 256, {requests} "
+        f"requests) [{card}]: {report['decode_tokens']} decode tokens in "
+        f"{report['wall_s']:.3f} s = {report['tokens_per_s']:.1f} tokens/s")
+
+
+def vlm_phase(dev, card: str, launches: dict) -> None:
+    """Phase 19: full ``internvl2-1b`` (24 layers, random weights from seed
+    0): each of LM_BATCH prompts one random VLM_IMAGE² image, encoded by
+    the ``block_dct`` kernel (``coefficient_patches``) into its 256 vision
+    embeddings through ``fold_patch_embed`` of a random patch projection,
+    then LM_PROMPT - 256 tokens; the fp32 logits on that prefix within
+    VLM_FOLD_RTOL of those on the pixel patch embedding
+    (``unfold_patches_to_blocks @ w``); then ``lm_gates`` on the JPEG
+    prefix, a profiled bf16 prefill, and ``serve --arch internvl2-1b``."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import transform_linear as tl
+    from repro_torch.models.registry import build_model
+
+    cfg16 = get_config(VLM_ARCH)
+    cfg32 = dataclasses.replace(cfg16, dtype="float32")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = build_model(cfg32).init_params(gen, dev)
+    sv, ch = cfg16.vision_prefix_len, 3
+    prompts = torch.randint(0, cfg16.vocab_size, (LM_BATCH, LM_PROMPT - sv),
+                            generator=gen, device=dev)
+    images = torch.randn((LM_BATCH, ch, VLM_IMAGE, VLM_IMAGE), generator=gen,
+                         device=dev) * 0.3
+    w = torch.randn((ch * PATCH * PATCH, cfg16.d_model), generator=gen,
+                    device=dev) * 0.02
+    model = build_model(cfg32)
+
+    def jpeg_prefix():
+        with torch.inference_mode():
+            vis = tl.coefficient_patches(images, PATCH, 50) @ \
+                tl.fold_patch_embed(w, PATCH, ch, quality=50, scaled=True)
+            logits, _ = model.forward(params, {"tokens": prompts,
+                                               "vision_embeds": vis})
+        return vis, logits
+
+    vis, jpeg_logits = drive(f"{VLM_ARCH} JPEG-domain vision prefix",
+                             ("block_dct", "flash_attention"), launches,
+                             jpeg_prefix)
+    if vis.shape != (LM_BATCH, sv, cfg16.d_model):
+        fail(f"{VLM_ARCH}: vision prefix of shape {tuple(vis.shape)}")
+    with torch.inference_mode():
+        pixel = tl.unfold_patches_to_blocks(images, PATCH) @ w
+        pixel_logits, _ = model.forward(params, {"tokens": prompts,
+                                                 "vision_embeds": pixel})
+    err = compare(f"{VLM_ARCH} logits on the JPEG-domain prefix against the "
+                  f"pixel one", jpeg_logits, pixel_logits, VLM_FOLD_RTOL)
+    e_emb = float((vis - pixel).abs().max())
+    log(f"{VLM_ARCH} fp32, {LM_BATCH} images of {VLM_IMAGE}² through "
+        f"block_dct and fold_patch_embed (patch {PATCH}, q50) [{card}]: "
+        f"embeddings max abs err {e_emb:.3e} of "
+        f"{float(pixel.abs().max()):.4f}; logits max abs err {err:.3e} of "
+        f"max |logit| {float(pixel_logits.abs().max()):.3e}")
+    del jpeg_logits, pixel_logits, pixel, model
+    torch.cuda.empty_cache()
+    lm_gates(VLM_ARCH, cfg16, params, prompts, LM_DECODE, card, launches,
+             vision=vis)
+    model = build_model(cfg16)
+    with torch.inference_mode():
+        profile_step(f"{VLM_ARCH} bf16 prefill (kernel path)",
+                     lambda: model.prefill(params, {"tokens": prompts,
+                                                    "vision_embeds": vis},
+                                           pad_to=LM_PROMPT + LM_DECODE))
+    del params, model, vis
+    torch.cuda.empty_cache()
+    serve_phase(VLM_ARCH, card, launches, FAMILY_SERVE_REQUESTS)
+
+
+def audio_phase(dev, card: str, launches: dict) -> None:
+    """Phase 20: full ``whisper-small`` (12 + 12 layers, random weights from
+    seed 0) on LM_BATCH × WHISPER_FRAMES random frames and WHISPER_TOKENS
+    decoder tokens: the encoder (``prefill``) and the whole ``forward`` on
+    the kernel path against the plain path, fp32 within LM_RTOL of the
+    largest |value|, bf16 at most BF16_FACTOR × the bf16 plain path's
+    error against fp32 (one flash-attention launch an encoder layer, and
+    two a decoder layer); LM_DECODE decode steps from index 0 against a
+    cross cache written from the kernel path's encoder output
+    (``cross_cache``), equal to ``forward``'s first positions within
+    LM_RTOL and launching no kernel; a profiled bf16 forward; then
+    ``serve --arch whisper-small`` (decoding against the zero cross cache,
+    as the reference's server does)."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.dispatch import DispatchConfig
+    from repro_torch.kernels import flash_attention as kfa
+    from repro_torch.models import transformer as T
+    from repro_torch.models.registry import build_model
+
+    cfg16 = get_config(AUDIO_ARCH)
+    cfg32 = dataclasses.replace(cfg16, dtype="float32")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = build_model(cfg32).init_params(gen, dev)
+    frames = torch.randn((LM_BATCH, WHISPER_FRAMES, cfg16.d_model),
+                         generator=gen, device=dev)
+    tokens = torch.randint(0, cfg16.vocab_size, (LM_BATCH, WHISPER_TOKENS),
+                           generator=gen, device=dev)
+    n_enc, n_all = cfg16.n_encoder_layers, attn_calls(cfg16)
+
+    def run(cfg, dispatch=None):
+        model = build_model(cfg, dispatch=dispatch)
+        with torch.inference_mode():
+            torch.cuda.synchronize()
+            n0, t0 = kfa.LAUNCHES, time.perf_counter()
+            enc, cache = model.prefill(params, {"frames": frames})
+            torch.cuda.synchronize()
+            n1, t1 = kfa.LAUNCHES, time.perf_counter()
+            logits, _ = model.forward(params, {"tokens": tokens,
+                                               "frames": frames})
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+        if cache is not None:
+            fail(f"{AUDIO_ARCH}: prefill returned a cache")
+        return {"enc": enc, "logits": logits, "enc_s": t1 - t0,
+                "fwd_s": t2 - t1, "launches": (n1 - n0, kfa.LAUNCHES - n1)}
+
+    def kernel(label, cfg):
+        out = drive(label, ("flash_attention",), launches, lambda: run(cfg))
+        if out["launches"] != (n_enc, n_all):
+            fail(f"{label}: flash_attention launches {out['launches']} "
+                 f"(encoder, forward), want {(n_enc, n_all)}")
+        return out
+
+    def decode(cfg, enc, steps):
+        model = build_model(cfg)
+        with torch.inference_mode():
+            cache = model.init_cache(LM_BATCH, WHISPER_TOKENS, dev)
+            cache["cross"] = T.cross_cache(params, cfg, enc)
+            torch.cuda.synchronize()
+            n0, t0 = kfa.LAUNCHES, time.perf_counter()
+            out = []
+            for i in range(steps):
+                step, cache = model.decode_step(
+                    params, cache, {"tokens": tokens[:, i:i + 1]})
+                out.append(step[:, 0])
+            torch.cuda.synchronize()
+        if kfa.LAUNCHES != n0:
+            fail(f"{AUDIO_ARCH}: decode launched the flash-attention kernel")
+        return torch.stack(out, 1), time.perf_counter() - t0
+
+    plain = DispatchConfig(path="reference")
+    p32 = run(cfg32, plain)
+    if p32["launches"] != (0, 0):
+        fail(f"{AUDIO_ARCH}: the plain path launched the kernel")
+    k32 = kernel(f"{AUDIO_ARCH} fp32 (kernel path)", cfg32)
+    errs = []
+    for key in ("enc", "logits"):
+        want, got = p32[key], k32[key]
+        e, sc = float((got - want).abs().max()), float(want.abs().max())
+        if not (bool(torch.isfinite(got).all()) and e <= LM_RTOL * sc):
+            fail(f"{AUDIO_ARCH} fp32 {key}: kernel path differs by {e:.3e} "
+                 f"(> {LM_RTOL} × {sc:.3e})")
+        errs.append(f"{key} {e:.3e} of {sc:.3e}")
+    dec, dec_s = decode(cfg32, k32["enc"], LM_DECODE)
+    want = k32["logits"][:, :LM_DECODE]
+    e_dec, sc = float((dec - want).abs().max()), float(want.abs().max())
+    if not e_dec <= LM_RTOL * sc:
+        fail(f"{AUDIO_ARCH} fp32: {LM_DECODE} decode steps against forward "
+             f"differ by {e_dec:.3e} (> {LM_RTOL} × {sc:.3e})")
+    log(f"{AUDIO_ARCH} fp32, batch {LM_BATCH}, {WHISPER_FRAMES} frames, "
+        f"{WHISPER_TOKENS} tokens [{card}]: kernel path against plain path, "
+        f"max abs err {', '.join(errs)}; {LM_DECODE} decode steps against "
+        f"the cross cache of the encoder output vs forward: max abs err "
+        f"{e_dec:.3e} of {sc:.3e}; kernel path encoder "
+        f"{k32['enc_s'] * 1e3:.1f} ms, forward {k32['fwd_s'] * 1e3:.1f} ms; "
+        f"plain path {p32['enc_s'] * 1e3:.1f} and "
+        f"{p32['fwd_s'] * 1e3:.1f} ms")
+    del k32, dec, want
+    cast_in_place(params, torch.bfloat16)
+    torch.cuda.empty_cache()
+    p16 = run(cfg16, plain)
+    k16 = kernel(f"{AUDIO_ARCH} bf16 (kernel path)", cfg16)
+    errs = []
+    for key in ("enc", "logits"):
+        e_k = float((k16[key].float() - p32[key]).abs().max())
+        e_p = float((p16[key].float() - p32[key]).abs().max())
+        if not (bool(torch.isfinite(k16[key]).all())
+                and e_k <= BF16_FACTOR * e_p):
+            fail(f"{AUDIO_ARCH} bf16 {key}: kernel path's error {e_k:.3e} "
+                 f"against the fp32 plain path > {BF16_FACTOR} × the bf16 "
+                 f"plain path's {e_p:.3e}")
+        errs.append(f"{key} {e_k:.3e} (kernel) vs {e_p:.3e} (plain)")
+    dec16, dec16_s = decode(cfg16, k16["enc"], LM_DECODE)
+    e16 = float((dec16.float() - p32["logits"][:, :LM_DECODE]).abs().max())
+    log(f"{AUDIO_ARCH} bf16 [{card}]: error against the fp32 plain path "
+        f"{', '.join(errs)}; encoder {k16['enc_s'] * 1e3:.1f} ms = "
+        f"{LM_BATCH * WHISPER_FRAMES / k16['enc_s']:.0f} frames/s, forward "
+        f"{k16['fwd_s'] * 1e3:.1f} ms = "
+        f"{LM_BATCH * WHISPER_TOKENS / k16['fwd_s']:.0f} decoder tokens/s; "
+        f"decode {dec16_s / LM_DECODE * 1e3:.2f} ms a step = "
+        f"{LM_BATCH * LM_DECODE / dec16_s:.1f} tokens/s (logits max abs err "
+        f"{e16:.3e} against fp32); plain path encoder "
+        f"{p16['enc_s'] * 1e3:.1f} ms, forward {p16['fwd_s'] * 1e3:.1f} ms")
+    del p16, k16, p32, dec16
+    model = build_model(cfg16)
+    with torch.inference_mode():
+        profile_step(f"{AUDIO_ARCH} bf16 forward (kernel path)",
+                     lambda: model.forward(params, {"tokens": tokens,
+                                                    "frames": frames}))
+    del params, model
+    torch.cuda.empty_cache()
+    serve_phase(AUDIO_ARCH, card, launches, FAMILY_SERVE_REQUESTS)
+
+
+def rwkv_grad_check(dev, card: str) -> None:
+    """Phase 21 (c): one ``loss_fn`` gradient of ``rwkv6-7b`` at full width
+    cut to LM_STEP_LAYERS layers (batch LM_STEP_BATCH × LM_PROMPT), fp32
+    against the same code on fp64 parameters: the loss within
+    LM_LOSS_RTOL, each gradient leaf within max(LM_GRAD_FLOOR,
+    LM_GRAD_FACTOR × its floor) of its largest entry, the floor being the
+    same error of the plain path (``reference`` dispatch: the WKV scan as
+    the one-step recurrence, token by token) over the first RWKV_FLOOR_SEQ
+    tokens of each sequence (the token loop is slow, and its rounding is
+    what the floor measures); then two bf16 calls give the same bits."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.dispatch import DispatchConfig
+    from repro_torch.data.pipeline import token_iterator
+    from repro_torch.launch import train
+    from repro_torch.models import transformer as T
+    from repro_torch.models.registry import build_model
+    from repro_torch.optim import value_and_grad
+    from repro_torch.tree import leaves_with_paths, tree_map
+
+    full = get_config(RWKV_ARCH)
+    cfg32 = dataclasses.replace(full, dtype="float32",
+                                n_layers=LM_STEP_LAYERS)
+    cfg16 = dataclasses.replace(full, n_layers=LM_STEP_LAYERS)
+    params = build_model(cfg32).init_params(
+        torch.Generator(device=dev).manual_seed(0), dev)
+    batch = train.to_model_batch(full, next(token_iterator(
+        0, LM_STEP_BATCH, LM_PROMPT, full.vocab_size)), dev)
+
+    def grads(cfg, p, dispatch=None, batch=batch):
+        model = build_model(cfg, dispatch=dispatch)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        loss, g = value_and_grad(lambda q, b: model.loss_fn(q, b)[0], p,
+                                 batch)
+        torch.cuda.synchronize()
+        return {"loss": float(loss), "grads": leaves_with_paths(g),
+                "ms": (time.perf_counter() - t0) * 1e3,
+                "gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+
+    def against_fp64(label, dispatch=None, batch=batch
+                     ) -> tuple[dict, list, list]:
+        """fp32 and fp64 runs of one path → (timings, each leaf's error
+        relative to its largest entry, finiteness)."""
+        a = grads(cfg32, params, dispatch, batch)
+        c = grads(cfg32, tree_map(lambda x: x.double(), params), dispatch,
+                  batch)
+        if not abs(a["loss"] - c["loss"]) <= LM_LOSS_RTOL * abs(c["loss"]):
+            fail(f"{RWKV_ARCH} grad ({label}): fp32 loss {a['loss']} vs "
+                 f"fp64 {c['loss']}")
+        errs = [float((x.double() - y).abs().max()) / float(y.abs().max())
+                for (_, x), (_, y) in zip(a["grads"], c["grads"])]
+        finite = [bool(torch.isfinite(x).all()) for _, x in a["grads"]]
+        info = {"loss": c["loss"], "ms": (a["ms"], c["ms"]),
+                "gib": max(a["gib"], c["gib"]),
+                "paths": [path for path, _ in a["grads"]]}
+        return info, errs, finite
+
+    chunked, errs, finite = against_fp64("chunked scan")
+    plain, floors, _ = against_fp64(
+        "plain scan", DispatchConfig(path="reference"),
+        {k: v[:, :RWKV_FLOOR_SEQ] for k, v in batch.items()})
+    worst = (0.0, 0.0, "")
+    for path, err, floor, ok in zip(chunked["paths"], errs, floors, finite):
+        if not (ok and err <= max(LM_GRAD_FLOOR, LM_GRAD_FACTOR * floor)):
+            fail(f"{RWKV_ARCH} grad fp32: {path} differs from fp64 by "
+                 f"{err:.3e} of its largest entry (> {LM_GRAD_FLOOR} and > "
+                 f"{LM_GRAD_FACTOR} × the plain scan's {floor:.3e}), or is "
+                 f"non-finite")
+        worst = max(worst, (err, floor, path))
+    log(f"{RWKV_ARCH} grad, full width, {LM_STEP_LAYERS} layers, batch "
+        f"{LM_STEP_BATCH}, seq {LM_PROMPT} [{card}]: loss "
+        f"{chunked['loss']:.6f} (fp64), fp32 within {LM_LOSS_RTOL}; worst "
+        f"gradient error against fp64 {worst[0]:.3e} of its largest entry "
+        f"at {worst[2]} (the plain scan's there {worst[1]:.3e}); "
+        f"value_and_grad fp32 / fp64 {chunked['ms'][0]:.1f} / "
+        f"{chunked['ms'][1]:.1f} ms (plain scan over {RWKV_FLOOR_SEQ} "
+        f"tokens {plain['ms'][0]:.1f} / {plain['ms'][1]:.1f} ms), peak {chunked['gib']:.2f} GiB (plain "
+        f"scan {plain['gib']:.2f})")
+    params = T.cast_params(params, torch.bfloat16)
+    torch.cuda.empty_cache()
+    a, b = grads(cfg16, params), grads(cfg16, params)
+    differ = [path for (path, x), (_, y) in zip(a["grads"], b["grads"])
+              if not torch.equal(x.view(torch.int16), y.view(torch.int16))]
+    finite16 = all(bool(torch.isfinite(x).all()) for _, x in a["grads"])
+    if differ or a["loss"] != b["loss"] or not finite16:
+        fail(f"{RWKV_ARCH} grad bf16: two calls differ (loss {a['loss']} vs "
+             f"{b['loss']}, gradients at {differ[:8]}) or non-finite")
+    log(f"{RWKV_ARCH} grad bf16 [{card}]: loss {a['loss']:.6f}, two calls "
+        f"bit-identical, value_and_grad {a['ms']:.1f} / {b['ms']:.1f} ms, "
+        f"peak {a['gib']:.2f} GiB")
+    del a, b, params
+    torch.cuda.empty_cache()
+
+
+def lm_family_train_phase(dev, card: str, launches: dict) -> None:
+    """Phase 21: (a) phase 13 (a)'s gradient check at full depth for
+    ``internvl2-1b`` (batch LM_STEP_BATCH × LM_PROMPT tokens after its
+    sinusoidal vision prefix) and ``whisper-small`` (× WHISPER_TOKENS
+    tokens, zero frames), the plain path's layers recomputed in its
+    backward; (b)
+    ``launch/train.py`` on each for LM_TRAIN_STEPS steps at batch
+    LM_BATCH × LM_PROMPT (whisper: WHISPER_TOKENS): finite losses, the
+    attention forward and backward launched once an attention call a
+    step; (c) :func:`rwkv_grad_check`."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train
+
+    lm_grad_check(dev, card, VLM_ARCH, launches, layers=None,
+                  plain_remat="full")
+    lm_grad_check(dev, card, AUDIO_ARCH, launches, layers=None,
+                  seq=WHISPER_TOKENS, plain_remat="full")
+    for arch, seq in ((AUDIO_ARCH, WHISPER_TOKENS), (VLM_ARCH, LM_PROMPT)):
+        cfg = get_config(arch)
+        ckpt = tempfile.mkdtemp(prefix="chip_smoke_train_family_")
+        argv = ["--arch", arch, "--seq", str(seq), "--batch", str(LM_BATCH),
+                "--steps", str(LM_TRAIN_STEPS), "--ckpt-every", "0",
+                "--log-every", "1", "--ckpt-dir", ckpt, "--seed", "0"]
+        try:
+            result = drive(f"train {arch}", ("flash_attention",
+                                             "flash_attention_bwd"),
+                           launches, lambda: train.main(argv))
+            got = counts()
+        finally:
+            shutil.rmtree(ckpt, ignore_errors=True)
+        want = attn_calls(cfg) * LM_TRAIN_STEPS
+        losses = [v for _, v in result["losses"]]
+        if result["steps_run"] != LM_TRAIN_STEPS \
+                or got["flash_attention"] != want \
+                or got["flash_attention_bwd"] != want \
+                or len(losses) != LM_TRAIN_STEPS \
+                or not all(math.isfinite(v) for v in losses):
+            fail(f"train {arch}: {result['steps_run']} steps, losses "
+                 f"{losses}, attention launches {got['flash_attention']} "
+                 f"forward and {got['flash_attention_bwd']} backward; want "
+                 f"{want} each")
+        step_ms = [t * 1e3 for t in result["step_s"]]
+        steady = statistics.median(step_ms[1:])
+        positions = seq + cfg.vision_prefix_len
+        log(f"train {arch}, full depth, bf16, batch {LM_BATCH}, seq {seq}"
+            + (f" after {cfg.vision_prefix_len} vision positions"
+               if cfg.vision_prefix_len else
+               f" against {cfg.encoder_context_len} frames"
+               if cfg.encoder_decoder else "")
+            + f" [{card}]: step ms {[round(t, 1) for t in step_ms]}, median "
+            f"after the first {steady:.1f} ms = "
+            f"{LM_BATCH * seq / steady * 1e3:.0f} tokens/s "
+            f"({LM_BATCH * positions / steady * 1e3:.0f} decoder positions/s)"
+            f"; losses {losses}; loop wall {result['wall_s']:.2f} s incl. "
+            f"the final checkpoint")
+    rwkv_grad_check(dev, card)
 
 
 def trace_overlap(path: str) -> tuple[float, float, float]:
@@ -2272,12 +2870,7 @@ def conversion_phase(cfg, dev, launches: dict, jpeg_dir: str) -> None:
 
     def folded():
         with torch.inference_mode():
-            c = dsp.block_dct(jpeglib.block_channels_last(images), 50)
-            nb, bh, bw, ch, _ = c.shape
-            pb = PATCH // 8
-            c = c.reshape(nb, bh // pb, pb, bw // pb, pb, ch, 64)
-            c = c.permute(0, 1, 3, 5, 2, 4, 6).reshape(
-                nb, (bh // pb) * (bw // pb), -1)
+            c = tl.coefficient_patches(images, PATCH, 50)
             return c @ tl.fold_patch_embed(w, PATCH, cfg.in_channels,
                                            quality=50, scaled=True)
 
@@ -2696,6 +3289,13 @@ def main() -> None:
         card, launches))
     timed("phase 17", card, lambda: lm_grad_check(dev, card, MOE_ARCH,
                                                   launches))
+
+    # --- phases 18-21: the RWKV, VLM and audio LMs ---------------------------
+    timed("phase 18", card, lambda: rwkv_phase(dev, card, launches))
+    timed("phase 19", card, lambda: vlm_phase(dev, card, launches))
+    timed("phase 20", card, lambda: audio_phase(dev, card, launches))
+    timed("phase 21", card, lambda: lm_family_train_phase(dev, card,
+                                                          launches))
 
     kernels = []
     src = {k: "src/repro_torch/csrc/jpeg_kernels.cu" for k in KERNELS}

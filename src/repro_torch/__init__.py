@@ -2,9 +2,9 @@
 
 Serves ``jpeg-resnet`` from JPEG bytes to logits: the numpy codec on the
 host, then the compiled plan on the device, with the hot loops in hand
-written CUDA kernels (``repro_torch/csrc``); trains it; and serves the
-reference's dense language models (prefill through the flash-attention
-kernel, then decode).  The JPEG path is float32, the LMs run in their
+written CUDA kernels (``repro_torch/csrc``); trains it; and serves and
+trains every language model of the reference (prefill through the
+flash-attention kernel, then decode).  The JPEG path is float32, the LMs run in their
 configured dtype (bf16 or fp32): TF32 is switched off for matmuls and
 convolutions when the package is imported.
 

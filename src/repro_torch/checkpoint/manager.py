@@ -24,6 +24,7 @@ import os
 import shutil
 import threading
 import zipfile
+from concurrent.futures import ThreadPoolExecutor
 from typing import Any
 
 import numpy as np
@@ -59,6 +60,15 @@ def _digest(arr: np.ndarray) -> str:
     return hashlib.sha256(np.ascontiguousarray(arr).data).hexdigest()
 
 
+def _hasher(workers: int | None = None) -> ThreadPoolExecutor:
+    """Threads for the leaves' checksums (hashlib releases the GIL), so
+    they run beside the archive's write or read: up to 8 by default, where
+    the caller waits; an asynchronous save passes 1, since it shares the
+    host with the training steps it overlaps."""
+    return ThreadPoolExecutor(max_workers=workers
+                              or min(8, os.cpu_count() or 1))
+
+
 class CheckpointManager:
     def __init__(self, directory: str, keep: int = 3):
         self.directory = directory
@@ -83,14 +93,16 @@ class CheckpointManager:
                 shutil.rmtree(tmp)
             os.makedirs(tmp)
             manifest = {"step": step, "extra": extra, "leaves": {}}
-            arrays = {}
-            for i, (path, (arr, dtype)) in enumerate(leaves):
-                name = f"leaf_{i}"
-                arrays[name] = arr
-                manifest["leaves"][name] = {
-                    "path": path, "shape": list(arr.shape), "dtype": dtype,
-                    "sha256": _digest(arr)}
-            np.savez(os.path.join(tmp, "arrays.npz"), **arrays)
+            arrays = {f"leaf_{i}": arr for i, (_, (arr, _)) in
+                      enumerate(leaves)}
+            with _hasher(None if blocking else 1) as pool:
+                sums = [pool.submit(_digest, arr) for arr in arrays.values()]
+                np.savez(os.path.join(tmp, "arrays.npz"), **arrays)
+                for (name, arr), (path, (_, dtype)), digest in zip(
+                        arrays.items(), leaves, sums):
+                    manifest["leaves"][name] = {
+                        "path": path, "shape": list(arr.shape),
+                        "dtype": dtype, "sha256": digest.result()}
             with open(os.path.join(tmp, "manifest.json"), "w") as f:
                 json.dump(manifest, f)
                 f.flush()
@@ -136,21 +148,16 @@ class CheckpointManager:
         d = self._dir(step)
         with open(os.path.join(d, "manifest.json")) as f:
             manifest = json.load(f)
-        by_path = {}
-        with np.load(os.path.join(d, "arrays.npz")) as z:
+        by_path, sums = {}, {}
+        with _hasher() as pool, \
+                np.load(os.path.join(d, "arrays.npz")) as z:
             for name, meta in manifest["leaves"].items():
-                arr = z[name]
-                if _digest(arr) != meta["sha256"]:
+                by_path[meta["path"]] = arr = z[name]
+                sums[name] = pool.submit(_digest, arr)
+            for name, meta in manifest["leaves"].items():
+                if sums[name].result() != meta["sha256"]:
                     raise ValueError(f"checksum mismatch in {d}/{name}")
-                by_path[meta["path"]] = arr
         return by_path, manifest
-
-    def _valid(self, step: int) -> bool:
-        try:
-            self._read(step)
-        except _READ_ERRORS:
-            return False
-        return True
 
     def restore(self, step: int, target_tree: Any
                 ) -> tuple[Any, dict[str, Any]]:
@@ -158,7 +165,12 @@ class CheckpointManager:
         leaf comes back as a tensor on its target leaf's device, in its
         dtype (a bf16 leaf stored widened comes back bit-identical).
         Returns ``(tree, extra)``."""
-        by_path, manifest = self._read(step)
+        return self._place(*self._read(step), step, target_tree)
+
+    @staticmethod
+    def _place(by_path: dict[str, np.ndarray], manifest: dict, step: int,
+               target_tree: Any) -> tuple[Any, dict[str, Any]]:
+        """A step's verified arrays in ``target_tree``'s structure."""
         want = {p for p, _ in leaves_with_paths(target_tree)}
         missing = sorted(want - set(by_path))
         if missing:
@@ -202,8 +214,10 @@ class CheckpointManager:
                        ) -> tuple[int, Any, dict[str, Any]] | None:
         """The newest valid step as ``(step, tree, extra)``, or None.
         Damaged steps are skipped."""
-        for step in reversed(self.steps()):
-            if self._valid(step):
-                tree, extra = self.restore(step, target_tree)
-                return step, tree, extra
+        for step in reversed(self.steps()):  # each step read once
+            try:
+                read = self._read(step)
+            except _READ_ERRORS:
+                continue
+            return (step, *self._place(*read, step, target_tree))
         return None

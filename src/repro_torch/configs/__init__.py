@@ -1,37 +1,35 @@
-"""Model and training configurations of the port: ``jpeg-resnet`` and the
-reference's dense, MoE and hybrid (Mamba) language models (full and
-reduced)."""
+"""Model and training configurations of the port: ``jpeg-resnet`` and every
+language model of the reference (dense, MoE, Mamba hybrid, RWKV, VLM and
+audio; full and reduced)."""
 from __future__ import annotations
 
 import dataclasses
 import importlib
 from typing import Optional
 
-__all__ = ["ModelConfig", "TrainConfig", "ARCHS", "LM_ARCHS", "get_config",
+__all__ = ["ModelConfig", "TrainConfig", "ARCHS", "get_config",
            "reduced_config"]
 
 #: arch → config module of the port
 ARCHS = {"jpeg-resnet": "jpeg_resnet", "granite-3-2b": "granite_3_2b",
          "granite-moe-3b-a800m": "granite_moe_3b_a800m",
+         "internvl2-1b": "internvl2_1b",
          "jamba-v0.1-52b": "jamba_v01_52b",
          "mistral-nemo-12b": "mistral_nemo_12b",
-         "mixtral-8x7b": "mixtral_8x7b",
-         "smollm-360m": "smollm_360m", "starcoder2-3b": "starcoder2_3b"}
-
-#: the reference's language-model archs not ported yet → the ROADMAP Queue 1
-#: item that holds them
-LM_ARCHS = {"rwkv6-7b": "7.4", "internvl2-1b": "7.5",
-            "whisper-small": "7.5"}
+         "mixtral-8x7b": "mixtral_8x7b", "rwkv6-7b": "rwkv6_7b",
+         "smollm-360m": "smollm_360m", "starcoder2-3b": "starcoder2_3b",
+         "whisper-small": "whisper_small"}
 
 
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     """The reference's ``repro/configs/base.py:ModelConfig`` fields that the
-    port reads: the LM fields (dense, MoE, Mamba hybrid) and the
-    jpeg-resnet ones, same defaults."""
+    port reads: the LM fields of every family and the jpeg-resnet ones,
+    same defaults."""
 
     name: str
-    family: str = "jpeg_resnet"  # dense | moe | hybrid | jpeg_resnet
+    #: dense | moe | vlm | hybrid | ssm | audio | jpeg_resnet
+    family: str = "jpeg_resnet"
     n_layers: int = 0
     d_model: int = 0
     n_heads: int = 0
@@ -56,6 +54,14 @@ class ModelConfig:
     d_state: int = 16
     d_conv: int = 4
     expand: int = 2
+    rwkv_head_size: int = 64
+    # --- encoder-decoder / multimodal ---
+    encoder_decoder: bool = False
+    n_encoder_layers: int = 0
+    cross_attention: bool = False
+    vision_prefix_len: int = 0  # patch embeddings prepended to the tokens
+    frontend_stub: bool = False  # inputs are precomputed frame embeddings
+    encoder_context_len: int = 1500  # encoder output length for decode
     # --- jpeg-resnet ---
     image_size: int = 32
     in_channels: int = 3
@@ -99,11 +105,6 @@ class TrainConfig:
 
 
 def _module(arch: str):
-    if arch in LM_ARCHS:
-        raise NotImplementedError(
-            f"{arch!r} is a language model of the reference package that "
-            f"the port does not run yet (ROADMAP Queue 1 item "
-            f"{LM_ARCHS[arch]}); it runs {', '.join(sorted(ARCHS))}")
     if arch not in ARCHS:
         raise KeyError(f"unknown arch {arch!r}; the port runs "
                        f"{', '.join(sorted(ARCHS))}")

@@ -10,7 +10,7 @@ def full() -> ModelConfig:
     return ModelConfig(
         name="jpeg-resnet", family="jpeg_resnet", image_size=256,
         in_channels=3, widths=(64, 128, 256, 512), blocks_per_stage=2,
-        num_classes=1000, asm_phi=14,
+        num_classes=1000, asm_phi=14, dtype="float32",
         source="[arXiv:1812.11690] scaled-up paper Fig. 3")
 
 
@@ -18,7 +18,8 @@ def reduced() -> ModelConfig:
     return ModelConfig(
         name="jpeg-resnet-reduced", family="jpeg_resnet", image_size=32,
         in_channels=3, widths=(16, 32, 64), blocks_per_stage=1,
-        num_classes=10, asm_phi=14, source="[arXiv:1812.11690] paper Fig. 3")
+        num_classes=10, asm_phi=14, dtype="float32",
+        source="[arXiv:1812.11690] paper Fig. 3")
 
 
 def spec_of(cfg: ModelConfig):

@@ -6,14 +6,20 @@ layer reads codec coefficients directly.  :func:`fold_patch_embed` folds
 JPEG decoding into a ViT patch embedding (patch a multiple of 8; exact);
 :func:`fold_frontend` folds any orthonormal analysis map into the layer
 after it.  Both return tensors to use as drop-in weights.
+:func:`coefficient_patches` lays an image batch's block-DCT coefficients
+(the ``block_dct`` kernel on a CUDA tensor) out per patch, the input
+:func:`fold_patch_embed`'s weight reads.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.core import dct as dctlib
+from repro_torch.core import dispatch as dsp
+from repro_torch.core import jpeg as jpeglib
 
-__all__ = ["fold_patch_embed", "unfold_patches_to_blocks", "fold_frontend"]
+__all__ = ["fold_patch_embed", "unfold_patches_to_blocks", "fold_frontend",
+           "coefficient_patches"]
 
 
 def fold_frontend(analysis: torch.Tensor,
@@ -61,3 +67,17 @@ def unfold_patches_to_blocks(images: torch.Tensor,
     x = x.movedim(4, 3)  # (n, c, gh, gw, P, P)
     x = x.movedim(1, 3)  # (n, gh, gw, c, P, P)
     return x.reshape(n, gh * gw, c * patch * patch)
+
+
+def coefficient_patches(images: torch.Tensor, patch: int,
+                        quality: int = 50) -> torch.Tensor:
+    """``(N, C, H, W)`` pixels → ``(N, n_patches, C·(P/8)²·64)``: each
+    8×8 block's zigzag DCT coefficients, divided by ``quality``'s table
+    (``core.dispatch.block_dct``: the kernel on a CUDA tensor), laid out
+    per patch as ``(C, P/8, P/8, 64)`` in row-major patch order."""
+    coef = dsp.block_dct(jpeglib.block_channels_last(images), quality)
+    n, bh, bw, c, nf = coef.shape
+    pb = patch // dctlib.BLOCK
+    x = coef.reshape(n, bh // pb, pb, bw // pb, pb, c, nf)
+    x = x.permute(0, 1, 3, 5, 2, 4, 6)  # (n, gh, gw, c, pb, pb, 64)
+    return x.reshape(n, (bh // pb) * (bw // pb), c * pb * pb * nf)

@@ -386,6 +386,16 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
+// a, b ≈ hi + lo as two bf16 pairs (each rounded to nearest even): hi
+// keeps 8 significant bits, lo the next 8, so a product split in two
+// carries P or dS to ~2^-17 where one bf16 operand would carry 2^-9
+__device__ __forceinline__ void split_bf16(float a, float b, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = pack_bf16(a, b);
+  lo = pack_bf16(a - __uint_as_float(hi << 16),
+                 b - __uint_as_float(hi & 0xffff0000u));
+}
+
 // 2^x on the special-function unit (one MUFU op; 2^-inf = 0)
 __device__ __forceinline__ float ex2(float x) {
   float y;
@@ -404,6 +414,7 @@ __global__ void __launch_bounds__(TcShape<HD>::THREADS, TcShape<HD>::MINB)
                               const bf16* __restrict__ k,
                               const bf16* __restrict__ v,
                               bf16* __restrict__ out,
+                              bf16* __restrict__ out_lo,
                               float* __restrict__ lse, int S, int Tn, int H,
                               int KVH, int causal, int window, int q_offset,
                               float scale_log2) {
@@ -658,11 +669,15 @@ __global__ void __launch_bounds__(TcShape<HD>::THREADS, TcShape<HD>::MINB)
       const int row = wrow + 16 * mt + 8 * r + g;
       if (row >= S) continue;
       const float inv = l[2 * mt + r];
-      bf16* orow = ob + (long long)row * q_stride + 2 * tq;
+      const long long at = (long long)row * q_stride + 2 * tq;
 #pragma unroll
-      for (int j = 0; j < NT; ++j)
-        *reinterpret_cast<uint32_t*>(orow + 8 * j) =
-            pack_bf16(o[mt][j][2 * r] * inv, o[mt][j][2 * r + 1] * inv);
+      for (int j = 0; j < NT; ++j) {
+        uint32_t hi, lo;  // out_lo: the part of O that bf16 rounds away
+        split_bf16(o[mt][j][2 * r] * inv, o[mt][j][2 * r + 1] * inv, hi, lo);
+        *reinterpret_cast<uint32_t*>(ob + at + 8 * j) = hi;
+        if (out_lo != nullptr)
+          *reinterpret_cast<uint32_t*>(out_lo + (ob - out) + at + 8 * j) = lo;
+      }
     }
 }
 
@@ -841,8 +856,9 @@ __device__ __forceinline__ void softmax_grad(
 // thread, so a warp's loads are contiguous; a shuffle tree in the group
 template <typename T, int HD>
 __global__ void __launch_bounds__(BW_THREADS) attn_bwd_preprocess_kernel(
-    const T* __restrict__ out, const T* __restrict__ dout,
-    float* __restrict__ delta, int S, int H, long long rows) {
+    const T* __restrict__ out, const T* __restrict__ out_lo,
+    const T* __restrict__ dout, float* __restrict__ delta, int S, int H,
+    long long rows) {
   constexpr int E = 16 / (int)sizeof(T);  // elements a thread
   constexpr int L = HD / E;               // threads a row
   static_assert(L <= 32 && 32 % L == 0, "a row's threads share a warp");
@@ -852,7 +868,11 @@ __global__ void __launch_bounds__(BW_THREADS) attn_bwd_preprocess_kernel(
   if (r < rows) {  // r = (b·S + i)·H + h
 #pragma unroll
     for (int e = 0; e < E; e += 4) {
-      const float4 x = ld4(out + r * HD + c * E + e);
+      float4 x = ld4(out + r * HD + c * E + e);
+      if (out_lo != nullptr) {  // O = hi + lo: D without O's bf16 rounding
+        const float4 z = ld4(out_lo + r * HD + c * E + e);
+        x = make_float4(x.x + z.x, x.y + z.y, x.z + z.z, x.w + z.w);
+      }
       const float4 y = ld4(dout + r * HD + c * E + e);
       acc = fmaf(x.x, y.x, acc);
       acc = fmaf(x.y, y.y, acc);
@@ -1165,16 +1185,6 @@ __device__ __forceinline__ float lse_log2(const float* lse, long long row,
                                           bool in) {
   const float l = in ? lse[row] : INFINITY;
   return l == -INFINITY ? INFINITY : l * LOG2E;
-}
-
-// a, b ≈ hi + lo as two bf16 pairs (each rounded to nearest even): hi
-// keeps 8 significant bits, lo the next 8, so a product split in two
-// carries P or dS to ~2^-17 where one bf16 operand would carry 2^-9
-__device__ __forceinline__ void split_bf16(float a, float b, uint32_t& hi,
-                                           uint32_t& lo) {
-  hi = pack_bf16(a, b);
-  lo = pack_bf16(a - __uint_as_float(hi << 16),
-                 b - __uint_as_float(hi & 0xffff0000u));
 }
 
 // Fragment layouts as in flash_attention_tc_kernel.  Keys are the M
@@ -1699,8 +1709,9 @@ int launch_fp32(const void* q, const void* k, const void* v, void* out,
 
 template <int HD>
 int launch_bf16(const void* q, const void* k, const void* v, void* out,
-                float* lse, int b, int s, int t, int h, int kvh, int causal,
-                int window, int q_offset, float scale, cudaStream_t stream) {
+                void* out_lo, float* lse, int b, int s, int t, int h, int kvh,
+                int causal, int window, int q_offset, float scale,
+                cudaStream_t stream) {
   constexpr int bytes = tc_smem_bytes<HD>();
   const cudaError_t err = cudaFuncSetAttribute(
       flash_attention_tc_kernel<HD>,
@@ -1710,8 +1721,9 @@ int launch_bf16(const void* q, const void* k, const void* v, void* out,
   const dim3 grid((unsigned)((s + bq - 1) / bq), (unsigned)h, (unsigned)b);
   flash_attention_tc_kernel<HD><<<grid, threads, bytes, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<bf16*>(out), lse, s, t, h,
-      kvh, causal, window, q_offset, scale * LOG2E);
+      static_cast<const bf16*>(v), static_cast<bf16*>(out),
+      static_cast<bf16*>(out_lo), lse, s, t, h, kvh, causal, window,
+      q_offset, scale * LOG2E);
   return (int)cudaGetLastError();
 }
 
@@ -1719,7 +1731,8 @@ int launch_bf16(const void* q, const void* k, const void* v, void* out,
 // cores, fp32 on FFMA
 template <typename T, int HD>
 int launch_bwd(const void* q, const void* k, const void* v, const void* out,
-               const void* dout, const float* lse, float* delta, void* dq,
+               const void* out_lo, const void* dout, const float* lse,
+               float* delta, void* dq,
                void* dk, void* dv, int b, int s, int t, int h, int kvh,
                int causal, int window, int q_offset, float scale,
                cudaStream_t stream) {
@@ -1734,8 +1747,9 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* out,
     constexpr long long per_row = HD * (long long)sizeof(T) / 16;
     attn_bwd_preprocess_kernel<T, HD>
         <<<(unsigned)((rows * per_row + BW_THREADS - 1) / BW_THREADS),
-           BW_THREADS, 0, stream>>>(static_cast<const T*>(out), dot, delta,
-                                    s, h, rows);
+           BW_THREADS, 0, stream>>>(static_cast<const T*>(out),
+                                    static_cast<const T*>(out_lo), dot,
+                                    delta, s, h, rows);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }
@@ -1804,12 +1818,15 @@ extern "C" {
 // dtype: 0 = float32 (the FFMA kernel), 1 = bfloat16 (the tensor-core
 // kernel), q, k, v and out alike; window <= 0 means no window.  lse, when
 // not null, receives each row's log-sum-exp (fp32, (B, H, S)), which the
-// backward needs; serving passes null.
+// backward needs; serving passes null.  out_lo (bf16 only; null for
+// fp32), when not null, receives what rounding O to bf16 dropped, O − out
+// rounded to bf16, so the backward's D = rowsum(dO ∘ O) sees O to ~2^-17.
 int jk_flash_attention(const void* q, const void* k, const void* v,
-                       void* out, void* lse, int b, int s, int t, int h,
-                       int kvh, int hd, int causal, int window, int q_offset,
-                       float scale, int dtype, void* stream) {
-  if (bad_shape(b, s, t, h, kvh)) return (int)cudaErrorInvalidValue;
+                       void* out, void* out_lo, void* lse, int b, int s,
+                       int t, int h, int kvh, int hd, int causal, int window,
+                       int q_offset, float scale, int dtype, void* stream) {
+  if (bad_shape(b, s, t, h, kvh) || (dtype == 0 && out_lo != nullptr))
+    return (int)cudaErrorInvalidValue;
   if (b == 0 || s == 0) return 0;
   const cudaStream_t st = (cudaStream_t)stream;
   float* l = static_cast<float*>(lse);
@@ -1820,33 +1837,36 @@ int jk_flash_attention(const void* q, const void* k, const void* v,
     return launch_fp32<128>(q, k, v, out, l, b, s, t, h, kvh, causal,
                             window, q_offset, scale, st);
   if (dtype == 1 && hd == 64)
-    return launch_bf16<64>(q, k, v, out, l, b, s, t, h, kvh, causal, window,
-                           q_offset, scale, st);
+    return launch_bf16<64>(q, k, v, out, out_lo, l, b, s, t, h, kvh, causal,
+                           window, q_offset, scale, st);
   if (dtype == 1 && hd == 128)
-    return launch_bf16<128>(q, k, v, out, l, b, s, t, h, kvh, causal,
-                            window, q_offset, scale, st);
+    return launch_bf16<128>(q, k, v, out, out_lo, l, b, s, t, h, kvh,
+                            causal, window, q_offset, scale, st);
   return (int)cudaErrorInvalidValue;
 }
 
 // The gradients of jk_flash_attention given dout (the output's gradient)
-// and the forward's out and lse: dq like q, dk and dv like k, all in the
-// operands' dtype (0 = float32: the FFMA kernels, 1 = bfloat16: the
-// tensor-core kernels); delta is fp32 (B, H, S) scratch.  Three launches
-// on the caller's stream.
+// and the forward's out, out_lo (bf16: required; fp32: null) and lse: dq
+// like q, dk and dv
+// like k, all in the operands' dtype (0 = float32: the FFMA kernels, 1 =
+// bfloat16: the tensor-core kernels); delta is fp32 (B, H, S) scratch.
+// Three launches on the caller's stream.
 int jk_flash_attention_bwd(const void* q, const void* k, const void* v,
-                           const void* out, const void* dout,
-                           const void* lse, void* delta, void* dq, void* dk,
-                           void* dv, int b, int s, int t, int h, int kvh,
-                           int hd, int causal, int window, int q_offset,
-                           float scale, int dtype, void* stream) {
-  if (bad_shape(b, s, t, h, kvh)) return (int)cudaErrorInvalidValue;
+                           const void* out, const void* out_lo,
+                           const void* dout, const void* lse, void* delta,
+                           void* dq, void* dk, void* dv, int b, int s, int t,
+                           int h, int kvh, int hd, int causal, int window,
+                           int q_offset, float scale, int dtype,
+                           void* stream) {
+  if (bad_shape(b, s, t, h, kvh) || ((dtype == 0) != (out_lo == nullptr)))
+    return (int)cudaErrorInvalidValue;
   if (b == 0) return 0;
   const cudaStream_t st = (cudaStream_t)stream;
   const float* l = static_cast<const float*>(lse);
   float* d = static_cast<float*>(delta);
 #define JK_BWD(T, HD)                                                        \
-  return launch_bwd<T, HD>(q, k, v, out, dout, l, d, dq, dk, dv, b, s, t, h, \
-                           kvh, causal, window, q_offset, scale, st)
+  return launch_bwd<T, HD>(q, k, v, out, out_lo, dout, l, d, dq, dk, dv, b, \
+                           s, t, h, kvh, causal, window, q_offset, scale, st)
   if (dtype == 0 && hd == 64) JK_BWD(float, 64);
   if (dtype == 0 && hd == 128) JK_BWD(float, 128);
   if (dtype == 1 && hd == 64) JK_BWD(bf16, 64);

@@ -45,8 +45,8 @@ _SIGNATURES = {
     "jk_banded_conv_smem": [_I, _I, _I],
     "jk_asm": [_P] * 4 + [ctypes.c_longlong, _I, _I, _I, _P],
     "jk_block_matmul": [_P] * 3 + [ctypes.c_longlong, _P],
-    "jk_flash_attention": [_P] * 5 + [_I] * 9 + [_F, _I, _P],
-    "jk_flash_attention_bwd": [_P] * 10 + [_I] * 9 + [_F, _I, _P],
+    "jk_flash_attention": [_P] * 6 + [_I] * 9 + [_F, _I, _P],
+    "jk_flash_attention_bwd": [_P] * 11 + [_I] * 9 + [_F, _I, _P],
 }
 
 

@@ -21,8 +21,12 @@ skip key tiles the masks remove whole.
 The gradient: the reference differentiates ``layers.attention`` with
 XLA's autodiff.  On the card full-sequence attention is the kernel, so
 the port writes the FlashAttention-2 backward by hand (the same ``.cu``):
-the forward saves each row's log-sum-exp, and three launches recompute
-the probabilities from it (D = rowsum(dO ∘ O), then dK/dV, then dQ; no
+the forward saves each row's log-sum-exp (and in bf16 what rounding O to
+bf16 dropped, so that D sees O to ~2^-17: with D taken from the rounded O
+alone, a row's common error shifts every dS of a near-uniform row, and
+the gradients of q and k exceeded 1.5× the bf16 plain path's error at
+whisper's shapes), and three launches recompute the probabilities from
+it (D = rowsum(dO ∘ O), then dK/dV, then dQ; no
 atomics, so two calls give the same bits): bf16 runs all five products on
 the tensor cores (``mma.sync``, P and dS as bf16 hi + lo pairs, so the
 gradients stay within the bf16 plain backward's error), fp32 as fp32
@@ -207,11 +211,13 @@ def attention_backward_plain(q: torch.Tensor, k: torch.Tensor,
                              v: torch.Tensor, out: torch.Tensor,
                              dout: torch.Tensor, lse: torch.Tensor, *,
                              causal: bool = True, window: int | None = None,
-                             q_offset: int = 0
+                             q_offset: int = 0,
+                             out_lo: torch.Tensor | None = None
                              ) -> tuple[torch.Tensor, torch.Tensor,
                                         torch.Tensor]:
     """Plain version of the backward kernels: ``(dq, dk, dv)`` in q's dtype
-    from the forward's ``out`` and ``lse`` (``(B, H, S)`` fp32), by the
+    from the forward's ``out`` (plus ``out_lo``, what rounding it dropped,
+    when given) and ``lse`` (``(B, H, S)`` fp32), by the
     explicit formulas in fp32 — P = exp(S·scale − lse) on unmasked pairs,
     dV = Pᵀ dO, dP = dO Vᵀ, D = rowsum(dO ∘ O), dS = P ∘ (dP − D), dQ =
     scale · dS K, dK = scale · dSᵀ Q (Q scaled in its dtype, as
@@ -225,7 +231,8 @@ def attention_backward_plain(q: torch.Tensor, k: torch.Tensor,
     qg = q.reshape(b, s, kvh, g, hd) * scale  # in q's dtype, as forward
     kf, vf = k.float(), v.float()
     dof = dout.float().reshape(b, s, kvh, g, hd)
-    delta = (dof * out.float().reshape(b, s, kvh, g, hd)).sum(-1)
+    o = out.float() if out_lo is None else out.float() + out_lo.float()
+    delta = (dof * o.reshape(b, s, kvh, g, hd)).sum(-1)
     lse = lse.float().reshape(b, kvh, g, s)
     dq = torch.zeros((b, s, kvh, g, hd), device=q.device)
     dk = torch.zeros((b, t, kvh, hd), device=q.device)
@@ -276,8 +283,10 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError("flash_attention: operands must be 16-byte aligned")
 
 
-def _forward(q, k, v, causal, window, q_offset, lse=None) -> torch.Tensor:
-    """One launch of the forward kernel; fills ``lse`` when given."""
+def _forward(q, k, v, causal, window, q_offset, lse=None,
+             out_lo=None) -> torch.Tensor:
+    """One launch of the forward kernel; fills ``lse`` and (bf16)
+    ``out_lo`` when given."""
     global LAUNCHES
     _check(q, k, v, window, q_offset)
     b, s, h, hd = q.shape
@@ -285,6 +294,7 @@ def _forward(q, k, v, causal, window, q_offset, lse=None) -> torch.Tensor:
     out = torch.empty_like(q)
     err = _build.library().jk_flash_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        None if out_lo is None else out_lo.data_ptr(),
         None if lse is None else lse.data_ptr(), b, s, t, h, kvh, hd,
         int(causal), 0 if window is None else int(window), int(q_offset),
         float(hd ** -0.5), _DTYPES[q.dtype], _build.stream_of(q))
@@ -302,45 +312,59 @@ def _forward(q, k, v, causal, window, q_offset, lse=None) -> torch.Tensor:
 def flash_attention_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         *, causal: bool = True, window: int | None = None,
                         q_offset: int = 0
-                        ) -> tuple[torch.Tensor, torch.Tensor]:
-    """:func:`flash_attention`'s output and each row's log-sum-exp (fp32
-    ``(B, H, S)``), what the backward needs: one forward launch that also
-    writes the lse on a CUDA tensor, :func:`attention_lse_plain` on a CPU
-    one."""
+                        ) -> tuple[torch.Tensor, torch.Tensor,
+                                   torch.Tensor | None]:
+    """:func:`flash_attention`'s output and what the backward needs: each
+    row's log-sum-exp (fp32 ``(B, H, S)``) and ``out_lo``, in bf16 what
+    rounding the output to bf16 dropped (the backward's D then sees the
+    output to ~2^-17; None in fp32).  One forward launch that also writes
+    both on a CUDA tensor; :func:`attention_lse_plain` (and no ``out_lo``)
+    on a CPU one."""
     if q.device.type == "cpu":
-        return attention_lse_plain(q, k, v, causal=causal, window=window,
-                                   q_offset=q_offset)
+        return (*attention_lse_plain(q, k, v, causal=causal, window=window,
+                                     q_offset=q_offset), None)
     b, s, h, _ = q.shape
     lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
-    return _forward(q, k, v, causal, window, q_offset, lse), lse
+    lo = torch.empty_like(q) if q.dtype == torch.bfloat16 else None
+    return _forward(q, k, v, causal, window, q_offset, lse, lo), lse, lo
 
 
 def flash_attention_backward(q: torch.Tensor, k: torch.Tensor,
                              v: torch.Tensor, out: torch.Tensor,
                              dout: torch.Tensor, lse: torch.Tensor, *,
                              causal: bool = True, window: int | None = None,
-                             q_offset: int = 0
+                             q_offset: int = 0,
+                             out_lo: torch.Tensor | None = None
                              ) -> tuple[torch.Tensor, torch.Tensor,
                                         torch.Tensor]:
-    """``(dq, dk, dv)`` in q's dtype from the forward's ``out`` and ``lse``
-    and the output's gradient ``dout`` (contiguous, q's dtype and shape):
-    one ``jk_flash_attention_bwd`` call on a CUDA tensor (the preprocess,
+    """``(dq, dk, dv)`` in q's dtype from the forward's ``out`` (and, in
+    bf16, its ``out_lo``, which :func:`flash_attention_lse` returns and a
+    bf16 CUDA call requires) and ``lse`` and the output's gradient
+    ``dout`` (contiguous, q's dtype and shape): one
+    ``jk_flash_attention_bwd`` call on a CUDA tensor (the preprocess,
     dK/dV and dQ kernels), :func:`attention_backward_plain` on a CPU
     one."""
     global BWD_LAUNCHES
     kw = dict(causal=causal, window=window, q_offset=q_offset)
     if q.device.type == "cpu":
-        return attention_backward_plain(q, k, v, out, dout, lse, **kw)
+        return attention_backward_plain(q, k, v, out, dout, lse,
+                                        out_lo=out_lo, **kw)
     _check(q, k, v, window, q_offset)
     b, s, h, hd = q.shape
     t, kvh = k.shape[1], k.shape[2]
+    is16 = q.dtype == torch.bfloat16
     if out.shape != q.shape or dout.shape != q.shape \
-            or lse.shape != (b, h, s):
-        raise ValueError(f"flash_attention_backward: out and dout must have "
-                         f"q's shape {tuple(q.shape)} and lse {(b, h, s)}; "
-                         f"got {tuple(out.shape)}, {tuple(dout.shape)}, "
-                         f"{tuple(lse.shape)}")
-    _build.check_device(q, out, dout, dtypes=(q.dtype,))
+            or lse.shape != (b, h, s) or (out_lo is None) == is16 or (
+                is16 and (out_lo.shape != q.shape
+                          or out_lo.dtype != torch.bfloat16)):
+        raise ValueError(f"flash_attention_backward: out, dout (and in "
+                         f"bf16 only, out_lo) must have q's shape "
+                         f"{tuple(q.shape)} and lse {(b, h, s)}; got "
+                         f"{tuple(out.shape)}, {tuple(dout.shape)}, "
+                         f"{tuple(lse.shape)}, out_lo "
+                         f"{None if out_lo is None else tuple(out_lo.shape)}")
+    _build.check_device(q, out, dout, *(() if out_lo is None else (out_lo,)),
+                        dtypes=(q.dtype,))
     _build.check_device(lse, dtypes=(torch.float32,))
     if lse.device != q.device or any(x.data_ptr() % 16 for x in (out, dout)):
         raise ValueError("flash_attention_backward: lse must lie on q's "
@@ -349,6 +373,7 @@ def flash_attention_backward(q: torch.Tensor, k: torch.Tensor,
     delta = torch.empty_like(lse)
     err = _build.library().jk_flash_attention_bwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        None if out_lo is None else out_lo.data_ptr(),
         dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
         dk.data_ptr(), dv.data_ptr(), b, s, t, h, kvh, hd, int(causal),
         0 if window is None else int(window), int(q_offset),
@@ -365,23 +390,25 @@ def flash_attention_backward(q: torch.Tensor, k: torch.Tensor,
 
 class _FlashAttention(torch.autograd.Function):
     """The kernel with its hand-written backward: the forward saves q, k,
-    v, the output and each row's log-sum-exp; the backward launches the
-    backward kernels and returns gradients in q's dtype."""
+    v, the output, each row's log-sum-exp and (bf16) the output's rounding
+    residual; the backward launches the backward kernels and returns
+    gradients in q's dtype."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, window, q_offset):
-        out, lse = flash_attention_lse(q, k, v, causal=causal,
-                                       window=window, q_offset=q_offset)
-        ctx.save_for_backward(q, k, v, out, lse)
+        out, lse, lo = flash_attention_lse(q, k, v, causal=causal,
+                                           window=window, q_offset=q_offset)
+        ctx.save_for_backward(q, k, v, out, lse, lo)
         ctx.masks = dict(causal=causal, window=window, q_offset=q_offset)
         return out
 
     @staticmethod
     def backward(ctx, dout):
-        q, k, v, out, lse = ctx.saved_tensors
+        q, k, v, out, lse, lo = ctx.saved_tensors
         # the o_proj matmul's backward may hand a strided gradient
         dq, dk, dv = flash_attention_backward(
-            q, k, v, out, dout.to(q.dtype).contiguous(), lse, **ctx.masks)
+            q, k, v, out, dout.to(q.dtype).contiguous(), lse, out_lo=lo,
+            **ctx.masks)
         return dq, dk, dv, None, None, None
 
 

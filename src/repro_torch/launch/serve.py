@@ -1,5 +1,5 @@
 """Serve ``jpeg-resnet`` from JPEG bytes (or coefficients) to logits, and
-the dense language models by slot-batched decoding.
+every language model of the reference by slot-batched decoding.
 
 jpeg-resnet serving is plan-backed, as the reference's: with
 ``--plan-dir`` the process restores an ``InferencePlan`` and its compiled
@@ -70,7 +70,10 @@ decode slots over a ``--ctx``-slot cache, each request generating a random
 4..``--max-new`` greedy tokens from a random one-token start, finished
 slots refilled from the pending requests; the report is one JSON line
 with decode tokens/s.  The prompt path (``Model.prefill``, which runs the
-flash-attention kernel) is driven by ``chip_smoke.py``.
+flash-attention kernel) is driven by ``chip_smoke.py``.  As in the
+reference, decoding starts from ``Model.init_cache``: a VLM's steps see no
+image, and ``whisper-small``'s decoder attends to the zero ``cross``
+cache that ``init_cache`` makes, not to an encoded input.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch jpeg-resnet \\
         --qos --ingest bytes --plan-dir /tmp/plan --batch 8 --requests 32
@@ -80,6 +83,8 @@ flash-attention kernel) is driven by ``chip_smoke.py``.
         --reduced --device cpu --qos --ingest bytes --batch 4 --requests 8 \\
         --plan-dir /tmp/plan-reduced
     PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-360m \\
+        --reduced --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-7b \\
         --reduced --device cpu
 
 Runs on the CUDA device unless ``--device cpu`` is given; without CUDA it
@@ -928,7 +933,7 @@ def _serve_jpeg_resnet(args, prepared, on_batch, on_served) -> dict:
 
 
 def serve_lm(args) -> dict:
-    """Decode-only slot serving of a dense LM, as the reference's
+    """Decode-only slot serving of a language model, as the reference's
     ``serve_lm``: the same numpy draws (request budgets, start tokens) from
     ``--seed`` and the same report keys.  As there, every slot shares the
     cache's one position index, so a refilled slot continues at the global

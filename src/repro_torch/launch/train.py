@@ -1,5 +1,5 @@
-"""Fault-tolerant training driver for ``jpeg-resnet`` and the dense
-language models.
+"""Fault-tolerant training driver for ``jpeg-resnet`` and the language
+models.
 
 * data: for ``jpeg-resnet`` synthetic images JPEG-encoded on the device
   (``data.jpeg_iterator``: the block-DCT kernel on a CUDA device); for a
@@ -51,6 +51,7 @@ from repro_torch import resolve_device
 from repro_torch.checkpoint import CheckpointManager
 from repro_torch.configs import TrainConfig, get_config, reduced_config
 from repro_torch.data.pipeline import jpeg_iterator, token_iterator
+from repro_torch.models.layers import sinusoidal_positions
 from repro_torch.models.registry import build_model, count_params, \
     jpeg_resnet_spec
 from repro_torch.optim import clip_by_global_norm, make_optimizer, \
@@ -90,13 +91,26 @@ def build_iterator(cfg, batch: int, seq: int, seed: int, device):
 
 
 def to_model_batch(cfg, host_batch: dict, device) -> dict:
-    """A batch as the model takes it: every array a tensor on
-    ``device``."""
-    if cfg.family in ("vlm", "audio"):
-        raise NotImplementedError(
-            f"family {cfg.family!r}: VLM and audio batches wait for ROADMAP "
-            f"Queue 1 item 7.5")
-    return {k: torch.as_tensor(v).to(device) for k, v in host_batch.items()}
+    """A batch as the model takes it: every array a tensor on ``device``.
+    The stubbed frontends' inputs are fp32: an audio batch gains zero
+    ``frames`` (B, encoder_context_len, D), as in the reference (the
+    encoder adds its positions); a VLM's batch gains ``vision_embeds``
+    (B, vision_prefix_len, D), each row the sinusoidal code of its patch
+    position.  The reference's are zeros: a zero row stays zero through
+    every layer, each RMS norm then multiplies its gradient by
+    eps^-1/2 ≈ 316, and at internvl2-1b's 24 layers that overflows fp32,
+    so its gradient is NaN."""
+    batch = {k: torch.as_tensor(v).to(device) for k, v in host_batch.items()}
+    if cfg.family == "audio":
+        batch["frames"] = torch.zeros(
+            (len(batch["tokens"]), cfg.encoder_context_len, cfg.d_model),
+            dtype=torch.float32, device=device)
+    elif cfg.family == "vlm":
+        pos = sinusoidal_positions(torch.arange(cfg.vision_prefix_len,
+                                                device=device), cfg.d_model)
+        batch["vision_embeds"] = pos.expand(len(batch["tokens"]), -1,
+                                            -1).contiguous()
+    return batch
 
 
 def make_step(model, optimizer, schedule, grad_clip: float):
@@ -162,6 +176,7 @@ def train_loop(args) -> dict:
     print(f"[train] {cfg.name} on {device}: {n_params:,} params", flush=True)
     t_loop = time.perf_counter()
     step = start_step
+    saved = start_step  # the newest step already on disk
     try:
         for step in range(start_step, args.steps):
             t0 = time.perf_counter()
@@ -191,6 +206,7 @@ def train_loop(args) -> dict:
                 manager.save(step + 1, {"params": params, "opt": opt_state},
                              extra={"data_state": it.state_dict()},
                              blocking=False)
+                saved = step + 1
                 every = args.export_plan_every
                 if exports_plan and every \
                         and ((step + 1) // args.ckpt_every) % every == 0:
@@ -202,8 +218,10 @@ def train_loop(args) -> dict:
             signal.signal(sig, h)
     manager.wait()
     final_step = step if interrupted["flag"] else step + 1
-    manager.save(final_step, {"params": params, "opt": opt_state},
-                 extra={"data_state": it.state_dict()})
+    # a step the loop just saved is not written twice
+    if interrupted["flag"] or final_step != saved:
+        manager.save(final_step, {"params": params, "opt": opt_state},
+                     extra={"data_state": it.state_dict()})
     plan_dir = None
     if exports_plan and args.export_plan:
         plan_dir = export_plan(cfg, params, args.ckpt_dir, step=final_step)

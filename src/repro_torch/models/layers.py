@@ -1,5 +1,6 @@
-"""Transformer layers of the dense language models: RMS norm, RoPE, GQA
-attention (full-sequence and single-token decode), SwiGLU.
+"""Transformer layers of the language models: RMS and layer norm, RoPE and
+sinusoidal positions, GQA attention (full-sequence and single-token
+decode), the SwiGLU and gelu MLPs.
 
 A port of ``repro/models/layers.py`` with its conventions: activations
 ``(B, S, D)``, heads ``(B, S, H, head_dim)``, KV caches ``(B, T, KVH,
@@ -14,13 +15,16 @@ from __future__ import annotations
 
 from typing import Optional
 
+import math
+
 import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import flash_attention as kfa
 
-__all__ = ["resolve_dtype", "rms_norm", "apply_rope", "attention",
-           "decode_attention", "swiglu_mlp"]
+__all__ = ["resolve_dtype", "rms_norm", "layer_norm", "apply_rope",
+           "sinusoidal_positions", "attention", "decode_attention",
+           "swiglu_mlp", "gelu_mlp"]
 
 
 def resolve_dtype(name: str) -> torch.dtype:
@@ -33,6 +37,26 @@ def rms_norm(x: torch.Tensor, weight: torch.Tensor,
     xf = x.float()
     scale = torch.rsqrt(torch.mean(xf * xf, dim=-1, keepdim=True) + eps)
     return (xf * scale * weight.float()).to(x.dtype)
+
+
+def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+               eps: float = 1e-5) -> torch.Tensor:
+    xf = x.float()
+    mu = torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.mean(torch.square(xf - mu), dim=-1, keepdim=True)
+    out = (xf - mu) * torch.rsqrt(var + eps)
+    return (out * weight.float() + bias.float()).to(x.dtype)
+
+
+def sinusoidal_positions(positions: torch.Tensor, dim: int) -> torch.Tensor:
+    """(S,) → (S, dim) fp32 sinusoidal embeddings (whisper-style): sines
+    of ``dim // 2`` frequencies, then their cosines."""
+    half = dim // 2
+    freqs = torch.exp(-math.log(10000.0) * torch.arange(
+        half, dtype=torch.float32, device=positions.device)
+        / max(half - 1, 1))
+    ang = positions.float()[:, None] * freqs[None, :]
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
 
 
 def apply_rope(x: torch.Tensor, positions: torch.Tensor,
@@ -84,3 +108,10 @@ def swiglu_mlp(x: torch.Tensor, w_gate: torch.Tensor, w_in: torch.Tensor,
                w_out: torch.Tensor) -> torch.Tensor:
     """SwiGLU: (silu(x @ w_gate) * (x @ w_in)) @ w_out."""
     return (F.silu(x @ w_gate) * (x @ w_in)) @ w_out
+
+
+def gelu_mlp(x: torch.Tensor, w_in: torch.Tensor, b_in: torch.Tensor,
+             w_out: torch.Tensor, b_out: torch.Tensor) -> torch.Tensor:
+    """gelu(x @ w_in + b_in) @ w_out + b_out, gelu's tanh approximation
+    (``jax.nn.gelu``'s default)."""
+    return F.gelu(x @ w_in + b_in, approximate="tanh") @ w_out + b_out

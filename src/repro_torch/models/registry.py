@@ -1,15 +1,16 @@
 """Architecture registry: one interface over the model families.
 
 ``build_model(cfg)`` returns a :class:`Model` bundle of functions; the
-trainer and the server talk only to it.  The port has two families:
-``jpeg_resnet`` (whose trainable state is the bundle ``{"params",
-"bn_state"}``, as in the reference, which differentiates both) and the
-language models of the dense, MoE (``granite-moe-3b-a800m``,
-``mixtral-8x7b``) and Mamba-hybrid (``jamba-v0.1-52b``) families, which
-train (``loss_fn``, its MoE aux term included, with the reference's
+trainer and the server talk only to it.  Two kinds of model: ``jpeg_resnet``
+(whose trainable state is the bundle ``{"params", "bn_state"}``, as in the
+reference, which differentiates both) and the language models of every
+family of the reference: dense, MoE (``granite-moe-3b-a800m``,
+``mixtral-8x7b``), Mamba hybrid (``jamba-v0.1-52b``), RWKV (``rwkv6-7b``),
+VLM (``internvl2-1b``, whose batches carry ``vision_embeds``) and
+encoder-decoder audio (``whisper-small``, whose batches carry ``frames``).
+They train (``loss_fn``, an MoE's aux term included, with the reference's
 ``remat`` values) and serve: ``prefill`` a prompt, then ``decode_step``
-from its cache.  The reference's recurrent (RWKV), VLM and audio families
-wait (ROADMAP Queue 1 items 7.4-7.5).
+from its cache (for audio, prefill is the encoder forward).
 """
 from __future__ import annotations
 
@@ -105,9 +106,8 @@ def build_model(cfg: ModelConfig, remat: str = "none", *,
                 dispatch: dispatchlib.DispatchConfig | None = None) -> Model:
     """The model bundle for ``cfg``.  ``dispatch`` picks the op paths of
     its forward (None: ``auto``, the kernels on a CUDA device); for a
-    language model (dense, MoE or Mamba hybrid) a ``reference`` path runs
-    the plain attention on any device.  Configs of LM families the port
-    does not run are refused earlier, by ``configs.get_config``."""
+    language model a ``reference`` path runs the plain attention (and
+    RWKV's plain scan) on any device."""
     if cfg.family == "jpeg_resnet":
         return _jpeg_resnet_model(cfg, remat, dispatch)
     return _lm_model(cfg, remat, dispatch)
@@ -118,7 +118,11 @@ def input_specs(cfg: ModelConfig, batch: int, seq: int,
     """Zero host batches of one cell: ``kind`` 'train' or 'prefill' gives
     the full sequence (with labels for 'train'), 'decode' one token per
     sequence (the cache comes from ``Model.init_cache``); jpeg-resnet
-    takes coefficients and labels."""
+    takes coefficients and labels.  As in the reference, the audio family
+    takes ``seq`` frames and ``max(seq // 8, 8)`` tokens, a VLM
+    ``vision_prefix_len`` patch embeddings and ``seq - vision_prefix_len``
+    tokens; frames and embeddings are fp32 here (numpy has no bf16: the
+    model casts them to its dtype)."""
     if cfg.family == "jpeg_resnet":
         n = cfg.image_size // 8
         return {"coefficients": np.zeros((batch, n, n, cfg.in_channels, 64),
@@ -126,7 +130,15 @@ def input_specs(cfg: ModelConfig, batch: int, seq: int,
                 "labels": np.zeros((batch,), np.int32)}
     if kind == "decode":
         return {"tokens": np.zeros((batch, 1), np.int32)}
-    out = {"tokens": np.zeros((batch, seq), np.int32)}
+    out = {}
+    if cfg.family == "audio":
+        out["frames"] = np.zeros((batch, seq, cfg.d_model), np.float32)
+        seq = max(seq // 8, 8)
+    elif cfg.family == "vlm":
+        out["vision_embeds"] = np.zeros(
+            (batch, cfg.vision_prefix_len, cfg.d_model), np.float32)
+        seq -= cfg.vision_prefix_len
+    out["tokens"] = np.zeros((batch, seq), np.int32)
     if kind == "train":
         out["labels"] = np.zeros((batch, seq), np.int32)
     return out

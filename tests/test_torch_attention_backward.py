@@ -197,11 +197,14 @@ def _hi_lo(x):
     return hi + _bf16(x - hi)
 
 
-def _tensor_core_model(q, k, v, do, causal, window, q_offset, tile=64):
+def _tensor_core_model(q, k, v, do, causal, window, q_offset, tile=64,
+                       residual=True):
     """The bf16 kernels' arithmetic on bf16 ``q, k, v, do``: the forward
     (products exact in fp32, P = exp(s·scale − row max) rounded to bf16
-    before P·V, O rounded once) and the backward (D from the bf16 O and
-    dO; P = 2^(s·scale·log2 e − lse·log2 e) on valid pairs; dS = P ∘ (dP −
+    before P·V, O rounded once, and what the rounding dropped kept as a
+    second bf16 tensor) and the backward (D from O as that hi + lo pair,
+    or from the bf16 O alone with ``residual=False``, and dO;
+    P = 2^(s·scale·log2 e − lse·log2 e) on valid pairs; dS = P ∘ (dP −
     D); P and dS as hi + lo pairs; fp32 sums over ``tile``-row query tiles,
     head by head, for dK and dV and over ``tile``-key tiles for dQ, as the
     kernels walk them; each gradient rounded to bf16 once)."""
@@ -221,7 +224,8 @@ def _tensor_core_model(q, k, v, do, causal, window, q_offset, tile=64):
     mx = torch.where(seen, scm.amax(-1), 0.0)
     pu = torch.exp(scm - mx[..., None])
     den = torch.clamp(pu.sum(-1), min=1e-30).permute(0, 3, 1, 2)[..., None]
-    out = _bf16(torch.einsum("bngst,btnd->bsngd", _bf16(pu), vf) / den)
+    o32 = torch.einsum("bngst,btnd->bsngd", _bf16(pu), vf) / den
+    out = _hi_lo(o32) if residual else _bf16(o32)
     delta = (dog * out).sum(-1).permute(0, 2, 3, 1)
     l2 = torch.where(seen, lse * LOG2E, float("inf"))
     p = torch.where(valid, torch.exp2(sc * (scale * LOG2E) - l2[..., None]),
@@ -244,6 +248,37 @@ def _tensor_core_model(q, k, v, do, causal, window, q_offset, tile=64):
         dq += torch.einsum("bngst,btnd->bsngd", ds[..., keys], kf[:, keys])
     return (_bf16(scale * dq.reshape(b, s, h, hd)), _bf16(scale * dk),
             _bf16(dv))
+
+
+@pytest.mark.parametrize("residual", [False, True])
+def test_output_residual_keeps_shared_values_within_the_bf16_gate(
+        residual):
+    """Values that share a common part (v = 3 + 0.1 · noise, as a layer's
+    values often do): then dP − D = dO·(v_j − O) is small against D =
+    dO·O, and D taken from the bf16-rounded O shifts a whole row's dS =
+    P ∘ (dP − D) by O's rounding.  The model's gradients of q and k then
+    miss the LM gate (BF16_FACTOR × the error of autograd through the
+    bf16 plain forward, against fp32); with O's rounding residual in D
+    (the kernels since whisper-small's gradient missed that gate) every
+    gradient is within it."""
+    q, k, v, do = (torch.from_numpy(a) for a in _inputs(11, 2, 256, 256, 4,
+                                                         4, 64))
+    q, k, v, do = (a.to(torch.bfloat16) for a in (q, k, 3 + 0.1 * v, do))
+    kw = dict(causal=True, window=None, q_offset=0)
+    f32 = [a.float() for a in (q, k, v, do)]
+    o32, l32 = kfa.attention_lse_plain(*f32[:3], **kw)
+    exact = kfa.attention_backward_plain(*f32[:3], o32, f32[3], l32, **kw)
+    leaves = [a.clone().requires_grad_() for a in (q, k, v)]
+    plain = torch.autograd.grad(kfa.attention_plain(*leaves, **kw), leaves,
+                                do)
+    model = _tensor_core_model(q, k, v, do, residual=residual, **kw)
+    ratios = [float((got - want).abs().max())
+              / float((p.float() - want).abs().max())
+              for got, p, want in zip(model, plain, exact)]
+    if residual:
+        assert max(ratios) <= BF16_FACTOR, ratios
+    else:
+        assert max(ratios[:2]) > BF16_FACTOR, ratios
 
 
 @pytest.mark.parametrize("b,s,t,h,kvh,hd,causal,window,q_offset",

@@ -485,9 +485,11 @@ def test_bf16_backward_is_deterministic_on_card(dev, b, s, t, h, kvh, hd,
     q, k, v = _card_qkv(dev, b, s, t, h, kvh, hd, torch.bfloat16, 3)
     do = torch.randn(q.shape, device=dev).to(torch.bfloat16)
     kw = dict(causal=causal, window=window, q_offset=q_offset)
-    out, lse = kfa.flash_attention_lse(q, k, v, **kw)
-    first = kfa.flash_attention_backward(q, k, v, out, do, lse, **kw)
-    second = kfa.flash_attention_backward(q, k, v, out, do, lse, **kw)
+    out, lse, lo = kfa.flash_attention_lse(q, k, v, **kw)
+    first = kfa.flash_attention_backward(q, k, v, out, do, lse, out_lo=lo,
+                                         **kw)
+    second = kfa.flash_attention_backward(q, k, v, out, do, lse, out_lo=lo,
+                                          **kw)
     torch.cuda.synchronize()
     for name, a, b_ in zip("qkv", first, second):
         assert torch.isfinite(a).all(), name

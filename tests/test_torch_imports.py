@@ -33,7 +33,9 @@ def test_port_imports_no_jax_and_no_reference_package():
                  "serving.faults", "introspect", "introspect.opcount",
                  "introspect.roofline", "introspect.report",
                  "introspect.attribution", "introspect.gridprof",
-                 "launch.inspect"):
+                 "launch.inspect", "models.rwkv", "models.mamba",
+                 "models.moe", "configs.rwkv6_7b", "configs.internvl2_1b",
+                 "configs.whisper_small"):
         assert "repro_torch." + want in names, want
     code = (
         "import importlib, sys\n"

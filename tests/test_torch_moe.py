@@ -30,10 +30,12 @@ from repro.configs import base as RC
 from repro.models import moe as RM
 from repro.models import transformer as RT
 from repro_torch.checkpoint import CheckpointManager
-from repro_torch.configs import LM_ARCHS, get_config, reduced_config
+from repro_torch.configs import ARCHS as ARCHS_ALL, get_config, \
+    reduced_config
 from repro_torch.data.pipeline import token_iterator
 from repro_torch.launch import serve, train
 from repro_torch.models import moe
+from repro_torch.models.registry import build_model
 from repro_torch.models import transformer as T
 from repro_torch.optim import value_and_grad
 from repro_torch.tree import leaves_with_paths
@@ -365,17 +367,35 @@ def test_reference_bf16_checkpoint_restores_into_the_port(arch, tmp_path):
             err_msg=path)
 
 
-def test_configs_leave_lm_archs():
-    assert sorted(LM_ARCHS) == ["internvl2-1b", "rwkv6-7b", "whisper-small"]
-    for arch in ARCHS:
-        rc, c = RC.get_config(arch), get_config(arch)
-        for f in dataclasses.fields(c):
-            if f.name != "source":
-                assert getattr(c, f.name) == getattr(rc, f.name), \
+@pytest.mark.parametrize("arch", RC.list_archs())
+def test_every_reference_arch_is_configured_and_builds(arch):
+    """Each arch the reference registers: the port's full and reduced
+    configs carry the reference's value in every field the port has (all
+    but the fields it does not read), granite's ``source`` excepted (Queue
+    3); ``build_model`` builds both; a language model's reduced init has
+    the reference's leaf paths and shapes."""
+    assert arch in ARCHS_ALL
+    for mine, ref in ((get_config(arch), RC.get_config(arch)),
+                      (reduced_config(arch), RC.reduced_config(arch))):
+        for f in dataclasses.fields(mine):
+            if not (f.name == "source" and arch == "granite-moe-3b-a800m"):
+                assert getattr(mine, f.name) == getattr(ref, f.name), \
                     (arch, f.name)
-        rr, r = RC.reduced_config(arch), reduced_config(arch)
-        for f in dataclasses.fields(r):
-            assert getattr(r, f.name) == getattr(rr, f.name), (arch, f.name)
+        assert build_model(mine).cfg == mine
+    cfg = reduced_config(arch)
+    model = build_model(cfg)
+    if cfg.family == "jpeg_resnet":
+        assert model.decode_step is None
+        return
+    got = model.init_params(torch.Generator().manual_seed(0), "cpu")
+    want = jax.eval_shape(lambda: RT.init_params(
+        jax.random.PRNGKey(0), RC.reduced_config(arch)))
+    flat = jax.tree_util.tree_flatten_with_path(want)[0]
+    assert [(p, tuple(x.shape)) for p, x in leaves_with_paths(got)] == [
+        ("/".join(str(k) for k in path), x.shape) for path, x in flat]
+
+
+def test_jamba_pattern_and_granite_source():
     assert T.pattern_period(get_config("jamba-v0.1-52b")) == 8
     assert T.pattern_period(reduced_config("jamba-v0.1-52b")) == 2
     kinds = T.layer_kinds(get_config("jamba-v0.1-52b"))[:8]

@@ -305,10 +305,8 @@ def test_prefetch_yields_in_order_and_joins():
         list(prefetch(boom()))
 
 
-def test_lm_arch_names_the_roadmap_item():
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7.4"):
-        get_config("rwkv6-7b")
-    with pytest.raises(KeyError):
+def test_unknown_arch_raises_key_error():
+    with pytest.raises(KeyError, match="no-such-arch"):
         get_config("no-such-arch")
 
 

@@ -2,7 +2,8 @@
 against the reference package's, on numpy-drawn weights and images.
 
 * ``fold_patch_embed`` (patch 16, 3 channels, quantization-scaled at
-  quality 50) applied to block-DCT coefficients equals the pixel-patch
+  quality 50) applied to block-DCT coefficients laid out per patch
+  (``coefficient_patches``) equals the pixel-patch
   projection within 1e-4 of the largest |value| (an exact fold; fp32 sums
   over 768 terms), and its weight equals the reference's within 1e-5;
 * ``fold_frontend`` and ``unfold_patches_to_blocks`` equal the
@@ -14,26 +15,11 @@ import pytest
 import torch
 
 from repro.core import transform_linear as ref_tl
-from repro_torch.core import dispatch as dsp
-from repro_torch.core import jpeg as jpeglib
 from repro_torch.core import transform_linear as tl
 
 torch.set_num_threads(1)
 
 PATCH, CHANNELS, D = 16, 3, 32
-
-
-def _coef_patches(images, patch):
-    """Block-DCT coefficients ``(N, bh, bw, C, 64)`` (the kernel's plain
-    version, quality 50, scaled) laid out per patch as ``(N, patches,
-    C·(P/8)²·64)``, the layout ``fold_patch_embed`` reads."""
-    coef = dsp.block_dct(jpeglib.block_channels_last(images), 50)
-    n, bh, bw, c, _ = coef.shape
-    pb = patch // 8
-    g_h, g_w = bh // pb, bw // pb
-    x = coef.reshape(n, g_h, pb, g_w, pb, c, 64)
-    x = x.permute(0, 1, 3, 5, 2, 4, 6)  # (n, gh, gw, c, pb, pb, 64)
-    return x.reshape(n, g_h * g_w, c * pb * pb * 64)
 
 
 @pytest.mark.parametrize("size", [32, 48])
@@ -51,7 +37,7 @@ def test_fold_patch_embed_on_block_dct_coefficients(size):
         want_w).max()
     x = torch.as_tensor(imgs)
     pixel = tl.unfold_patches_to_blocks(x, PATCH) @ torch.as_tensor(w)
-    got = _coef_patches(x, PATCH) @ w_jpeg
+    got = tl.coefficient_patches(x, PATCH, 50) @ w_jpeg
     assert np.abs((got - pixel).numpy()).max() <= 1e-4 * float(
         pixel.abs().max())
 

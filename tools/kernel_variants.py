@@ -17,9 +17,10 @@ with ``chip_smoke.cuda_ms`` in two rounds:
   (4, 2048, 15, 64), causal) and at ``mistral-nemo-12b``'s heads (q (1,
   4096, 32, 128), causal), with the error against SDPA;
 * attention_bwd: the bf16 backward (``flash_attention_backward``, its
-  three launches) at the same two shapes, fed by the forward's output
-  and lse, with the largest error of dq, dk and dv against the fp32 plain
-  backward, SDPA's backward through autograd timed beside it once a
+  three launches) at the same two shapes, fed by the forward's output,
+  its bf16 rounding residual and lse, as a training step feeds it, with
+  the largest error of dq, dk and dv against the fp32 plain backward,
+  SDPA's backward through autograd timed beside it once a
   round, and each kernel's device ms (dK/dV, dQ, D) from
   ``torch.profiler``; the variants weigh the dK/dV kernel's keys a warp
   (16 or 32), query tile (64 or 32), ring depth (2 or 3), K and V
@@ -299,7 +300,7 @@ def attention_bwd_cases(dev):
         k, v = (torch.randn((b, s, kvh, hd), generator=g, device=dev)
                 .bfloat16() for _ in range(2))
         with torch.no_grad():
-            out, lse = kfa.flash_attention_lse(q, k, v)
+            out, lse, lo = kfa.flash_attention_lse(q, k, v)
             f32 = [x.float() for x in (q, k, v, do)]
             o32, l32 = kfa.attention_lse_plain(*f32[:3])
             want = kfa.attention_backward_plain(*f32[:3], o32, f32[3], l32)
@@ -314,7 +315,8 @@ def attention_bwd_cases(dev):
                                        retain_graph=True)
 
         flops = 14.0 * b * h * hd * opcount.attention_pairs(s, s, True, None)
-        cases.append((label, (q, k, v, out, do, lse), want, flops, library))
+        cases.append((label, (q, k, v, out, do, lse, lo), want, flops,
+                      library))
     return cases
 
 
@@ -426,6 +428,9 @@ def main() -> None:
     from repro_torch.kernels import flash_attention as kfa
     from repro_torch.kernels import jpeg_conv as kjc
 
+    def bwd(q, k, v, out, do, lse, lo):  # as a training step calls it
+        return kfa.flash_attention_backward(q, k, v, out, do, lse, out_lo=lo)
+
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA card")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -480,15 +485,13 @@ def main() -> None:
                 row = {"round": rnd, "set": which, "variant": name}
                 if which == "attention_bwd":
                     for label, args, want, flops, _ in cases[which]:
-                        got = kfa.flash_attention_backward(*args)
-                        ms = cs.cuda_ms(
-                            lambda: kfa.flash_attention_backward(*args))
+                        got = bwd(*args)
+                        ms = cs.cuda_ms(lambda: bwd(*args))
                         row[label] = {
                             "ms": ms, "tflops": flops / ms / 1e9,
                             "err": max(float((a.float() - w).abs().max())
                                        for a, w in zip(got, want)),
-                            "kernel_ms": kernel_split(
-                                lambda: kfa.flash_attention_backward(*args))}
+                            "kernel_ms": kernel_split(lambda: bwd(*args))}
                 if which == "attention":
                     for label, qkv, want, flops in cases[which]:
                         got = kfa.flash_attention(*qkv)
