@@ -190,12 +190,32 @@ Phases, each fatal on failure:
    layers, its fp32 gradient against the same code in fp64 (beside the
    plain path's over 512 tokens, whose WKV scan is the step recurrence:
    the floor) and two bf16 gradients bit-identical;
-22. one ``{"kernels": [...]}`` line, with each kernel's launches in phases
-   3, 4, 6-21 but 5 (each path driven with the counts set to 0 just
+22. the mesh path (``launch/steps.py:build_train_step``) on a world of
+   one over NCCL: ``smollm-360m`` at full width and depth, bf16, batch
+   8 × 2048, ``grad_accum`` 4, ZeRO-1, ``remat="full"``: the first step's
+   loss and gradients against ``launch/train.py``'s ``make_step``
+   gradient on the same batch (fp32 at phase 13's gates, bf16 at its
+   bf16 gate), then 4 steps with compression ``none`` and ``bf16``;
+   ``granite-moe-3b-a800m`` cut to 4 layers: the expert-parallel path's
+   logits (one shard, one group) against the global path's within 1e-5
+   in fp32, then bf16 steps; full ``jpeg-resnet`` at batch 8, 64 bands;
+   step ms and tokens/s (images/s);
+23. four ranks sharing the one card over gloo (2 data × 2 model; the
+   pipeline's point-to-point sends staged through the host, counted):
+   ``smollm-360m`` at full width cut to 4 layers (15/5 heads: attention
+   gathered, the FFN Megatron), ``granite-moe-3b-a800m`` cut to 2 (24/8
+   heads: Megatron attention; the expert-parallel MoE with ZeRO-3
+   experts), ``jpeg-resnet`` at batch 8, each against the same run on one
+   rank (losses and gathered parameters); ``pipelined_apply`` over 4
+   stages of one full-width ``smollm-360m`` layer each, 8 microbatches,
+   against the stages run in turn.  Every rank must launch each
+   workload's kernels.  Multi-device speed is not measured;
+24. one ``{"kernels": [...]}`` line, with each kernel's launches in phases
+   3, 4, 6-23 but 5 (each path driven with the counts set to 0 just
    before it and read just after), then the ``{"ok": true, ...}`` line
    last.  Its bounds and phase 9's roofline read one count of each
    kernel's work (``repro_torch.introspect.opcount``).  Every phase prints
-   its seconds (phases 5-21 also their device memory peak), and the
+   its seconds (phases 5-23 also their device memory peak), and the
    script its total.
 
 It imports neither JAX nor the reference package, exits non-zero without
@@ -330,9 +350,40 @@ RWKV_RANGES = ("rwkv_wkv",)
 #: near-tie: the plain path's k-th and (k+1)-th router probabilities
 #: closer than this (fp32 noise moves them ~1e-7; typical gaps are ~1e-2)
 FLIP_GAP = 1e-4
+#: phases 22-23, training on a mesh.  Phase 22, a world of one over NCCL:
+#: smollm-360m at full width and depth, bf16, MESH_BATCH × MESH_SEQ,
+#: grad_accum MESH_ACCUM, ZeRO-1, remat full, MESH_STEPS steps a
+#: compression, AdamW at a constant MESH_LR; the MoE's expert-parallel
+#: logits against its global path's, relative to the largest |logit|.
+MESH_BATCH, MESH_SEQ, MESH_ACCUM, MESH_STEPS, MESH_LR = 8, 2048, 4, 4, 1e-4
+MESH_MOE_RTOL = 1e-5
+#: phase 23, four ranks sharing the card (2 data × 2 model, gloo):
+#: MESH4_BATCH × MESH4_SEQ (one row a data rank a microbatch), MESH4_STEPS
+#: steps, the depth cuts, the MoE's capacity factor (no shard drops, so
+#: one rank runs the same computation; the CPU tests hold the drops), and
+#: AdamW's eps at MESH_EPS (at 1e-8 a near-zero gradient's rounding moves
+#: its weight by up to the rate).  Each run against one rank: losses
+#: MESH_LOSS_RTOL relative, each parameter leaf after the steps
+#: MESH_PARAM_RTOL of its largest |value| (fp32 sums in another order);
+#: jpeg-resnet's update by relative norm under phase 5's rule (its ASM
+#: masks flip within rounding: at most TRAIN_GRAD_RTOL or
+#: TRAIN_FLOOR_FACTOR × its own change under a 1e-6 nudge of the batch);
+#: the pipeline (PP_STAGES stages of one full-width layer, PP_MICRO
+#: microbatches of PP_MB × PP_SEQ) MESH_PIPE_RTOL of the largest |value|.
+MESH4_BATCH, MESH4_SEQ, MESH4_ACCUM, MESH4_STEPS = 4, 512, 2, 2
+MESH4_SMOLLM_LAYERS, MESH4_GRANITE_LAYERS, MESH4_MOE_CF = 4, 2, 5.0
+MESH_EPS, MESH_LOSS_RTOL, MESH_PARAM_RTOL, MESH_PIPE_RTOL = \
+    1e-3, 1e-5, 1e-5, 1e-6
+PP_STAGES, PP_MICRO, PP_MB, PP_SEQ = 4, 8, 1, 512
 JPEG_KERNELS = ("fused_block", "jpeg_conv", "asm_relu", "block_dct",
                 "block_idct")
 KERNELS = JPEG_KERNELS + ("flash_attention", "flash_attention_bwd")
+#: the kernels each of phase 23's workloads must launch on every rank
+MESH4_KERNELS = {
+    "smollm-360m": ("flash_attention", "flash_attention_bwd"),
+    "granite-moe-3b-a800m": ("flash_attention", "flash_attention_bwd"),
+    "jpeg-resnet": ("jpeg_conv", "asm_relu", "block_dct", "block_idct"),
+    "pipeline": ("flash_attention",)}
 #: the attention cases of phase 2, forward and backward: label, b, s, t,
 #: h, kvh, hd, causal, window, bf16 (else fp32)
 ATTN_CASES = (
@@ -3021,6 +3072,487 @@ def cudnn_probe(dev) -> None:
         del x, w
 
 
+def mesh_run_config(cfg, batch: int, seq: int, accum: int, comp: str = "none",
+                    eps: float = 1e-8, data: int = 1, model: int = 1):
+    """The mesh phases' ``RunConfig``: ZeRO-1, remat full, AdamW at a
+    constant MESH_LR (the cosine warm-up's first rate is 0)."""
+    from repro_torch.configs import (MeshConfig, RunConfig, ShapeConfig,
+                                     TrainConfig)
+
+    return RunConfig(model=cfg, shape=ShapeConfig("mesh", seq, batch,
+                                                  "train"),
+                     train=TrainConfig(grad_accum=accum, zero1=True,
+                                       remat="full", grad_compression=comp,
+                                       learning_rate=MESH_LR, eps=eps,
+                                       schedule="constant"),
+                     mesh=MeshConfig(data=data, model=model))
+
+
+def mesh_train(model, run, mesh, full_params, batches):
+    """``build_train_step`` from ``full_params``, one step a batch →
+    (losses, parameters (this rank's), spec tree, step ms)."""
+    import torch
+
+    from repro_torch.launch.mesh import make_axis_rules
+    from repro_torch.launch.steps import build_train_step
+
+    b = build_train_step(model, run, mesh, make_axis_rules(run.mesh))
+    params = b.init_fns[0](full_params)
+    opt = b.init_fns[1](params)
+    losses, ms = [], []
+    for batch in batches:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt, m = b.step_fn(params, opt, batch)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(m["loss"]))
+    if not all(math.isfinite(v) for v in losses):
+        fail(f"mesh train {model.cfg.name}: losses {losses}")
+    del opt
+    return losses, params, b.in_shardings[0], ms
+
+
+def mesh_one_phase(dev, card: str, launches: dict, mesh) -> None:
+    """Phase 22: the mesh path on a world of one over NCCL
+    (``MeshConfig(data=1, model=1)``).  (a) ``smollm-360m`` at full width
+    and depth: the first step's loss and gradients (``grad_fn``, MESH_ACCUM
+    microbatches of MESH_BATCH × MESH_SEQ) against ``launch/train.py``'s
+    ``make_step`` gradient (``value_and_grad`` of the loss over the whole
+    batch), in fp32 at phase 13's gates and in bf16 at its bf16 gate (the
+    mesh path's error against the fp32 gradient at most BF16_FACTOR × the
+    bf16 ``make_step``'s); then MESH_STEPS bf16 steps with compression
+    ``none`` and ``bf16``; (b) ``granite-moe-3b-a800m`` cut to
+    LM_STEP_LAYERS layers, fp32: the forward on the expert-parallel path
+    (one shard, one group) against the global path within MESH_MOE_RTOL,
+    then bf16 steps; (c) full ``jpeg-resnet``, batch TRAIN_BATCH, 64 bands,
+    through ``build_train_step``.  Step ms and tokens/s (images/s)."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import token_iterator
+    from repro_torch.launch import train
+    from repro_torch.models import transformer as T
+    from repro_torch.models.registry import build_model
+    from repro_torch.optim import value_and_grad
+    from repro_torch.parallel.sharding import AxisRules, sharding_rules
+    from repro_torch.tree import leaves, leaves_with_paths
+
+    def amax(x) -> float:
+        return float(x.abs().max())
+
+    def rel(a, b) -> float:
+        return float((a.float() - b.float()).norm()) / float(b.float().norm())
+
+    cfg = get_config(LM_ARCH)
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    params32 = build_model(cfg32).init_params(
+        torch.Generator(device=dev).manual_seed(0), dev)
+    batch = train.to_model_batch(cfg, next(token_iterator(
+        0, MESH_BATCH, MESH_SEQ, cfg.vocab_size)), dev)
+    tokens = MESH_BATCH * MESH_SEQ
+
+    def grads(model, params, label):
+        run = mesh_run_config(model.cfg, MESH_BATCH, MESH_SEQ, MESH_ACCUM)
+        from repro_torch.launch.mesh import make_axis_rules
+        from repro_torch.launch.steps import build_train_step
+
+        b = build_train_step(model, run, mesh, make_axis_rules(run.mesh))
+        local = b.init_fns[0](params)
+        mesh_out = drive(f"mesh grad {label}", ("flash_attention",
+                                                "flash_attention_bwd"),
+                         launches, lambda: b.grad_fn(local, batch))
+        del local
+        step_out = value_and_grad(lambda p, x: model.loss_fn(p, x)[0],
+                                  params, batch)
+        return mesh_out, step_out
+
+    m32 = build_model(cfg32, remat="full")
+    (lm, gm), (ls, gs) = grads(m32, params32, "fp32")
+    if not abs(float(lm) - float(ls)) <= LM_LOSS_RTOL * abs(float(ls)):
+        fail(f"mesh grad fp32: loss {float(lm)} vs make_step's {float(ls)}")
+    worst = (0.0, "")
+    for (path, a), b in zip(leaves_with_paths(gm), leaves(gs)):
+        err = amax(a - b) / amax(b)
+        if not (bool(torch.isfinite(a).all()) and err <= LM_GRAD_FLOOR):
+            fail(f"mesh grad fp32: {path} differs from make_step's by "
+                 f"{err:.3e} of its largest entry (> {LM_GRAD_FLOOR})")
+        worst = max(worst, (err, path))
+    del gm
+    params16 = T.cast_params(params32, torch.bfloat16)
+    m16 = build_model(cfg, remat="full")
+    (lm16, gm16), (ls16, gs16) = grads(m16, params16, "bf16")
+    loss_gate = max(BF16_FACTOR * abs(float(ls16) - float(ls)),
+                    2 ** -8 * abs(float(ls)))
+    if not abs(float(lm16) - float(ls)) <= loss_gate:
+        fail(f"mesh grad bf16: loss {float(lm16)} vs fp32 {float(ls)} "
+             f"(bf16 make_step {float(ls16)})")
+    worst16 = (0.0, "")
+    for (path, a), b, c in zip(leaves_with_paths(gm16), leaves(gs16),
+                               leaves(gs)):
+        e_m, e_s = rel(a, c), rel(b, c)
+        if not (bool(torch.isfinite(a).all()) and e_m <= BF16_FACTOR * e_s):
+            fail(f"mesh grad bf16: {path}: the mesh path's error {e_m:.3e} "
+                 f"(relative norm, against fp32) > {BF16_FACTOR} × "
+                 f"make_step's bf16 {e_s:.3e}")
+        worst16 = max(worst16, (e_m / e_s, path))
+    log(f"mesh grad, world of one over NCCL, {LM_ARCH} full width and "
+        f"depth, {MESH_ACCUM} microbatches of {MESH_BATCH // MESH_ACCUM} × "
+        f"{MESH_SEQ} [{card}]: fp32 loss {float(lm):.6f} vs make_step "
+        f"{float(ls):.6f}, worst gradient {worst[0]:.3e} of its largest "
+        f"entry at {worst[1]}; bf16 loss {float(lm16):.6f} vs "
+        f"{float(ls16):.6f}, largest ratio of the mesh path's gradient "
+        f"error to make_step's bf16 {worst16[0]:.3f} at {worst16[1]}")
+    del gm16, gs16, gs, params32, m32
+    torch.cuda.empty_cache()
+
+    batches = [train.to_model_batch(cfg, next(token_iterator(
+        s + 1, MESH_BATCH, MESH_SEQ, cfg.vocab_size)), dev)
+        for s in range(MESH_STEPS)]
+    for comp in ("none", "bf16"):
+        run = mesh_run_config(cfg, MESH_BATCH, MESH_SEQ, MESH_ACCUM, comp)
+        losses, _, _, ms = drive(
+            f"mesh train {LM_ARCH} bf16 compression={comp}",
+            ("flash_attention", "flash_attention_bwd"), launches,
+            lambda: mesh_train(m16, run, mesh, params16, batches))
+        steady = statistics.median(ms[1:])
+        log(f"mesh train, world of one, {LM_ARCH} full depth, bf16, batch "
+            f"{MESH_BATCH} × {MESH_SEQ}, grad_accum {MESH_ACCUM}, ZeRO-1, "
+            f"remat full, compression {comp} [{card}]: step ms "
+            f"{[round(t, 1) for t in ms]}, median after the first "
+            f"{steady:.1f} ms = {tokens / steady * 1e3:.0f} tokens/s; "
+            f"losses {losses}")
+    del params16, batches
+    torch.cuda.empty_cache()
+
+    # (b) the MoE on the expert-parallel path: one shard, one group
+    gcfg = dataclasses.replace(get_config(MOE_ARCH), n_layers=LM_STEP_LAYERS,
+                               dtype="float32")
+    gp = build_model(gcfg).init_params(
+        torch.Generator(device=dev).manual_seed(0), dev)
+    gbatch = train.to_model_batch(gcfg, next(token_iterator(
+        0, LM_STEP_BATCH, LM_PROMPT, gcfg.vocab_size)), dev)
+    with torch.no_grad():
+        want = T.forward(gp, gcfg, gbatch)[0]
+        with sharding_rules(AxisRules.default(False, data=1,
+                                              model=1).with_mesh(mesh)):
+            got = T.forward(gp, gcfg, gbatch)[0]
+    err = amax(got - want)
+    if not err <= MESH_MOE_RTOL * amax(want):
+        fail(f"mesh moe: the expert-parallel path's logits differ from the "
+             f"global path's by {err:.3e} (> {MESH_MOE_RTOL} × "
+             f"{amax(want):.3e})")
+    log(f"mesh moe, {MOE_ARCH} full width, {LM_STEP_LAYERS} layers, fp32, "
+        f"{LM_STEP_BATCH} × {LM_PROMPT} tokens: expert-parallel logits vs "
+        f"the global path's: max abs err {err:.3e} (bit-identical: "
+        f"{bool(torch.equal(got, want))})")
+    del got, want
+    g16 = dataclasses.replace(gcfg, dtype="bfloat16")
+    gp16 = T.cast_params(gp, torch.bfloat16)
+    del gp
+    gbatches = [train.to_model_batch(g16, next(token_iterator(
+        s + 1, MESH_BATCH, MESH_SEQ, g16.vocab_size)), dev)
+        for s in range(3)]
+    run = mesh_run_config(g16, MESH_BATCH, MESH_SEQ, MESH_ACCUM)
+    losses, _, _, ms = drive(
+        f"mesh train {MOE_ARCH} ({LM_STEP_LAYERS} layers) bf16",
+        ("flash_attention", "flash_attention_bwd"), launches,
+        lambda: mesh_train(build_model(g16, remat="full"), run, mesh, gp16,
+                           gbatches))
+    steady = statistics.median(ms[1:])
+    log(f"mesh train, world of one, {MOE_ARCH} full width, "
+        f"{LM_STEP_LAYERS} layers, bf16, batch {MESH_BATCH} × {MESH_SEQ}, "
+        f"grad_accum {MESH_ACCUM} [{card}]: step ms "
+        f"{[round(t, 1) for t in ms]}, median after the first "
+        f"{steady:.1f} ms = {tokens / steady * 1e3:.0f} tokens/s; losses "
+        f"{losses}")
+    del gp16, gbatches
+    torch.cuda.empty_cache()
+
+    # (c) jpeg-resnet, batch TRAIN_BATCH, 64 bands
+    jcfg = get_config("jpeg-resnet")
+    jm = build_model(jcfg)
+    jp = jm.init_params(torch.Generator().manual_seed(0), dev)
+    it = train.build_iterator(jcfg, TRAIN_BATCH, 0, 0, dev)
+    jbatches = [train.to_model_batch(jcfg, next(it), dev) for _ in range(3)]
+    run = mesh_run_config(jcfg, TRAIN_BATCH, jcfg.image_size, 1)
+    losses, _, _, ms = drive(
+        "mesh train jpeg-resnet", ("jpeg_conv", "asm_relu", "block_dct",
+                                   "block_idct"), launches,
+        lambda: mesh_train(jm, run, mesh, jp, jbatches))
+    steady = statistics.median(ms[1:])
+    log(f"mesh train, world of one, jpeg-resnet full, batch {TRAIN_BATCH}, "
+        f"64 bands [{card}]: step ms {[round(t, 1) for t in ms]}, median "
+        f"after the first {steady:.1f} ms = "
+        f"{TRAIN_BATCH / steady * 1e3:.2f} images/s; losses {losses}")
+    del jp, jbatches
+    torch.cuda.empty_cache()
+
+
+def mesh4_workloads(dev):
+    """Phase 23's runs: (name, model, run config on 2×2, full parameters,
+    batches).  ``smollm-360m`` cut to MESH4_SMOLLM_LAYERS layers (15/5
+    heads: attention gathered), ``granite-moe-3b-a800m`` cut to
+    MESH4_GRANITE_LAYERS (24/8 heads: Megatron; experts on the
+    expert-parallel path with ZeRO-3 storage; capacity factor
+    MESH4_MOE_CF, so no shard drops and one rank runs the same
+    computation), fp32, AdamW eps MESH_EPS; full ``jpeg-resnet`` at batch
+    TRAIN_BATCH (batch norm statistics over every rank's rows)."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import token_iterator
+    from repro_torch.launch import train
+    from repro_torch.models.registry import build_model
+
+    out = []
+    for arch, layers in ((LM_ARCH, MESH4_SMOLLM_LAYERS),
+                         (MOE_ARCH, MESH4_GRANITE_LAYERS)):
+        cfg = dataclasses.replace(get_config(arch), n_layers=layers,
+                                  dtype="float32")
+        if cfg.n_experts:
+            cfg = dataclasses.replace(cfg, capacity_factor=MESH4_MOE_CF)
+        model = build_model(cfg, remat="full")
+        params = model.init_params(torch.Generator().manual_seed(0), dev)
+        batches = [train.to_model_batch(cfg, next(token_iterator(
+            s, MESH4_BATCH, MESH4_SEQ, cfg.vocab_size)), dev)
+            for s in range(MESH4_STEPS)]
+        out.append((arch, model, mesh_run_config(
+            cfg, MESH4_BATCH, MESH4_SEQ, MESH4_ACCUM, eps=MESH_EPS, data=2,
+            model=2), params, batches))
+    cfg = get_config("jpeg-resnet")
+    model = build_model(cfg)
+    params = model.init_params(torch.Generator().manual_seed(0), dev)
+    it = train.build_iterator(cfg, TRAIN_BATCH, 0, 0, dev)
+    batches = [train.to_model_batch(cfg, next(it), dev)
+               for _ in range(MESH4_STEPS)]
+    out.append(("jpeg-resnet", model, mesh_run_config(
+        cfg, TRAIN_BATCH, cfg.image_size, 1, eps=MESH_EPS, data=2, model=2),
+        params, batches))
+    return out
+
+
+def pipeline_inputs(dev):
+    """Phase 23's pipeline: MESH4 stages, each one full-width
+    ``smollm-360m`` layer (fp32, seed 0), PP_MICRO microbatches of
+    PP_MB × PP_SEQ."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as T
+    from repro_torch.models.registry import build_model
+
+    cfg = dataclasses.replace(get_config(LM_ARCH), n_layers=PP_STAGES,
+                              dtype="float32")
+    params = build_model(cfg).init_params(torch.Generator().manual_seed(0),
+                                          dev)
+    stages = [T._layer(params["blocks"], 0, i) for i in range(PP_STAGES)]
+    mb = torch.randn((PP_MICRO, PP_MB, PP_SEQ, cfg.d_model),
+                     generator=torch.Generator().manual_seed(1)).to(dev)
+    pos = torch.arange(PP_SEQ, device=dev)[None].expand(PP_MB, PP_SEQ)
+
+    def stage_fn(p, h):
+        with torch.no_grad():
+            return T._apply_layer(h, p, cfg, ("attn", "dense"), pos)[0]
+
+    return stages, mb, stage_fn
+
+
+def mesh4_reference(dev, mesh, path: str) -> None:
+    """Phase 23's runs on one rank (the world of one), saved to ``path``
+    for the four ranks to hold theirs against."""
+    import torch
+
+    from repro_torch.parallel.sharding import gather_full
+    from repro_torch.tree import leaves_with_paths, tree_map
+
+    ref = {}
+    for name, model, run, params, batches in mesh4_workloads(dev):
+        run = dataclasses.replace(run, mesh=dataclasses.replace(
+            run.mesh, data=1, model=1))
+        losses, p, specs, ms = mesh_train(model, run, mesh, params, batches)
+        full = tree_map(lambda x, s: gather_full(x, s, mesh), p, specs)
+        ref[name] = {"losses": losses, "ms": ms, "params": {
+            k: v.cpu() for k, v in leaves_with_paths(full)}}
+        if name == "jpeg-resnet":
+            # its own sensitivity: the batch times (1 + 1e-6·noise)
+            gen = torch.Generator(device=dev).manual_seed(3)
+            nudged = [dict(b, coefficients=b["coefficients"] * (
+                1 + 1e-6 * torch.randn(b["coefficients"].shape,
+                                       device=dev, generator=gen)))
+                for b in batches]
+            _, q, _, _ = mesh_train(model, run, mesh, params, nudged)
+            ref[name]["nudged"] = {k: v.cpu() for k, v in leaves_with_paths(
+                tree_map(lambda x, s: gather_full(x, s, mesh), q, specs))}
+        del p, full, params, batches
+    stages, mb, stage_fn = pipeline_inputs(dev)
+    seq = mb
+    for p in stages:
+        seq = torch.stack([stage_fn(p, x) for x in seq])
+    ref["pipeline"] = seq.cpu()
+    torch.save(ref, path)
+    torch.cuda.empty_cache()
+
+
+def mesh4_rank(mesh):
+    """One of phase 23's four ranks (gloo, sharing the one card): each
+    workload on the 2 (data) × 2 (model) mesh, its losses and gathered
+    parameters held against the one-rank run; then the pipeline over a
+    4-stage mesh against the stages run in turn on one rank.  Returns the
+    errors, step times, launches and staged collectives."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.parallel import collectives as C
+    from repro_torch.parallel.pipeline import bubble_fraction, \
+        pipelined_apply, stack_stage_params
+    from repro_torch.parallel.sharding import P, gather_full, local_slice
+    from repro_torch.tree import leaves_with_paths, tree_map
+
+    dev = torch.device("cuda", torch.cuda.current_device()) \
+        if mesh.device_type == "cuda" else torch.device(mesh.device_type)
+    ref = torch.load(os.environ["CHIP_SMOKE_MESH_REF"])
+    out = {}
+    for name, model, run, params, batches in mesh4_workloads(dev):
+        reset_counts()
+        losses, p, specs, ms = mesh_train(model, run, mesh, params, batches)
+        launched = counts()
+        full = tree_map(lambda x, s: gather_full(x, s, mesh), p, specs)
+        want = ref[name]
+        loss_err = max(abs(a - b) / abs(b) for a, b in
+                       zip(losses, want["losses"]))
+        worst = (0.0, "")
+        p0 = dict(leaves_with_paths(params))
+        for path, x in leaves_with_paths(full):
+            w = want["params"][path].to(x.device)
+            if "nudged" in want:
+                # jpeg-resnet: the update by relative norm against the
+                # floor of phase 5's rule (ASM masks flip on
+                # pre-activations within rounding of zero)
+                d0 = w - p0[path]
+                nd = float(d0.norm()) or 1.0
+                err = float((x - w).norm()) / nd
+                floor = float((want["nudged"][path].to(x.device) - w)
+                              .norm()) / nd
+                worst = max(worst, (err / max(TRAIN_GRAD_RTOL,
+                                              TRAIN_FLOOR_FACTOR * floor),
+                                    path, err, floor))
+            else:
+                worst = max(worst, (float((x - w).abs().max())
+                                    / max(float(w.abs().max()), 1e-30),
+                                    path))
+        out[name] = {"losses": losses, "loss_err": loss_err,
+                     "param_err": worst, "ms": ms,
+                     "one_rank_ms": want["ms"], "launches": launched}
+        del p, full, params, batches
+        torch.cuda.empty_cache()
+    stages, mb, stage_fn = pipeline_inputs(dev)
+    pmesh = make_mesh((PP_STAGES,), ("stage",), mesh.device_type)
+    mine = tree_map(lambda x: local_slice(
+        x, P("stage", *([None] * (x.dim() - 1))), pmesh),
+        stack_stage_params(stages))
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    got = pipelined_apply(stage_fn, mine, mb, pmesh)
+    torch.cuda.synchronize()
+    pp_ms = (time.perf_counter() - t0) * 1e3
+    launched = counts()
+    want = ref["pipeline"].to(dev)
+    out["pipeline"] = {
+        "err": float((got - want).abs().max()) / float(want.abs().max()),
+        "identical": bool(torch.equal(got, want)), "ms": pp_ms,
+        "bubble": bubble_fraction(PP_STAGES, PP_MICRO),
+        "launches": launched}
+    out["staged"] = dict(C.STAGED)
+    out["rank"] = dist.get_rank()
+    return out
+
+
+def mesh_phases(dev, card: str, launches: dict) -> None:
+    """Phases 22 and 23: the mesh path on a world of one over NCCL, then
+    on four ranks sharing the one card over gloo (NCCL refuses two ranks
+    on one device), each held against the same computation on one rank.
+    Multi-device speed is not measured: every rank shares one H100."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import free_port, make_mesh, run_local
+
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:"
+                            f"{free_port()}", rank=0, world_size=1)
+    ref_dir = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"), "cuda")
+        timed("phase 22", card, lambda: mesh_one_phase(dev, card, launches,
+                                                       mesh))
+        t0 = time.perf_counter()
+        path = os.path.join(ref_dir, "one_rank.pt")
+        mesh4_reference(dev, mesh, path)
+        log(f"phase 23: the one-rank runs in {time.perf_counter() - t0:.2f}"
+            f" s")
+    finally:
+        dist.destroy_process_group()
+    try:
+        os.environ["CHIP_SMOKE_MESH_REF"] = path
+        t0 = time.perf_counter()
+        ranks = run_local(mesh4_rank, (2, 2), ("data", "model"),
+                          backend="gloo", device="cuda", timeout=600)
+    finally:
+        shutil.rmtree(ref_dir, ignore_errors=True)
+    wall = time.perf_counter() - t0
+    for r in ranks:
+        for name in ("smollm-360m", "granite-moe-3b-a800m", "jpeg-resnet"):
+            res = r[name]
+            bound = 1.0 if name == "jpeg-resnet" else MESH_PARAM_RTOL
+            if not (res["loss_err"] <= MESH_LOSS_RTOL
+                    and res["param_err"][0] <= bound):
+                fail(f"mesh 2x2 rank {r['rank']} {name}: losses "
+                     f"{res['losses']} differ from one rank's by "
+                     f"{res['loss_err']:.3e} (> {MESH_LOSS_RTOL}) or the "
+                     f"parameters at {res['param_err'][1]}: "
+                     f"{res['param_err']} (> {bound})")
+        if not r["pipeline"]["err"] <= MESH_PIPE_RTOL:
+            fail(f"mesh pipeline rank {r['rank']}: {r['pipeline']}")
+        for name, required in MESH4_KERNELS.items():
+            got = r[name]["launches"]
+            missing = [k for k in required if got[k] <= 0]
+            if missing:
+                fail(f"mesh 2x2 rank {r['rank']} {name}: kernels {missing} "
+                     f"were never launched ({got})")
+            for k, v in got.items():
+                launches[k] += v
+    r0 = ranks[0]
+    for name in ("smollm-360m", "granite-moe-3b-a800m", "jpeg-resnet"):
+        res = r0[name]
+        pe = res["param_err"]
+        held = (f"parameters {pe[0]:.3e} of the leaf's largest (at "
+                f"{pe[1]})") if len(pe) == 2 else (
+            f"the update's relative norm {pe[2]:.3e} at {pe[1]} (its own "
+            f"floor there {pe[3]:.3e}; {pe[0]:.3f} of the gate)")
+        log(f"mesh 2x2 (data × model, 4 ranks on one card, gloo) {name} "
+            f"[{card}]: losses {res['losses']}, against one rank: losses "
+            f"{res['loss_err']:.3e}, {held}; step ms "
+            f"{[round(t, 1) for t in res['ms']]} (one rank "
+            f"{[round(t, 1) for t in res['one_rank_ms']]})")
+    pp = r0["pipeline"]
+    staged = {k: sum(r["staged"].get(k, 0) for r in ranks)
+              for k in sorted({k for r in ranks for k in r["staged"]})}
+    log(f"mesh pipeline, {PP_STAGES} stages of one full-width {LM_ARCH} "
+        f"layer, {PP_MICRO} microbatches of {PP_MB} × {PP_SEQ} [{card}]: "
+        f"against the stages in turn on one rank {pp['err']:.3e} "
+        f"(bit-identical: {pp['identical']}), {pp['ms']:.1f} ms, bubble "
+        f"fraction {pp['bubble']:.3f}")
+    summed = {k: sum(r[n]["launches"][k] for r in ranks
+                     for n in MESH4_KERNELS) for k in KERNELS}
+    log(f"phase 23: 4 ranks in {wall:.2f} s (spawn and CUDA start "
+        f"included); every rank launched each workload's kernels "
+        f"(MESH4_KERNELS), launches summed over the ranks {summed}; "
+        f"point-to-point sends staged through the host (gloo with CUDA "
+        f"tensors), summed over the ranks: {staged}")
+
+
 def main() -> None:
     if not os.path.isdir(os.path.join(REPO_SRC, "repro_torch")):
         fail(f"no src/repro_torch beside {__file__}: run from a checkout")
@@ -3296,6 +3828,9 @@ def main() -> None:
     timed("phase 20", card, lambda: audio_phase(dev, card, launches))
     timed("phase 21", card, lambda: lm_family_train_phase(dev, card,
                                                           launches))
+
+    # --- phases 22-23: training on a mesh -----------------------------------
+    timed("phases 22-23", card, lambda: mesh_phases(dev, card, launches))
 
     kernels = []
     src = {k: "src/repro_torch/csrc/jpeg_kernels.cu" for k in KERNELS}

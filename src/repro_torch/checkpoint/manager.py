@@ -9,6 +9,12 @@
   memory at once and writes them in a background thread; :meth:`wait`
   joins it.
 * Keep-last-k retention and JSON extras (the data iterator's state).
+* **Elastic** — leaves are stored whole.  A save under a mesh
+  (``spec_tree`` and ``mesh``: each leaf's ``PartitionSpec`` and the
+  ``DeviceMesh``) gathers every leaf from its ranks, and rank 0 writes the
+  full arrays; a restore with a spec tree and a mesh returns this rank's
+  slices.  So a step saved on one mesh restores on any other, or on none,
+  and the reverse, as the reference's re-placement does.
 
 The on-disk layout is the reference package's (``arrays.npz`` with leaves
 ``leaf_<i>``, ``manifest.json`` with each leaf's tree path, shape, dtype
@@ -81,9 +87,20 @@ class CheckpointManager:
 
     # ------------------------------------------------------------------ save
     def save(self, step: int, tree: Any, extra: dict[str, Any] | None = None,
-             blocking: bool = True) -> None:
+             blocking: bool = True, *, spec_tree: Any = None,
+             mesh=None) -> None:
         """Write ``tree``'s leaves as step ``step``; ``blocking=False``
-        returns once the leaves are on the host."""
+        returns once the leaves are on the host.  With ``spec_tree`` and
+        ``mesh`` the leaves are this rank's slices: every rank calls save,
+        the full leaves are gathered, and rank 0 of the mesh writes (its
+        ``extra``)."""
+        if mesh is not None:
+            from repro_torch.parallel.sharding import gather_full
+
+            tree = tree_map(lambda x, sp: gather_full(x, sp, mesh), tree,
+                            spec_tree)
+            if any(mesh.get_local_rank(a) for a in mesh.mesh_dim_names):
+                return
         leaves = [(p, _host(v)) for p, v in leaves_with_paths(tree)]
         extra = dict(extra or {})
 
@@ -159,30 +176,39 @@ class CheckpointManager:
                     raise ValueError(f"checksum mismatch in {d}/{name}")
         return by_path, manifest
 
-    def restore(self, step: int, target_tree: Any
-                ) -> tuple[Any, dict[str, Any]]:
+    def restore(self, step: int, target_tree: Any, spec_tree: Any = None,
+                mesh=None) -> tuple[Any, dict[str, Any]]:
         """Restore step ``step`` into the structure of ``target_tree``: each
         leaf comes back as a tensor on its target leaf's device, in its
-        dtype (a bf16 leaf stored widened comes back bit-identical).
-        Returns ``(tree, extra)``."""
-        return self._place(*self._read(step), step, target_tree)
+        dtype (a bf16 leaf stored widened comes back bit-identical); with
+        ``spec_tree`` and ``mesh``, this rank's slice of it.  Returns
+        ``(tree, extra)``."""
+        return self._place(*self._read(step), step, target_tree, spec_tree,
+                           mesh)
 
     @staticmethod
     def _place(by_path: dict[str, np.ndarray], manifest: dict, step: int,
-               target_tree: Any) -> tuple[Any, dict[str, Any]]:
-        """A step's verified arrays in ``target_tree``'s structure."""
+               target_tree: Any, spec_tree: Any = None,
+               mesh=None) -> tuple[Any, dict[str, Any]]:
+        """A step's verified arrays in ``target_tree``'s structure (sliced
+        for this rank when ``mesh`` is given)."""
         want = {p for p, _ in leaves_with_paths(target_tree)}
         missing = sorted(want - set(by_path))
         if missing:
             raise KeyError(f"checkpoint step {step} misses leaves {missing}")
         it = iter(by_path[p] for p, _ in leaves_with_paths(target_tree))
 
-        def place(leaf):
-            arr = next(it)
-            return torch.as_tensor(arr).to(device=leaf.device,
-                                           dtype=leaf.dtype)
+        def place(leaf, spec=None):
+            arr = torch.as_tensor(next(it))
+            if mesh is not None:
+                from repro_torch.parallel.sharding import local_slice
 
-        return tree_map(place, target_tree), manifest["extra"]
+                arr = local_slice(arr, spec, mesh)
+            return arr.to(device=leaf.device, dtype=leaf.dtype)
+
+        if mesh is None:
+            return tree_map(place, target_tree), manifest["extra"]
+        return tree_map(place, target_tree, spec_tree), manifest["extra"]
 
     def restore_tree(self, step: int | None = None
                      ) -> tuple[int, dict[str, np.ndarray], dict[str, Any]]:
@@ -210,14 +236,16 @@ class CheckpointManager:
                 f"or corrupt: {e}") from e
         return step, by_path, manifest["extra"]
 
-    def restore_latest(self, target_tree: Any
-                       ) -> tuple[int, Any, dict[str, Any]] | None:
+    def restore_latest(self, target_tree: Any, spec_tree: Any = None,
+                       mesh=None) -> tuple[int, Any, dict[str, Any]] | None:
         """The newest valid step as ``(step, tree, extra)``, or None.
-        Damaged steps are skipped."""
+        Damaged steps are skipped; ``spec_tree`` and ``mesh`` as for
+        :meth:`restore`."""
         for step in reversed(self.steps()):  # each step read once
             try:
                 read = self._read(step)
             except _READ_ERRORS:
                 continue
-            return (step, *self._place(*read, step, target_tree))
+            return (step, *self._place(*read, step, target_tree, spec_tree,
+                                       mesh))
         return None

@@ -1,14 +1,17 @@
 """Model and training configurations of the port: ``jpeg-resnet`` and every
 language model of the reference (dense, MoE, Mamba hybrid, RWKV, VLM and
-audio; full and reduced)."""
+audio; full and reduced), the input shapes of the reference's cells
+(:data:`SHAPES`), and the mesh and run configurations of the distributed
+training path (``launch/steps.py``)."""
 from __future__ import annotations
 
 import dataclasses
 import importlib
 from typing import Optional
 
-__all__ = ["ModelConfig", "TrainConfig", "ARCHS", "get_config",
-           "reduced_config"]
+__all__ = ["ModelConfig", "ShapeConfig", "TrainConfig", "MeshConfig",
+           "RunConfig", "SHAPES", "ARCHS", "get_config", "reduced_config",
+           "list_archs"]
 
 #: arch → config module of the port
 ARCHS = {"jpeg-resnet": "jpeg_resnet", "granite-3-2b": "granite_3_2b",
@@ -91,17 +94,70 @@ class ModelConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    """One input shape of a cell: ``kind`` 'train', 'prefill' or
+    'decode'."""
+
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str
+
+
+#: the reference's four shapes (``repro/configs/base.py:99-104``)
+SHAPES: dict[str, ShapeConfig] = {
+    "train_4k": ShapeConfig("train_4k", 4_096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32_768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524_288, 1, "decode"),
+}
+
+
+@dataclasses.dataclass(frozen=True)
 class TrainConfig:
-    """The reference's training hyper-parameters that the port's trainer
-    reads (``repro/configs/base.py:TrainConfig``, same defaults)."""
+    """The reference's training hyper-parameters
+    (``repro/configs/base.py:TrainConfig``, same defaults).  The trainer
+    (``launch/train.py``) reads the first seven; the mesh step
+    (``launch/steps.py``) also the betas, ``eps``, ``grad_accum``,
+    ``grad_compression`` and ``zero1``.  ``remat`` is the model's
+    (``build_model(cfg, remat=...)``) and ``scan_layers`` has no effect:
+    the port loops over its layers in Python."""
 
     learning_rate: float = 3e-4
     weight_decay: float = 0.1
+    beta1: float = 0.9
+    beta2: float = 0.95
+    eps: float = 1e-8
     warmup_steps: int = 100
     total_steps: int = 1_000
     schedule: str = "cosine"          # 'cosine' | 'linear' | 'constant'
     optimizer: str = "adamw"          # 'adamw' | 'sgd' | 'lion'
     grad_clip: float = 1.0
+    grad_accum: int = 1
+    grad_compression: str = "none"    # 'none' | 'bf16'
+    zero1: bool = True                # shard optimizer state over data
+    remat: str = "full"               # 'none' | 'full' | 'dots'
+    scan_layers: bool = True
+    seed: int = 0
+
+
+@dataclasses.dataclass(frozen=True)
+class MeshConfig:
+    """The device mesh: (pod, data, model) ranks, single-pod drops
+    ``pod``."""
+
+    multi_pod: bool = False
+    pods: int = 2
+    data: int = 16
+    model: int = 16
+
+
+@dataclasses.dataclass(frozen=True)
+class RunConfig:
+    model: ModelConfig
+    shape: ShapeConfig
+    train: TrainConfig = dataclasses.field(default_factory=TrainConfig)
+    mesh: MeshConfig = dataclasses.field(default_factory=MeshConfig)
 
 
 def _module(arch: str):
@@ -119,3 +175,8 @@ def get_config(arch: str) -> ModelConfig:
 def reduced_config(arch: str) -> ModelConfig:
     """A tiny same-family configuration of ``arch`` for CPU tests."""
     return _module(arch).reduced()
+
+
+def list_archs() -> list[str]:
+    """Every arch the port configures, sorted."""
+    return sorted(ARCHS)

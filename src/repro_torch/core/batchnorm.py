@@ -53,6 +53,19 @@ def _update(state: BatchNormState, mu: torch.Tensor, var: torch.Tensor,
         (1 - momentum) * state.running_var + momentum * var)
 
 
+def _batch_mean():
+    """The batch mean: over this process's rows, or under mesh rules over
+    every rank's rows of the batch axes (``collectives.batch_mean``: the
+    global batch's statistics, as the reference's SPMD computes them)."""
+    from repro_torch.parallel.sharding import active_rules
+
+    if active_rules() is None:
+        return lambda x, dims: x.mean(dim=dims)
+    from repro_torch.parallel.collectives import batch_mean
+
+    return batch_mean
+
+
 def batchnorm_jpeg(coef: torch.Tensor, params: BatchNormParams,
                    state: BatchNormState, *, training: bool,
                    momentum: float = 0.1, eps: float = 1e-5,
@@ -62,8 +75,9 @@ def batchnorm_jpeg(coef: torch.Tensor, params: BatchNormParams,
     new_state)``; in training the batch statistics normalise and the
     running ones move by ``momentum``."""
     if training:
-        mu = (coef[..., 0] / dc_gain).mean(dim=(0, 1, 2))
-        second = (coef * coef).mean(dim=-1).mean(dim=(0, 1, 2))
+        mean = _batch_mean()
+        mu = mean(coef[..., 0] / dc_gain, (0, 1, 2))
+        second = mean((coef * coef).mean(dim=-1), (0, 1, 2))
         var = second - mu * mu
         new_state = _update(state, mu, var, momentum)
     else:

@@ -30,6 +30,7 @@ from repro_torch.core import batchnorm as bnlib
 from repro_torch.core import conv as convlib
 from repro_torch.core import dispatch as dispatchlib
 from repro_torch.core import pooling as poollib
+from repro_torch.parallel.sharding import bind_rules
 
 __all__ = ["ResNetSpec", "init_resnet", "params_from_numpy", "spatial_apply",
            "jpeg_apply", "precompute_operators", "jpeg_apply_precomputed",
@@ -192,7 +193,10 @@ def jpeg_apply(params, state, coef: torch.Tensor, *, training: bool,
             return relu(poollib.residual_add(h, short)), st1, st2
 
         if remat:
-            h, st1, st2 = checkpoint(block_fn, h, use_reentrant=False)
+            # the recomputation sees the forward's mesh rules (its batch
+            # norms' statistics span every rank's rows)
+            h, st1, st2 = checkpoint(bind_rules(block_fn), h,
+                                     use_reentrant=False)
         else:
             h, st1, st2 = block_fn(h)
         new_state[name + "_bn1"] = _state_dict(st1)

@@ -7,11 +7,14 @@ a build against PyTorch's headers takes minutes.  The library lands in
 ``build/kernels/`` at the repository root (git-ignored), named by a hash
 of the sources and flags, so an edited source rebuilds and an unchanged
 one loads the existing file.  Nothing is built at import: the first CUDA
-launch builds.
+launch builds.  A build holds an exclusive ``flock`` on the build
+directory, so processes that start together (the ranks of a mesh on one
+machine) build once and never load a library another is still writing.
 """
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import functools
 import hashlib
 import os
@@ -79,6 +82,21 @@ def build(sources: tuple[Path, ...] | None = None,
         _LOG.setdefault("cached", True)
         return out
     out_dir.mkdir(parents=True, exist_ok=True)
+    lock = os.open(out_dir, os.O_RDONLY)  # flock on the directory itself
+    try:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if out.exists():  # another process built it while we waited
+            _LOG.setdefault("seconds", 0.0)
+            _LOG.setdefault("cached", True)
+            return out
+        return _compile(sources, out_dir, out)
+    finally:
+        os.close(lock)
+
+
+def _compile(sources: tuple[Path, ...], out_dir: Path, out: Path) -> Path:
+    """Compile and link ``sources`` into ``out`` (the caller holds the
+    build lock)."""
     tag = f"{out.stem}.{os.getpid()}.tmp"
     objs = [out_dir / f"{tag}.{src.stem}.o" for src in sources]
     t0 = time.perf_counter()

@@ -8,8 +8,16 @@ head_dim)``, ``H = KVH · G``; norm and softmax statistics in fp32 whatever
 the activation dtype.  Full-sequence attention is
 ``kernels/flash_attention.py``: the hand-written kernel on a CUDA tensor,
 its plain version on a CPU one or when the caller asks for it
-(``plain=True``).  The reference's ``shard(...)`` hints are dropped: they
-are no-ops without mesh rules.
+(``plain=True``).
+
+Under mesh rules (``parallel/sharding.py``; the training step of
+``launch/steps.py`` installs them) a layer sees this rank's slices of its
+weights.  Where a weight arrives cut over ``model`` the layer runs the
+Megatron split: :func:`model_in` enters the region (identity forward, the
+gradient summed over ``model``), each rank computes its heads or its d_ff
+columns, and :func:`model_out` sums the partial outputs.  The reference's
+``shard(...)`` hints have no counterpart: a rank's activations are
+already its own rows.
 """
 from __future__ import annotations
 
@@ -24,7 +32,7 @@ from repro_torch.kernels import flash_attention as kfa
 
 __all__ = ["resolve_dtype", "rms_norm", "layer_norm", "apply_rope",
            "sinusoidal_positions", "attention", "decode_attention",
-           "swiglu_mlp", "gelu_mlp"]
+           "swiglu_mlp", "gelu_mlp", "model_in", "model_out"]
 
 
 def resolve_dtype(name: str) -> torch.dtype:
@@ -115,3 +123,24 @@ def gelu_mlp(x: torch.Tensor, w_in: torch.Tensor, b_in: torch.Tensor,
     """gelu(x @ w_in + b_in) @ w_out + b_out, gelu's tanh approximation
     (``jax.nn.gelu``'s default)."""
     return F.gelu(x @ w_in + b_in, approximate="tanh") @ w_out + b_out
+
+
+def model_in(x: torch.Tensor) -> torch.Tensor:
+    """Enter a region split over the ``model`` axis: ``x`` as it is, its
+    gradient summed over the axis (each rank's part of the region adds
+    its share)."""
+    from repro_torch.parallel import collectives as C
+    from repro_torch.parallel.sharding import active_rules
+
+    rules = active_rules()
+    return C.CopyTo.apply(x, rules.mesh, rules.axes("model"))
+
+
+def model_out(x: torch.Tensor) -> torch.Tensor:
+    """Leave a region split over the ``model`` axis: the ranks' partial
+    results summed (the gradient passes as it is)."""
+    from repro_torch.parallel import collectives as C
+    from repro_torch.parallel.sharding import active_rules
+
+    rules = active_rules()
+    return C.ReduceFrom.apply(x, rules.mesh, rules.axes("model"))

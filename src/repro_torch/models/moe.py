@@ -1,6 +1,7 @@
 """Mixture-of-Experts FFN: sort-based grouped dispatch with static capacity.
 
-A port of ``repro/models/moe.py``'s path without a mesh (global dispatch).
+A port of ``repro/models/moe.py``, both of its paths: global dispatch
+without a mesh, and the expert-parallel path under mesh rules.
 Each token's router picks its top ``k`` experts (fp32 router and softmax,
 weights renormalised); the (token, expert) pairs are sorted by expert
 (stable), each expert keeps its first ``capacity`` pairs and drops the
@@ -22,8 +23,19 @@ Three profiler ranges split the FFN's device time: ``moe_route`` (router,
 top-k, sort and the dispatch gather), ``moe_experts`` (the grouped
 products and their SwiGLU) and ``moe_combine``.
 
-The expert-parallel ``shard_map`` path (``moe.py:117-196``) waits for
-ROADMAP Queue 1 item 7.6.
+The expert-parallel path (the reference's ``shard_map``, ``moe.py:
+117-196``) runs under mesh rules (``parallel/sharding.py``, installed by
+``launch/steps.py``'s training step).  Tokens stay on their batch shard
+and capacity is per shard: each rank routes its own rows, in groups of at
+most :data:`GROUP` tokens (one group when they do not divide evenly).
+Experts are sliced along d_ff over ``model``: a rank runs its slice of
+every expert and the partial outputs are summed over ``model`` after the
+combine; the expert input and the routing weights enter that region
+through ``layers.model_in``, so their gradients sum the slices' parts.
+ZeRO-3 expert storage (d_model over ``data``) is gathered just in time
+and its gradient reduce-scattered.  The load-balance counts and router
+probabilities are summed over the batch axes and the unused ones before
+the aux loss, so it is the global batch's.  Gathers both ways here too.
 """
 from __future__ import annotations
 
@@ -32,8 +44,12 @@ import torch.nn.functional as F
 from torch.profiler import record_function
 
 from repro_torch.configs import ModelConfig
+from repro_torch.models import layers as L
+from repro_torch.parallel.sharding import active_rules, bind_rules
 
-__all__ = ["init_moe", "capacity", "moe_ffn"]
+__all__ = ["GROUP", "init_moe", "capacity", "moe_ffn"]
+
+GROUP = 8192  # tokens per dispatch group on the expert-parallel path
 
 
 def init_moe(normal, cfg: ModelConfig) -> dict:
@@ -132,23 +148,24 @@ def _aux_loss(counts: torch.Tensor, probs_sum: torch.Tensor, t: int,
     return e * torch.sum(frac_tokens * frac_probs)
 
 
-def moe_ffn(x: torch.Tensor, params: dict,
-            cfg: ModelConfig) -> tuple[torch.Tensor, torch.Tensor]:
-    """``x`` (B, S, D) → (out (B, S, D), aux loss): top-k with renormalised
-    weights (the Mixtral convention), capacity over the B·S tokens, overflow
-    dropped."""
-    b, s, d = x.shape
-    t = b * s
+def _dispatch_compute_combine(xf: torch.Tensor, params: dict,
+                              cfg: ModelConfig, split: bool = False):
+    """Route, run and combine the tokens ``xf`` (T, D) with capacity over
+    T → (out (T, D), per-expert pair counts (E,), router probabilities
+    summed over the tokens (E,)).  ``split``: the experts are this rank's
+    d_ff slice, so the expert region is entered with ``layers.model_in``
+    and its partial output summed over ``model``."""
+    t, d = xf.shape
     e, k = cfg.n_experts, cfg.experts_per_token
     cap = capacity(t, cfg)
-    xf = x.reshape(t, d)
     with record_function("moe_route"):
-        acc = torch.promote_types(x.dtype, torch.float32)  # fp32 at least
+        acc = torch.promote_types(xf.dtype, torch.float32)  # fp32 at least
         logits = xf.to(acc) @ params["router"].to(acc)  # (T, E)
         probs = torch.softmax(logits, dim=-1)
         top_w, tok_of_slot, slot_of_pair, pair_of_slot, counts = _routing(
             probs, cfg, cap)
-        grouped = _GatherRows.apply(xf, tok_of_slot[:, None], slot_of_pair)
+        grouped = _GatherRows.apply(L.model_in(xf) if split else xf,
+                                    tok_of_slot[:, None], slot_of_pair)
     with record_function("moe_experts"):
         grouped = grouped.reshape(e, cap, d)
         gate = F.silu(torch.bmm(grouped, params["w_gate"]))
@@ -157,7 +174,83 @@ def moe_ffn(x: torch.Tensor, params: dict,
     with record_function("moe_combine"):
         y_pairs = _GatherRows.apply(y, slot_of_pair.reshape(-1, 1),
                                     pair_of_slot[:, None])
-        w = top_w.to(x.dtype)
+        w = top_w.to(xf.dtype)
+        if split:
+            w = L.model_in(w)
         out = (y_pairs.reshape(t, k, d) * w[..., None]).sum(1)
-    aux = _aux_loss(counts, probs.sum(0), t, e, k)
+        if split:
+            out = L.model_out(out)
+    return out, counts, probs.sum(0)
+
+
+def moe_ffn(x: torch.Tensor, params: dict,
+            cfg: ModelConfig) -> tuple[torch.Tensor, torch.Tensor]:
+    """``x`` (B, S, D) → (out (B, S, D), aux loss): top-k with renormalised
+    weights (the Mixtral convention), capacity over the B·S tokens, overflow
+    dropped; under mesh rules the expert-parallel path (:func:`_moe_ep`),
+    where ``x`` is this rank's rows."""
+    rules = active_rules()
+    if rules is not None:
+        return _moe_ep(x, params, cfg, rules)
+    b, s, d = x.shape
+    t = b * s
+    out, counts, probs_sum = _dispatch_compute_combine(x.reshape(t, d),
+                                                       params, cfg)
+    aux = _aux_loss(counts, probs_sum, t, cfg.n_experts,
+                    cfg.experts_per_token)
+    return out.reshape(b, s, d), aux
+
+
+def _moe_ep(x: torch.Tensor, params: dict, cfg: ModelConfig, rules):
+    """The expert-parallel path on this rank's tokens (``moe.py:117-196``):
+    groups of at most :data:`GROUP` tokens, each group's capacity its own;
+    experts f-sliced over ``model``; ZeRO-3 experts (d_model cut over
+    ``data``) gathered just in time; counts and probabilities summed over
+    the batch and unused axes for the aux loss."""
+    from repro_torch.parallel import collectives as C
+
+    mesh = rules.mesh
+    maxes, baxes = rules.axes("model"), rules.axes("batch")
+    unused = tuple(a for a in mesh.mesh_dim_names
+                   if a not in baxes and a not in maxes)
+    summed = frozenset(baxes)
+    p = dict(params)
+    for name, d_dim in (("w_gate", 1), ("w_in", 1), ("w_out", 2)):
+        if p[name].shape[d_dim] != cfg.d_model:  # ZeRO-3: d over data
+            p[name] = C.GatherParam.apply(p[name], mesh,
+                                          [(d_dim, rules.axes("data"))],
+                                          summed)
+    split = p["w_gate"].shape[-1] != cfg.d_ff
+    b, s, d = x.shape
+    t_loc = b * s
+    xf = x.reshape(t_loc, d)
+    n_groups = max(t_loc // GROUP, 1)
+    if t_loc % GROUP:
+        n_groups = 1
+    tg = t_loc // n_groups
+
+    def group(xg):
+        return _dispatch_compute_combine(xg, p, cfg, split)
+
+    outs, counts, probs_sum = [], 0, 0
+    for gi in range(n_groups):
+        xg = xf[gi * tg:(gi + 1) * tg]
+        if n_groups > 1 and torch.is_grad_enabled():
+            from torch.utils.checkpoint import checkpoint
+
+            o, c, ps = checkpoint(bind_rules(group), xg,
+                                  use_reentrant=False)
+        else:
+            o, c, ps = group(xg)
+        outs.append(o)
+        counts, probs_sum = counts + c, probs_sum + ps
+    out = outs[0] if n_groups == 1 else torch.cat(outs)
+    reduce_axes = tuple(baxes) + unused
+    t_tot = t_loc
+    for ax in reduce_axes:
+        t_tot *= mesh.size(mesh.mesh_dim_names.index(ax))
+    counts = C.all_reduce(counts, mesh, reduce_axes)
+    probs_sum = C.AllReduce.apply(probs_sum, mesh, reduce_axes)
+    aux = _aux_loss(counts, probs_sum, t_tot, cfg.n_experts,
+                    cfg.experts_per_token)
     return out.reshape(b, s, d), aux

@@ -11,6 +11,12 @@ encoder-decoder audio (``whisper-small``, whose batches carry ``frames``).
 They train (``loss_fn``, an MoE's aux term included, with the reference's
 ``remat`` values) and serve: ``prefill`` a prompt, then ``decode_step``
 from its cache (for audio, prefill is the encoder forward).
+
+Under mesh rules (``launch/steps.py``'s training step) ``loss_fn`` runs on
+this rank's rows and parameter slices: a language model as
+``models/transformer.py`` says; ``jpeg-resnet`` gathers its few cut leaves
+(the head, over ``model``) whole and takes its batch norms' statistics
+over every rank's rows, as the reference shards only its batch.
 """
 from __future__ import annotations
 
@@ -22,9 +28,10 @@ import torch.nn.functional as F
 
 from repro_torch.configs import ModelConfig
 from repro_torch.core import dispatch as dispatchlib
+from repro_torch.parallel.sharding import active_rules, gather_tree
 
 __all__ = ["Model", "build_model", "input_specs", "count_params",
-           "jpeg_resnet_spec"]
+           "jpeg_resnet_spec", "param_shapes"]
 
 
 class Model(NamedTuple):
@@ -56,6 +63,8 @@ def _jpeg_resnet_model(cfg: ModelConfig, remat: str,
         return {"params": params, "bn_state": state}
 
     def loss(bundle, batch):
+        if active_rules() is not None:
+            bundle = gather_tree(bundle)
         logits, new_state = R.jpeg_apply(
             bundle["params"], bundle["bn_state"], batch["coefficients"],
             training=True, spec=spec, remat=use_remat, dispatch=dispatch)
@@ -148,3 +157,22 @@ def count_params(tree: Any) -> int:
     from repro_torch.tree import leaves
 
     return int(sum(t.numel() for t in leaves(tree)))
+
+
+def param_shapes(model: Model) -> Any:
+    """The tree of ``model``'s parameters as meta tensors (full shapes and
+    dtypes, nothing allocated: ``init_params`` under a fake-tensor mode),
+    the counterpart of the reference's ``jax.eval_shape(init_params)``."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch.tree import leaves, tree_map
+
+    with FakeTensorMode():
+        fake = model.init_params(torch.Generator(), "cpu")
+        meta = iter([(tuple(t.shape), t.dtype) for t in leaves(fake)])
+
+    def leaf(_):
+        shape, dtype = next(meta)
+        return torch.empty(shape, dtype=dtype, device="meta")
+
+    return tree_map(leaf, fake)

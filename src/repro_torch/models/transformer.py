@@ -34,6 +34,19 @@ with a dense product over the cache, as the reference does.  ``loss_fn``
 takes the reference's ``remat`` values (``none``, ``full``, ``dots``,
 ``outputs``) through ``torch.utils.checkpoint``.
 
+On a mesh (the rules ``launch/steps.py`` installs, with each leaf's spec)
+``forward`` and ``loss_fn`` run on this rank's rows and parameter slices,
+per leaf class: self-attention whose query and key/value head counts both
+divide over ``model`` runs Megatron's split (column-parallel q/k/v,
+row-parallel ``o_proj``, one all-reduce), and so does the SwiGLU FFN
+(``w_gate``/``w_in`` by columns, ``w_out`` by rows); the MoE's experts
+take ``models/moe.py``'s expert-parallel path; every other leaf cut over
+an axis (the embedding and tied head, attention with uneven heads such as
+``smollm-360m``'s 15/5, cross-attention, whisper's gelu MLP, Mamba and
+RWKV weights) is gathered whole just before its layer runs and its
+gradient sliced back (:func:`_mesh_layer`).  Without rules nothing of
+this runs.
+
 Unlike the reference's pure functions, :func:`decode_step` writes the new
 token's keys and values, and each Mamba layer's new states, into the
 cache's tensors in place, as it does each Mamba and RWKV layer's new
@@ -61,6 +74,9 @@ from repro_torch.models import layers as L
 from repro_torch.models import mamba as M
 from repro_torch.models import moe
 from repro_torch.models import rwkv as RW
+from repro_torch.parallel import collectives as C
+from repro_torch.parallel.sharding import (active_rules, bind_rules,
+                                           gather_tree, spec_axes)
 from repro_torch.tree import tree_map
 
 __all__ = ["REMAT", "FP32_LEAVES", "layer_kinds", "pattern_period",
@@ -263,10 +279,19 @@ def _norm(x, w, b=None, eps: float = 1e-5):
 
 def _attn_block(h, p, cfg: ModelConfig, positions, *, causal, window,
                 want_cache=False, plain=False):
+    """Self-attention → (output, cache or None).  Projections narrower
+    than ``q_dim`` are this rank's whole heads of a Megatron split over
+    ``model`` (:func:`_mesh_layer`): the rank attends with its heads and
+    the partial outputs of ``o_proj`` are summed."""
     b, s, _ = h.shape
-    q = (h @ p["q_proj"]).reshape(b, s, cfg.n_heads, cfg.head_dim)
-    k = (h @ p["k_proj"]).reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
-    v = (h @ p["v_proj"]).reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
+    split = p["q_proj"].shape[-1] != cfg.q_dim
+    if split:
+        h = L.model_in(h)
+    hd = cfg.head_dim
+    hq, hkv = p["q_proj"].shape[-1] // hd, p["k_proj"].shape[-1] // hd
+    q = (h @ p["q_proj"]).reshape(b, s, hq, hd)
+    k = (h @ p["k_proj"]).reshape(b, s, hkv, hd)
+    v = (h @ p["v_proj"]).reshape(b, s, hkv, hd)
     if cfg.use_rope:
         q = L.apply_rope(q, positions, cfg.rope_theta)
         k = L.apply_rope(k, positions, cfg.rope_theta)
@@ -275,7 +300,8 @@ def _attn_block(h, p, cfg: ModelConfig, positions, *, causal, window,
         t = s if window is None else min(s, window)
         kv_cache = {"k": k[:, s - t:], "v": v[:, s - t:]}
     out = L.attention(q, k, v, causal=causal, window=window, plain=plain)
-    return out.reshape(b, s, cfg.q_dim) @ p["o_proj"], kv_cache
+    out = out.reshape(b, s, hq * hd) @ p["o_proj"]
+    return (L.model_out(out) if split else out), kv_cache
 
 
 def _mixer(h, p, cfg: ModelConfig, mixer: str, positions, *, causal,
@@ -312,6 +338,9 @@ def _ffn(h, p, cfg: ModelConfig, ffn: str):
     f = p["ffn"]
     if cfg.family == "audio":
         return L.gelu_mlp(x, f["wi"], f["bi"], f["wo"], f["bo"]), 0.0
+    if f["w_gate"].shape[-1] != cfg.d_ff:  # this rank's d_ff columns
+        out = L.swiglu_mlp(L.model_in(x), f["w_gate"], f["w_in"], f["w_out"])
+        return L.model_out(out), 0.0
     return L.swiglu_mlp(x, f["w_gate"], f["w_in"], f["w_out"]), 0.0
 
 
@@ -329,8 +358,11 @@ def _dots_policy(ctx, op, *args, **kwargs):
 
 def _checkpoint(fn, *args, policy=None):
     """``fn(*args)`` recomputed in the backward (non-reentrant), keeping
-    what ``policy`` saves."""
+    what ``policy`` saves; the recomputation runs under the mesh rules of
+    the forward."""
     from torch.utils import checkpoint as ckpt
+
+    fn = bind_rules(fn)
 
     kw = {}
     if policy is not None:
@@ -425,9 +457,44 @@ def _store_cache(caches: dict, c: dict, i: int, n_periods: int, s: int,
             caches[n][i] = x
 
 
+def _mesh_layer(p: dict, prefix: str, cfg: ModelConfig) -> dict:
+    """One layer's parameters as its code uses them under mesh rules:
+    every leaf cut over an axis gathered whole (``sharding.gather_tree``)
+    but those the layer splits itself: self-attention's projections when
+    both head counts divide over ``model`` (whole heads a rank), the
+    SwiGLU FFN's when their specs cut d_ff (the Megatron split), and the
+    MoE's experts (its expert-parallel path)."""
+    rules = active_rules()
+    m = rules.size("model")
+    spec = rules.specs or {}
+
+    def cut(name: str, dim: int) -> bool:
+        s = spec.get(f"{prefix}/{name}")
+        return s is not None and "model" in spec_axes(s[dim])
+
+    out = {}
+    for key, sub in p.items():
+        at = f"{prefix}/{key}"
+        if key == "moe":
+            out[key] = sub
+        elif key == "attn" and cfg.n_heads % m == 0 \
+                and cfg.n_kv_heads % m == 0 \
+                and all(cut(f"attn/{w}", -1) for w in
+                        ("q_proj", "k_proj", "v_proj")) \
+                and cut("attn/o_proj", -2):
+            out[key] = sub
+        elif key == "ffn" and "w_gate" in sub \
+                and cut("ffn/w_gate", -1) and cut("ffn/w_in", -1) \
+                and cut("ffn/w_out", -2):
+            out[key] = sub
+        else:
+            out[key] = gather_tree(sub, at, stacked=True)
+    return out
+
+
 def _run_stack(h, blocks, cfg: ModelConfig, kinds, period, positions, *,
                causal=True, enc_out=None, want_cache=False, cache_len=None,
-               plain=False, remat="none", n_layers=None):
+               plain=False, remat="none", n_layers=None, prefix="blocks"):
     """All ``n_layers`` layers (default ``cfg.n_layers``) in order → (h,
     total aux, caches or None).
 
@@ -440,11 +507,16 @@ def _run_stack(h, blocks, cfg: ModelConfig, kinds, period, positions, *,
     keys and values are written into stacked ``(n_periods, B, T, KVH,
     hd)`` caches, ``T`` from :func:`_ring_len` (slots no position reached
     stay zero), and each Mamba or RWKV layer's final states into stacked
-    ``conv``/``ssm`` or ``shift_tm``/``wkv``/``shift_cm`` caches."""
+    ``conv``/``ssm`` or ``shift_tm``/``wkv``/``shift_cm`` caches.
+
+    Under mesh rules each layer's parameters pass :func:`_mesh_layer`
+    (``prefix`` names the stack's parameters), inside the recomputed
+    region, so a gathered leaf lives for its layer only."""
     if remat not in REMAT:
         raise ValueError(f"remat must be one of {REMAT}, got {remat!r}")
     n_periods = (n_layers or cfg.n_layers) // period
     s = h.shape[1]
+    mesh = active_rules() is not None
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
     caches: dict[str, dict[str, torch.Tensor]] = {
         f"pos{j}": {} for j in range(period)}
@@ -454,6 +526,8 @@ def _run_stack(h, blocks, cfg: ModelConfig, kinds, period, positions, *,
         aux_i, out = 0.0, []
         for j in range(period):
             p = _layer(blocks, j, i)
+            if mesh:
+                p = _mesh_layer(p, f"{prefix}/pos{j}", cfg)
             enc_kv = None if enc_out is None else _cross_kv(enc_out, p, cfg)
             x, a, c = _apply_layer(
                 x, p, cfg, kinds[j], positions, causal=causal, enc_kv=enc_kv,
@@ -505,6 +579,21 @@ def _lm_head(params, cfg: ModelConfig, h):
     return logits
 
 
+def _mesh_top(params: dict) -> dict:
+    """``params`` with the leaves outside the layer stacks gathered."""
+    out = dict(params)
+    for key, sub in params.items():
+        if key == "blocks":
+            continue
+        if key == "encoder":
+            out[key] = dict(sub, **{k: gather_tree(v, f"encoder/{k}")
+                                    for k, v in sub.items()
+                                    if k != "blocks"})
+        else:
+            out[key] = gather_tree(sub, key)
+    return out
+
+
 def _positions(b: int, s: int, device) -> torch.Tensor:
     return torch.arange(s, device=device)[None].expand(b, s)
 
@@ -523,7 +612,8 @@ def _encode(params, cfg: ModelConfig, frames, *, plain=False,
     n = cfg.n_encoder_layers
     h, _, _ = _run_stack(h, enc["blocks"], cfg, [("attn", "dense")] * n, 1,
                          _positions(b, t, h.device), causal=False,
-                         plain=plain, remat=remat, n_layers=n)
+                         plain=plain, remat=remat, n_layers=n,
+                         prefix="encoder/blocks")
     return _norm(h, enc["ln_f"], enc["ln_f_b"], cfg.norm_eps)
 
 
@@ -543,7 +633,11 @@ def forward(params, cfg: ModelConfig, batch: dict, *, plain: bool = False,
     on the card and on the CPU; ``remat`` (:data:`REMAT`) picks what the
     backward recomputes.  ``batch``: ``tokens`` (B, S); a VLM's
     ``vision_embeds`` (B, Sv, D) (the logits cover the S tokens only); the
-    audio family's ``frames`` (B, T, D)."""
+    audio family's ``frames`` (B, T, D).  Under mesh rules the leaves
+    outside the layer stacks (embedding, head, final norms) are gathered
+    whole first, and each layer's as :func:`_run_stack` says."""
+    if active_rules() is not None:
+        params = _mesh_top(params)
     h, sv = _embed_inputs(params, cfg, batch)
     b, s, _ = h.shape
     enc = _encode(params, cfg, batch["frames"], plain=plain, remat=remat) \
@@ -585,12 +679,23 @@ def loss_fn(params, cfg: ModelConfig, batch: dict, *,
     """Next-token cross-entropy of ``forward`` against ``batch['labels']``
     (masked by ``batch['loss_mask']`` when given) → (loss, metrics), as the
     reference computes it; differentiable, with ``remat`` as in
-    :func:`forward`."""
+    :func:`forward`.  Under mesh rules ``batch`` is this rank's rows and
+    the loss its share of the global batch's: the mean of the ranks'
+    losses over the batch axes (as the training step takes it) is the
+    masked mean over every rank's rows, the mask counted over them all."""
     logits, aux = forward(params, cfg, batch, plain=plain, remat=remat)
     logp = F.log_softmax(logits, dim=-1)
     nll = -logp.gather(-1, batch["labels"].long()[..., None])[..., 0]
     mask = batch.get("loss_mask")
-    if mask is not None:
+    rules = active_rules()
+    if mask is not None and rules is not None:
+        axes = rules.axes("batch")
+        total = C.all_reduce(mask.sum().detach(), rules.mesh, axes)
+        ranks = 1
+        for ax in axes:
+            ranks *= rules.mesh.size(rules.mesh.mesh_dim_names.index(ax))
+        loss = (nll * mask).sum() * ranks / torch.clamp(total, min=1)
+    elif mask is not None:
         nll = nll * mask
         loss = nll.sum() / torch.clamp(mask.sum(), min=1)
     else:

@@ -2,7 +2,9 @@
 trees of tensors (``repro_torch.tree``), with the reference package's
 arithmetic."""
 from repro_torch.optim.grad import (  # noqa: F401
+    accumulate_microbatches,
     clip_by_global_norm,
+    compress_grads,
     global_norm,
     value_and_grad,
 )

@@ -1,4 +1,10 @@
-"""Gradients of a loss over a parameter tree, and global-norm clipping."""
+"""Gradients of a loss over a parameter tree, global-norm clipping,
+compression and microbatch accumulation.
+
+Compression casts gradients to a narrower dtype; the mesh step
+(``launch/steps.py``) casts each microbatch's gradients before the
+data-parallel reduction, so the bytes on the wire halve, and the reduced
+ones again after clipping, where the reference casts them."""
 from __future__ import annotations
 
 from typing import Any, Callable
@@ -7,7 +13,8 @@ import torch
 
 from repro_torch.tree import leaves, tree_map
 
-__all__ = ["value_and_grad", "global_norm", "clip_by_global_norm"]
+__all__ = ["value_and_grad", "global_norm", "clip_by_global_norm",
+           "compress_grads", "accumulate_microbatches"]
 
 
 def value_and_grad(fn: Callable[..., torch.Tensor], tree: Any,
@@ -37,3 +44,54 @@ def clip_by_global_norm(grads: Any, max_norm: float
     norm = global_norm(grads)
     scale = torch.clamp(max_norm / (norm + 1e-6), max=1.0)
     return tree_map(lambda g: (g * scale).to(g.dtype), grads), norm
+
+
+def compress_grads(grads: Any, mode: str) -> Any:
+    """'none' | 'bf16': the gradients, or each cast to bfloat16."""
+    if mode == "none":
+        return grads
+    if mode == "bf16":
+        return tree_map(lambda g: g.to(torch.bfloat16), grads)
+    raise ValueError(f"unknown gradient compression {mode!r}")
+
+
+def accumulate_microbatches(
+    loss_fn: Callable[[Any, Any], torch.Tensor],
+    params: Any,
+    batch: Any,
+    n_micro: int,
+    grad_constraint: Callable[[Any], Any] | None = None,
+) -> tuple[torch.Tensor, Any]:
+    """Gradient accumulation: the mean loss and mean fp32 gradients over
+    ``n_micro`` contiguous chunks of the leading batch axis.
+
+    ``grad_constraint`` maps each microbatch's gradient tree before it is
+    added: the mesh step passes its ZeRO-2 reduction, which reduce-scatters
+    the gradients over ``data`` into a data-sharded fp32 accumulator (the
+    reference's ``with_sharding_constraint``, made explicit), so a
+    full-size fp32 accumulator never exists.  With ``n_micro`` <= 1 one
+    gradient, constrained the same way."""
+    if n_micro <= 1:
+        loss, g = value_and_grad(loss_fn, params, batch)
+        return loss, grad_constraint(g) if grad_constraint else g
+
+    def chunk(i):
+        def cut(x):
+            if x.shape[0] % n_micro:
+                raise ValueError(f"batch of {x.shape[0]} does not split "
+                                 f"into {n_micro} microbatches")
+            m = x.shape[0] // n_micro
+            return x[i * m:(i + 1) * m]
+        return tree_map(cut, batch)
+
+    loss_sum = acc = None
+    for i in range(n_micro):
+        loss, g = value_and_grad(loss_fn, params, chunk(i))
+        if grad_constraint is not None:
+            g = grad_constraint(g)
+        g = tree_map(lambda x: x.to(torch.float32), g)
+        acc = g if acc is None else tree_map(torch.add, acc, g)
+        loss = loss.to(torch.float32)
+        loss_sum = loss if loss_sum is None else loss_sum + loss
+    inv = 1.0 / n_micro
+    return loss_sum * inv, tree_map(lambda x: x * inv, acc)

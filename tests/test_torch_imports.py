@@ -35,7 +35,9 @@ def test_port_imports_no_jax_and_no_reference_package():
                  "introspect.attribution", "introspect.gridprof",
                  "launch.inspect", "models.rwkv", "models.mamba",
                  "models.moe", "configs.rwkv6_7b", "configs.internvl2_1b",
-                 "configs.whisper_small"):
+                 "configs.whisper_small", "parallel", "parallel.sharding",
+                 "parallel.collectives", "parallel.pipeline", "launch.mesh",
+                 "launch.steps"):
         assert "repro_torch." + want in names, want
     code = (
         "import importlib, sys\n"
