@@ -210,12 +210,24 @@ Phases, each fatal on failure:
    stages of one full-width ``smollm-360m`` layer each, 8 microbatches,
    against the stages run in turn.  Every rank must launch each
    workload's kernels.  Multi-device speed is not measured;
-24. one ``{"kernels": [...]}`` line, with each kernel's launches in phases
-   3, 4, 6-23 but 5 (each path driven with the counts set to 0 just
+24. the dry-run (``launch/dryrun.py``): (a) the production cells of
+   DRYRUN_CELLS traced with no card visible, one process a cell, each
+   ``status ok``, its per-rank bytes printed against the card's 80 GB,
+   its kernel launch counts unchanged; (b) the same trace of phase 22's
+   ``smollm-360m`` step on a world of one against that step run for real
+   on the card over NCCL under the same counter and tracker: counted
+   FLOPs and bytes within DRY_COUNT_RTOL, the predicted peak within
+   DRY_PEAK_RTOL of the allocator's; (c) four ranks sharing the card over
+   gloo (2 data × 2 model): ``smollm-360m`` at full width cut to
+   SERVE4_LAYERS layers, fp32, prefill and decode over a sequence-sharded
+   cache against one rank within SERVE4_RTOL, every rank launching the
+   attention forward in prefill;
+25. one ``{"kernels": [...]}`` line, with each kernel's launches in phases
+   3, 4, 6-24 but 5 (each path driven with the counts set to 0 just
    before it and read just after), then the ``{"ok": true, ...}`` line
    last.  Its bounds and phase 9's roofline read one count of each
    kernel's work (``repro_torch.introspect.opcount``).  Every phase prints
-   its seconds (phases 5-23 also their device memory peak), and the
+   its seconds (phases 5-24 also their device memory peak), and the
    script its total.
 
 It imports neither JAX nor the reference package, exits non-zero without
@@ -384,6 +396,22 @@ MESH4_KERNELS = {
     "granite-moe-3b-a800m": ("flash_attention", "flash_attention_bwd"),
     "jpeg-resnet": ("jpeg_conv", "asm_relu", "block_dct", "block_idct"),
     "pipeline": ("flash_attention",)}
+#: phase 24 (a): production cells traced with no card (arch, shape, mesh)
+DRYRUN_CELLS = (("smollm-360m", "train_4k", "single"),
+                ("mixtral-8x7b", "decode_32k", "single"),
+                ("jamba-v0.1-52b", "long_500k", "multi"),
+                ("jpeg-resnet", "train_4k", "single"),
+                ("rwkv6-7b", "prefill_32k", "single"))
+#: phase 24 (b): the trace against the real step on a world of one:
+#: counted FLOPs and bytes, and the predicted peak against the allocator's
+DRY_COUNT_RTOL, DRY_PEAK_RTOL = 0.005, 0.10
+CARD_BYTES = 80e9
+#: phase 24 (c): smollm-360m at full width cut to SERVE4_LAYERS layers,
+#: fp32, a prompt of SERVE4_BATCH × SERVE4_PROMPT tokens, then
+#: SERVE4_DECODE steps into a cache of SERVE4_SLOTS slots
+SERVE4_LAYERS, SERVE4_BATCH, SERVE4_PROMPT, SERVE4_SLOTS, SERVE4_DECODE = \
+    4, 2, 512, 1024, 8
+SERVE4_RTOL = 1e-5
 #: the attention cases of phase 2, forward and backward: label, b, s, t,
 #: h, kvh, hd, causal, window, bf16 (else fp32)
 ATTN_CASES = (
@@ -3553,6 +3581,310 @@ def mesh_phases(dev, card: str, launches: dict) -> None:
         f"tensors), summed over the ranks: {staged}")
 
 
+def world_one_run(cfg_name: str = LM_ARCH):
+    """Phase 22's ``smollm-360m`` step (bf16, MESH_BATCH × MESH_SEQ,
+    MESH_ACCUM microbatches, ZeRO-1, remat full) as the dry-run builds it
+    for a world of one: (model, run config, mesh config)."""
+    from repro_torch.configs import (MeshConfig, RunConfig, ShapeConfig,
+                                     TrainConfig, get_config)
+    from repro_torch.models.registry import build_model
+
+    cfg = get_config(cfg_name)
+    mc = MeshConfig(data=1, model=1)
+    run = RunConfig(model=cfg, shape=ShapeConfig("world1", MESH_SEQ,
+                                                 MESH_BATCH, "train"),
+                    train=TrainConfig(remat="full", grad_accum=MESH_ACCUM),
+                    mesh=mc)
+    return build_model(cfg, remat="full"), run, mc
+
+
+def dryrun_worker(arch: str, shape: str, mesh: str, out_dir: str,
+                  started: float) -> None:
+    """One dry-run cell in this process (no card): the production cell, or
+    ``world1`` (:func:`world_one_run` on a world of one).  Prints the
+    kernels' launch counts before and after, and the process's seconds
+    since ``started`` (its first statement's ``time.time()``), as one
+    JSON line."""
+    from repro_torch import kernels
+    from repro_torch.launch.dryrun import run_cell
+
+    before = kernels.launch_counts()
+    if shape == "world1":
+        _, run, mc = world_one_run(arch)
+        rec = run_cell(arch, shape, mesh, out_dir, shape=run.shape,
+                       mesh_cfg=mc)
+    else:
+        rec = run_cell(arch, shape, mesh, out_dir)
+    print(json.dumps({"launches_before": before,
+                      "launches_after": kernels.launch_counts(),
+                      "status": rec["status"],
+                      "wall_s": time.time() - started}), flush=True)
+
+
+def serve4_inputs(dev):
+    """Phase 24 (c): smollm-360m at full width, SERVE4_LAYERS layers,
+    fp32, seed 0; the prompt and the decode tokens (seed 5)."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.registry import build_model
+
+    cfg = dataclasses.replace(get_config(LM_ARCH), n_layers=SERVE4_LAYERS,
+                              dtype="float32")
+    model = build_model(cfg)
+    params = model.init_params(torch.Generator().manual_seed(0), dev)
+    gen = torch.Generator().manual_seed(5)
+    prompt = torch.randint(0, cfg.vocab_size, (SERVE4_BATCH, SERVE4_PROMPT),
+                           generator=gen, dtype=torch.int32)
+    toks = [torch.randint(0, cfg.vocab_size, (SERVE4_BATCH, 1),
+                          generator=gen, dtype=torch.int32)
+            for _ in range(SERVE4_DECODE)]
+    return cfg, model, params, {"tokens": prompt.to(dev)}, \
+        [t.to(dev) for t in toks]
+
+
+def serve4_reference(dev, path: str) -> None:
+    """Phase 24 (c) on one rank, the whole batch and cache: the prefill's
+    logits and cache, the decode cache (the prompt's keys and values in
+    its first slots), each decode step's logits and the cache after them,
+    saved to ``path``."""
+    import torch
+
+    from repro_torch.tree import tree_map
+
+    cfg, model, params, batch, toks = serve4_inputs(dev)
+    with torch.no_grad():
+        logits, cache = model.prefill(params, batch)
+        dcache = model.init_cache(SERVE4_BATCH, SERVE4_SLOTS, dev)
+        for j, c in cache.items():
+            if j == "index":
+                dcache["index"].copy_(c)
+                continue
+            for n, x in c.items():
+                dcache[j][n][:, :, :SERVE4_PROMPT] = x
+        one = tree_map(lambda x: x.clone(), dcache)
+        outs = []
+        for t in toks:
+            lg, one = model.decode_step(params, one, {"tokens": t})
+            outs.append(lg)
+    host = lambda tree: tree_map(lambda x: x.cpu(), tree)  # noqa: E731
+    torch.save({"prefill_logits": logits.cpu(), "prefill_cache": host(cache),
+                "decode_cache": host(dcache),
+                "decode_logits": torch.stack(outs).cpu(),
+                "decode_cache_after": host(one)}, path)
+    del params, cache, dcache, one
+    torch.cuda.empty_cache()
+
+
+def serve4_rank(mesh):
+    """One of phase 24 (c)'s four ranks (gloo, sharing the card): the
+    prefill step and SERVE4_DECODE decode steps on its rows and cache
+    slices, each against its part of one rank's run (largest difference
+    over the largest |value|); the attention launches of its prefill."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs import MeshConfig, RunConfig, ShapeConfig
+    from repro_torch.launch.mesh import make_axis_rules
+    from repro_torch.launch.steps import (build_decode_step,
+                                          build_prefill_step,
+                                          cache_shardings)
+    from repro_torch.parallel.sharding import local_slice
+    from repro_torch.tree import leaves, tree_map
+
+    dev = torch.device("cuda", torch.cuda.current_device()) \
+        if mesh.device_type == "cuda" else torch.device(mesh.device_type)
+    ref = torch.load(os.environ["CHIP_SMOKE_SERVE_REF"])
+    cfg, model, params, batch, toks = serve4_inputs(dev)
+    mc = MeshConfig(data=2, model=2)
+    rules = make_axis_rules(mc)
+
+    def err(got, want) -> float:
+        want = want.to(got.device)
+        return float((got.float() - want.float()).abs().max()) / max(
+            float(want.float().abs().max()), 1e-30)
+
+    run = RunConfig(model=cfg, shape=ShapeConfig(
+        "p", SERVE4_PROMPT, SERVE4_BATCH, "prefill"), mesh=mc)
+    pb = build_prefill_step(model, run, mesh, rules)
+    local = pb.init_fns[0](params)
+    del params
+    reset_counts()
+    with torch.no_grad():
+        logits, cache = pb.step_fn(local, batch)
+    launched = counts()
+    rows = pb.rows
+    out = {"rank": dist.get_rank(), "launches": launched,
+           "prefill_logits": err(logits, ref["prefill_logits"][rows])}
+    specs = cache_shardings(model.init_cache(SERVE4_BATCH, SERVE4_PROMPT,
+                                             "meta"), cfg, rules,
+                            SERVE4_BATCH)
+    want = tree_map(lambda x, s: local_slice(x, s, mesh),
+                    ref["prefill_cache"], specs)
+    out["prefill_cache"] = max(err(a, b) for a, b in
+                               zip(leaves(cache), leaves(want))
+                               if a.dim())
+    run = dataclasses.replace(run, shape=ShapeConfig(
+        "d", SERVE4_SLOTS, SERVE4_BATCH, "decode"))
+    db = build_decode_step(model, run, mesh, rules)
+    lc = tree_map(lambda x: x.to(dev), db.init_fns[1](ref["decode_cache"]))
+    errs = []
+    with torch.no_grad():
+        for i, t in enumerate(toks):
+            lg, lc = db.step_fn(local, lc, {"tokens": t})
+            errs.append(err(lg, ref["decode_logits"][i][rows]))
+    want = db.init_fns[1](ref["decode_cache_after"])
+    out["decode_logits"] = max(errs)
+    out["decode_cache"] = max(err(a, b) for a, b in
+                              zip(leaves(lc), leaves(want)) if a.dim())
+    return out
+
+
+def dryrun_phase(dev, card: str, launches: dict) -> None:
+    """Phase 24 (module docstring): (a) the production cells and the
+    world-of-one trace, each in a process with no card visible, started
+    first; (b) the world-of-one step for real on the card over NCCL;
+    (c) four ranks serving over gloo; then (a)'s records read."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.launch.dryrun import axis_rules, trace_step
+    from repro_torch.launch.mesh import free_port, make_mesh, run_local
+
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_dryrun_")
+    ref_dir = tempfile.mkdtemp(prefix="chip_smoke_serve_")
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="", PYTHONPATH=REPO_SRC)
+    cells = DRYRUN_CELLS + ((LM_ARCH, "world1", "one"),)
+    procs = []
+    t0 = time.perf_counter()
+    for cell in cells:
+        code = (f"import time; started = time.time(); import sys; "
+                f"sys.path.insert(0, {ROOT!r}); "
+                f"sys.path.insert(0, {REPO_SRC!r}); import chip_smoke; "
+                f"chip_smoke.dryrun_worker(*{cell!r}, {out_dir!r}, started)")
+        procs.append((cell, subprocess.Popen(
+            [sys.executable, "-c", code], env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True)))
+    try:
+        # (b) the world-of-one step for real on the card
+        dist.init_process_group("nccl", init_method=f"tcp://localhost:"
+                                f"{free_port()}", rank=0, world_size=1)
+        try:
+            model, run, mc = world_one_run()
+            mesh = make_mesh((1, 1), ("data", "model"), "cuda")
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            real_mem, real_cost = drive(
+                "dry-run world of one, the real step", (
+                    "flash_attention", "flash_attention_bwd"), launches,
+                lambda: trace_step(model, run, mesh, axis_rules(mc), fake=False,
+                                   device="cuda"))
+            torch.cuda.synchronize()
+            real_peak = torch.cuda.max_memory_allocated() - base
+        finally:
+            dist.destroy_process_group()
+        torch.cuda.empty_cache()
+        # (c) four ranks serving over gloo, against one rank
+        path = os.path.join(ref_dir, "one_rank.pt")
+        serve4_reference(dev, path)
+        os.environ["CHIP_SMOKE_SERVE_REF"] = path
+        t1 = time.perf_counter()
+        ranks = run_local(serve4_rank, (2, 2), ("data", "model"),
+                          backend="gloo", device="cuda", timeout=600)
+        wall4 = time.perf_counter() - t1
+        # (a) the records
+        records, walls = {}, {}
+        for cell, proc in procs:
+            text, _ = proc.communicate(timeout=900)
+            tail = text.strip().splitlines()[-1] if text.strip() else ""
+            try:
+                status = json.loads(tail)
+            except ValueError:
+                fail(f"dry-run {cell}: no result ({text[-2000:]})")
+            walls[cell] = status["wall_s"]
+            if status["launches_before"] != status["launches_after"]:
+                fail(f"dry-run {cell}: the fake paths launched kernels "
+                     f"({status})")
+            with open(os.path.join(out_dir, "__".join(cell) + ".json")) as f:
+                records[cell] = json.load(f)
+            if records[cell]["status"] != "ok":
+                fail(f"dry-run {cell}: {records[cell]['status']}: "
+                     f"{records[cell].get('traceback', '')}")
+    finally:
+        for _, proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        os.environ.pop("CHIP_SMOKE_SERVE_REF", None)
+        shutil.rmtree(out_dir, ignore_errors=True)
+        shutil.rmtree(ref_dir, ignore_errors=True)
+    for cell in DRYRUN_CELLS:
+        rec = records[cell]
+        m, c = rec["memory"], rec["hlo_cost"]
+        total = m["argument_bytes"] + m["output_bytes"] - m["alias_bytes"] \
+            + m["temp_bytes"]
+        log(f"dry-run {' × '.join(cell)} (rank 0 of {rec['devices']}, no "
+            f"card): per rank argument {m['argument_bytes'] / 1e9:.3f} GB, "
+            f"output {m['output_bytes'] / 1e9:.3f} GB, temporary "
+            f"{m['temp_bytes'] / 1e9:.3f} GB, aliased "
+            f"{m['alias_bytes'] / 1e9:.3f} GB: total {total / 1e9:.3f} GB "
+            f"of the card's {CARD_BYTES / 1e9:.0f} GB "
+            f"({'fits' if total <= CARD_BYTES else 'does not fit'}); "
+            f"{c['flops']:.6e} FLOPs, {c['bytes']:.6e} bytes, collective "
+            f"bytes by group size {c['collectives_by_group']}; trace "
+            f"{rec['trace_s']} s, process wall {walls[cell]:.2f} s")
+        print(f"[chip_smoke] dryrun record {json.dumps(rec)}", flush=True)
+    fake = records[(LM_ARCH, "world1", "one")]
+    fm, fc = fake["memory"], fake["hlo_cost"]
+    predicted = fm["argument_bytes"] + fm["output_bytes"] \
+        - fm["alias_bytes"] + fm["temp_bytes"]
+    for key in ("flops", "bytes"):
+        rel = abs(fc[key] - real_cost[key]) / real_cost[key]
+        if not rel <= DRY_COUNT_RTOL:
+            fail(f"dry-run world of one: counted {key} {fc[key]:.6e} vs the "
+                 f"real step's {real_cost[key]:.6e} ({rel:.3e} > "
+                 f"{DRY_COUNT_RTOL})")
+    measured = real_peak  # the step's arguments are allocated inside it
+    if not abs(predicted - measured) <= DRY_PEAK_RTOL * measured:
+        fail(f"dry-run world of one: predicted peak {predicted} B vs the "
+             f"allocator's {measured} B (> {DRY_PEAK_RTOL})")
+    log(f"dry-run world of one, {LM_ARCH} bf16, {MESH_BATCH} × {MESH_SEQ}, "
+        f"{MESH_ACCUM} microbatches, ZeRO-1, remat full [{card}]: FLOPs "
+        f"traced {fc['flops']:.6e} vs real {real_cost['flops']:.6e}, bytes "
+        f"traced {fc['bytes']:.6e} vs real {real_cost['bytes']:.6e}; peak "
+        f"predicted {predicted / 2 ** 30:.3f} GiB (argument "
+        f"{fm['argument_bytes'] / 2 ** 30:.3f} + output "
+        f"{fm['output_bytes'] / 2 ** 30:.3f} + temporary "
+        f"{fm['temp_bytes'] / 2 ** 30:.3f}) vs the allocator's "
+        f"{measured / 2 ** 30:.3f} GiB (max_memory_allocated after "
+        f"reset_peak_memory_stats, less what was allocated before the "
+        f"arguments were made); the real step's tracker {real_mem}; "
+        f"trace {fake['trace_s']} s, process "
+        f"wall {walls[(LM_ARCH, 'world1', 'one')]:.2f} s")
+    for r in ranks:
+        errs = {k: r[k] for k in ("prefill_logits", "prefill_cache",
+                                  "decode_logits", "decode_cache")}
+        if not max(errs.values()) <= SERVE4_RTOL:
+            fail(f"serve 2x2 rank {r['rank']}: against one rank {errs} "
+                 f"(> {SERVE4_RTOL})")
+        if r["launches"]["flash_attention"] <= 0:
+            fail(f"serve 2x2 rank {r['rank']}: the prefill launched no "
+                 f"attention ({r['launches']})")
+        for k, v in r["launches"].items():
+            launches[k] += v
+    log(f"serve 2x2 (data × model, 4 ranks on one card, gloo) {LM_ARCH} "
+        f"full width, {SERVE4_LAYERS} layers, fp32, prefill "
+        f"{SERVE4_BATCH} × {SERVE4_PROMPT}, {SERVE4_DECODE} decode steps "
+        f"into {SERVE4_SLOTS} slots cut over model [{card}]: largest "
+        f"difference from one rank over the ranks "
+        f"{ {k: max(r[k] for r in ranks) for k in errs} }; prefill "
+        f"attention launches per rank "
+        f"{[r['launches']['flash_attention'] for r in ranks]}; 4 ranks in "
+        f"{wall4:.2f} s; phase 24 in {time.perf_counter() - t0:.2f} s")
+
+
 def main() -> None:
     if not os.path.isdir(os.path.join(REPO_SRC, "repro_torch")):
         fail(f"no src/repro_torch beside {__file__}: run from a checkout")
@@ -3831,6 +4163,9 @@ def main() -> None:
 
     # --- phases 22-23: training on a mesh -----------------------------------
     timed("phases 22-23", card, lambda: mesh_phases(dev, card, launches))
+
+    # --- phase 24: the dry-run, and serving on a mesh -----------------------
+    timed("phase 24", card, lambda: dryrun_phase(dev, card, launches))
 
     kernels = []
     src = {k: "src/repro_torch/csrc/jpeg_kernels.cu" for k in KERNELS}

@@ -92,6 +92,14 @@ class ModelConfig:
     def is_moe_layer(self, i: int) -> bool:
         return self.n_experts > 0 and (i % self.moe_every) == self.moe_offset
 
+    def sub_quadratic(self) -> bool:
+        """Can this arch serve a 500k-token context (bounded attention
+        state)?  As the reference answers it: an SSM or a hybrid, or a
+        sliding window."""
+        if self.family in ("ssm", "hybrid"):
+            return True
+        return self.sliding_window is not None
+
 
 @dataclasses.dataclass(frozen=True)
 class ShapeConfig:

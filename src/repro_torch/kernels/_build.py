@@ -26,7 +26,8 @@ from pathlib import Path
 import torch
 
 __all__ = ["BUILD_DIR", "SOURCES", "build", "library", "use",
-           "check_device", "stream_of", "launch_check", "build_log"]
+           "check_device", "stream_of", "launch_check", "build_log",
+           "is_fake", "real_constants"]
 
 _PKG = Path(__file__).resolve().parents[1]
 SOURCES = tuple(sorted((_PKG / "csrc").glob("*.cu")))
@@ -172,6 +173,26 @@ def check_device(*tensors: torch.Tensor,
     if cap < (9, 0):
         raise RuntimeError(f"the kernels are built for sm_90a; device {dev} "
                            f"has compute capability {cap}")
+
+
+def is_fake(t: torch.Tensor) -> bool:
+    """Whether ``t`` is a fake tensor (``launch/dryrun.py`` traces on
+    them).  A wrapper given one is a shape function: it returns its
+    kernel's outputs (shapes and dtypes), adds the kernel's work to the
+    active counts and launches nothing; a real tensor, on the CPU or the
+    card, never takes that path."""
+    from torch._subclasses.fake_tensor import FakeTensor
+
+    return isinstance(t, FakeTensor)
+
+
+def real_constants():
+    """A context in which tensors are real even under a fake-tensor mode:
+    for the operators a wrapper caches by device, so a dry-run leaves no
+    fake tensor in a cache that real calls read."""
+    from torch._subclasses.fake_tensor import unset_fake_temporarily
+
+    return unset_fake_temporarily()
 
 
 def stream_of(t: torch.Tensor) -> int:

@@ -42,9 +42,9 @@ LAUNCHES = 0
 
 @functools.lru_cache(maxsize=None)
 def _operands(phi: int, bands: int, device: torch.device) -> PackedAsm:
-    # normal tensors even when first made under inference_mode: the plain
-    # version's autograd saves them
-    with torch.inference_mode(False):
+    # normal tensors even when first made under inference_mode (the plain
+    # version's autograd saves them), and real under a fake-tensor mode
+    with torch.inference_mode(False), _build.real_constants():
         return pack_asm(phi, bands, bands, device=device)
 
 
@@ -83,15 +83,16 @@ def _launch(coef: torch.Tensor, phi: int, bands: int | None) -> torch.Tensor:
     global LAUNCHES
     coef = coef.contiguous()
     nf, b = coef.shape[-1], _bands(coef, bands)
-    pa = _operands(phi, b, coef.device)
-    _build.check_device(coef, pa.cat, pa.recon_t)
     out = torch.empty_like(coef)
-    err = _build.library().jk_asm(
-        coef.data_ptr(), pa.cat.data_ptr(), pa.recon_t.data_ptr(),
-        out.data_ptr(), coef.numel() // nf, nf, b, nf,
-        _build.stream_of(coef))
-    _build.launch_check(err, "asm_relu")
-    LAUNCHES += 1
+    if not _build.is_fake(coef):  # a fake one: the work, no launch
+        pa = _operands(phi, b, coef.device)
+        _build.check_device(coef, pa.cat, pa.recon_t)
+        err = _build.library().jk_asm(
+            coef.data_ptr(), pa.cat.data_ptr(), pa.recon_t.data_ptr(),
+            out.data_ptr(), coef.numel() // nf, nf, b, nf,
+            _build.stream_of(coef))
+        _build.launch_check(err, "asm_relu")
+        LAUNCHES += 1
     if opcount.counting():
         opcount.add_kernel_work(*opcount.asm_work(coef.numel() // nf, b, nf))
     return out
@@ -122,8 +123,9 @@ def asm_relu(coef: torch.Tensor, phi: int = 14,
     launches the kernel (differentiably) or raises.  Where no gradient is
     wanted the kernel is launched without the autograd ``Function``, whose
     cost to issue exceeds the kernel's time at the served walk's row
-    counts (PERF.md)."""
-    if coef.device.type == "cpu":
+    counts (PERF.md).  A fake tensor takes the kernel's route and
+    launches nothing."""
+    if coef.device.type == "cpu" and not _build.is_fake(coef):
         return asm_relu_plain(coef, phi, bands)
     if torch.is_grad_enabled() and coef.requires_grad:
         return _AsmRelu.apply(coef, phi, bands)

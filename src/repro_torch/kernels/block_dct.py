@@ -62,8 +62,9 @@ def _operators(name: str, quality: int | None, device: torch.device,
     op = _fwd_operator(quality) if name == "block_dct" \
         else _inv_operator(quality)
     # cached constants must be normal tensors even when first made under
-    # inference_mode: the backward saves them
-    with torch.inference_mode(False):
+    # inference_mode (the backward saves them), and real under a
+    # fake-tensor mode
+    with torch.inference_mode(False), _build.real_constants():
         t = torch.as_tensor(op, dtype=dtype, device=device)
         return t, t.T.contiguous()
 
@@ -81,15 +82,16 @@ def _launch(rows: torch.Tensor, op: torch.Tensor, name: str) -> torch.Tensor:
         raise ValueError(f"{name}: expected (n, 64) rows and a (64, 64) "
                          f"operator, got {tuple(rows.shape)} and "
                          f"{tuple(op.shape)}")
-    _build.check_device(rows, op)
-    if rows.data_ptr() % 16 or op.data_ptr() % 16:
-        raise ValueError(f"{name}: operands must be 16-byte aligned")
     out = torch.empty_like(rows)
-    err = _build.library().jk_block_matmul(
-        rows.data_ptr(), op.data_ptr(), out.data_ptr(), rows.shape[0],
-        _build.stream_of(rows))
-    _build.launch_check(err, name)
-    LAUNCHES[name] += 1
+    if not _build.is_fake(rows):  # a fake one: the work, no launch
+        _build.check_device(rows, op)
+        if rows.data_ptr() % 16 or op.data_ptr() % 16:
+            raise ValueError(f"{name}: operands must be 16-byte aligned")
+        err = _build.library().jk_block_matmul(
+            rows.data_ptr(), op.data_ptr(), out.data_ptr(), rows.shape[0],
+            _build.stream_of(rows))
+        _build.launch_check(err, name)
+        LAUNCHES[name] += 1
     if opcount.counting():
         opcount.add_kernel_work(*opcount.block_matmul_work(rows.shape[0]))
     return out
@@ -137,8 +139,9 @@ def block_dct(blocks: torch.Tensor, quality: int | None = None
     """``(..., 8, 8)`` pixel blocks → ``(..., 64)`` zigzag coefficients,
     divided by the quality's quantization table when ``quality`` is given.
     A CPU tensor takes :func:`block_dct_plain`; a CUDA tensor launches the
-    kernel (differentiably) or raises."""
-    if blocks.device.type == "cpu":
+    kernel (differentiably) or raises; a fake tensor takes the kernel's
+    route and launches nothing."""
+    if blocks.device.type == "cpu" and not _build.is_fake(blocks):
         return block_dct_plain(blocks, quality)
     if blocks.shape[-2:] != (_B, _B):
         raise ValueError(f"block_dct: expected (..., 8, 8), got "
@@ -154,8 +157,9 @@ def block_idct(coef: torch.Tensor, quality: int | None = None
     """``(..., 64)`` zigzag coefficients (times the quantization table when
     ``quality`` is given) → ``(..., 8, 8)`` pixel blocks.  A CPU tensor
     takes :func:`block_idct_plain`; a CUDA tensor launches the kernel
-    (differentiably) or raises."""
-    if coef.device.type == "cpu":
+    (differentiably) or raises; a fake tensor takes the kernel's route and
+    launches nothing."""
+    if coef.device.type == "cpu" and not _build.is_fake(coef):
         return block_idct_plain(coef, quality)
     if coef.shape[-1] != _NF:
         raise ValueError(f"block_idct: expected (..., 64), got "

@@ -256,7 +256,8 @@ def attention_backward_plain(q: torch.Tensor, k: torch.Tensor,
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-           window: int | None, q_offset: int) -> None:
+           window: int | None, q_offset: int, fake: bool = False) -> None:
+    """The kernel's limits; on fake tensors all but the device's."""
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape \
             or k.shape[0] != q.shape[0] or k.shape[3] != q.shape[3] \
             or q.shape[2] % k.shape[2]:
@@ -278,6 +279,8 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             or q.shape[0] > 65535 or q.shape[2] > 65535:
         raise ValueError(f"flash_attention: shape {tuple(q.shape)} or "
                          f"q_offset {q_offset} is out of the kernel's range")
+    if fake:
+        return
     _build.check_device(q, k, v, dtypes=tuple(_DTYPES))
     if any(t.data_ptr() % 16 for t in (q, k, v)):
         raise ValueError("flash_attention: operands must be 16-byte aligned")
@@ -286,20 +289,24 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def _forward(q, k, v, causal, window, q_offset, lse=None,
              out_lo=None) -> torch.Tensor:
     """One launch of the forward kernel; fills ``lse`` and (bf16)
-    ``out_lo`` when given."""
+    ``out_lo`` when given.  On fake tensors: the output, the work, no
+    launch."""
     global LAUNCHES
-    _check(q, k, v, window, q_offset)
+    fake = _build.is_fake(q)
+    _check(q, k, v, window, q_offset, fake)
     b, s, h, hd = q.shape
     t, kvh = k.shape[1], k.shape[2]
     out = torch.empty_like(q)
-    err = _build.library().jk_flash_attention(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        None if out_lo is None else out_lo.data_ptr(),
-        None if lse is None else lse.data_ptr(), b, s, t, h, kvh, hd,
-        int(causal), 0 if window is None else int(window), int(q_offset),
-        float(hd ** -0.5), _DTYPES[q.dtype], _build.stream_of(q))
-    _build.launch_check(err, "flash_attention")
-    LAUNCHES += 1
+    if not fake:
+        err = _build.library().jk_flash_attention(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            None if out_lo is None else out_lo.data_ptr(),
+            None if lse is None else lse.data_ptr(), b, s, t, h, kvh, hd,
+            int(causal), 0 if window is None else int(window),
+            int(q_offset), float(hd ** -0.5), _DTYPES[q.dtype],
+            _build.stream_of(q))
+        _build.launch_check(err, "flash_attention")
+        LAUNCHES += 1
     if opcount.counting():
         opcount.add_kernel_work(*opcount.attention_work(
             b, h, hd, opcount.attention_pairs(s, t, causal, window,
@@ -320,7 +327,7 @@ def flash_attention_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     output to ~2^-17; None in fp32).  One forward launch that also writes
     both on a CUDA tensor; :func:`attention_lse_plain` (and no ``out_lo``)
     on a CPU one."""
-    if q.device.type == "cpu":
+    if q.device.type == "cpu" and not _build.is_fake(q):
         return (*attention_lse_plain(q, k, v, causal=causal, window=window,
                                      q_offset=q_offset), None)
     b, s, h, _ = q.shape
@@ -346,10 +353,11 @@ def flash_attention_backward(q: torch.Tensor, k: torch.Tensor,
     one."""
     global BWD_LAUNCHES
     kw = dict(causal=causal, window=window, q_offset=q_offset)
-    if q.device.type == "cpu":
+    fake = _build.is_fake(q)
+    if q.device.type == "cpu" and not fake:
         return attention_backward_plain(q, k, v, out, dout, lse,
                                         out_lo=out_lo, **kw)
-    _check(q, k, v, window, q_offset)
+    _check(q, k, v, window, q_offset, fake)
     b, s, h, hd = q.shape
     t, kvh = k.shape[1], k.shape[2]
     is16 = q.dtype == torch.bfloat16
@@ -363,23 +371,27 @@ def flash_attention_backward(q: torch.Tensor, k: torch.Tensor,
                          f"{tuple(out.shape)}, {tuple(dout.shape)}, "
                          f"{tuple(lse.shape)}, out_lo "
                          f"{None if out_lo is None else tuple(out_lo.shape)}")
-    _build.check_device(q, out, dout, *(() if out_lo is None else (out_lo,)),
-                        dtypes=(q.dtype,))
-    _build.check_device(lse, dtypes=(torch.float32,))
-    if lse.device != q.device or any(x.data_ptr() % 16 for x in (out, dout)):
-        raise ValueError("flash_attention_backward: lse must lie on q's "
-                         "device and out, dout be 16-byte aligned")
     dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
     delta = torch.empty_like(lse)
-    err = _build.library().jk_flash_attention_bwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        None if out_lo is None else out_lo.data_ptr(),
-        dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-        dk.data_ptr(), dv.data_ptr(), b, s, t, h, kvh, hd, int(causal),
-        0 if window is None else int(window), int(q_offset),
-        float(hd ** -0.5), _DTYPES[q.dtype], _build.stream_of(q))
-    _build.launch_check(err, "flash_attention backward")
-    BWD_LAUNCHES += 1
+    if not fake:
+        _build.check_device(q, out, dout,
+                            *(() if out_lo is None else (out_lo,)),
+                            dtypes=(q.dtype,))
+        _build.check_device(lse, dtypes=(torch.float32,))
+        if lse.device != q.device or any(x.data_ptr() % 16
+                                         for x in (out, dout)):
+            raise ValueError("flash_attention_backward: lse must lie on "
+                             "q's device and out, dout be 16-byte aligned")
+        err = _build.library().jk_flash_attention_bwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            None if out_lo is None else out_lo.data_ptr(),
+            dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, s, t, h, kvh,
+            hd, int(causal), 0 if window is None else int(window),
+            int(q_offset), float(hd ** -0.5), _DTYPES[q.dtype],
+            _build.stream_of(q))
+        _build.launch_check(err, "flash_attention backward")
+        BWD_LAUNCHES += 1
     if opcount.counting():
         opcount.add_kernel_work(*opcount.attention_bwd_work(
             b, h, hd, opcount.attention_pairs(s, t, causal, window,
@@ -420,8 +432,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     :func:`attention_plain` (autograd differentiates it); a CUDA tensor
     launches the kernel (fp32 or bf16, head_dim 64 or 128, contiguous) or
     raises, and when autograd needs a gradient of q, k or v it goes
-    through the kernel's hand-written backward."""
-    if q.device.type == "cpu":
+    through the kernel's hand-written backward.  Fake tensors take the
+    kernel's route and launch nothing (``_build.is_fake``)."""
+    if q.device.type == "cpu" and not _build.is_fake(q):
         return attention_plain(q, k, v, causal=causal, window=window,
                                q_offset=q_offset)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):

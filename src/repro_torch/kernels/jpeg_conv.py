@@ -152,12 +152,16 @@ def _launch(coef: torch.Tensor, xi: torch.Tensor, stride: int,
     n, bh, bw, cin, nf = coef.shape
     ndy, ndx, _, nf_in, cout, nf_out = xi.shape
     w_o = nf_out if w_out is None else w_out
-    out = banded_conv(
-        coef.reshape(n, bh, bw, cin * nf), cin=cin, w_in=nf_in,
-        xi=xi.reshape(ndy * ndx * cin * nf_in, cout * nf_out), ndy=ndy,
-        ndx=ndx, stride=stride, cout=cout, w_b=nf_out, w_o=w_o,
-        shift=None if shift is None else _shift_row(shift, cout, nf_out))
-    LAUNCHES += 1
+    if _build.is_fake(coef):  # the dry-run: the output, the work, no launch
+        out = coef.new_empty((n, bh // stride, bw // stride, cout * w_o))
+    else:
+        out = banded_conv(
+            coef.reshape(n, bh, bw, cin * nf), cin=cin, w_in=nf_in,
+            xi=xi.reshape(ndy * ndx * cin * nf_in, cout * nf_out), ndy=ndy,
+            ndx=ndx, stride=stride, cout=cout, w_b=nf_out, w_o=w_o,
+            shift=None if shift is None
+            else _shift_row(shift, cout, nf_out))
+        LAUNCHES += 1
     if opcount.counting():
         opcount.add_kernel_work(*opcount.conv_work(
             n * bh * bw, cin, nf_in, ndy * ndx, nf_in, cout, nf_out, w_o,
@@ -198,7 +202,8 @@ def jpeg_conv(coef: torch.Tensor, xi: torch.Tensor, stride: int = 1, *,
     coefficients → ``(N, bh/s, bw/s, Cout, w_out)`` (default ``w_out =
     nf'``; extra lanes are zero), adding ``shift`` ``(Cout,)`` to DC.
     A CPU tensor takes :func:`jpeg_conv_plain`; a CUDA tensor launches the
-    kernel (differentiably in ``coef``, Ξ and ``shift``) or raises."""
-    if coef.device.type == "cpu":
+    kernel (differentiably in ``coef``, Ξ and ``shift``) or raises; a
+    fake tensor takes the kernel's route and launches nothing."""
+    if coef.device.type == "cpu" and not _build.is_fake(coef):
         return jpeg_conv_plain(coef, xi, stride, shift=shift, w_out=w_out)
     return _JpegConv.apply(coef, xi, shift, stride, w_out)

@@ -1,10 +1,12 @@
-"""The training step on a mesh, and the spec trees: where models meet the
-mesh.
+"""The training, prefill and decode steps on a mesh, and the spec trees:
+where models meet the mesh.
 
-A port of ``repro/launch/steps.py``'s training half.  ``build_train_step``
-returns the step and its spec trees; it is rank-local SPMD: every rank of
-the mesh calls the step with the same global batch and its own parameter
-slices and optimizer state, and the collectives are explicit.
+A port of ``repro/launch/steps.py``.  ``build_train_step``,
+``build_prefill_step`` and ``build_decode_step`` return each step and its
+spec trees; they are rank-local SPMD: every rank of the mesh calls the
+step with the same global batch (or, with ``local=True``, its own rows of
+it) and its own parameter slices, optimizer state or cache, and the
+collectives are explicit.
 
 One step (``TrainConfig``):
 
@@ -35,7 +37,16 @@ The bundle's ``init_fns`` take the full parameter tree (as the port's
 rank's slices, then its optimizer state.  The spec trees are trees of
 ``PartitionSpec``; the reference's ``mesh`` argument of the tree builders
 is not needed, since a spec names axes and the rules carry the mesh.
-The prefill and decode bundles and the cache specs are not ported yet.
+
+Serving (:class:`ServeStepBundle`): the rank takes its rows of the batch
+over the batch axes, and the cache is cut as :func:`cache_shardings`
+says (the reference's flash-decode layout: batch over the batch axes,
+the attention caches' slots over the axes left, Mamba's and RWKV's states
+over ``model``).  Prefill returns each rank's logits rows and its slice
+of the new cache; a decode step writes the new token's keys, values and
+states into the rank's cache slices in place, as the reference donates
+its cache (``models/transformer.py`` says how each layer runs on its
+slices).
 """
 from __future__ import annotations
 
@@ -51,14 +62,16 @@ from repro_torch.optim import (
 )
 from repro_torch.parallel import collectives as C
 from repro_torch.parallel.sharding import (
-    AxisRules, P, PartitionSpec, batch_pspec, local_slice, mesh_sizes,
-    param_pspec, path_str, sharding_rules, spec_axes, zero1_pspec,
+    AxisRules, P, PartitionSpec, UnevenSlotsError, batch_pspec,
+    cache_leaf_pspec, cache_pspec, local_slice, mesh_sizes, param_pspec,
+    path_str, sharding_rules, spec_axes, zero1_pspec,
 )
 from repro_torch.tree import leaves, leaves_with_paths, tree_map
 
 __all__ = ["path_str", "params_shardings", "opt_shardings",
-           "batch_shardings", "batch_rows", "build_train_step",
-           "TrainStepBundle"]
+           "batch_shardings", "cache_shardings", "batch_rows",
+           "build_train_step", "build_prefill_step", "build_decode_step",
+           "TrainStepBundle", "ServeStepBundle"]
 
 
 def _tree_specs(tree: Any, spec_fn: Callable[[str, tuple], PartitionSpec]):
@@ -100,6 +113,25 @@ def batch_shardings(batch_tree: Any, rules: AxisRules, global_batch: int):
     return _tree_specs(batch_tree, spec)
 
 
+def _seq_axes(rules: AxisRules, global_batch: int) -> tuple[str, ...]:
+    """The decode cache's sequence axes: ``cache_pspec``'s, less the
+    batch's."""
+    baxes, seq = cache_pspec(rules, global_batch)
+    return tuple(a for a in seq if a not in baxes)
+
+
+def cache_shardings(cache_tree: Any, cfg: ModelConfig, rules: AxisRules,
+                    global_batch: int):
+    """Decode-cache specs (``sharding.cache_leaf_pspec`` of every leaf):
+    batch over (pod, data) when divisible, the attention caches' sequence
+    over the leftover axes (sequence-parallel KV, the flash-decode
+    layout), Mamba's and RWKV's states over ``model``."""
+    baxes = batch_pspec(rules, global_batch)
+    seq = _seq_axes(rules, global_batch)
+    return _tree_specs(cache_tree, lambda p, s: cache_leaf_pspec(
+        p, s, rules, baxes or None, seq or None))
+
+
 def batch_rows(global_batch: int, n_micro: int, n_ranks: int,
                rank: int) -> list[int]:
     """The global rows batch rank ``rank`` of ``n_ranks`` takes, microbatch
@@ -125,6 +157,8 @@ class TrainStepBundle(NamedTuple):
     #: reduced fp32 gradients (ZeRO-1 slices under ``zero1``) before
     #: clipping
     grad_fn: Callable | None = None
+    #: this rank's rows of the global batch, microbatch after microbatch
+    rows: list | None = None
 
 
 class _Leaf(NamedTuple):
@@ -141,11 +175,60 @@ def _zero1_dim(spec: PartitionSpec, zspec: PartitionSpec) -> int | None:
     return None
 
 
+class _Setup(NamedTuple):
+    params_shape: Any
+    p_specs: Any
+    baxes: tuple[str, ...]
+    n_batch: int
+    rows: list[int]
+    step_rules: AxisRules
+
+
+def _setup(model: Model, mesh, rules: AxisRules, b_global: int,
+           n_micro: int, extra: dict | None = None) -> _Setup:
+    """What every step shares: the full parameter shapes and their specs,
+    the batch axes and this rank's rows, and the rules the step runs
+    under (the batch axes used, each leaf's spec, and ``extra``
+    logical axes)."""
+    sizes = mesh_sizes(mesh)
+    with sharding_rules(rules):
+        params_shape = param_shapes(model)
+        p_specs = params_shardings(params_shape, model.cfg)
+        # the axes that divide a microbatch: where a microbatch has fewer
+        # rows than the batch ranks (jamba's 16 of 256 over 2 × 16), the
+        # ranks of the axes left hold the same rows, as the reference's
+        # partitioner replicates them
+        baxes = batch_pspec(rules, b_global // n_micro)
+    n_batch, batch_rank = 1, 0
+    for ax in baxes:
+        n_batch *= sizes[ax]
+        batch_rank = batch_rank * sizes[ax] + mesh.get_local_rank(ax)
+    rows = batch_rows(b_global, n_micro, n_batch, batch_rank)
+    step_rules = dataclasses.replace(
+        rules, mesh=mesh, rules={**rules.rules, "batch": baxes,
+                                 **(extra or {})},
+        specs={path_str(p): s for p, s in leaves_with_paths(p_specs)})
+    return _Setup(params_shape, p_specs, baxes, n_batch, rows, step_rules)
+
+
+def _take_rows(batch: Any, rows: list[int], local: bool,
+               device=None) -> Any:
+    """This rank's rows of a global ``batch`` (``batch`` itself when
+    ``local``), on ``device``."""
+    if local:
+        return batch if device is None else tree_map(
+            lambda x: x.to(device), batch)
+    idx = torch.as_tensor(rows)
+    return tree_map(lambda x: x.index_select(0, idx.to(x.device)).to(
+        x.device if device is None else device), batch)
+
+
 def build_train_step(model: Model, run: RunConfig, mesh,
                      rules: AxisRules) -> TrainStepBundle:
     """The fused loss, gradient and update step with DP/TP/EP cuts and
     ZeRO-1 (module docstring).  ``rules`` are the mesh's axis rules (their
-    own ``mesh`` need not be set)."""
+    own ``mesh`` need not be set).  The step takes ``local=True`` when its
+    batch is already this rank's rows (microbatch after microbatch)."""
     cfg, tc = model.cfg, run.train
     optimizer = make_optimizer(tc.optimizer, b1=tc.beta1, b2=tc.beta2,
                                eps=tc.eps, weight_decay=tc.weight_decay)
@@ -153,20 +236,10 @@ def build_train_step(model: Model, run: RunConfig, mesh,
                              tc.total_steps)
     b_global = run.shape.global_batch
     sizes = mesh_sizes(mesh)
-    with sharding_rules(rules):
-        params_shape = param_shapes(model)
-        p_specs = params_shardings(params_shape, cfg)
-        baxes = batch_pspec(rules, b_global)
-    n_batch = 1
-    for ax in baxes:
-        n_batch *= sizes[ax]
-    batch_rank = 0
-    for ax in baxes:
-        batch_rank = batch_rank * sizes[ax] + mesh.get_local_rank(ax)
-    rows = batch_rows(b_global, tc.grad_accum, n_batch, batch_rank)
-    step_rules = dataclasses.replace(
-        rules, mesh=mesh, rules={**rules.rules, "batch": baxes},
-        specs={path_str(p): s for p, s in leaves_with_paths(p_specs)})
+    setup = _setup(model, mesh, rules, b_global, tc.grad_accum)
+    params_shape, p_specs, baxes = setup.params_shape, setup.p_specs, \
+        setup.baxes
+    n_batch, rows, step_rules = setup.n_batch, setup.rows, setup.step_rules
 
     data_axes = rules.axes("data")
     layout = []
@@ -209,32 +282,32 @@ def build_train_step(model: Model, run: RunConfig, mesh,
         return per_leaf(reduce_grad, grads)
 
     def global_norm(grads) -> torch.Tensor:
-        sq = torch.zeros((), dtype=torch.float32,
-                         device=leaves(grads)[0].device)
-        for leaf, g in zip(layout, leaves(grads)):
-            if leaf.canonical:
-                sq = sq + torch.sum(torch.square(g.to(torch.float32)))
+        """Every rank does the same work (so each rank's count is rank
+        0's); a leaf's squares add where the rank is canonical for it."""
+        dev = leaves(grads)[0].device
+        sq = torch.zeros((), dtype=torch.float32, device=dev)
+        keep = torch.tensor([leaf.canonical for leaf in layout], device=dev)
+        for i, g in enumerate(leaves(grads)):
+            part = torch.sum(torch.square(g.to(torch.float32)))
+            sq = sq + torch.where(keep[i], part, 0.0)
         return torch.sqrt(C.all_reduce(sq, mesh, tuple(sizes)))
 
     def loss_of(p, b):
         return model.loss_fn(p, b)[0]
 
-    def grad_fn(params, batch):
-        dev = leaves(params)[0].device
-        idx = torch.as_tensor(rows)
-        local = tree_map(
-            lambda x: x.index_select(0, idx.to(x.device)).to(dev), batch)
+    def grad_fn(params, batch, local=False):
+        mine = _take_rows(batch, rows, local, leaves(params)[0].device)
         with sharding_rules(step_rules):
             loss, grads = accumulate_microbatches(
-                loss_of, params, local, tc.grad_accum,
+                loss_of, params, mine, tc.grad_accum,
                 grad_constraint=grad_constraint if tc.zero1 else None)
             if not tc.zero1:
                 grads = grad_constraint(grads)
         loss = C.all_reduce(loss.to(torch.float32), mesh, baxes) / n_batch
         return loss, grads
 
-    def train_step(params, opt_state, batch):
-        loss, grads = grad_fn(params, batch)
+    def train_step(params, opt_state, batch, local=False):
+        loss, grads = grad_fn(params, batch, local)
         gnorm = global_norm(grads)
         scale = torch.clamp(tc.grad_clip / (gnorm + 1e-6), max=1.0)
         grads = tree_map(lambda g: (g * scale).to(g.dtype), grads)
@@ -271,7 +344,93 @@ def build_train_step(model: Model, run: RunConfig, mesh,
         step_fn=train_step, params_shape=params_shape, opt_shape=opt_shape,
         in_shardings=(p_specs, o_specs, b_specs),
         out_shardings=(p_specs, o_specs, metrics),
-        init_fns=(init_params, init_opt), grad_fn=grad_fn)
+        init_fns=(init_params, init_opt), grad_fn=grad_fn, rows=rows)
+
+
+class ServeStepBundle(NamedTuple):
+    #: prefill: (params, batch) -> (logits, cache); decode: (params, cache,
+    #: batch) -> (logits, cache), the cache written in place; both take
+    #: ``local=True`` when the batch is already this rank's rows
+    step_fn: Callable
+    params_shape: Any  # tree of meta tensors: the full leaves
+    cache_shape: Any   # the full decode cache (meta), None for prefill
+    in_shardings: tuple   # (param specs, [cache specs,] batch specs)
+    #: (full params -> local params, full cache -> local cache)
+    init_fns: tuple
+    rows: list          # this rank's rows of the global batch
+
+
+def _serve_setup(model: Model, run: RunConfig, mesh, rules: AxisRules,
+                 kind: str):
+    """What the prefill and decode steps share: the slot check (a cache
+    that does not split evenly raises), the setup with the cache's
+    sequence axes, the batch and cache specs and the init functions."""
+    cfg, b = model.cfg, run.shape.global_batch
+    seq = _seq_axes(rules, b)
+    n_seq = 1
+    for ax in seq:
+        n_seq *= mesh_sizes(mesh)[ax]
+    slots = run.shape.seq_len if cfg.sliding_window is None \
+        else min(run.shape.seq_len, cfg.sliding_window)
+    attends = cfg.ssm_kind != "rwkv6" and not (kind == "prefill"
+                                               and cfg.encoder_decoder)
+    if attends and slots % n_seq:
+        raise UnevenSlotsError(
+            f"{cfg.name}: an attention cache of {slots} slots does not "
+            f"split over {seq} ({n_seq} ranks)")
+    setup = _setup(model, mesh, rules, b, 1, {"cache_seq": seq})
+    with sharding_rules(rules):
+        host = input_specs(cfg, b, run.shape.seq_len, kind)
+        b_specs = batch_shardings(host, rules, b)
+        cache_shape = model.init_cache(b, run.shape.seq_len, "meta") \
+            if kind == "decode" else None
+        c_specs = None if cache_shape is None else cache_shardings(
+            cache_shape, cfg, rules, b)
+
+    def init_params(full: Any) -> Any:
+        return tree_map(lambda x, s: local_slice(x, s, mesh), full,
+                        setup.p_specs)
+
+    def init_cache(full: Any) -> Any:
+        return tree_map(lambda x, s: local_slice(x, s, mesh), full, c_specs)
+
+    return setup, b_specs, cache_shape, c_specs, (init_params, init_cache)
+
+
+def build_prefill_step(model: Model, run: RunConfig, mesh,
+                       rules: AxisRules) -> ServeStepBundle:
+    """The prompt pass on this rank's rows (module docstring): its logits
+    rows and its slice of the cache ``cache_shardings`` lays out for the
+    run's global batch (the audio family's encoder output rows and
+    None)."""
+    setup, b_specs, _, _, init_fns = _serve_setup(model, run, mesh, rules,
+                                                  "prefill")
+
+    def prefill_step(params, batch, local=False):
+        mine = _take_rows(batch, setup.rows, local)
+        with sharding_rules(setup.step_rules):
+            return model.prefill(params, mine)
+
+    return ServeStepBundle(prefill_step, setup.params_shape, None,
+                           (setup.p_specs, b_specs), init_fns, setup.rows)
+
+
+def build_decode_step(model: Model, run: RunConfig, mesh,
+                      rules: AxisRules) -> ServeStepBundle:
+    """One token for each of this rank's rows against its cache slices,
+    written in place (module docstring); ``init_fns[1]`` cuts a full
+    cache of the run's global batch and sequence."""
+    setup, b_specs, cache_shape, c_specs, init_fns = _serve_setup(
+        model, run, mesh, rules, "decode")
+
+    def decode_step(params, cache, batch, local=False):
+        mine = _take_rows(batch, setup.rows, local)
+        with sharding_rules(setup.step_rules):
+            return model.decode_step(params, cache, mine)
+
+    return ServeStepBundle(decode_step, setup.params_shape, cache_shape,
+                           (setup.p_specs, c_specs, b_specs), init_fns,
+                           setup.rows)
 
 
 def _local_shapes(params_shape, layout, sizes, data_axes) -> Any:

@@ -32,6 +32,7 @@ from repro_torch.kernels import flash_attention as kfa
 
 __all__ = ["resolve_dtype", "rms_norm", "layer_norm", "apply_rope",
            "sinusoidal_positions", "attention", "decode_attention",
+           "decode_attention_sharded",
            "swiglu_mlp", "gelu_mlp", "model_in", "model_out"]
 
 
@@ -110,6 +111,34 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     probs = torch.softmax(scores, dim=-1).to(q.dtype)
     out = torch.einsum("bngst,btnd->bsngd", probs, v_cache)
     return out.reshape(b, 1, h, hd)
+
+
+def decode_attention_sharded(q: torch.Tensor, k_cache: torch.Tensor,
+                             v_cache: torch.Tensor, cache_len: torch.Tensor,
+                             offset: int, mesh, axes) -> torch.Tensor:
+    """:func:`decode_attention` over a cache cut by slot over the mesh
+    ``axes``: ``k_cache``/``v_cache`` are this rank's slots (B, T', KVH,
+    hd), global slots ``offset`` onward, and slots ``< cache_len`` are
+    valid.  Each rank scores its slots; the largest score is taken over
+    ``axes`` (one max), then each rank's sum of exponentials and its
+    unnormalised P·V are summed over them (two sums), and the output is
+    their quotient, in q's dtype (the flash-decode combine)."""
+    from repro_torch.parallel import collectives as C
+
+    b, _, h, hd = q.shape
+    t, kvh = k_cache.shape[1], k_cache.shape[2]
+    g = h // kvh
+    qg = q.reshape(b, 1, kvh, g, hd) * (hd ** -0.5)
+    scores = kfa.gqa_scores(qg, k_cache)  # (B, KVH, G, 1, T')
+    valid = torch.arange(t, device=q.device) + offset < cache_len
+    scores = torch.where(valid, scores, -1e30)
+    m = C.all_reduce(scores.amax(dim=-1, keepdim=True), mesh, axes, "max")
+    p = torch.exp(scores - m)
+    den = C.all_reduce(p.sum(dim=-1, keepdim=True), mesh, axes)
+    num = C.all_reduce(torch.einsum("bngst,btnd->bsngd", p,
+                                    v_cache.float()), mesh, axes)
+    out = num / den.permute(0, 3, 1, 2, 4)
+    return out.reshape(b, 1, h, hd).to(q.dtype)
 
 
 def swiglu_mlp(x: torch.Tensor, w_gate: torch.Tensor, w_in: torch.Tensor,

@@ -26,11 +26,12 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from repro_torch.configs import ModelConfig
+from repro_torch.configs import ModelConfig, ShapeConfig
 from repro_torch.core import dispatch as dispatchlib
 from repro_torch.parallel.sharding import active_rules, gather_tree
 
-__all__ = ["Model", "build_model", "input_specs", "count_params",
+__all__ = ["Model", "build_model", "input_specs", "input_tensors",
+           "decode_lengths", "cell_is_skipped", "count_params",
            "jpeg_resnet_spec", "param_shapes"]
 
 
@@ -122,6 +123,22 @@ def build_model(cfg: ModelConfig, remat: str = "none", *,
     return _lm_model(cfg, remat, dispatch)
 
 
+def decode_lengths(cfg: ModelConfig, shape: ShapeConfig) -> tuple[int, int]:
+    """(encoder_len, decoder_len) convention for enc-dec shapes."""
+    return shape.seq_len, max(shape.seq_len // 8, 8)
+
+
+def cell_is_skipped(cfg: ModelConfig, shape: ShapeConfig) -> str | None:
+    """The reason the reference skips an (arch × shape) cell, or None: a
+    classification net serves no prefill or decode, and a 500k context
+    needs a bounded attention state."""
+    if cfg.family == "jpeg_resnet" and shape.kind != "train":
+        return "skip(no-decode: classification net)"
+    if shape.name == "long_500k" and not cfg.sub_quadratic():
+        return "skip(full-attn)"
+    return None
+
+
 def input_specs(cfg: ModelConfig, batch: int, seq: int,
                 kind: str) -> dict[str, np.ndarray]:
     """Zero host batches of one cell: ``kind`` 'train' or 'prefill' gives
@@ -150,6 +167,25 @@ def input_specs(cfg: ModelConfig, batch: int, seq: int,
     out["tokens"] = np.zeros((batch, seq), np.int32)
     if kind == "train":
         out["labels"] = np.zeros((batch, seq), np.int32)
+    return out
+
+
+def input_tensors(cfg: ModelConfig, batch: int, seq: int, kind: str,
+                  device) -> dict[str, torch.Tensor]:
+    """:func:`input_specs`'s tree as zero tensors on ``device`` (fake ones
+    under a fake-tensor mode, which allocate nothing), in the reference's
+    dry-run
+    dtypes: token ids int32, JPEG coefficients fp32, frames and patch
+    embeddings in the model's dtype.  The counterpart of the reference's
+    ``input_specs(cfg, shape, dryrun=True)`` for ``batch`` rows."""
+    from repro_torch.models import layers as L
+
+    dtype = L.resolve_dtype(cfg.dtype)
+    out = {}
+    for name, a in input_specs(cfg, batch, seq, kind).items():
+        dt = torch.int32 if a.dtype == np.int32 else \
+            torch.float32 if name == "coefficients" else dtype
+        out[name] = torch.zeros(a.shape, dtype=dt, device=device)
     return out
 
 

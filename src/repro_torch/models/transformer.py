@@ -47,6 +47,23 @@ RWKV weights) is gathered whole just before its layer runs and its
 gradient sliced back (:func:`_mesh_layer`).  Without rules nothing of
 this runs.
 
+``prefill`` and ``decode_step`` run the same way under the rules of
+``launch/steps.py``'s prefill and decode steps, which also name the
+decode cache's sequence axes (the logical ``cache_seq``): each rank holds
+its rows of the cache and, of an attention layer's keys and values, every
+head at its own slots (the flash-decode layout;
+``sharding.cache_leaf_pspec``); Mamba's states are cut along ``d_inner``
+and RWKV's ``wkv`` by head over ``model``.  Prefill writes each rank's
+slots and state slices.  A decode step's attention gathers the token's
+query, key and value heads over ``model`` when its projections are split,
+writes the new key and value at ring slot ``index % T`` on the rank that
+owns that slot only, attends with every head over the rank's own slots,
+and combines the ranks' partial softmaxes over the sequence axes with one
+max and two sums (:func:`layers.decode_attention_sharded`); a split
+layer keeps its own heads for the row-parallel ``o_proj``.  A Mamba or
+RWKV layer gathers its states, steps with its gathered weights, and keeps
+its own slice of the new ones.
+
 Unlike the reference's pure functions, :func:`decode_step` writes the new
 token's keys and values, and each Mamba layer's new states, into the
 cache's tensors in place, as it does each Mamba and RWKV layer's new
@@ -75,8 +92,11 @@ from repro_torch.models import mamba as M
 from repro_torch.models import moe
 from repro_torch.models import rwkv as RW
 from repro_torch.parallel import collectives as C
-from repro_torch.parallel.sharding import (active_rules, bind_rules,
-                                           gather_tree, spec_axes)
+from repro_torch.parallel.sharding import (UnevenSlotsError, active_rules,
+                                           bind_rules, cache_leaf_pspec,
+                                           chunk_of, gather_full,
+                                           gather_tree, local_slice,
+                                           spec_axes)
 from repro_torch.tree import tree_map
 
 __all__ = ["REMAT", "FP32_LEAVES", "layer_kinds", "pattern_period",
@@ -298,7 +318,12 @@ def _attn_block(h, p, cfg: ModelConfig, positions, *, causal, window,
     kv_cache = None
     if want_cache:
         t = s if window is None else min(s, window)
-        kv_cache = {"k": k[:, s - t:], "v": v[:, s - t:]}
+        kc, vc = k[:, s - t:], v[:, s - t:]
+        if split:  # the cache holds every head (cut by slot)
+            rules = active_rules()
+            kc, vc = (C.all_gather(x, rules.mesh, rules.axes("model"), 2)
+                      for x in (kc, vc))
+        kv_cache = {"k": kc, "v": vc}
     out = L.attention(q, k, v, causal=causal, window=window, plain=plain)
     out = out.reshape(b, s, hq * hd) @ p["o_proj"]
     return (L.model_out(out) if split else out), kv_cache
@@ -437,24 +462,74 @@ def _ring_len(cfg: ModelConfig, s: int, cache_len: int | None) -> int:
     return t if cfg.sliding_window is None else min(t, cfg.sliding_window)
 
 
+def _ring(x: torch.Tensor, s: int, slots: int) -> torch.Tensor:
+    """Keys or values ``x`` (B, t, ...) of the last ``t`` of ``s``
+    positions in a ring of ``slots``: position ``p`` at slot ``p %
+    slots``, unreached slots zero."""
+    at = torch.arange(s - x.shape[1], s, device=x.device) % slots
+    return x.new_zeros((x.shape[0], slots) + tuple(x.shape[2:])) \
+        .index_copy_(1, at, x)
+
+
+def _cache_layout():
+    """The installed rules when they cut the decode cache (the prefill and
+    decode steps of ``launch/steps.py`` name its ``cache_seq`` axes),
+    else None."""
+    rules = active_rules()
+    return rules if rules is not None and "cache_seq" in rules.rules \
+        else None
+
+
+def _leaf_spec(rules, name: str, x: torch.Tensor):
+    """The cut of one layer's cache leaf ``x`` (B, ...) of this rank's
+    rows: ``sharding.cache_leaf_pspec`` without its layer and batch
+    cuts."""
+    return cache_leaf_pspec(f"pos/{name}", (1,) + tuple(x.shape), rules,
+                            None, rules.axes("cache_seq"))[1:]
+
+
+def _local_cache(rules, name: str, x: torch.Tensor) -> torch.Tensor:
+    """This rank's piece of one layer's whole cache leaf ``x``."""
+    spec = _leaf_spec(rules, name, x)
+    if name in ("k", "v"):
+        _, n = chunk_of(rules.mesh, spec_axes(spec[1]))
+        if x.shape[1] % n:
+            raise UnevenSlotsError(
+                f"a cache of {x.shape[1]} slots does not split over "
+                f"{spec_axes(spec[1])} ({n} ranks)")
+    return local_slice(x, spec, rules.mesh)
+
+
+def _whole_states(rules, cache: dict, cfg: ModelConfig,
+                  mixer: str) -> dict:
+    """One Mamba or RWKV layer's states gathered whole from every rank's
+    slice (``cache`` as it is without a cut).  The cut is read from the
+    whole states' shapes: whether ``model`` divides RWKV's heads is a
+    property of the whole ``wkv``, not of a rank's slice."""
+    if rules is None:
+        return cache
+    init = M.init_mamba_cache if mixer == "mamba" else RW.init_rwkv_cache
+    whole = init(cfg, next(iter(cache.values())).shape[0], torch.float32,
+                 "meta")
+    return {n: gather_full(x, _leaf_spec(rules, n, whole[n]), rules.mesh)
+            for n, x in cache.items()}
+
+
 def _store_cache(caches: dict, c: dict, i: int, n_periods: int, s: int,
-                 slots: int) -> None:
+                 slots: int, rules=None) -> None:
     """Write repetition ``i``'s cache ``c`` of one position into the
     stacked ``caches`` (allocated, zero, at the first write): attention
     keys and values at position ``p``'s ring slot ``p % slots`` (the last
-    ``t`` of ``s`` positions), Mamba and RWKV states whole."""
-    if not caches:
-        for n, x in c.items():
-            shape = (x.shape[0], slots) + tuple(x.shape[2:]) \
-                if n in ("k", "v") else tuple(x.shape)
-            caches[n] = x.new_zeros((n_periods,) + shape)
+    ``t`` of ``s`` positions), Mamba and RWKV states whole; with the cut
+    ``rules`` of :func:`_cache_layout`, this rank's slots and slices."""
+    c = {n: _ring(x, s, slots) if n in ("k", "v") else x
+         for n, x in c.items()}
+    if rules is not None:
+        c = {n: _local_cache(rules, n, x) for n, x in c.items()}
     for n, x in c.items():
-        if n in ("k", "v"):
-            t = x.shape[1]
-            at = torch.arange(s - t, s, device=x.device) % slots
-            caches[n][i].index_copy_(1, at, x)
-        else:
-            caches[n][i] = x
+        if n not in caches:
+            caches[n] = x.new_zeros((n_periods,) + tuple(x.shape))
+        caches[n][i] = x
 
 
 def _mesh_layer(p: dict, prefix: str, cfg: ModelConfig) -> dict:
@@ -517,6 +592,7 @@ def _run_stack(h, blocks, cfg: ModelConfig, kinds, period, positions, *,
     n_periods = (n_layers or cfg.n_layers) // period
     s = h.shape[1]
     mesh = active_rules() is not None
+    layout = _cache_layout() if want_cache else None
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
     caches: dict[str, dict[str, torch.Tensor]] = {
         f"pos{j}": {} for j in range(period)}
@@ -548,7 +624,7 @@ def _run_stack(h, blocks, cfg: ModelConfig, kinds, period, positions, *,
         aux = aux + a
         for j, c in enumerate(out if want_cache else ()):
             _store_cache(caches[f"pos{j}"], c, i, n_periods, s,
-                         _ring_len(cfg, s, cache_len))
+                         _ring_len(cfg, s, cache_len), layout)
     return h, aux, (caches if want_cache else None)
 
 
@@ -659,7 +735,10 @@ def prefill(params, cfg: ModelConfig, batch: dict, pad_to: int | None = None,
     (a sliding-window ring to the window at most).  For the audio family
     prefill is the encoder forward, as in the reference: → (encoder output
     (B, T, D), None); :func:`cross_cache` makes decode's ``cross`` entry
-    from it."""
+    from it.  Under the rules of ``launch/steps.py``'s prefill step the
+    cache is this rank's slots and slices (module docstring)."""
+    if active_rules() is not None:
+        params = _mesh_top(params)
     if cfg.encoder_decoder:
         return _encode(params, cfg, batch["frames"], plain=plain), None
     h, _ = _embed_inputs(params, cfg, batch)
@@ -760,22 +839,54 @@ def cross_cache(params, cfg: ModelConfig, enc_out: torch.Tensor) -> dict:
 
 def _attn_decode(h, p, cfg: ModelConfig, cache, index):
     """One-token attention, writing the token's k/v into ``cache`` in
-    place.  ``h``: (B, 1, D); ``index``: 0-d int32 tensor."""
-    b = h.shape[0]
-    q = (h @ p["q_proj"]).reshape(b, 1, cfg.n_heads, cfg.head_dim)
-    k = (h @ p["k_proj"]).reshape(b, 1, cfg.n_kv_heads, cfg.head_dim)
-    v = (h @ p["v_proj"]).reshape(b, 1, cfg.n_kv_heads, cfg.head_dim)
+    place.  ``h``: (B, 1, D); ``index``: 0-d int32 tensor.  Under a cut
+    cache (:func:`_cache_layout`) ``cache`` holds this rank's slots of
+    every head, and projections narrower than ``q_dim`` are this rank's
+    heads of a Megatron split (module docstring)."""
+    b, hd = h.shape[0], cfg.head_dim
+    layout = _cache_layout()
+    split = p["q_proj"].shape[-1] != cfg.q_dim
+    if split:
+        h = L.model_in(h)
+    q = (h @ p["q_proj"]).reshape(b, 1, -1, hd)
+    k = (h @ p["k_proj"]).reshape(b, 1, -1, hd)
+    v = (h @ p["v_proj"]).reshape(b, 1, -1, hd)
     if cfg.use_rope:
         pos = index.reshape(1, 1).expand(b, 1)
         q = L.apply_rope(q, pos, cfg.rope_theta)
         k = L.apply_rope(k, pos, cfg.rope_theta)
+    if split:  # every head, from the ranks of ``model``
+        mesh, maxes = layout.mesh, layout.axes("model")
+        q, k, v = (C.all_gather(x, mesh, maxes, 2) for x in (q, k, v))
     t = cache["k"].shape[1]
-    write_at = (index % t).reshape(1).long()  # a ring buffer for SWA
-    cache["k"].index_copy_(1, write_at, k)
-    cache["v"].index_copy_(1, write_at, v)
-    cache_len = torch.clamp(index + 1, max=t)
-    out = L.decode_attention(q, cache["k"], cache["v"], cache_len)
-    return out.reshape(b, 1, cfg.q_dim) @ p["o_proj"]
+    seq = spec_axes(_leaf_spec(layout, "k", cache["k"])[1]) \
+        if layout is not None else ()
+    chunk, n_seq = chunk_of(layout.mesh, seq) if seq else (0, 1)
+    total = t * n_seq  # the ring's slots over every rank
+    if n_seq == 1:
+        write_at = (index % t).reshape(1).long()  # a ring buffer for SWA
+        cache["k"].index_copy_(1, write_at, k)
+        cache["v"].index_copy_(1, write_at, v)
+        out = L.decode_attention(q, cache["k"], cache["v"],
+                                 torch.clamp(index + 1, max=t))
+    else:
+        # slot index % total is on the rank whose chunk holds it; every
+        # other rank writes back what the slot it clamps to held
+        local = (index % total - chunk * t).reshape(1).long()
+        mine = (local >= 0) & (local < t)
+        at = torch.clamp(local, 0, t - 1)
+        for name, x in (("k", k), ("v", v)):
+            keep = cache[name].index_select(1, at)
+            cache[name].index_copy_(1, at, torch.where(mine, x, keep))
+        out = L.decode_attention_sharded(
+            q, cache["k"], cache["v"], torch.clamp(index + 1, max=total),
+            chunk * t, layout.mesh, seq)
+    if split:  # this rank's heads for the row-parallel o_proj
+        hq = p["q_proj"].shape[-1] // hd
+        me, _ = chunk_of(layout.mesh, layout.axes("model"))
+        out = out[:, :, me * hq:(me + 1) * hq]
+    out = out.reshape(b, 1, -1) @ p["o_proj"]
+    return L.model_out(out) if split else out
 
 
 def _decode_layer(h, p, cfg: ModelConfig, kind, cache, index, cross=None):
@@ -785,18 +896,25 @@ def _decode_layer(h, p, cfg: ModelConfig, kind, cache, index, cross=None):
     values."""
     mixer, ffn = kind
     x = _norm(h, p["ln1"], p.get("ln1_b"), cfg.norm_eps)
+    layout = _cache_layout() if mixer in ("rwkv", "mamba") else None
+
+    def keep(new: dict) -> None:  # this rank's slices of the new states
+        for n, v in new.items():
+            cache[n].copy_(v if layout is None
+                           else _local_cache(layout, n, v))
+
     if mixer == "rwkv":
-        a, c1 = RW.rwkv_time_mix_decode(x, p["tm"], cfg, cache)
+        whole = _whole_states(layout, cache, cfg, mixer)
+        a, c1 = RW.rwkv_time_mix_decode(x, p["tm"], cfg, whole)
         h = h + a
         c, c2 = RW.rwkv_channel_mix_decode(
-            L.rms_norm(h, p["ln2"], cfg.norm_eps), p["cm"], cfg, cache)
-        for n, v in {**c1, **c2}.items():
-            cache[n].copy_(v)
+            L.rms_norm(h, p["ln2"], cfg.norm_eps), p["cm"], cfg, whole)
+        keep({**c1, **c2})
         return h + c
     if mixer == "mamba":
-        a, new = M.mamba_decode_step(x, p["mamba"], cfg, cache)
-        for n, v in new.items():
-            cache[n].copy_(v)
+        a, new = M.mamba_decode_step(x, p["mamba"], cfg,
+                                     _whole_states(layout, cache, cfg, mixer))
+        keep(new)
     else:
         a = _attn_decode(x, p["attn"], cfg, cache, index)
     h = h + a
@@ -816,7 +934,12 @@ def decode_step(params, cfg: ModelConfig, cache: dict, batch: dict):
     (B, 1, V), cache).  The layer caches are written in place; the
     returned cache holds the same tensors and ``index`` + 1.  The audio
     family's token takes the sinusoidal position ``index`` and its layers
-    attend to the cache's ``cross`` entry."""
+    attend to the cache's ``cross`` entry.  Under the rules of
+    ``launch/steps.py``'s decode step ``cache`` is this rank's rows, slots
+    and slices (module docstring)."""
+    mesh = active_rules() is not None
+    if mesh:
+        params = _mesh_top(params)
     h = params["embed"][batch["tokens"].long()]
     index = cache["index"]
     if cfg.family == "audio":
@@ -829,8 +952,10 @@ def decode_step(params, cfg: ModelConfig, cache: dict, batch: dict):
             if cfg.encoder_decoder else None
         for j in range(period):
             c = {n: x[i] for n, x in cache[f"pos{j}"].items()}
-            h = _decode_layer(h, _layer(params["blocks"], j, i), cfg,
-                              kinds[j], c, index, cross)
+            p = _layer(params["blocks"], j, i)
+            if mesh:
+                p = _mesh_layer(p, f"blocks/pos{j}", cfg)
+            h = _decode_layer(h, p, cfg, kinds[j], c, index, cross)
     h = _norm(h, params["ln_f"], params.get("ln_f_b"), cfg.norm_eps)
     new_cache = dict(cache)
     new_cache["index"] = index + 1

@@ -25,6 +25,12 @@ forward and backward (statistics over the batch axes); :class:`GatherParam`
 gathers a sharded leaf just before its use and either reduce-scatters its
 gradient (over axes whose ranks hold different data) or keeps its own
 slice (over axes whose ranks computed the same thing).
+
+Every call over more than one rank reports itself to the active
+``introspect.opcount`` counts: its kind, its group's size and its payload
+by the reference's rule.  Nothing here reads a collective's result on
+the host, so the dry-run's ``fake`` process group, whose collectives
+return their buffers as they were, traces the same calls.
 """
 from __future__ import annotations
 
@@ -33,6 +39,8 @@ from typing import Sequence
 
 import torch
 import torch.distributed as dist
+
+from repro_torch.introspect import opcount
 
 __all__ = ["STAGED", "group", "all_reduce", "all_gather", "reduce_scatter",
            "broadcast", "shift", "CopyTo", "ReduceFrom", "AllReduce",
@@ -74,12 +82,25 @@ def _size(mesh, axis: str) -> int:
     return mesh.size(mesh.mesh_dim_names.index(axis))
 
 
-def all_reduce(x: torch.Tensor, mesh, axes) -> torch.Tensor:
-    """Σ of ``x`` over the ranks of ``axes`` (a new tensor)."""
+def _report(kind: str, payload: torch.Tensor, n: int,
+            factor: float = 1.0) -> None:
+    if opcount.counting():
+        opcount.add_collective(kind, factor * payload.numel()
+                               * payload.element_size(), n)
+
+
+_OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}
+
+
+def all_reduce(x: torch.Tensor, mesh, axes, op: str = "sum") -> torch.Tensor:
+    """Σ (or, ``op="max"``, the largest) of ``x`` over the ranks of
+    ``axes`` (a new tensor)."""
     out = x.clone()
     for ax in _axes(axes):
-        if _size(mesh, ax) > 1:
-            dist.all_reduce(out, group=group(mesh, ax))
+        n = _size(mesh, ax)
+        if n > 1:
+            _report("all-reduce", out, n, 2.0)
+            dist.all_reduce(out, op=_OPS[op], group=group(mesh, ax))
     return out
 
 
@@ -93,6 +114,7 @@ def all_gather(x: torch.Tensor, mesh, axes, dim: int = 0) -> torch.Tensor:
             continue
         src = out.movedim(dim, 0).contiguous()
         buf = src.new_empty((n * src.shape[0],) + tuple(src.shape[1:]))
+        _report("all-gather", buf, n)
         _AG(buf, src, group=group(mesh, ax))
         out = buf.movedim(0, dim)
     return out.contiguous()
@@ -112,6 +134,7 @@ def reduce_scatter(x: torch.Tensor, mesh, axes,
             raise ValueError(f"dim {dim} of size {src.shape[0]} does not "
                              f"split over {ax} ({n} ranks)")
         buf = src.new_empty((src.shape[0] // n,) + tuple(src.shape[1:]))
+        _report("reduce-scatter", src, n)
         _RS(buf, src, group=group(mesh, ax))
         out = buf.movedim(0, dim)
     return out.contiguous()
@@ -126,8 +149,10 @@ def _own_chunk(x: torch.Tensor, mesh, axis: str, dim: int) -> torch.Tensor:
 def broadcast(x: torch.Tensor, mesh, axis: str, src: int) -> torch.Tensor:
     """``x`` of the rank at coordinate ``src`` of ``axis``, on every rank
     of it (in place)."""
-    if _size(mesh, axis) == 1:
+    n = _size(mesh, axis)
+    if n == 1:
         return x
+    _report("collective-broadcast", x, n)
     g = group(mesh, axis)
     dist.broadcast(x, src=dist.get_process_group_ranks(g)[src], group=g)
     return x
@@ -146,6 +171,7 @@ def shift(x: torch.Tensor, mesh, axis: str, name: str) -> torch.Tensor:
     if staged:
         STAGED[name] += 1
     src = x.detach().cpu() if staged else x.detach().contiguous()
+    _report("collective-permute", src, n)
     out = torch.empty_like(src)
     ops = [dist.P2POp(dist.isend, src, ranks[(me + 1) % n], group=g),
            dist.P2POp(dist.irecv, out, ranks[(me - 1) % n], group=g)]

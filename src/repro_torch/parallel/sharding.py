@@ -43,8 +43,10 @@ from repro_torch.configs import ModelConfig
 __all__ = [
     "PartitionSpec", "P", "AxisRules", "sharding_rules", "current_rules",
     "active_rules", "logical_pspec", "param_pspec", "zero1_pspec",
-    "batch_pspec", "cache_pspec", "spec_axes", "mesh_sizes", "local_slice",
-    "gather_full", "path_str", "gather_tree", "bind_rules",
+    "batch_pspec", "cache_pspec", "cache_leaf_pspec", "UnevenSlotsError",
+    "spec_axes", "mesh_sizes", "chunk_of", "local_slice", "gather_full",
+    "path_str",
+    "gather_tree", "bind_rules",
 ]
 
 
@@ -320,6 +322,40 @@ def cache_pspec(rules: AxisRules, global_batch: int) -> tuple:
     return batch_axes, seq_axes
 
 
+class UnevenSlotsError(ValueError):
+    """A cache's slots do not split evenly over its sequence axes.  XLA
+    pads such a sequence; the port refuses it (ROADMAP Queue 3)."""
+
+
+def cache_leaf_pspec(path: str, shape: tuple[int, ...], rules: AxisRules,
+                     bspec, sspec) -> PartitionSpec:
+    """One decode-cache leaf's spec (the reference's ``cache_shardings``
+    rule, ``launch/steps.py:77-107``), its batch dim over ``bspec`` and an
+    attention cache's slots over ``sspec``: keys and values ``(n_periods,
+    B, T, KVH, hd)`` by slot; a ``cross`` cache by batch only; RWKV's
+    ``wkv`` ``(n_periods, B, H, hs, hs)`` by head over ``model`` when the
+    axis divides the heads; Mamba's ``ssm`` ``(n_periods, B, di, ds)`` and
+    ``conv`` ``(n_periods, B, dc-1, di)`` along ``di`` over ``model``;
+    the token shifts by batch; scalars (the index) replicated."""
+    if not shape:
+        return P()
+    p = path.lower()
+    if "cross" in p and len(shape) == 5:
+        return P(None, bspec, None, None, None)
+    if p.endswith("/k") or p.endswith("/v"):
+        return P(None, bspec, sspec, None, None)
+    if "wkv" in p:
+        ok = len(shape) == 5 and shape[2] % max(rules.size("model"), 1) == 0
+        return P(None, bspec, "model" if ok else None, None, None)
+    if "ssm" in p:
+        return P(None, bspec, "model", None)
+    if "conv" in p:
+        return P(None, bspec, None, "model")
+    if "shift" in p:
+        return P(None, bspec, None, None)
+    return P()
+
+
 # --------------------------------------------------------------------------
 # Rank-local slices
 # --------------------------------------------------------------------------
@@ -337,7 +373,7 @@ def mesh_sizes(mesh) -> dict[str, int]:
     return dict(zip(mesh.mesh_dim_names, mesh.shape))
 
 
-def _chunk(mesh, axes: tuple[str, ...]) -> tuple[int, int]:
+def chunk_of(mesh, axes: tuple[str, ...]) -> tuple[int, int]:
     """(this rank's chunk index, chunk count) over ``axes``, the first
     axis major."""
     sizes = mesh_sizes(mesh)
@@ -350,20 +386,24 @@ def _chunk(mesh, axes: tuple[str, ...]) -> tuple[int, int]:
 
 def local_slice(full: torch.Tensor, spec: PartitionSpec,
                 mesh) -> torch.Tensor:
-    """This rank's piece of the full leaf ``full`` under ``spec`` (a
-    contiguous copy)."""
+    """This rank's piece of the full leaf ``full`` under ``spec``: a
+    contiguous copy in storage of its own when ``spec`` cuts it (a view
+    would keep the full leaf's storage alive), else ``full`` made
+    contiguous."""
     out = full
     for dim, entry in enumerate(spec):
         axes = spec_axes(entry)
         if not axes:
             continue
-        idx, n = _chunk(mesh, axes)
+        idx, n = chunk_of(mesh, axes)
         if out.shape[dim] % n:
             raise ValueError(f"dim {dim} of size {out.shape[dim]} does not "
                              f"split over {axes} ({n} ranks)")
         size = out.shape[dim] // n
         out = out.narrow(dim, idx * size, size)
-    return out.contiguous()
+    if out is full:
+        return out.contiguous()
+    return out.clone(memory_format=torch.contiguous_format)
 
 
 def gather_full(local: torch.Tensor, spec: PartitionSpec,

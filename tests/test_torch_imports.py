@@ -37,7 +37,7 @@ def test_port_imports_no_jax_and_no_reference_package():
                  "models.moe", "configs.rwkv6_7b", "configs.internvl2_1b",
                  "configs.whisper_small", "parallel", "parallel.sharding",
                  "parallel.collectives", "parallel.pipeline", "launch.mesh",
-                 "launch.steps"):
+                 "launch.steps", "launch.dryrun", "introspect.memory"):
         assert "repro_torch." + want in names, want
     code = (
         "import importlib, sys\n"

@@ -14,9 +14,12 @@ expert-parallel MoE with ZeRO-3 experts, capacity drops on each shard) and
 four CPU ranks), batch norm statistics over every rank's rows.  Global
 batch 8, ``grad_accum`` 2, ZeRO-1, AdamW at a constant 1e-3, three steps,
 compression ``none`` and ``bf16``.  The dense model's step is the global
-batch's whatever the cut, so two more layouts of it are held against the
-reference's data × model run at the ``none`` tolerances: ZeRO-1 off, and
-a 2 (pod) × 2 (data) mesh on the multi-pod rules.  A third run of it
+batch's whatever the cut, so three more layouts of it are held against
+the reference's data × model run at the ``none`` tolerances: ZeRO-1 off,
+a 2 (pod) × 2 (data) mesh on the multi-pod rules, and that mesh with 4
+microbatches of 2 rows (fewer rows than its 4 batch ranks: the batch
+goes over ``pod`` alone and the ``data`` ranks hold the same rows, as in
+``jamba-v0.1-52b``'s 2×16×16 training cell).  A fifth run of it
 carries a ``loss_mask`` whose count differs between the data ranks of a
 microbatch, held against the reference's masked 2×2 run at the same
 tolerances: the loss is the masked mean over the global microbatch, not
@@ -61,7 +64,7 @@ SRC = os.path.join(ROOT, "src")
 ARCHS = ("smollm-360m", "granite-moe-3b-a800m", "jpeg-resnet")
 COMPRESSION = ("none", "bf16")
 #: the dense model's step on two more layouts (``_rank_runs``)
-LAYOUTS = ("no-zero1", "pod-data")
+LAYOUTS = ("no-zero1", "pod-data", "micro-replicated")
 #: the dense model's run with a loss mask, against the reference's own
 MASKED = "masked"
 B, S, STEPS, ACCUM, LR, EPS = 8, 16, 3, 2, 1e-3, 1e-3
@@ -209,6 +212,9 @@ def _rank_runs(mesh):
              (f"smollm-360m/none/{LAYOUTS[1]}", "smollm-360m", "none", pods,
               MeshConfig(multi_pod=True, pods=2, data=2, model=1), True,
               False),
+             (f"smollm-360m/none/{LAYOUTS[2]}", "smollm-360m", "none", pods,
+              MeshConfig(multi_pod=True, pods=2, data=2, model=1), True,
+              False),
              (f"smollm-360m/none/{MASKED}", "smollm-360m", "none", mesh,
               grid, True, True)]
     res = {}
@@ -217,7 +223,8 @@ def _rank_runs(mesh):
             else reduced_config(arch)
         model = build_model(cfg)
         dropped[0] = 0
-        tc = TrainConfig(grad_accum=ACCUM, learning_rate=LR, eps=EPS,
+        accum = 2 * ACCUM if key.endswith(LAYOUTS[2]) else ACCUM
+        tc = TrainConfig(grad_accum=accum, learning_rate=LR, eps=EPS,
                          schedule="constant", grad_compression=comp,
                          zero1=zero1)
         run = RunConfig(model=cfg, shape=ShapeConfig("t", S, B, "train"),
@@ -305,10 +312,12 @@ def test_parameters_after_three_steps_match(runs, arch, comp):
 
 @pytest.mark.parametrize("layout", LAYOUTS)
 def test_other_layouts_of_the_dense_step_match(runs, layout):
-    """ZeRO-1 off (the gradients all-reduced once after accumulation), and
-    a 2 (pod) × 2 (data) mesh (the batch over both axes, ZeRO-1 over
-    ``data``, the pod sum beside it): the same global-batch step as the
-    reference's data × model run, at the ``none`` tolerances."""
+    """ZeRO-1 off (the gradients all-reduced once after accumulation), a
+    2 (pod) × 2 (data) mesh (the batch over both axes, ZeRO-1 over
+    ``data``, the pod sum beside it), and that mesh with microbatches
+    smaller than its batch ranks (the batch over ``pod`` alone): the same
+    global-batch step as the reference's data × model run, at the
+    ``none`` tolerances."""
     ref, port = runs
     want_losses = ref["smollm-360m/none/losses"]
     np.testing.assert_allclose(
