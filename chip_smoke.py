@@ -222,12 +222,30 @@ Phases, each fatal on failure:
    SERVE4_LAYERS layers, fp32, prefill and decode over a sequence-sharded
    cache against one rank within SERVE4_RTOL, every rank launching the
    attention forward in prefill;
-25. one ``{"kernels": [...]}`` line, with each kernel's launches in phases
-   3, 4, 6-24 but 5 (each path driven with the counts set to 0 just
+25. the paper's own formulation in ``core/``, fp32 with TF32 off, each
+   card result against the same function on CPU copies (the plain
+   versions): (a) Algorithm 1 at CIFAR size: ``explode_full`` (a 1.07 GB
+   operator at stride 1) then ``apply_full`` on 8 images of 16 channels,
+   32² pixels, a 16 → 16 3×3 kernel, strides 1 and 2, against
+   ``jpeg_conv`` (the banded-conv kernel) and the spatial conv of the
+   decoded images (the block transforms), within 1e-4 of the largest
+   |output|; (b) ``jpeg_conv`` with a bias (the kernel's DC shift) against
+   its plain version and the spatial conv with that bias; (c) the paper's
+   Fig. 4a protocol on 65,536 box-upscaled random blocks: ASM's and APX's
+   RMSE against the exact ReLU for φ = 1..14, ASM at most APX at every φ,
+   both curves printed, each output within 1e-5 of the CPU's (an ASM mask
+   may differ only where the approximation is within rounding of 0);
+   (d) JPEG-scaled ASM (a q50 table) against decode → ReLU → encode and
+   ``asm_piecewise(LEAKY_RELU)`` against leaky ReLU on the decoded pixels,
+   at φ = 14; (e) ``jpeg_encode``/``jpeg_decode`` (q50, a caller's table),
+   ``jpeg_round_trip_lossy`` within 1e-4 of the pixel range, and J at 16²
+   against ``jpeg_encode``;
+26. one ``{"kernels": [...]}`` line, with each kernel's launches in phases
+   3, 4, 6-25 but 5 (each path driven with the counts set to 0 just
    before it and read just after), then the ``{"ok": true, ...}`` line
    last.  Its bounds and phase 9's roofline read one count of each
    kernel's work (``repro_torch.introspect.opcount``).  Every phase prints
-   its seconds (phases 5-24 also their device memory peak), and the
+   its seconds (phases 5-25 also their device memory peak), and the
    script its total.
 
 It imports neither JAX nor the reference package, exits non-zero without
@@ -412,6 +430,14 @@ CARD_BYTES = 80e9
 SERVE4_LAYERS, SERVE4_BATCH, SERVE4_PROMPT, SERVE4_SLOTS, SERVE4_DECODE = \
     4, 2, 512, 1024, 8
 SERVE4_RTOL = 1e-5
+#: phase 25: Algorithm 1 at CIFAR size (PAPER_BATCH images of PAPER_CH
+#: channels, PAPER_IMAGE² pixels, a PAPER_CH → PAPER_CH 3×3 kernel: a 1.07
+#: GB operator at stride 1) and Fig. 4a's PAPER_BLOCKS blocks; the convs
+#: within PAPER_RTOL, ASM within PAPER_ASM_RTOL of the largest |value|,
+#: and an ASM mask may differ from the CPU's only where the approximation
+#: is within PAPER_TIE of the largest |approximation| from 0
+PAPER_BATCH, PAPER_CH, PAPER_IMAGE, PAPER_BLOCKS = 8, 16, 32, 65536
+PAPER_RTOL, PAPER_ASM_RTOL, PAPER_TIE = 1e-4, 1e-5, 1e-5
 #: the attention cases of phase 2, forward and backward: label, b, s, t,
 #: h, kvh, hd, causal, window, bf16 (else fp32)
 ATTN_CASES = (
@@ -3885,6 +3911,199 @@ def dryrun_phase(dev, card: str, launches: dict) -> None:
         f"{wall4:.2f} s; phase 24 in {time.perf_counter() - t0:.2f} s")
 
 
+def fig4a_blocks(n: int, seed: int):
+    """The paper's §5.3 protocol (``tests/test_asm.py``): ``n`` random 4×4
+    blocks box-upscaled to 8×8, as orthonormal zigzag coefficients (fp32,
+    on the CPU)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import dct as dctlib
+
+    small = np.random.default_rng(seed).uniform(-1, 1, size=(n, 4, 4))
+    big = np.kron(small, np.ones((2, 2)))
+    coef = dctlib.dct2(big).reshape(n, 64)[:, dctlib.zigzag_permutation()]
+    return torch.as_tensor(coef, dtype=torch.float32)
+
+
+def hold_asm(label: str, got, want, approx, card_mask) -> int:
+    """ASM ReLU on the card against the CPU: every block within
+    PAPER_ASM_RTOL but those whose mask differs, and a mask may differ only
+    where the CPU's approximation lies within PAPER_TIE of 0 (two correct
+    fp32 sums in another order fall on either side); returns those
+    blocks' count."""
+    flips = card_mask != (approx > 0)
+    rows = flips.any(-1)
+    if flips.any():
+        worst = float(approx[flips].abs().max())
+        if not worst <= PAPER_TIE * max(1.0, float(approx.abs().max())):
+            fail(f"{label}: a mask differs where the approximation is "
+                 f"{worst:.3e} from 0")
+    compare(label, got[~rows], want[~rows], PAPER_ASM_RTOL)
+    return int(rows.sum())
+
+
+def paper_core_phase(dev, card: str, launches: dict) -> None:
+    """Phase 25 (module docstring): the paper's formulation in ``core/`` on
+    the card, each result against the same function on CPU copies (the
+    plain versions) and against the paper's own identities."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import asm as asmlib
+    from repro_torch.core import conv as convlib
+    from repro_torch.core import dct as dctlib
+    from repro_torch.core import jpeg as jpeglib
+
+    g = torch.Generator().manual_seed(25)
+    grid = PAPER_IMAGE // 8
+    img = torch.rand((PAPER_BATCH, PAPER_CH, PAPER_IMAGE, PAPER_IMAGE),
+                     generator=g) * 2 - 1
+    kern = torch.randn((PAPER_CH, PAPER_CH, 3, 3), generator=g) * 0.3
+    bias = torch.randn((PAPER_CH,), generator=g)
+    blocks = fig4a_blocks(PAPER_BLOCKS, 25)
+    q = dctlib.quantization_table(50)
+    # (e)'s lossy input: decodes of integer step-4 coefficients moved by at
+    # most 0.3, so no coefficient sits within rounding of a .5 tie
+    lossy_in = jpeglib.jpeg_decode(
+        torch.randint(-3, 4, (PAPER_BATCH, 3, grid, grid, 64), generator=g)
+        + torch.rand((PAPER_BATCH, 3, grid, grid, 64), generator=g) * 0.6
+        - 0.3)
+    x16 = torch.rand((16, 16), generator=g, dtype=torch.float64) * 2 - 1
+
+    def encode(x, **kw):  # (N, C, H, W) → (N, bh, bw, C, 64)
+        return jpeglib.jpeg_encode(x, **kw).movedim(1, 3)
+
+    def decode(c, **kw):
+        return jpeglib.jpeg_decode(c.movedim(3, 1), **kw)
+
+    def card_side():
+        out = {}
+        coef = encode(img.to(dev), scaled=False)
+        k, b = kern.to(dev), bias.to(dev)
+        out["coef"] = coef
+        for s in (1, 2):  # (a)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            op = convlib.explode_full(k, grid, grid, s)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            out[f"full{s}"] = convlib.apply_full(coef, op)
+            torch.cuda.synchronize()
+            log(f"phase 25 (a) stride {s}: explode_full {t1 - t0:.3f} s "
+                f"(operator {op.numel() * 4 / 1e9:.3f} GB), apply_full "
+                f"{time.perf_counter() - t1:.3f} s [{card}]")
+            del op
+            out[f"conv{s}"] = convlib.jpeg_conv(coef, k, s)
+            out[f"spatial{s}"] = encode(convlib.spatial_conv(
+                decode(coef, scaled=False), k, s), scaled=False)
+        out["bias"] = convlib.jpeg_conv(coef, k, 1, b)  # (b)
+        out["bias_spatial"] = encode(convlib.spatial_conv(
+            decode(coef, scaled=False), k, 1, b), scaled=False)
+        c = blocks.to(dev)  # (c)
+        oracle = asmlib.spatial_relu_oracle(c)
+        out["oracle"] = oracle
+        for phi in range(1, 15):
+            out[f"asm{phi}"] = asmlib.asm_relu(c, phi)
+            out[f"apx{phi}"] = asmlib.apx_relu(c, phi)
+            out[f"mask{phi}"] = asmlib.nonnegative_mask(c, phi)
+        cs = (c / torch.as_tensor(q, dtype=c.dtype, device=dev)).reshape(
+            -1, 1, 1, 64)  # (d)
+        out["asm_q"] = asmlib.asm_relu(cs, asmlib.EXACT_PHI, q)
+        out["asm_q_pixels"] = jpeglib.jpeg_encode(torch.relu(
+            jpeglib.jpeg_decode(cs, qtable=q)), qtable=q)
+        c4 = c.reshape(-1, 1, 1, 64)
+        out["leaky"] = asmlib.asm_piecewise(c4, asmlib.LEAKY_RELU,
+                                            asmlib.EXACT_PHI)
+        out["leaky_pixels"] = jpeglib.jpeg_encode(
+            torch.nn.functional.leaky_relu(jpeglib.jpeg_decode(
+                c4, scaled=False), 0.01), scaled=False)
+        out["enc_q50"] = jpeglib.jpeg_encode(img.to(dev))  # (e)
+        out["dec_q50"] = jpeglib.jpeg_decode(out["enc_q50"])
+        out["enc_qt"] = jpeglib.jpeg_encode(img.to(dev), qtable=q * 0.5)
+        out["lossy"] = jpeglib.jpeg_round_trip_lossy(lossy_in.to(dev))
+        out["j16"] = jpeglib.jpeg_encode(x16.to(dev, torch.float32))
+        torch.cuda.synchronize()
+        return {k: v.cpu() for k, v in out.items()}
+
+    with torch.no_grad():
+        got = drive("paper core (phase 25)", ("jpeg_conv", "block_dct",
+                                              "block_idct"),
+                    launches, card_side)
+        # (a) Algorithm 1 against the banded kernel and the spatial conv
+        errs = {}
+        for s in (1, 2):
+            full = got[f"full{s}"]
+            if full.shape != (PAPER_BATCH, grid // s, grid // s, PAPER_CH,
+                              64):
+                fail(f"phase 25 (a): apply_full shape {tuple(full.shape)}")
+            errs[s] = (compare(f"(a) s{s} apply_full vs jpeg_conv", full,
+                               got[f"conv{s}"], PAPER_RTOL),
+                       compare(f"(a) s{s} apply_full vs spatial", full,
+                               got[f"spatial{s}"], PAPER_RTOL))
+        coef = got["coef"]
+        compare("(a) encode vs plain", coef, encode(img, scaled=False),
+                BLOCK_RTOL)
+        # (b) the bias on DC
+        plain_b = convlib.jpeg_conv(coef, kern, 1, bias)
+        err_b = (compare("(b) jpeg_conv bias vs plain", got["bias"], plain_b,
+                         PAPER_RTOL),
+                 compare("(b) jpeg_conv bias vs spatial bias", got["bias"],
+                         got["bias_spatial"], PAPER_RTOL))
+        # (c) Fig. 4a: ASM against APX at every φ, each against the CPU
+        oracle = asmlib.spatial_relu_oracle(blocks)
+        compare("(c) oracle vs plain", got["oracle"], oracle, PAPER_ASM_RTOL)
+        rmse_asm, rmse_apx, ties = [], [], 0
+        for phi in range(1, 15):
+            approx = asmlib.approx_spatial(blocks, phi)
+            ties += hold_asm(f"(c) asm_relu phi={phi}", got[f"asm{phi}"],
+                             asmlib.asm_relu(blocks, phi), approx,
+                             got[f"mask{phi}"])
+            compare(f"(c) apx_relu phi={phi}", got[f"apx{phi}"],
+                    asmlib.apx_relu(blocks, phi), PAPER_ASM_RTOL)
+            rmse_asm.append(float(((got[f"asm{phi}"] - got["oracle"]) ** 2)
+                                  .mean().sqrt()))
+            rmse_apx.append(float(((got[f"apx{phi}"] - got["oracle"]) ** 2)
+                                  .mean().sqrt()))
+            if not rmse_asm[-1] <= rmse_apx[-1] + 1e-9:
+                fail(f"(c) phi={phi}: ASM RMSE {rmse_asm[-1]:.6e} > APX "
+                     f"{rmse_apx[-1]:.6e}")
+        log(f"phase 25 (c) Fig. 4a on the card [{card}], {PAPER_BLOCKS} "
+            f"box-upscaled blocks, RMSE against the exact ReLU for phi = "
+            f"1..14: ASM {[float(f'{e:.6e}') for e in rmse_asm]}; APX "
+            f"{[float(f'{e:.6e}') for e in rmse_apx]}; blocks whose mask "
+            f"sat within rounding of 0 and flipped: {ties}")
+        # (d) JPEG-scaled ASM and the general case at φ = 14
+        err_d = (compare("(d) asm_relu qtable vs decode-relu-encode",
+                         got["asm_q"], got["asm_q_pixels"], PAPER_ASM_RTOL),
+                 compare("(d) asm_piecewise leaky vs leaky pixels",
+                         got["leaky"], got["leaky_pixels"], PAPER_ASM_RTOL))
+        # (e) the transforms, the lossy round trip, J
+        enc = jpeglib.jpeg_encode(img)
+        err_e = [compare("(e) jpeg_encode q50", got["enc_q50"], enc,
+                         BLOCK_RTOL),
+                 compare("(e) jpeg_decode q50", got["dec_q50"],
+                         jpeglib.jpeg_decode(enc), BLOCK_RTOL),
+                 compare("(e) jpeg_encode qtable", got["enc_qt"],
+                         jpeglib.jpeg_encode(img, qtable=q * 0.5),
+                         BLOCK_RTOL)]
+        want = jpeglib.jpeg_round_trip_lossy(lossy_in)
+        err = float((got["lossy"] - want).abs().max())
+        span = float(want.max() - want.min())
+        if not err <= 1e-4 * span:
+            fail(f"(e) lossy round trip: {err:.3e} > 1e-4 × {span:.3e}")
+        err_e.append(err)
+        j = np.einsum("hwxyk,hw->xyk", jpeglib.jpeg_tensor(16, 16),
+                      x16.numpy())
+        err_e.append(compare("(e) jpeg_tensor vs jpeg_encode", got["j16"],
+                             torch.as_tensor(j, dtype=torch.float32),
+                             BLOCK_RTOL))
+    log(f"phase 25 [{card}]: (a) Algorithm 1, {PAPER_BATCH} × {PAPER_CH} × "
+        f"{PAPER_IMAGE}², {PAPER_CH} → {PAPER_CH} 3×3: max abs err "
+        f"(vs jpeg_conv, vs spatial) by stride {errs}; (b) bias "
+        f"(vs plain, vs spatial) {err_b}; (d) {err_d}; (e) {err_e}")
+
+
 def main() -> None:
     if not os.path.isdir(os.path.join(REPO_SRC, "repro_torch")):
         fail(f"no src/repro_torch beside {__file__}: run from a checkout")
@@ -4166,6 +4385,9 @@ def main() -> None:
 
     # --- phase 24: the dry-run, and serving on a mesh -----------------------
     timed("phase 24", card, lambda: dryrun_phase(dev, card, launches))
+
+    # --- phase 25: the paper's formulation in core/ -------------------------
+    timed("phase 25", card, lambda: paper_core_phase(dev, card, launches))
 
     kernels = []
     src = {k: "src/repro_torch/csrc/jpeg_kernels.cu" for k in KERNELS}

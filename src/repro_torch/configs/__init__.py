@@ -7,11 +7,11 @@ from __future__ import annotations
 
 import dataclasses
 import importlib
-from typing import Optional
+from typing import Callable, Optional
 
 __all__ = ["ModelConfig", "ShapeConfig", "TrainConfig", "MeshConfig",
-           "RunConfig", "SHAPES", "ARCHS", "get_config", "reduced_config",
-           "list_archs"]
+           "RunConfig", "SHAPES", "ARCHS", "register", "get_config",
+           "reduced_config", "list_archs"]
 
 #: arch → config module of the port
 ARCHS = {"jpeg-resnet": "jpeg_resnet", "granite-3-2b": "granite_3_2b",
@@ -168,23 +168,46 @@ class RunConfig:
     mesh: MeshConfig = dataclasses.field(default_factory=MeshConfig)
 
 
-def _module(arch: str):
-    if arch not in ARCHS:
+def _builtin(module: str, which: str) -> Callable[[], ModelConfig]:
+    """``which`` ('full' or 'reduced') of a built-in config module,
+    imported on its first call."""
+    return lambda: getattr(
+        importlib.import_module(f"repro_torch.configs.{module}"), which)()
+
+
+#: arch → (full, reduced) config factories: the built-ins of
+#: :data:`ARCHS` and whatever :func:`register` adds
+_REGISTRY: dict[str, tuple[Callable[[], ModelConfig],
+                           Callable[[], ModelConfig]]] = {
+    arch: (_builtin(m, "full"), _builtin(m, "reduced"))
+    for arch, m in ARCHS.items()}
+
+
+def register(arch_id: str, full: Callable[[], ModelConfig],
+             reduced: Callable[[], ModelConfig]) -> None:
+    """Add ``arch_id`` to the registry (replacing a built-in one of that
+    name): :func:`get_config` calls ``full()``, :func:`reduced_config`
+    ``reduced()``."""
+    _REGISTRY[arch_id] = (full, reduced)
+
+
+def _factories(arch: str):
+    if arch not in _REGISTRY:
         raise KeyError(f"unknown arch {arch!r}; the port runs "
-                       f"{', '.join(sorted(ARCHS))}")
-    return importlib.import_module(f"repro_torch.configs.{ARCHS[arch]}")
+                       f"{', '.join(list_archs())}")
+    return _REGISTRY[arch]
 
 
 def get_config(arch: str) -> ModelConfig:
     """The full published configuration of ``arch``."""
-    return _module(arch).full()
+    return _factories(arch)[0]()
 
 
 def reduced_config(arch: str) -> ModelConfig:
     """A tiny same-family configuration of ``arch`` for CPU tests."""
-    return _module(arch).reduced()
+    return _factories(arch)[1]()
 
 
 def list_archs() -> list[str]:
-    """Every arch the port configures, sorted."""
-    return sorted(ARCHS)
+    """Every arch the port configures (built in or registered), sorted."""
+    return sorted(_REGISTRY)

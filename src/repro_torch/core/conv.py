@@ -1,16 +1,28 @@
-"""Convolution explosion — the paper's §4.1, over a translation-invariant basis.
+"""Convolution explosion — the paper's §4.1 / Algorithm 1.
 
-Away from the borders the JPEG-domain operator Ξ = J ∘ C ∘ J̃ depends only
-on the relative block offset, and with centred zero padding the border
-cases are the interior operator with missing neighbours reading zero.  So
-Ξ is assembled from a precomputed separable basis (numpy, built once):
+Two forms of the JPEG-domain operator Ξ = J ∘ C ∘ J̃:
 
-    Ξ[dy, dx, i, k, o, k'] = Σ_uv K[o, i, u, v] · basis[u, v, dy, dx, k, k']
+1. :func:`explode_full` / :func:`apply_full` — Algorithm 1 verbatim:
+   convolve each J̃ "image" (Eq. 12) with every filter slice, re-encode,
+   and keep the full position-dependent operator.  O((#blocks)²·64²·
+   Cin·Cout) memory: the faithful form, for tests and CIFAR-sized images.
 
-and :func:`apply_exploded` is ``ndy·ndx`` dense ``(Cin·b) → (Cout·b')``
-matmuls per block.  Wide layers whose Ξ would exceed
-:data:`MATERIALIZE_LIMIT` elements run factored instead
-(:func:`_jpeg_conv_factored`: decode → spatial conv → encode).
+2. The production form.  Away from the borders Ξ depends only on the
+   relative block offset, and with centred zero padding the border cases
+   are the interior operator with missing neighbours reading zero.  So Ξ
+   is assembled from a precomputed separable basis (numpy, built once):
+
+       Ξ[dy, dx, i, k, o, k'] = Σ_uv K[o, i, u, v] · basis[u, v, dy, dx, k, k']
+
+   and :func:`apply_exploded` is ``ndy·ndx`` dense ``(Cin·b) → (Cout·b')``
+   matmuls per block.  :func:`jpeg_conv` applies it (the banded-conv kernel
+   on a CUDA tensor); layers whose Ξ would exceed :data:`MATERIALIZE_LIMIT`
+   elements run factored instead (:func:`_jpeg_conv_factored`: decode →
+   spatial conv → encode).
+
+A per-channel bias ``b`` adds a constant to every pixel: ``8·b`` on the
+orthonormal DC coefficient, ``b`` in the scaled convention (q₀ = 8)
+(:func:`add_dc_bias`).
 
 Layouts: coefficients ``(N, bh, bw, C, 64)``; filters ``(Cout, Cin, r, r)``
 with odd ``r``.
@@ -28,7 +40,9 @@ from repro_torch.core import dct as dctlib
 from repro_torch.core import jpeg as jpeglib
 
 __all__ = ["block_offsets", "explosion_basis", "explode", "apply_exploded",
-           "pad_bands", "operator_elems", "spatial_conv", "MATERIALIZE_LIMIT"]
+           "pad_bands", "operator_elems", "dc_shift", "add_dc_bias",
+           "jpeg_conv", "explode_full", "apply_full", "spatial_conv",
+           "MATERIALIZE_LIMIT"]
 
 # Above this operator size (elements of Ξ) the conv goes factored.  The same
 # value and the same environment override as the reference package, so both
@@ -162,11 +176,48 @@ def apply_exploded(coef: torch.Tensor, xi: torch.Tensor,
     return out
 
 
-def spatial_conv(img: torch.Tensor, kernel: torch.Tensor,
-                 stride: int = 1) -> torch.Tensor:
-    """Centred zero-padded spatial conv (``padding=r//2``), NCHW/OIHW."""
-    return F.conv2d(img, kernel, stride=stride,
+def spatial_conv(img: torch.Tensor, kernel: torch.Tensor, stride: int = 1,
+                 bias: torch.Tensor | None = None) -> torch.Tensor:
+    """Centred zero-padded spatial conv (``padding=r//2``), NCHW/OIHW, plus
+    a per-output-channel ``bias``."""
+    return F.conv2d(img, kernel, bias, stride=stride,
                     padding=(kernel.shape[-1] - 1) // 2)
+
+
+def dc_shift(bias: torch.Tensor | None,
+             out_scaled: bool = False) -> torch.Tensor | None:
+    """What a per-channel pixel bias ``b`` adds to DC: ``8·b`` in the
+    orthonormal convention, ``b`` where re-quantization with q₀ = 8 is
+    folded on the output side (the banded-conv kernel's ``shift``)."""
+    if bias is None:
+        return None
+    return bias if out_scaled else float(dctlib.BLOCK) * bias
+
+
+def add_dc_bias(out: torch.Tensor, bias: torch.Tensor | None,
+                out_scaled: bool = False) -> torch.Tensor:
+    """Add a per-channel bias ``(Cout,)`` to ``(..., Cout, nf)``
+    coefficients, on DC (:func:`dc_shift`)."""
+    if bias is None:
+        return out
+    dc = out[..., :1] + dc_shift(bias, out_scaled)[..., None]
+    return torch.cat((dc, out[..., 1:]), -1)
+
+
+def jpeg_conv(coef: torch.Tensor, kernel: torch.Tensor, stride: int = 1,
+              bias: torch.Tensor | None = None, *, in_scaled: bool = False,
+              out_scaled: bool = False, quality: int = 50,
+              bands: int = dctlib.NFREQ) -> torch.Tensor:
+    """JPEG-domain convolution ``(N, bh, bw, Cin, 64) → (N, bh/s, bw/s,
+    Cout, 64)``: :func:`dispatch.conv` on the ``auto`` path at ``bands``,
+    which explodes and applies while Ξ has at most
+    :data:`MATERIALIZE_LIMIT` elements (the banded-conv kernel on a CUDA
+    tensor, the DC bias as its ``shift``) and goes factored above it."""
+    from repro_torch.core import dispatch as dsp
+
+    return dsp.conv(coef, kernel, stride, bias, in_scaled=in_scaled,
+                    out_scaled=out_scaled, quality=quality,
+                    cfg=dsp.DispatchConfig(bands=bands))
 
 
 def _jpeg_conv_factored(coef: torch.Tensor, kernel: torch.Tensor, stride: int,
@@ -192,3 +243,38 @@ def _jpeg_conv_factored(coef: torch.Tensor, kernel: torch.Tensor, stride: int,
     if bands < enc.shape[-1]:
         enc = pad_bands(enc[..., :bands])
     return enc
+
+
+# --------------------------------------------------------------------------
+# Algorithm 1: the full position-dependent operator (tests, small images)
+# --------------------------------------------------------------------------
+
+
+def explode_full(kernel: torch.Tensor, bh: int, bw: int, stride: int = 1, *,
+                 quality: int = 50, scaled: bool = False) -> torch.Tensor:
+    """Paper Algorithm 1: the full operator ``(bh, bw, 64, Cin, Cout, bh',
+    bw', 64)`` on the kernel's device and in its dtype.
+
+    Convolves each J̃ "image" (Eq. 12) with every (o, i) filter slice
+    (``F.conv2d``; TF32 is off package-wide) and re-encodes the result with
+    :func:`jpeg.jpeg_encode` (the block-transform kernel on a CUDA tensor).
+    Memory grows with the block grid squared: at 32×32 pixels and 16 → 16
+    channels the operator, and the conv's output before it, are 1.07 GB
+    each in fp32.
+    """
+    b = dctlib.BLOCK
+    h, w = bh * b, bw * b
+    cout, cin, r, _ = kernel.shape
+    jt = jpeglib.ijpeg_tensor(h, w, quality=quality, scaled=scaled)
+    imgs = torch.as_tensor(jt.reshape(bh * bw * b * b, 1, h, w),
+                           dtype=kernel.dtype, device=kernel.device)
+    conv = spatial_conv(imgs, kernel.reshape(cout * cin, 1, r, r), stride)
+    enc = jpeglib.jpeg_encode(conv, quality=quality, scaled=scaled)
+    enc = enc.reshape(bh, bw, b * b, cout, cin, bh // stride, bw // stride,
+                      b * b)
+    return enc.movedim(4, 3)  # (bh, bw, 64, cin, cout, bh', bw', 64)
+
+
+def apply_full(coef: torch.Tensor, op: torch.Tensor) -> torch.Tensor:
+    """Apply a full operator to ``(N, bh, bw, Cin, 64)`` coefficients."""
+    return torch.einsum("nxyik,xykioXYK->nXYoK", coef, op)

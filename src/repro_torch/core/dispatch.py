@@ -192,15 +192,18 @@ class ConvOperator(NamedTuple):
     bn_scale: torch.Tensor | None = None
 
 
-def conv(coef: torch.Tensor, kernel: torch.Tensor, stride: int = 1, *,
-         in_scaled: bool = False, out_scaled: bool = False,
-         quality: int = 50,
+def conv(coef: torch.Tensor, kernel: torch.Tensor, stride: int = 1,
+         bias: torch.Tensor | None = None, *, in_scaled: bool = False,
+         out_scaled: bool = False, quality: int = 50,
          cfg: DispatchConfig | None = None) -> torch.Tensor:
     """Per-step JPEG-domain convolution (training): Ξ is exploded from the
     live ``kernel`` on every call, differentiably, and applied by the
     ``jpeg_conv`` kernel or its plain version; above the materialise
-    limit the conv goes factored.  Returns 64-wide coefficients, zero
-    above ``cfg.bands``."""
+    limit the conv goes factored.  A per-channel ``bias`` rides on DC
+    (``core.conv.dc_shift``): the kernel's ``shift`` (or its plain
+    version's) on a materialised path, ``core.conv.add_dc_bias`` after the
+    factored one.  Returns 64-wide coefficients, zero above
+    ``cfg.bands``."""
     from repro_torch.kernels import jpeg_conv as kjc
 
     cfg = resolve_config(cfg)
@@ -208,15 +211,17 @@ def conv(coef: torch.Tensor, kernel: torch.Tensor, stride: int = 1, *,
                        op_elems=convlib.operator_elems(kernel.shape, stride,
                                                        cfg.bands))
     if path == "factored":
-        return convlib._jpeg_conv_factored(
+        out = convlib._jpeg_conv_factored(
             coef, kernel, stride, quality=quality, in_scaled=in_scaled,
             out_scaled=out_scaled, bands=cfg.bands,
             path=_transform_path(cfg, coef.device))
+        return convlib.add_dc_bias(out, bias, out_scaled)
     xi = convlib.explode(kernel, stride, quality=quality,
                          in_scaled=in_scaled, out_scaled=out_scaled,
                          bands=cfg.bands)
     fn = kjc.jpeg_conv if path == "cuda" else kjc.jpeg_conv_plain
-    return fn(coef, xi, stride, w_out=dctlib.NFREQ)
+    return fn(coef, xi, stride, shift=convlib.dc_shift(bias, out_scaled),
+              w_out=dctlib.NFREQ)
 
 
 def precompute_conv(kernel: torch.Tensor, stride: int = 1, *,
