@@ -221,7 +221,10 @@ Phases, each fatal on failure:
    gloo (2 data × 2 model): ``smollm-360m`` at full width cut to
    SERVE4_LAYERS layers, fp32, prefill and decode over a sequence-sharded
    cache against one rank within SERVE4_RTOL, every rank launching the
-   attention forward in prefill;
+   attention forward in prefill; then ``jamba-v0.1-52b`` and
+   ``rwkv6-7b`` at full width cut to SSM4_LAYERS layers, fp32, decoding
+   from one rank's prompt states with each rank stepping its own slice
+   of the Mamba and RWKV states, against one rank within SERVE4_RTOL;
 25. the paper's own formulation in ``core/``, fp32 with TF32 off, each
    card result against the same function on CPU copies (the plain
    versions): (a) Algorithm 1 at CIFAR size: ``explode_full`` (a 1.07 GB
@@ -240,12 +243,21 @@ Phases, each fatal on failure:
    at φ = 14; (e) ``jpeg_encode``/``jpeg_decode`` (q50, a caller's table),
    ``jpeg_round_trip_lossy`` within 1e-4 of the pixel range, and J at 16²
    against ``jpeg_encode``;
-26. one ``{"kernels": [...]}`` line, with each kernel's launches in phases
-   3, 4, 6-25 but 5 (each path driven with the counts set to 0 just
+26. the port's six examples (``repro_torch.examples``, the reference's
+   ``examples/`` scripts) on the card through their ``main``, at their
+   defaults but ``train_e2e --steps 60`` and ``serve_qos --requests 32``
+   (EXAMPLES), checkpoints in a temporary directory: each returns its own
+   check passed (quickstart's JPEG logits within 1e-4 of the spatial ones
+   with the same top-1, the restored plan's logits bit for bit, every
+   request served, every healthy QoS request served, a falling loss for
+   both trainers) and launches its kernels; each prints its seconds and
+   device memory peak;
+27. one ``{"kernels": [...]}`` line, with each kernel's launches in phases
+   3, 4, 6-26 but 5 (each path driven with the counts set to 0 just
    before it and read just after), then the ``{"ok": true, ...}`` line
    last.  Its bounds and phase 9's roofline read one count of each
    kernel's work (``repro_torch.introspect.opcount``).  Every phase prints
-   its seconds (phases 5-25 also their device memory peak), and the
+   its seconds (phases 5-26 also their device memory peak), and the
    script its total.
 
 It imports neither JAX nor the reference package, exits non-zero without
@@ -419,7 +431,9 @@ DRYRUN_CELLS = (("smollm-360m", "train_4k", "single"),
                 ("mixtral-8x7b", "decode_32k", "single"),
                 ("jamba-v0.1-52b", "long_500k", "multi"),
                 ("jpeg-resnet", "train_4k", "single"),
-                ("rwkv6-7b", "prefill_32k", "single"))
+                ("rwkv6-7b", "prefill_32k", "single"),
+                # microbatches of 16 rows over 2 × 16 batch ranks
+                ("jamba-v0.1-52b", "train_4k", "multi"))
 #: phase 24 (b): the trace against the real step on a world of one:
 #: counted FLOPs and bytes, and the predicted peak against the allocator's
 DRY_COUNT_RTOL, DRY_PEAK_RTOL = 0.005, 0.10
@@ -430,6 +444,14 @@ CARD_BYTES = 80e9
 SERVE4_LAYERS, SERVE4_BATCH, SERVE4_PROMPT, SERVE4_SLOTS, SERVE4_DECODE = \
     4, 2, 512, 1024, 8
 SERVE4_RTOL = 1e-5
+#: phase 24 (c)'s sliced Mamba and RWKV decode: each arch at full width
+#: cut to SSM4_LAYERS layers (jamba's two are Mamba mixers, the second
+#: with its MoE FFN at capacity factor SSM4_CAPACITY, so neither a shard
+#: nor one rank drops a token), fp32, SERVE4_BATCH prompts of SSM4_PROMPT
+#: tokens prefilled on one rank, then SSM4_DECODE steps on four ranks
+#: from those states, against one rank within SERVE4_RTOL
+SSM4_ARCHS = ("jamba-v0.1-52b", "rwkv6-7b")
+SSM4_LAYERS, SSM4_PROMPT, SSM4_DECODE, SSM4_CAPACITY = 2, 64, 2, 8.0
 #: phase 25: Algorithm 1 at CIFAR size (PAPER_BATCH images of PAPER_CH
 #: channels, PAPER_IMAGE² pixels, a PAPER_CH → PAPER_CH 3×3 kernel: a 1.07
 #: GB operator at stride 1) and Fig. 4a's PAPER_BLOCKS blocks; the convs
@@ -438,6 +460,19 @@ SERVE4_RTOL = 1e-5
 #: is within PAPER_TIE of the largest |approximation| from 0
 PAPER_BATCH, PAPER_CH, PAPER_IMAGE, PAPER_BLOCKS = 8, 16, 32, 65536
 PAPER_RTOL, PAPER_ASM_RTOL, PAPER_TIE = 1e-4, 1e-5, 1e-5
+#: phase 26: the port's six examples (``repro_torch.examples``) through
+#: their ``main``, at their defaults but these flags, each with the kernels
+#: it must launch
+EXAMPLES = (
+    ("quickstart", (), ("jpeg_conv", "asm_relu", "block_dct",
+                        "block_idct")),
+    ("convert_pretrained", (), ("jpeg_conv", "asm_relu", "block_dct",
+                                "block_idct")),
+    ("serve_jpeg", (), JPEG_KERNELS),
+    ("serve_qos", ("--requests", "32"), JPEG_KERNELS),
+    ("train_e2e", ("--steps", "60"), ("jpeg_conv", "asm_relu", "block_dct",
+                                      "block_idct")),
+    ("lm_train", (), ("flash_attention", "flash_attention_bwd")))
 #: the attention cases of phase 2, forward and backward: label, b, s, t,
 #: h, kvh, hd, causal, window, bf16 (else fp32)
 ATTN_CASES = (
@@ -3669,15 +3704,132 @@ def serve4_inputs(dev):
         [t.to(dev) for t in toks]
 
 
-def serve4_reference(dev, path: str) -> None:
-    """Phase 24 (c) on one rank, the whole batch and cache: the prefill's
-    logits and cache, the decode cache (the prompt's keys and values in
-    its first slots), each decode step's logits and the cache after them,
-    saved to ``path``."""
+def ssm4_inputs(arch: str):
+    """Phase 24 (c)'s sliced decode of ``arch``: the config cut to
+    SSM4_LAYERS layers, fp32, the model, the prompt and the decode tokens
+    (seed 6); the parameters come from :func:`ssm4_params`."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.registry import build_model
+
+    cfg = dataclasses.replace(get_config(arch), n_layers=SSM4_LAYERS,
+                              dtype="float32")
+    if cfg.n_experts:
+        cfg = dataclasses.replace(cfg, capacity_factor=SSM4_CAPACITY)
+    gen = torch.Generator().manual_seed(6)
+    prompt = torch.randint(0, cfg.vocab_size, (SERVE4_BATCH, SSM4_PROMPT),
+                           generator=gen, dtype=torch.int32)
+    toks = [torch.randint(0, cfg.vocab_size, (SERVE4_BATCH, 1),
+                          generator=gen, dtype=torch.int32)
+            for _ in range(SSM4_DECODE)]
+    return cfg, build_model(cfg), prompt, toks
+
+
+def ssm4_params(model, dev):
+    """The whole parameters, drawn on the card from seed 0 (the same on
+    every rank)."""
+    import torch
+
+    return model.init_params(torch.Generator(device=dev).manual_seed(0), dev)
+
+
+def ssm4_reference(dev) -> dict:
+    """Each of SSM4_ARCHS on one rank: the states after the prompt in a
+    decode cache of SERVE4_SLOTS slots, each decode step's logits and the
+    cache after them, on the host."""
     import torch
 
     from repro_torch.tree import tree_map
 
+    out = {}
+    for arch in SSM4_ARCHS:
+        cfg, model, prompt, toks = ssm4_inputs(arch)
+        params = ssm4_params(model, dev)
+        with torch.no_grad():
+            _, cache = model.prefill(params, {"tokens": prompt.to(dev)})
+            dcache = model.init_cache(SERVE4_BATCH, SERVE4_SLOTS, dev)
+            for j, c in cache.items():
+                if j == "index":
+                    dcache["index"].copy_(c)
+                    continue
+                for n, x in c.items():  # keys and values: the first slots
+                    dcache[j][n][:, :, :x.shape[2]] = x
+            one = tree_map(lambda x: x.clone(), dcache)
+            outs = []
+            for t in toks:
+                lg, one = model.decode_step(params, one,
+                                            {"tokens": t.to(dev)})
+                outs.append(lg)
+        out[arch] = tree_map(lambda x: x.cpu(), {
+            "decode_cache": dcache, "decode_logits": torch.stack(outs),
+            "decode_cache_after": one})
+        del params, cache, dcache, one
+        torch.cuda.empty_cache()
+    return out
+
+
+def ssm4_rank(mesh, dev, ref: dict, err) -> dict:
+    """One rank's sliced decode of each of SSM4_ARCHS against its part of
+    one rank's run; the whole parameters are drawn one rank at a time,
+    each rank keeping its slices.  Returns the largest differences and the
+    collective bytes of the first step."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs import MeshConfig, RunConfig, ShapeConfig
+    from repro_torch.introspect import opcount
+    from repro_torch.launch.mesh import make_axis_rules
+    from repro_torch.launch.steps import build_decode_step
+    from repro_torch.tree import leaves, tree_map
+
+    mc = MeshConfig(data=2, model=2)
+    rules = make_axis_rules(mc)
+    out = {}
+    for arch in SSM4_ARCHS:
+        cfg, model, _, toks = ssm4_inputs(arch)
+        run = RunConfig(model=cfg, shape=ShapeConfig(
+            "d", SERVE4_SLOTS, SERVE4_BATCH, "decode"), mesh=mc)
+        db = build_decode_step(model, run, mesh, rules)
+        local = None
+        for turn in range(dist.get_world_size()):
+            if dist.get_rank() == turn:
+                full = ssm4_params(model, dev)
+                local = db.init_fns[0](full)
+                del full
+                torch.cuda.empty_cache()
+            dist.barrier()
+        want = ref[arch]
+        lc = tree_map(lambda x: x.to(dev), db.init_fns[1](
+            want["decode_cache"]))
+        errs = []
+        with torch.no_grad():
+            for i, t in enumerate(toks):
+                with opcount.count() as cost:
+                    lg, lc = db.step_fn(local, lc, {"tokens": t.to(dev)})
+                if i == 0:
+                    out[f"{arch} collective bytes"] = cost.collective_bytes
+                errs.append(err(lg, want["decode_logits"][i][db.rows]))
+        after = db.init_fns[1](want["decode_cache_after"])
+        out[f"{arch} decode_logits"] = max(errs)
+        out[f"{arch} decode_cache"] = max(err(a, b) for a, b in
+                                          zip(leaves(lc), leaves(after))
+                                          if a.dim())
+        del local, lc
+        torch.cuda.empty_cache()
+    return out
+
+
+def serve4_reference(dev, path: str) -> None:
+    """Phase 24 (c) on one rank, the whole batch and cache: the prefill's
+    logits and cache, the decode cache (the prompt's keys and values in
+    its first slots), each decode step's logits and the cache after them,
+    and :func:`ssm4_reference`'s runs, saved to ``path``."""
+    import torch
+
+    from repro_torch.tree import tree_map
+
+    ssm = ssm4_reference(dev)
     cfg, model, params, batch, toks = serve4_inputs(dev)
     with torch.no_grad():
         logits, cache = model.prefill(params, batch)
@@ -3697,7 +3849,7 @@ def serve4_reference(dev, path: str) -> None:
     torch.save({"prefill_logits": logits.cpu(), "prefill_cache": host(cache),
                 "decode_cache": host(dcache),
                 "decode_logits": torch.stack(outs).cpu(),
-                "decode_cache_after": host(one)}, path)
+                "decode_cache_after": host(one), "ssm": ssm}, path)
     del params, cache, dcache, one
     torch.cuda.empty_cache()
 
@@ -3706,7 +3858,8 @@ def serve4_rank(mesh):
     """One of phase 24 (c)'s four ranks (gloo, sharing the card): the
     prefill step and SERVE4_DECODE decode steps on its rows and cache
     slices, each against its part of one rank's run (largest difference
-    over the largest |value|); the attention launches of its prefill."""
+    over the largest |value|); the attention launches of its prefill;
+    then :func:`ssm4_rank`'s sliced Mamba and RWKV decodes."""
     import torch
     import torch.distributed as dist
 
@@ -3763,6 +3916,9 @@ def serve4_rank(mesh):
     out["decode_logits"] = max(errs)
     out["decode_cache"] = max(err(a, b) for a, b in
                               zip(leaves(lc), leaves(want)) if a.dim())
+    del local, lc
+    torch.cuda.empty_cache()
+    out["ssm"] = ssm4_rank(mesh, dev, ref["ssm"], err)
     return out
 
 
@@ -3898,6 +4054,10 @@ def dryrun_phase(dev, card: str, launches: dict) -> None:
         if r["launches"]["flash_attention"] <= 0:
             fail(f"serve 2x2 rank {r['rank']}: the prefill launched no "
                  f"attention ({r['launches']})")
+        ssm = {k: v for k, v in r["ssm"].items() if "collective" not in k}
+        if not max(ssm.values()) <= SERVE4_RTOL:
+            fail(f"serve 2x2 rank {r['rank']}: the sliced Mamba and RWKV "
+                 f"decode against one rank {ssm} (> {SERVE4_RTOL})")
         for k, v in r["launches"].items():
             launches[k] += v
     log(f"serve 2x2 (data × model, 4 ranks on one card, gloo) {LM_ARCH} "
@@ -3909,6 +4069,55 @@ def dryrun_phase(dev, card: str, launches: dict) -> None:
         f"attention launches per rank "
         f"{[r['launches']['flash_attention'] for r in ranks]}; 4 ranks in "
         f"{wall4:.2f} s; phase 24 in {time.perf_counter() - t0:.2f} s")
+    log(f"serve 2x2 sliced decode, {' and '.join(SSM4_ARCHS)} at full "
+        f"width cut to {SSM4_LAYERS} layers, fp32, {SERVE4_BATCH} prompts "
+        f"of {SSM4_PROMPT} on one rank, then {SSM4_DECODE} steps on the 4 "
+        f"ranks [{card}]: largest difference from one rank over the ranks "
+        f"{ {k: max(r['ssm'][k] for r in ranks) for k in ranks[0]['ssm']} }"
+        f" (collective bytes: a rank's first step, every layer: the "
+        f"embedding and head gathered whole, and jamba's MoE experts "
+        f"gathered over data)")
+
+
+def examples_phase(dev, card: str, launches: dict) -> None:
+    """Phase 26 (module docstring): each of EXAMPLES through its ``main``
+    on the card, its flags and a checkpoint directory in a temporary
+    directory (``tempfile``'s too, where ``lm_train`` and
+    ``convert_pretrained`` write), driven with the counts set to 0 (a
+    ``serve_qos`` run adds its graphs' replayed launches), its own check
+    passed."""
+    import importlib
+
+    import torch
+
+    scratch = tempfile.mkdtemp(prefix="chip_smoke_examples_")
+    tmp = tempfile.tempdir
+    tempfile.tempdir = scratch
+    try:
+        for name, flags, required in EXAMPLES:
+            argv = list(flags)
+            if name == "train_e2e":
+                argv += ["--ckpt-dir", os.path.join(scratch, "e2e")]
+            mod = importlib.import_module(f"repro_torch.examples.{name}")
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            out = drive(f"example {name}", required, launches,
+                        lambda: mod.main(argv),
+                        replayed=lambda r: r.get("graph_launches") or {})
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            if not out["ok"] or out["device"] == "cpu":
+                fail(f"example {name} {argv}: its check failed ({out})")
+            shown = {k: v for k, v in out.items()
+                     if k not in ("narration", "graph_launches", "bands",
+                                  "latency_ms", "tier_switches")}
+            log(f"example {name} {' '.join(argv) or '(defaults)'} "
+                f"[{card}]: {shown}; {wall:.2f} s, peak device memory "
+                f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+    finally:
+        tempfile.tempdir = tmp
+        shutil.rmtree(scratch, ignore_errors=True)
 
 
 def fig4a_blocks(n: int, seed: int):
@@ -4388,6 +4597,9 @@ def main() -> None:
 
     # --- phase 25: the paper's formulation in core/ -------------------------
     timed("phase 25", card, lambda: paper_core_phase(dev, card, launches))
+
+    # --- phase 26: the examples ---------------------------------------------
+    timed("phase 26", card, lambda: examples_phase(dev, card, launches))
 
     kernels = []
     src = {k: "src/repro_torch/csrc/jpeg_kernels.cu" for k in KERNELS}

@@ -50,7 +50,7 @@ from torch.utils.flop_counter import flop_registry
 from repro_torch.introspect.memory import tensors
 
 __all__ = ["PEAK_FP32_FLOPS", "PEAK_BF16_FLOPS", "PEAK_BYTES", "OpCost",
-           "Collective", "count", "counting", "add_kernel_work",
+           "Collective", "count", "counting", "add_kernel_work", "add_work",
            "add_collective", "conv_work", "asm_flops",
            "asm_work", "fused_work", "block_matmul_work", "attention_pairs",
            "attention_work", "attention_bwd_work", "bound"]
@@ -186,6 +186,16 @@ def add_kernel_work(flops: float, nbytes: float) -> None:
     for c in _active():
         c.flops += flops
         c.bytes += nbytes
+
+
+def add_work(cost: OpCost, times: float = 1.0) -> None:
+    """Add ``times`` × a counted run's FLOPs, bytes and transcendentals to
+    the active counts: work that repeats that run's ops on the same
+    shapes (``models/mamba.py``'s scan on fake tensors)."""
+    for c in _active():
+        c.flops += times * cost.flops
+        c.bytes += times * cost.bytes
+        c.transcendentals += times * cost.transcendentals
 
 
 def add_collective(kind: str, nbytes: float, group_size: int) -> None:

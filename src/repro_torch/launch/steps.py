@@ -10,11 +10,25 @@ collectives are explicit.
 
 One step (``TrainConfig``):
 
-* the rank takes its rows of the global batch over the batch axes that
-  ``batch_pspec`` picks.  As in the reference, which cuts the global batch
-  into ``grad_accum`` microbatches and then splits each over the batch
-  axes, microbatch ``i`` of batch rank ``r`` (of ``D``) is the global rows
-  ``i·B/n + r·B/(n·D)`` onward, ``B/(n·D)`` of them;
+* the rank takes ``B/D`` rows of the global batch of ``B``, ``D`` the
+  ranks of the batch axes that ``batch_pspec`` picks for ``B``, as the
+  reference's input sharding gives them.  The reference cuts the global
+  batch into ``n = grad_accum`` microbatches of ``m = B/n`` rows and
+  splits each over the batch axes.  Where ``D`` divides ``m``, microbatch
+  ``i`` of batch rank ``r`` is the global rows ``i·m + r·m/D`` onward,
+  ``m/D`` of them, and the rank runs ``n`` microbatches.  Where it does
+  not (``jamba-v0.1-52b``'s 16 rows a microbatch over 2 × 16 ranks), the
+  reference pads each microbatch over every batch rank and a rank
+  computes ``⌈m/D⌉`` rows of it an iteration (its compiled scan's
+  activations are one row at the test cell, ``tests/test_torch_dryrun.py``);
+  here the rank takes its block of ``B/D`` contiguous rows and runs them
+  one row a microbatch, which keeps the step's sum.  A model with MoE
+  layers runs them as many rows at a time as one of the reference's MoE
+  dispatch groups holds (two of 4096 tokens for jamba), so each group
+  routes the same tokens at the same capacity, and a pass without
+  gradients first counts each layer's routed pairs per global microbatch
+  over every rank, so that each microbatch's aux loss is the reference's
+  (``moe_aux_coef``, ``models/moe.py``);
 * ``accumulate_microbatches`` runs the model's loss on them under the
   rules (each leaf's spec installed, so the layers know their slices); a
   microbatch's gradients are summed over the batch axes, cast to bf16
@@ -22,9 +36,11 @@ One step (``TrainConfig``):
   scattered over ``data`` into the ZeRO-sharded fp32 accumulator (ZeRO-2).
   A leaf the model already reduced over an axis (the MoE's ZeRO-3 experts
   over ``data``) is not reduced over it again.  Each rank's loss is its
-  share of the microbatch's mean over every rank's rows (a ``loss_mask``
-  is counted over them all, ``transformer.loss_fn``), so the sums are
-  divided by ``D``;
+  share of the step's mean, so the sums are divided by ``D``; a
+  ``loss_mask`` is counted per global microbatch over every rank's rows
+  once a step, and each row's tokens weighted by it (``loss_weight``,
+  ``transformer.loss_fn``), so the loss stays the mean of the
+  microbatches' masked means;
 * ``clip_by_global_norm`` over the whole gradient: each leaf's squares
   counted once, by the ranks at coordinate 0 of every axis its slice is
   replicated over, then summed over the mesh;
@@ -51,6 +67,7 @@ slices).
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any, Callable, NamedTuple
 
 import torch
@@ -134,16 +151,51 @@ def cache_shardings(cache_tree: Any, cfg: ModelConfig, rules: AxisRules,
 
 def batch_rows(global_batch: int, n_micro: int, n_ranks: int,
                rank: int) -> list[int]:
-    """The global rows batch rank ``rank`` of ``n_ranks`` takes, microbatch
-    after microbatch: microbatch ``i`` of the global batch split evenly
-    over the ranks."""
-    if global_batch % (n_micro * n_ranks):
+    """The global rows batch rank ``rank`` of ``n_ranks`` takes, in the
+    order it runs them: where the ranks split a microbatch evenly, its
+    share of each microbatch in turn; otherwise its contiguous block of
+    the global batch (module docstring)."""
+    if global_batch % n_micro or global_batch % n_ranks:
         raise ValueError(f"a batch of {global_batch} does not split into "
-                         f"{n_micro} microbatches over {n_ranks} ranks")
+                         f"{n_micro} microbatches and over {n_ranks} ranks")
     m = global_batch // n_micro
+    if m % n_ranks:
+        per = global_batch // n_ranks
+        return list(range(rank * per, (rank + 1) * per))
     per = m // n_ranks
     return [i * m + rank * per + j for i in range(n_micro)
             for j in range(per)]
+
+
+def local_microbatches(global_batch: int, n_micro: int, n_ranks: int,
+                       group: int = 1) -> int:
+    """How many microbatches a batch rank runs: ``n_micro`` where the ranks
+    split a microbatch evenly, else one for each ``group`` rows of its
+    block."""
+    if (global_batch // n_micro) % n_ranks == 0:
+        return n_micro
+    if (global_batch // n_ranks) % group:
+        raise ValueError(f"a rank's {global_batch // n_ranks} rows do not "
+                         f"split into MoE dispatch groups of {group} rows")
+    return global_batch // n_ranks // group
+
+
+def moe_group_rows(rules: AxisRules, micro: int, seq: int) -> int:
+    """The rows of one of the reference's MoE dispatch groups in a
+    microbatch of ``micro`` rows of ``seq`` tokens, or 1 where a group is
+    a part of a row: its ``shard_map`` cuts the microbatch over the batch
+    axes that divide ``micro`` and routes each shard's tokens in groups of
+    ``moe.GROUP`` where they divide into them, else whole
+    (``src/repro/models/moe.py:119,158-166``)."""
+    from repro_torch.models.moe import GROUP
+
+    n = 1
+    for ax in batch_pspec(rules, micro):
+        n *= rules.mesh_shape[ax]
+    shard = micro // n
+    if shard * seq % GROUP:
+        return shard
+    return math.lcm(seq, GROUP) // seq
 
 
 class TrainStepBundle(NamedTuple):
@@ -157,7 +209,7 @@ class TrainStepBundle(NamedTuple):
     #: reduced fp32 gradients (ZeRO-1 slices under ``zero1``) before
     #: clipping
     grad_fn: Callable | None = None
-    #: this rank's rows of the global batch, microbatch after microbatch
+    #: this rank's rows of the global batch, in the order it runs them
     rows: list | None = None
 
 
@@ -181,34 +233,50 @@ class _Setup(NamedTuple):
     baxes: tuple[str, ...]
     n_batch: int
     rows: list[int]
+    n_local: int  # the microbatches this rank runs
+    spread: bool  # fewer rows a microbatch than batch ranks
     step_rules: AxisRules
 
 
 def _setup(model: Model, mesh, rules: AxisRules, b_global: int,
-           n_micro: int, extra: dict | None = None) -> _Setup:
+           n_micro: int, extra: dict | None = None,
+           seq: int | None = None) -> _Setup:
     """What every step shares: the full parameter shapes and their specs,
     the batch axes and this rank's rows, and the rules the step runs
     under (the batch axes used, each leaf's spec, and ``extra``
-    logical axes)."""
+    logical axes).  ``seq``: a training step's sequence, which sizes an
+    MoE's dispatch groups."""
     sizes = mesh_sizes(mesh)
     with sharding_rules(rules):
         params_shape = param_shapes(model)
         p_specs = params_shardings(params_shape, model.cfg)
-        # the axes that divide a microbatch: where a microbatch has fewer
-        # rows than the batch ranks (jamba's 16 of 256 over 2 × 16), the
-        # ranks of the axes left hold the same rows, as the reference's
-        # partitioner replicates them
-        baxes = batch_pspec(rules, b_global // n_micro)
+        # the reference's input sharding: the axes that divide the global
+        # batch.  Where a microbatch has fewer rows than those ranks
+        # (jamba's 16 of 256 over 2 × 16), its compiled step still spreads
+        # the microbatch's rows over all of them, padded, a row or so a
+        # rank (the test cell's record), not replicated over the axes
+        # left; so a rank runs its own rows one at a time.
+        baxes = batch_pspec(rules, b_global)
     n_batch, batch_rank = 1, 0
     for ax in baxes:
         n_batch *= sizes[ax]
         batch_rank = batch_rank * sizes[ax] + mesh.get_local_rank(ax)
     rows = batch_rows(b_global, n_micro, n_batch, batch_rank)
+    spread = (b_global // n_micro) % n_batch != 0
+    if spread and model.cfg.family == "jpeg_resnet":
+        raise ValueError(
+            f"{model.cfg.name}: batch-norm statistics span a microbatch of "
+            f"{b_global // n_micro} rows, fewer than the {n_batch} batch "
+            "ranks; use fewer microbatches")
+    group = moe_group_rows(rules, b_global // n_micro, seq) \
+        if spread and model.cfg.n_experts else 1
+    n_local = local_microbatches(b_global, n_micro, n_batch, group)
     step_rules = dataclasses.replace(
         rules, mesh=mesh, rules={**rules.rules, "batch": baxes,
                                  **(extra or {})},
         specs={path_str(p): s for p, s in leaves_with_paths(p_specs)})
-    return _Setup(params_shape, p_specs, baxes, n_batch, rows, step_rules)
+    return _Setup(params_shape, p_specs, baxes, n_batch, rows, n_local,
+                  spread, step_rules)
 
 
 def _take_rows(batch: Any, rows: list[int], local: bool,
@@ -221,6 +289,61 @@ def _take_rows(batch: Any, rows: list[int], local: bool,
     idx = torch.as_tensor(rows)
     return tree_map(lambda x: x.index_select(0, idx.to(x.device)).to(
         x.device if device is None else device), batch)
+
+
+def _weigh_loss_mask(batch: Any, rows: list[int], m: int, n_micro: int,
+                     n_local: int, n_batch: int, mesh,
+                     baxes: tuple[str, ...]) -> Any:
+    """``batch`` with each row's ``loss_weight`` when it has a
+    ``loss_mask``: ``(n_local · D / n_micro) / c``, ``c`` the unmasked
+    tokens of the row's global microbatch (of ``m`` rows) over every rank,
+    so that the step's means over the rank's ``n_local`` microbatches and
+    the ``D`` batch ranks give the mean of the microbatches' masked
+    means."""
+    mask = batch.get("loss_mask") if isinstance(batch, dict) else None
+    if mask is None:
+        return batch
+    mb = torch.as_tensor([r // m for r in rows], device=mask.device)
+    counts = torch.zeros(n_micro, dtype=torch.float32, device=mask.device)
+    counts = C.all_reduce(counts.index_add(
+        0, mb, mask.to(torch.float32).sum(dim=1)), mesh, baxes)
+    weight = (n_local * n_batch / n_micro) / torch.clamp(counts[mb], min=1)
+    return dict(batch, loss_weight=weight)
+
+
+def _weigh_moe_aux(model: Model, params: Any, batch: Any, rows: list[int],
+                   m: int, n_micro: int, n_local: int, n_batch: int, mesh,
+                   baxes: tuple[str, ...]) -> Any:
+    """``batch`` with each row's ``moe_aux_coef`` (MoE layers, E).  A pass
+    without gradients over the rank's ``n_local`` microbatches counts each
+    MoE layer's routed pairs (``moe.collecting_counts``); the counts ``c``
+    are summed per global microbatch (of ``m`` rows) over every rank, and
+    a layer's coefficient ``E·c / (T·k) / T``, ``T`` the microbatch's
+    tokens, makes its aux loss ``E·Σ (c/(T·k))·(p/T)`` linear in each
+    call's router probabilities ``p``.  It is weighted as
+    :func:`_weigh_loss_mask` weights a row, so the step's mean is the
+    mean of the microbatches' aux losses, as the reference's."""
+    from repro_torch.models import moe
+
+    q = len(rows) // n_local
+    with torch.no_grad():
+        per = []
+        for j in range(n_local):
+            with moe.collecting_counts() as calls:
+                model.loss_fn(params, tree_map(
+                    lambda x: x[j * q:(j + 1) * q], batch))
+            per.append(torch.stack(calls))
+        counts = torch.stack(per)  # (n_local, MoE layers, E)
+        mb = torch.as_tensor([rows[j * q] // m for j in range(n_local)],
+                             device=counts.device)
+        total = C.all_reduce(counts.new_zeros(
+            (n_micro,) + counts.shape[1:]).index_add(0, mb, counts), mesh,
+            baxes)
+        k = model.cfg.experts_per_token
+        t = torch.clamp(total.sum(-1, keepdim=True) / k, min=1)
+        coef = (model.cfg.n_experts * n_local * n_batch / n_micro) \
+            * total / (t * k) / t
+    return dict(batch, moe_aux_coef=coef[mb].repeat_interleave(q, dim=0))
 
 
 def build_train_step(model: Model, run: RunConfig, mesh,
@@ -236,7 +359,8 @@ def build_train_step(model: Model, run: RunConfig, mesh,
                              tc.total_steps)
     b_global = run.shape.global_batch
     sizes = mesh_sizes(mesh)
-    setup = _setup(model, mesh, rules, b_global, tc.grad_accum)
+    setup = _setup(model, mesh, rules, b_global, tc.grad_accum,
+                   seq=run.shape.seq_len)
     params_shape, p_specs, baxes = setup.params_shape, setup.p_specs, \
         setup.baxes
     n_batch, rows, step_rules = setup.n_batch, setup.rows, setup.step_rules
@@ -297,9 +421,17 @@ def build_train_step(model: Model, run: RunConfig, mesh,
 
     def grad_fn(params, batch, local=False):
         mine = _take_rows(batch, rows, local, leaves(params)[0].device)
+        mine = _weigh_loss_mask(mine, rows, b_global // tc.grad_accum,
+                                tc.grad_accum, setup.n_local, n_batch, mesh,
+                                baxes)
         with sharding_rules(step_rules):
+            if setup.spread and cfg.n_experts:
+                mine = _weigh_moe_aux(model, params, mine, rows,
+                                      b_global // tc.grad_accum,
+                                      tc.grad_accum, setup.n_local, n_batch,
+                                      mesh, baxes)
             loss, grads = accumulate_microbatches(
-                loss_of, params, mine, tc.grad_accum,
+                loss_of, params, mine, setup.n_local,
                 grad_constraint=grad_constraint if tc.zero1 else None)
             if not tc.zero1:
                 grads = grad_constraint(grads)

@@ -12,7 +12,9 @@ models.
   gradient of the whole bundle ``{"params", "bn_state"}``, as in the
   reference; a language model's next-token loss through
   ``models.transformer.loss_fn``, its attention the flash-attention kernel
-  with its hand-written backward on a CUDA device;
+  with its hand-written backward on a CUDA device (a reduced config's
+  heads of a width the kernel does not take are widened to 64 there,
+  :func:`card_config`);
 * global-norm clipping, the optimizer (AdamW by default, fp32 master
   weights) and a warmup-cosine schedule read at the optimizer's step
   before its increment;
@@ -38,6 +40,7 @@ raises.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import signal
@@ -58,7 +61,7 @@ from repro_torch.optim import clip_by_global_norm, make_optimizer, \
     make_schedule, value_and_grad
 
 __all__ = ["export_plan", "build_iterator", "to_model_batch", "make_step",
-           "train_loop", "parse_args", "main"]
+           "card_config", "train_loop", "parse_args", "main"]
 
 
 def export_plan(cfg, bundle, ckpt_dir: str, *, step: int = 0) -> str:
@@ -130,11 +133,28 @@ def make_step(model, optimizer, schedule, grad_clip: float):
     return step_fn
 
 
+def card_config(cfg, device: torch.device):
+    """``cfg`` as :func:`train_loop` trains it on ``device``: on the card,
+    attention heads of a width the flash-attention kernel does not take
+    (a reduced config's, ``smollm-360m``'s 20) are widened to the
+    kernel's smallest (64), so the kernel runs them; on the CPU, and for
+    every full config, ``cfg`` itself."""
+    from repro_torch.kernels.flash_attention import HEAD_DIMS
+
+    if device.type != "cuda" or not cfg.head_dim \
+            or cfg.head_dim in HEAD_DIMS:
+        return cfg
+    return dataclasses.replace(cfg, head_dim=HEAD_DIMS[0])
+
+
 def train_loop(args) -> dict:
     """Train as ``args`` (from :func:`parse_args`) says; returns the
-    report (also written to ``--metrics-out``)."""
-    cfg = reduced_config(args.arch) if args.reduced else get_config(args.arch)
+    report (also written to ``--metrics-out``).  On the card the config
+    passes :func:`card_config`; the report's ``head_dim`` says what
+    ran."""
     device = resolve_device(args.device)
+    cfg = card_config(reduced_config(args.arch) if args.reduced
+                      else get_config(args.arch), device)
     tc = TrainConfig(learning_rate=args.lr, total_steps=args.steps,
                      warmup_steps=max(args.steps // 20, 1),
                      optimizer=args.optimizer, grad_clip=1.0)
@@ -233,6 +253,7 @@ def train_loop(args) -> dict:
         "wall_s": time.perf_counter() - t_loop,
         "interrupted": interrupted["flag"], "params": n_params,
         "plan_dir": plan_dir, "batch": args.batch,
+        "head_dim": cfg.head_dim,
     }
     if args.metrics_out:
         with open(args.metrics_out, "w") as f:

@@ -13,7 +13,9 @@ Each chunk is recomputed in the backward (non-reentrant
 ``torch.utils.checkpoint``), as ``jax.checkpoint(outer)`` does.  The scan
 is torch ops: the reference writes it in jnp, with no Pallas kernel.
 
-Decode is the single-step recurrence over ``(conv, ssm)`` states.
+Decode is the single-step recurrence over ``(conv, ssm)`` states; on a
+mesh it steps this rank's slice of ``d_inner`` (``mamba_decode_step``'s
+``xz`` and ``reduce``).
 """
 from __future__ import annotations
 
@@ -85,7 +87,86 @@ def _scan_chunk(h, delta, a, bmat, xbar, cmat):
         step *= 2
     h_all = bc + ac * h[:, None]
     y = torch.einsum("bcdn,bcn->bcd", h_all, cmat)
-    return y, h_all[:, -1]
+    # a copy: a view would hold every step's state for as long as the
+    # next chunk's checkpoint keeps its input
+    return y, h_all[:, -1].clone()
+
+
+class _Repeated(torch.autograd.Function):
+    """The scan's chunk loop on the dry-run's fake tensors
+    (``introspect/opcount.py``, ``introspect/memory.py``), traced from its
+    first chunk: ``parts`` holds each chunk's ``(delta, bmat, xbar,
+    cmat)`` in turn, every chunk of the same shapes.
+
+    The forward runs the first chunk and adds its counted work once for
+    each other chunk; the states between chunks, which the loop's
+    checkpoints keep, are held as tensors of their shape.  The backward
+    walks the chunks from the last, as the autograd engine does: for each
+    kind of chunk (the last, whose final state may have no gradient; the
+    middle ones; the first, whose state is ``h``) it builds the chunk's
+    checkpointed graph, runs its recomputation and gradient once and adds
+    that work once for each other chunk of the kind, freeing each chunk's
+    state and keeping its gradients, as the split's backward holds them
+    until it joins all ``n``.  ``a``'s gradient is summed ``n``
+    times, as the engine sums the loop's ``n`` uses of it."""
+
+    @staticmethod
+    def forward(ctx, h, a, *parts):
+        from repro_torch.introspect import opcount
+
+        ctx.set_materialize_grads(False)
+        n = ctx.times = len(parts) // 4
+        ctx.save_for_backward(h, a, *parts[:4])
+        with opcount.count() as fwd:
+            out = _scan_chunk(h, parts[0], a, *parts[1:4])
+        opcount.add_work(fwd, n - 1)
+        ctx.states = [h.new_empty(h.shape) for _ in range(n - 1)]
+        return out
+
+    @staticmethod
+    def backward(ctx, gy, gh):
+        from torch.autograd.graph import get_gradient_edge
+
+        from repro_torch.introspect import opcount
+
+        n = ctx.times
+        h, a, d_c, b_c, x_c, c_c = ctx.saved_tensors
+        wanted = [ctx.needs_input_grad[i] for i in (2, 1, 3, 4, 5)]
+        held, g_next = [], gh
+        for times, h_grad in ((1, True), (n - 2, True),
+                              (1, ctx.needs_input_grad[0])):
+            if times <= 0:
+                continue
+            need = [h_grad] + wanted
+            ins = [t.detach().requires_grad_(r)
+                   for t, r in zip((h, d_c, a, b_c, x_c, c_c), need)]
+            # the graph's first forward is not the loop's: off the counts,
+            # and its outputs freed before the backward, as the loop's are
+            with torch.enable_grad(), opcount.count() as rebuilt:
+                out = ckpt.checkpoint(_scan_chunk, *ins, use_reentrant=False)
+            opcount.add_work(rebuilt, -1)
+            pairs = [(get_gradient_edge(o), g)
+                     for o, g in zip(out, (gy, g_next)) if g is not None]
+            del out
+            with opcount.count() as back:
+                grads = iter(torch.autograd.grad(
+                    [e for e, _ in pairs], [t for t in ins if t.requires_grad],
+                    [g for _, g in pairs], allow_unused=True))
+            opcount.add_work(back, times - 1)
+            g = [next(grads) if r else None for r in need]
+            g_next, part = g[0], [g[1], g[3], g[4], g[5]]
+            for i in range(times):
+                if ctx.states:
+                    ctx.states.pop()
+                held.append(part if i == 0 else [
+                    None if x is None else torch.empty_like(x)
+                    for x in part])
+        g_a = g[2]
+        if g_a is not None:
+            g_a1 = g_a
+            for _ in range(n - 1):
+                g_a = g_a + g_a1
+        return (g[0], g_a, *(x for chunk in reversed(held) for x in chunk))
 
 
 def _selective_scan(delta: torch.Tensor, a: torch.Tensor, bmat: torch.Tensor,
@@ -95,12 +176,26 @@ def _selective_scan(delta: torch.Tensor, a: torch.Tensor, bmat: torch.Tensor,
     (B, S, di), ``a`` (di, ds), ``bmat``/``cmat`` (B, S, ds), ``h0`` (B,
     di, ds) → (y (B, S, di), the final state).  Chunks of ``chunk`` steps,
     the last one ragged; each is recomputed in the backward when autograd
-    records."""
+    records.  The inputs are split into their chunks once, so the
+    backward joins the chunks' gradients in one op.
+
+    On the dry-run's fake tensors (``kernels/_build.is_fake``) a sequence
+    of whole chunks runs its first chunk only and counts it for every
+    chunk (:class:`_Repeated`); the other chunks' outputs are shaped, not
+    traced, so a long sequence traces in the time of one chunk, with the
+    loop's counts."""
+    from repro_torch.kernels._build import is_fake
+
     s = delta.shape[1]
+    n = -(-s // chunk)
+    parts = [x.split(chunk, dim=1) for x in (delta, bmat, xbar, cmat)]
+    if n > 1 and s % chunk == 0 and is_fake(delta):
+        y, h = _Repeated.apply(h0, a, *(x for chunk in zip(*parts)
+                                        for x in chunk))
+        return torch.cat([y] + [y.new_empty(y.shape) for _ in range(n - 1)],
+                         1), h
     h, ys = h0, []
-    for lo in range(0, s, chunk):
-        part = [x[:, lo:lo + chunk] for x in (delta, bmat, xbar, cmat)]
-        d_c, b_c, x_c, c_c = part
+    for d_c, b_c, x_c, c_c in zip(*parts):
         if torch.is_grad_enabled():
             y, h = ckpt.checkpoint(_scan_chunk, h, d_c, a, b_c, x_c, c_c,
                                    use_reentrant=False)
@@ -155,22 +250,46 @@ def init_mamba_cache(cfg: ModelConfig, batch: int, dtype: torch.dtype,
     }
 
 
+def _ssm_step(h: torch.Tensor, delta: torch.Tensor, a: torch.Tensor,
+              bmat: torch.Tensor, cmat: torch.Tensor,
+              xc: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """One step of the recurrence on the state ``h`` (B, di, ds), fp32 →
+    (y = C·h' (B, di), the new state h')."""
+    abar = torch.exp(delta[..., None] * a)  # (B, di, ds)
+    bbar = (delta * xc)[..., None] * bmat[:, None, :]
+    h = abar * h + bbar
+    return torch.einsum("bdn,bn->bd", h, cmat), h
+
+
 def mamba_decode_step(x: torch.Tensor, params: dict, cfg: ModelConfig,
-                      cache: dict) -> tuple[torch.Tensor, dict]:
-    """One token, ``x`` (B, 1, D) → (out (B, 1, D), the new states)."""
+                      cache: dict, *, xz: torch.Tensor | None = None,
+                      reduce=None) -> tuple[torch.Tensor, dict]:
+    """One token, ``x`` (B, 1, D) → (out (B, 1, D), the new states).
+
+    On a mesh a rank steps one slice of ``d_inner``: ``params`` and
+    ``cache`` hold that slice, ``xz`` is the token's x and z columns of it
+    (B, 2·di/n; the in-projection's own column slice does not line up
+    with them), and ``reduce`` sums the partial products of the x- and
+    out-projections, whose rows are cut along ``d_inner``, over the
+    slices."""
     ds, dtr = cfg.d_state, _dt_rank(cfg)
-    xin, z = (x[:, 0] @ params["in_proj"]).chunk(2, dim=-1)  # (B, di)
+    if xz is None:
+        xz = x[:, 0] @ params["in_proj"]
+    xin, z = xz.chunk(2, dim=-1)  # (B, di)
     conv_buf = torch.cat([cache["conv"], xin[:, None]], dim=1)  # (B, dc, di)
     xc = F.silu(torch.einsum("bcd,cd->bd", conv_buf, params["conv_w"])
                 + params["conv_b"])
-    dt, bmat, cmat = (xc @ params["x_proj"]).split([dtr, ds, ds], dim=-1)
+    proj = xc @ params["x_proj"]
+    if reduce is not None:
+        proj = reduce(proj)
+    dt, bmat, cmat = proj.split([dtr, ds, ds], dim=-1)
     delta = F.softplus(dt @ params["dt_proj"] + params["dt_bias"]).float()
     a = -torch.exp(params["a_log"])
-    abar = torch.exp(delta[..., None] * a)  # (B, di, ds)
-    bbar = (delta * xc.float())[..., None] * bmat.float()[:, None, :]
-    h = abar * cache["ssm"] + bbar
-    y = torch.einsum("bdn,bn->bd", h, cmat.float())
+    y, h = _ssm_step(cache["ssm"], delta, a, bmat.float(), cmat.float(),
+                     xc.float())
     y = y + params["d_skip"] * xc.float()
     y = y.to(x.dtype) * F.silu(z)
-    return (y @ params["out_proj"])[:, None], {"conv": conv_buf[:, 1:],
-                                               "ssm": h}
+    out = y @ params["out_proj"]
+    if reduce is not None:
+        out = reduce(out)
+    return out[:, None], {"conv": conv_buf[:, 1:], "ssm": h}

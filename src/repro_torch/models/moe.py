@@ -36,8 +36,20 @@ ZeRO-3 expert storage (d_model over ``data``) is gathered just in time
 and its gradient reduce-scattered.  The load-balance counts and router
 probabilities are summed over the batch axes and the unused ones before
 the aux loss, so it is the global batch's.  Gathers both ways here too.
+
+Where the training step spreads a microbatch over more batch ranks than
+it has rows (``launch/steps.py``), a rank runs a few rows of it at a
+time, so no call sees the microbatch whole.  A first pass without
+gradients then records each call's counts (:func:`collecting_counts`);
+the step sums them per global microbatch over every rank and hands each
+call its layer's ``aux_coef``, with which the aux loss is linear in the
+call's own router probabilities: the pieces of a microbatch add up to
+its aux loss, value and gradient.
 """
 from __future__ import annotations
+
+import contextlib
+import contextvars
 
 import torch
 import torch.nn.functional as F
@@ -47,9 +59,27 @@ from repro_torch.configs import ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.parallel.sharding import active_rules, bind_rules
 
-__all__ = ["GROUP", "init_moe", "capacity", "moe_ffn"]
+__all__ = ["GROUP", "init_moe", "capacity", "moe_ffn", "collecting_counts"]
 
 GROUP = 8192  # tokens per dispatch group on the expert-parallel path
+
+#: the list :func:`collecting_counts` fills, while it is open
+_COLLECT: contextvars.ContextVar = contextvars.ContextVar("moe_collect",
+                                                          default=None)
+
+
+@contextlib.contextmanager
+def collecting_counts():
+    """Within, each expert-parallel call appends its per-expert pair
+    counts (E,) fp32, summed over its groups and not reduced over any
+    rank, to the list yielded, in call order, and returns a zero aux loss
+    (the step's count pass, module docstring)."""
+    calls: list[torch.Tensor] = []
+    token = _COLLECT.set(calls)
+    try:
+        yield calls
+    finally:
+        _COLLECT.reset(token)
 
 
 def init_moe(normal, cfg: ModelConfig) -> dict:
@@ -183,15 +213,20 @@ def _dispatch_compute_combine(xf: torch.Tensor, params: dict,
     return out, counts, probs.sum(0)
 
 
-def moe_ffn(x: torch.Tensor, params: dict,
-            cfg: ModelConfig) -> tuple[torch.Tensor, torch.Tensor]:
+def moe_ffn(x: torch.Tensor, params: dict, cfg: ModelConfig,
+            aux_coef: torch.Tensor | None = None
+            ) -> tuple[torch.Tensor, torch.Tensor]:
     """``x`` (B, S, D) → (out (B, S, D), aux loss): top-k with renormalised
     weights (the Mixtral convention), capacity over the B·S tokens, overflow
     dropped; under mesh rules the expert-parallel path (:func:`_moe_ep`),
-    where ``x`` is this rank's rows."""
+    where ``x`` is this rank's rows.  ``aux_coef`` (E,): the aux loss is
+    ``Σ aux_coef · (router probabilities summed over x's tokens)``, for
+    rows of a microbatch spread over the ranks (module docstring)."""
     rules = active_rules()
     if rules is not None:
-        return _moe_ep(x, params, cfg, rules)
+        return _moe_ep(x, params, cfg, rules, aux_coef)
+    if aux_coef is not None:
+        raise ValueError("aux_coef is for the expert-parallel path")
     b, s, d = x.shape
     t = b * s
     out, counts, probs_sum = _dispatch_compute_combine(x.reshape(t, d),
@@ -201,12 +236,14 @@ def moe_ffn(x: torch.Tensor, params: dict,
     return out.reshape(b, s, d), aux
 
 
-def _moe_ep(x: torch.Tensor, params: dict, cfg: ModelConfig, rules):
+def _moe_ep(x: torch.Tensor, params: dict, cfg: ModelConfig, rules,
+            aux_coef: torch.Tensor | None = None):
     """The expert-parallel path on this rank's tokens (``moe.py:117-196``):
     groups of at most :data:`GROUP` tokens, each group's capacity its own;
     experts f-sliced over ``model``; ZeRO-3 experts (d_model cut over
     ``data``) gathered just in time; counts and probabilities summed over
-    the batch and unused axes for the aux loss."""
+    the batch and unused axes for the aux loss, unless the counts are
+    being collected or ``aux_coef`` holds them (module docstring)."""
     from repro_torch.parallel import collectives as C
 
     mesh = rules.mesh
@@ -245,6 +282,12 @@ def _moe_ep(x: torch.Tensor, params: dict, cfg: ModelConfig, rules):
         outs.append(o)
         counts, probs_sum = counts + c, probs_sum + ps
     out = outs[0] if n_groups == 1 else torch.cat(outs)
+    calls = _COLLECT.get()
+    if calls is not None:
+        calls.append(counts.to(torch.float32))
+        return out.reshape(b, s, d), probs_sum.new_zeros(())
+    if aux_coef is not None:
+        return out.reshape(b, s, d), torch.sum(aux_coef * probs_sum)
     reduce_axes = tuple(baxes) + unused
     t_tot = t_loc
     for ax in reduce_axes:

@@ -27,7 +27,9 @@ torch ops: the reference writes it in jnp, with no Pallas kernel.  Its
 plain version, :func:`_wkv_plain`, runs the one-step recurrence token by
 token (``plain=True``: a ``reference`` dispatch path).
 
-Decode is the single-token recurrence over the shift states and S.
+Decode is the single-token recurrence over the shift states and S; on a
+mesh it steps this rank's heads of S (``rwkv_time_mix_decode``'s
+``reduce``, ``rwkv_channel_mix``'s ``gather``).
 """
 from __future__ import annotations
 
@@ -198,11 +200,14 @@ def _group_norm_heads(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
     return xh.reshape(b, s, d) * w + bias
 
 
-def _time_mix(x, p, cfg: ModelConfig, cache, wkv):
+def _time_mix(x, p, cfg: ModelConfig, cache, wkv, reduce=None):
     """The time mix around ``wkv`` (the chunked scan or one step); the
-    decays and the recurrence in fp32, or wider for a wider model."""
-    b, s, d = x.shape
+    decays and the recurrence in fp32, or wider for a wider model.  The
+    heads are those of ``p``'s projections: a slice of them on a mesh,
+    where ``reduce`` sums the output projection's partial products."""
+    b, s, _ = x.shape
     hs = cfg.rwkv_head_size
+    d = p["receptance"].shape[-1]  # this rank's heads' width
     nh = d // hs
     acc = torch.promote_types(x.dtype, torch.float32)
     xx = _token_shift(x, None if cache is None else cache["shift_tm"])
@@ -221,6 +226,8 @@ def _time_mix(x, p, cfg: ModelConfig, cache, wkv):
                         p["bonus"].to(acc), s0)
     y = _group_norm_heads(y.reshape(b, s, d), p["ln_w"], p["ln_b"], nh)
     out = (y.to(x.dtype) * g) @ p["output"]
+    if reduce is not None:
+        out = reduce(out)
     new_cache = None if cache is None else {"shift_tm": x[:, -1:],
                                             "wkv": s_last}
     return out, new_cache
@@ -235,14 +242,21 @@ def rwkv_time_mix(x: torch.Tensor, p: dict, cfg: ModelConfig,
 
 
 def rwkv_channel_mix(x: torch.Tensor, p: dict, cfg: ModelConfig,
-                     cache: dict | None = None):
+                     cache: dict | None = None, gather=None):
     """(B, S, D) → (B, S, D); with ``cache`` (``shift_cm``) it shifts in
-    that token and returns the new one, else None."""
+    that token and returns the new one, else None.  On a mesh ``p`` holds
+    a column slice of ``key``, ``value`` and ``receptance``, and
+    ``gather`` joins the slices' columns of the hidden activation and of
+    the output."""
     xx = _token_shift(x, None if cache is None else cache["shift_cm"])
     xk = x + (xx - x) * p["mu_k"]
     xr = x + (xx - x) * p["mu_r"]
     k = torch.square(F.relu(xk @ p["key"]))
+    if gather is not None:
+        k = gather(k)
     out = torch.sigmoid(xr @ p["receptance"]) * (k @ p["value"])
+    if gather is not None:
+        out = gather(out)
     return out, (None if cache is None else {"shift_cm": x[:, -1:]})
 
 
@@ -261,12 +275,13 @@ def init_rwkv_cache(cfg: ModelConfig, batch: int, dtype: torch.dtype,
 
 
 def rwkv_time_mix_decode(x: torch.Tensor, p: dict, cfg: ModelConfig,
-                         cache: dict):
+                         cache: dict, reduce=None):
     """One token (B, 1, D) of the time mix by the single-step recurrence
-    → (output, new ``shift_tm`` and ``wkv``)."""
-    return _time_mix(x, p, cfg, cache, _wkv_step)
+    → (output, new ``shift_tm`` and ``wkv``); on a mesh over this rank's
+    heads of ``wkv`` (:func:`_time_mix`)."""
+    return _time_mix(x, p, cfg, cache, _wkv_step, reduce)
 
 
 def rwkv_channel_mix_decode(x: torch.Tensor, p: dict, cfg: ModelConfig,
-                            cache: dict):
-    return rwkv_channel_mix(x, p, cfg, cache)
+                            cache: dict, gather=None):
+    return rwkv_channel_mix(x, p, cfg, cache, gather)

@@ -60,9 +60,16 @@ writes the new key and value at ring slot ``index % T`` on the rank that
 owns that slot only, attends with every head over the rank's own slots,
 and combines the ranks' partial softmaxes over the sequence axes with one
 max and two sums (:func:`layers.decode_attention_sharded`); a split
-layer keeps its own heads for the row-parallel ``o_proj``.  A Mamba or
-RWKV layer gathers its states, steps with its gathered weights, and keeps
-its own slice of the new ones.
+layer keeps its own heads for the row-parallel ``o_proj``.  A Mamba layer
+steps its own ``d_inner`` slice of the states with its slices of the
+weights (the x- and out-projections' partial products summed over
+``model``, ``in_proj``'s product gathered), and an RWKV layer its own
+heads of ``wkv`` (``output``'s partial product summed, the channel mix's
+column slices gathered); no weight or state is gathered, but for an RWKV
+layer whose heads ``model`` does not divide, which gathers its states and
+weights, steps them whole and keeps its slice.  The prefill and the
+training forward still compute Mamba and RWKV layers whole from gathered
+weights.
 
 Unlike the reference's pure functions, :func:`decode_step` writes the new
 token's keys and values, and each Mamba layer's new states, into the
@@ -354,12 +361,13 @@ def _cross(h, p, cfg: ModelConfig, enc_kv, plain=False):
     return out.reshape(b, s, cfg.q_dim) @ p["cross"]["o_proj"]
 
 
-def _ffn(h, p, cfg: ModelConfig, ffn: str):
+def _ffn(h, p, cfg: ModelConfig, ffn: str, aux_coef=None):
     """The FFN sub-block of a layer → (output, the reference's
-    ``ffn_out``; aux loss, 0.0 for a dense FFN)."""
+    ``ffn_out``; aux loss, 0.0 for a dense FFN); ``aux_coef`` as
+    ``moe.moe_ffn`` takes it."""
     x = _norm(h, p["ln2"], p.get("ln2_b"), cfg.norm_eps)
     if ffn == "moe":
-        return moe.moe_ffn(x, p["moe"], cfg)
+        return moe.moe_ffn(x, p["moe"], cfg, aux_coef)
     f = p["ffn"]
     if cfg.family == "audio":
         return L.gelu_mlp(x, f["wi"], f["bi"], f["wo"], f["bo"]), 0.0
@@ -424,13 +432,13 @@ def _rwkv_layer(h, p, cfg: ModelConfig, *, want_cache=False, remat="none",
 
 def _apply_layer(h, p, cfg: ModelConfig, kind: tuple[str, str], positions,
                  *, causal=True, enc_kv=None, want_cache=False, plain=False,
-                 remat="none"):
+                 remat="none", aux_coef=None):
     """Full-sequence layer (forward / prefill) → (h, aux, cache or None);
     with ``enc_kv`` a layer that has ``cross`` attention attends to those
     encoder keys and values after its mixer.  ``remat="outputs"``
     checkpoints the mixer, cross-attention and FFN sub-blocks each on its
     own, so their outputs (and the FFN's aux) are what the backward
-    keeps."""
+    keeps.  ``aux_coef``: the MoE FFN's (:func:`_ffn`)."""
     mixer, ffn = kind
     if mixer == "rwkv":
         return _rwkv_layer(h, p, cfg, want_cache=want_cache, remat=remat,
@@ -443,14 +451,14 @@ def _apply_layer(h, p, cfg: ModelConfig, kind: tuple[str, str], positions,
         if cross:
             h = h + _checkpoint(lambda x: _cross(x, p, cfg, enc_kv, plain),
                                 h)
-        f, aux = _checkpoint(lambda x: _ffn(x, p, cfg, ffn), h)
+        f, aux = _checkpoint(lambda x: _ffn(x, p, cfg, ffn, aux_coef), h)
         return h + f, aux, None
     a, cache = _mixer(h, p, cfg, mixer, positions, causal=causal,
                       want_cache=want_cache, plain=plain)
     h = h + a
     if cross:
         h = h + _cross(h, p, cfg, enc_kv, plain)
-    f, aux = _ffn(h, p, cfg, ffn)
+    f, aux = _ffn(h, p, cfg, ffn, aux_coef)
     return h + f, aux, cache
 
 
@@ -500,19 +508,95 @@ def _local_cache(rules, name: str, x: torch.Tensor) -> torch.Tensor:
     return local_slice(x, spec, rules.mesh)
 
 
-def _whole_states(rules, cache: dict, cfg: ModelConfig,
-                  mixer: str) -> dict:
-    """One Mamba or RWKV layer's states gathered whole from every rank's
-    slice (``cache`` as it is without a cut).  The cut is read from the
-    whole states' shapes: whether ``model`` divides RWKV's heads is a
-    property of the whole ``wkv``, not of a rank's slice."""
+def _whole_states(rules, cache: dict, cfg: ModelConfig) -> dict:
+    """An RWKV layer's states gathered whole from every rank's slice
+    (``cache`` as it is without a cut), for a decode step whose ``wkv``
+    heads ``model`` does not divide (:func:`_state_axes`)."""
     if rules is None:
         return cache
-    init = M.init_mamba_cache if mixer == "mamba" else RW.init_rwkv_cache
-    whole = init(cfg, next(iter(cache.values())).shape[0], torch.float32,
-                 "meta")
+    whole = RW.init_rwkv_cache(cfg, next(iter(cache.values())).shape[0],
+                               torch.float32, "meta")
     return {n: gather_full(x, _leaf_spec(rules, n, whole[n]), rules.mesh)
             for n, x in cache.items()}
+
+
+def _state_axes(rules, cfg: ModelConfig, mixer: str) -> tuple[str, ...]:
+    """The mesh axes a decode step's Mamba ``ssm`` (along ``d_inner``) or
+    RWKV ``wkv`` (by head) is cut over, () where it is whole.  Read from
+    the whole state's shape: whether ``model`` divides RWKV's heads is a
+    property of the whole ``wkv``, not of a rank's slice."""
+    if rules is None:
+        return ()
+    if mixer == "mamba":
+        path, shape = "pos/ssm", (1, 1, cfg.expand * cfg.d_model,
+                                  cfg.d_state)
+    else:
+        hs = cfg.rwkv_head_size
+        path, shape = "pos/wkv", (1, 1, cfg.d_model // hs, hs, hs)
+    return spec_axes(cache_leaf_pspec(path, shape, rules, None,
+                                      rules.axes("cache_seq"))[2])
+
+
+#: the leaves a decode step uses as this rank's slice, each by the dim it
+#: is sliced along: Mamba's along ``d_inner``, the RWKV time mix's along
+#: the heads of ``wkv`` (the projections' columns, ``output``'s rows), the
+#: channel mix's by columns.  The leaves not named are used as they are
+#: held: RWKV's token-shift mixing (``mu``, ``ddlerp_w*``, ``decay_w1``)
+#: and the channel mix's ``mu_k``/``mu_r`` are replicated, and Mamba's
+#: ``in_proj``, cut by columns of (d, 2·di) that do not line up with the
+#: ``d_inner`` slice, stays its column slice and its product is gathered
+#: instead (:func:`_mamba_xz`); no weight is gathered on this path.
+_SLICED = {
+    "mamba": {"conv_w": -1, "conv_b": 0, "x_proj": 0, "dt_proj": -1,
+              "dt_bias": 0, "a_log": 0, "d_skip": 0, "out_proj": 0},
+    "tm": {"receptance": -1, "key": -1, "value": -1, "gate": -1,
+           "decay_base": 0, "decay_w2": -1, "bonus": 0, "ln_w": 0,
+           "ln_b": 0, "output": 0},
+    "cm": {"key": -1, "value": -1, "receptance": -1},
+}
+
+
+def _model_part(x: torch.Tensor, spec, dim: int, axes: tuple[str, ...],
+                mesh) -> torch.Tensor:
+    """This rank's chunk over ``axes`` of a layer leaf ``x`` along
+    ``dim``: ``x`` itself where ``spec`` (the layer's, or None) cuts it,
+    which must be along ``dim`` over those axes (``param_pspec`` cuts
+    these leaves there); else the chunk of the whole leaf (a leaf
+    ``model`` does not divide, or ``DRYRUN_NO_TP``'s whole weights)."""
+    cuts = [spec_axes(e) for e in spec or ()]
+    if any(cuts):
+        if cuts[dim] != axes or sum(map(bool, cuts)) != 1:
+            raise ValueError(f"a leaf cut {tuple(spec)}, not along dim "
+                             f"{dim} over {axes}")
+        return x
+    idx, n = chunk_of(mesh, axes)
+    return x.chunk(n, dim)[idx]
+
+
+def _slice_tree(sub: dict, prefix: str, dims: dict, axes, rules) -> dict:
+    """One mixer's leaves as its sliced decode uses them (:data:`_SLICED`):
+    each named leaf as this rank's chunk, every other leaf as it is held
+    (whole, or Mamba's ``in_proj`` by columns: :func:`_mamba_xz`)."""
+    out = dict(sub)
+    for name, d in dims.items():
+        spec = (rules.specs or {}).get(f"{prefix}/{name}")
+        spec = spec[1:] if spec is not None else None  # the stacked dim
+        out[name] = _model_part(sub[name], spec, d, axes, rules.mesh)
+    return out
+
+
+def _mamba_xz(x: torch.Tensor, w: torch.Tensor, cfg: ModelConfig,
+              axes: tuple[str, ...], mesh) -> torch.Tensor:
+    """The token's x and z columns of this rank's ``d_inner`` slice (B,
+    2·di/n) from ``in_proj`` ``w``: the whole weight's product, or the
+    product of its column slice gathered over ``axes`` (B × 2·di values
+    on the wire where the weight would be d × 2·di)."""
+    xz = x[:, 0] @ w
+    if xz.shape[-1] != 2 * cfg.expand * cfg.d_model:
+        xz = C.all_gather(xz, mesh, axes, 1)
+    idx, n = chunk_of(mesh, axes)
+    return torch.cat([t.chunk(n, dim=-1)[idx] for t in xz.chunk(2, dim=-1)],
+                     dim=-1)
 
 
 def _store_cache(caches: dict, c: dict, i: int, n_periods: int, s: int,
@@ -532,16 +616,20 @@ def _store_cache(caches: dict, c: dict, i: int, n_periods: int, s: int,
         caches[n][i] = x
 
 
-def _mesh_layer(p: dict, prefix: str, cfg: ModelConfig) -> dict:
+def _mesh_layer(p: dict, prefix: str, cfg: ModelConfig,
+                decode: bool = False) -> dict:
     """One layer's parameters as its code uses them under mesh rules:
     every leaf cut over an axis gathered whole (``sharding.gather_tree``)
     but those the layer splits itself: self-attention's projections when
     both head counts divide over ``model`` (whole heads a rank), the
     SwiGLU FFN's when their specs cut d_ff (the Megatron split), and the
-    MoE's experts (its expert-parallel path)."""
+    MoE's experts (its expert-parallel path).  For a ``decode`` step
+    whose Mamba or RWKV states are cut (:func:`_state_axes`), the mixer's
+    leaves are this rank's slices (:func:`_slice_tree`)."""
     rules = active_rules()
     m = rules.size("model")
     spec = rules.specs or {}
+    layout = _cache_layout() if decode else None
 
     def cut(name: str, dim: int) -> bool:
         s = spec.get(f"{prefix}/{name}")
@@ -550,8 +638,12 @@ def _mesh_layer(p: dict, prefix: str, cfg: ModelConfig) -> dict:
     out = {}
     for key, sub in p.items():
         at = f"{prefix}/{key}"
+        axes = _state_axes(layout, cfg, "mamba" if key == "mamba"
+                           else "rwkv") if key in _SLICED else ()
         if key == "moe":
             out[key] = sub
+        elif axes:
+            out[key] = _slice_tree(sub, at, _SLICED[key], axes, rules)
         elif key == "attn" and cfg.n_heads % m == 0 \
                 and cfg.n_kv_heads % m == 0 \
                 and all(cut(f"attn/{w}", -1) for w in
@@ -569,7 +661,8 @@ def _mesh_layer(p: dict, prefix: str, cfg: ModelConfig) -> dict:
 
 def _run_stack(h, blocks, cfg: ModelConfig, kinds, period, positions, *,
                causal=True, enc_out=None, want_cache=False, cache_len=None,
-               plain=False, remat="none", n_layers=None, prefix="blocks"):
+               plain=False, remat="none", n_layers=None, prefix="blocks",
+               aux_coef=None):
     """All ``n_layers`` layers (default ``cfg.n_layers``) in order → (h,
     total aux, caches or None).
 
@@ -586,7 +679,9 @@ def _run_stack(h, blocks, cfg: ModelConfig, kinds, period, positions, *,
 
     Under mesh rules each layer's parameters pass :func:`_mesh_layer`
     (``prefix`` names the stack's parameters), inside the recomputed
-    region, so a gathered leaf lives for its layer only."""
+    region, so a gathered leaf lives for its layer only.  ``aux_coef``
+    (MoE layers, E): the ``n``-th MoE layer in order takes row ``n``
+    (``moe.moe_ffn``)."""
     if remat not in REMAT:
         raise ValueError(f"remat must be one of {REMAT}, got {remat!r}")
     n_periods = (n_layers or cfg.n_layers) // period
@@ -596,11 +691,14 @@ def _run_stack(h, blocks, cfg: ModelConfig, kinds, period, positions, *,
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
     caches: dict[str, dict[str, torch.Tensor]] = {
         f"pos{j}": {} for j in range(period)}
+    moe_at = [j for j in range(period) if kinds[j][1] == "moe"]
 
     def body(x, i):
         """Repetition ``i`` → (x, its aux, each position's cache)."""
         aux_i, out = 0.0, []
         for j in range(period):
+            coef = None if aux_coef is None or j not in moe_at \
+                else aux_coef[i * len(moe_at) + moe_at.index(j)]
             p = _layer(blocks, j, i)
             if mesh:
                 p = _mesh_layer(p, f"{prefix}/pos{j}", cfg)
@@ -608,7 +706,8 @@ def _run_stack(h, blocks, cfg: ModelConfig, kinds, period, positions, *,
             x, a, c = _apply_layer(
                 x, p, cfg, kinds[j], positions, causal=causal, enc_kv=enc_kv,
                 want_cache=want_cache, plain=plain,
-                remat="outputs" if remat == "outputs" else "none")
+                remat="outputs" if remat == "outputs" else "none",
+                aux_coef=coef)
             aux_i = aux_i + a
             out.append(c)
         return x, aux_i, out
@@ -709,7 +808,9 @@ def forward(params, cfg: ModelConfig, batch: dict, *, plain: bool = False,
     on the card and on the CPU; ``remat`` (:data:`REMAT`) picks what the
     backward recomputes.  ``batch``: ``tokens`` (B, S); a VLM's
     ``vision_embeds`` (B, Sv, D) (the logits cover the S tokens only); the
-    audio family's ``frames`` (B, T, D).  Under mesh rules the leaves
+    audio family's ``frames`` (B, T, D); from the training step, for rows
+    of one microbatch spread over the ranks, ``moe_aux_coef`` (B, MoE
+    layers, E), the same for every row (:func:`_run_stack`).  Under mesh rules the leaves
     outside the layer stacks (embedding, head, final norms) are gathered
     whole first, and each layer's as :func:`_run_stack` says."""
     if active_rules() is not None:
@@ -718,10 +819,12 @@ def forward(params, cfg: ModelConfig, batch: dict, *, plain: bool = False,
     b, s, _ = h.shape
     enc = _encode(params, cfg, batch["frames"], plain=plain, remat=remat) \
         if cfg.encoder_decoder else None
+    coef = batch.get("moe_aux_coef")
     h, aux, _ = _run_stack(h, params["blocks"], cfg, layer_kinds(cfg),
                            pattern_period(cfg), _positions(b, s, h.device),
                            causal=True, enc_out=enc, plain=plain,
-                           remat=remat)
+                           remat=remat,
+                           aux_coef=None if coef is None else coef[0])
     h = _norm(h, params["ln_f"], params.get("ln_f_b"), cfg.norm_eps)
     return _lm_head(params, cfg, h[:, sv:]), aux
 
@@ -759,22 +862,23 @@ def loss_fn(params, cfg: ModelConfig, batch: dict, *,
     (masked by ``batch['loss_mask']`` when given) → (loss, metrics), as the
     reference computes it; differentiable, with ``remat`` as in
     :func:`forward`.  Under mesh rules ``batch`` is this rank's rows and
-    the loss its share of the global batch's: the mean of the ranks'
-    losses over the batch axes (as the training step takes it) is the
-    masked mean over every rank's rows, the mask counted over them all."""
+    the loss its share of the step's, and a mask comes with the training
+    step's ``loss_weight`` (B,): each row's factor, its global
+    microbatch's unmasked tokens counted once a step over every rank
+    (``launch/steps.py``).  The loss is then the weighted sum of the rows'
+    masked token losses, so that the mean of the ranks' losses over the
+    batch axes is the mean of the microbatches' masked means."""
     logits, aux = forward(params, cfg, batch, plain=plain, remat=remat)
     logp = F.log_softmax(logits, dim=-1)
     nll = -logp.gather(-1, batch["labels"].long()[..., None])[..., 0]
     mask = batch.get("loss_mask")
-    rules = active_rules()
-    if mask is not None and rules is not None:
-        axes = rules.axes("batch")
-        total = C.all_reduce(mask.sum().detach(), rules.mesh, axes)
-        ranks = 1
-        for ax in axes:
-            ranks *= rules.mesh.size(rules.mesh.mesh_dim_names.index(ax))
-        loss = (nll * mask).sum() * ranks / torch.clamp(total, min=1)
+    weight = batch.get("loss_weight")
+    if mask is not None and weight is not None:
+        loss = (nll * mask * weight[:, None].to(nll.dtype)).sum()
     elif mask is not None:
+        if active_rules() is not None:
+            raise ValueError("a loss_mask on a mesh needs the training "
+                             "step's loss_weight (launch/steps.py)")
         nll = nll * mask
         loss = nll.sum() / torch.clamp(mask.sum(), min=1)
     else:
@@ -893,27 +997,44 @@ def _decode_layer(h, p, cfg: ModelConfig, kind, cache, index, cross=None):
     """One layer for one token, its cache written in place; an MoE runs
     over the B tokens with their capacity, as the reference's does.  A
     layer with ``cross`` attention attends to all of ``cross``'s keys and
-    values."""
+    values.  Under the decode step's rules a Mamba or RWKV layer whose
+    states are cut steps this rank's slice with its sliced leaves
+    (:func:`_mesh_layer`): the partial products of the projections whose
+    rows are cut are summed and the column slices of the RWKV channel
+    mix's activations gathered, over the states' axes; an RWKV layer
+    whose heads ``model`` does not divide gathers its states, steps them
+    whole and keeps its slice."""
     mixer, ffn = kind
     x = _norm(h, p["ln1"], p.get("ln1_b"), cfg.norm_eps)
     layout = _cache_layout() if mixer in ("rwkv", "mamba") else None
+    axes = _state_axes(layout, cfg, mixer)
+    reduce = gather = None
+    if axes:
+        def reduce(t):
+            return C.all_reduce(t, layout.mesh, axes)
+
+        def gather(t):
+            return C.all_gather(t, layout.mesh, axes, t.dim() - 1)
 
     def keep(new: dict) -> None:  # this rank's slices of the new states
         for n, v in new.items():
-            cache[n].copy_(v if layout is None
+            cache[n].copy_(v if layout is None or axes
                            else _local_cache(layout, n, v))
 
     if mixer == "rwkv":
-        whole = _whole_states(layout, cache, cfg, mixer)
-        a, c1 = RW.rwkv_time_mix_decode(x, p["tm"], cfg, whole)
+        states = cache if axes else _whole_states(layout, cache, cfg)
+        a, c1 = RW.rwkv_time_mix_decode(x, p["tm"], cfg, states, reduce)
         h = h + a
         c, c2 = RW.rwkv_channel_mix_decode(
-            L.rms_norm(h, p["ln2"], cfg.norm_eps), p["cm"], cfg, whole)
+            L.rms_norm(h, p["ln2"], cfg.norm_eps), p["cm"], cfg, states,
+            gather)
         keep({**c1, **c2})
         return h + c
     if mixer == "mamba":
-        a, new = M.mamba_decode_step(x, p["mamba"], cfg,
-                                     _whole_states(layout, cache, cfg, mixer))
+        xz = None if not axes else _mamba_xz(
+            x, p["mamba"]["in_proj"], cfg, axes, layout.mesh)
+        a, new = M.mamba_decode_step(x, p["mamba"], cfg, cache, xz=xz,
+                                     reduce=reduce)
         keep(new)
     else:
         a = _attn_decode(x, p["attn"], cfg, cache, index)
@@ -954,7 +1075,7 @@ def decode_step(params, cfg: ModelConfig, cache: dict, batch: dict):
             c = {n: x[i] for n, x in cache[f"pos{j}"].items()}
             p = _layer(params["blocks"], j, i)
             if mesh:
-                p = _mesh_layer(p, f"blocks/pos{j}", cfg)
+                p = _mesh_layer(p, f"blocks/pos{j}", cfg, decode=True)
             h = _decode_layer(h, p, cfg, kinds[j], c, index, cross)
     h = _norm(h, params["ln_f"], params.get("ln_f_b"), cfg.norm_eps)
     new_cache = dict(cache)

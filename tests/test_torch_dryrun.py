@@ -57,44 +57,73 @@ def smollm(ref: bool = False):
 # ------------------------------------------------------------- the oracle
 
 
-def oracle(out_path: str) -> None:
-    """The reference's 2×2 training cell → ``out_path`` (json): its
-    argument size and each argument leaf's bytes on one device."""
+#: the multi-pod training cell: 4 microbatches of 2 rows over 2 × 2 batch
+#: ranks, fewer rows than ranks, as ``jamba-v0.1-52b``'s 16 rows over 2 × 16
+POD_B, POD_ACCUM = 8, 4
+#: (batch, microbatches) on a 2 (pod) × 4 × 1 mesh: a microbatch of 4 rows
+#: over 8 batch ranks, one of 8 rows (a row a rank) and one of 16 (two)
+SPREAD_CELLS = ((16, 4), (16, 2), (32, 2))
+
+
+def _reference_cell(pods: int, data: int, model_axis: int, batch: int,
+                    accum: int) -> dict:
+    """The reference's training cell compiled on the first forced host
+    devices: its argument and temp bytes (``memory_analysis``), each
+    argument leaf's bytes on one device, and the rows of the batch's
+    shard."""
     import jax
+    from jax.sharding import AxisType, Mesh
     from repro.configs.base import (MeshConfig, RunConfig, ShapeConfig,
                                     TrainConfig)
-    from repro.launch.mesh import make_test_mesh
     from repro.launch.steps import build_train_step, path_str
     from repro.models.registry import build_model, input_specs
     from repro.parallel.sharding import AxisRules, sharding_rules
 
-    mesh = make_test_mesh(2, 2)
-    rules = AxisRules.default(False, data=2, model=2).with_mesh(mesh)
+    shape, names = ((pods, data, model_axis), ("pod", "data", "model")) \
+        if pods else ((data, model_axis), ("data", "model"))
+    devices = np.array(jax.devices()[:int(np.prod(shape))]).reshape(shape)
+    mesh = Mesh(devices, names, axis_types=(AxisType.Auto,) * len(names))
+    rules = AxisRules.default(bool(pods), pods=pods or 2, data=data,
+                              model=model_axis).with_mesh(mesh)
     cfg = smollm(ref=True)
     model = build_model(cfg, remat="full")
-    run = RunConfig(model=cfg, shape=ShapeConfig("t", S, B, "train"),
-                    train=TrainConfig(grad_accum=ACCUM, remat="full"),
-                    mesh=MeshConfig(data=2, model=2))
+    run = RunConfig(model=cfg, shape=ShapeConfig("t", S, batch, "train"),
+                    train=TrainConfig(grad_accum=accum, remat="full"),
+                    mesh=MeshConfig(multi_pod=bool(pods), pods=pods or 2,
+                                    data=data, model=model_axis))
     with mesh, sharding_rules(rules):
         b = build_train_step(model, run, mesh, rules)
-        batch = input_specs(cfg, run.shape, dryrun=True)
+        host = input_specs(cfg, run.shape, dryrun=True)
         compiled = jax.jit(b.step_fn, in_shardings=b.in_shardings,
                            out_shardings=b.out_shardings,
                            donate_argnums=(0, 1)).lower(
-            b.params_shape, b.opt_shape, batch).compile()
+            b.params_shape, b.opt_shape, host).compile()
     leaves = {}
     for group, tree, shardings in zip(
-            ("params", "opt", "batch"), (b.params_shape, b.opt_shape, batch),
+            ("params", "opt", "batch"), (b.params_shape, b.opt_shape, host),
             b.in_shardings):
         flat = jax.tree_util.tree_flatten_with_path(tree)[0]
         for (path, leaf), sh in zip(flat, jax.tree.leaves(shardings)):
-            shape = sh.shard_shape(leaf.shape)
+            shard = sh.shard_shape(leaf.shape)
             leaves[f"{group}/{path_str(path)}"] = int(
-                np.prod(shape, dtype=np.int64) * leaf.dtype.itemsize)
+                np.prod(shard, dtype=np.int64) * leaf.dtype.itemsize)
+    memory = compiled.memory_analysis()
+    return {"argument_bytes": int(memory.argument_size_in_bytes),
+            "temp_bytes": int(memory.temp_size_in_bytes), "leaves": leaves,
+            "batch_rows": int(b.in_shardings[2]["tokens"].shard_shape(
+                host["tokens"].shape)[0])}
+
+
+def oracle(out_path: str) -> None:
+    """The reference's cells → ``out_path`` (json): the 2×2 one, the
+    2 (pod) × 2 × 1 one of ``POD_ACCUM`` microbatches and the
+    ``SPREAD_CELLS`` on 2 × 4 × 1 (eight forced host devices)."""
+    out = {"grid": _reference_cell(0, 2, 2, B, ACCUM),
+           "pods": _reference_cell(2, 2, 1, POD_B, POD_ACCUM)}
+    for b, n in SPREAD_CELLS:
+        out[f"spread/{b}/{n}"] = _reference_cell(2, 4, 1, b, n)
     with open(out_path, "w") as f:
-        json.dump({"argument_bytes": int(
-            compiled.memory_analysis().argument_size_in_bytes),
-            "leaves": leaves}, f)
+        json.dump(out, f)
 
 
 # ---------------------------------------------------------------- helpers
@@ -102,11 +131,11 @@ def oracle(out_path: str) -> None:
 
 def _run(kind: str, cfg=None, *, seq: int = S, batch: int = B,
          accum: int = ACCUM, remat: str = "full", data: int = 2,
-         model_axis: int = 2, rank: int = 0, plain: bool = False,
-         fake: bool = True):
+         model_axis: int = 2, pods: int = 0, rank: int = 0,
+         plain: bool = False, fake: bool = True):
     """``trace_step`` of one cell → (memory record, cost record): a fake
-    world of data × model ranks (this one ``rank``), or a real gloo world
-    of one when not ``fake``."""
+    world of (pods ×) data × model ranks (this one ``rank``), or a real
+    gloo world of one when not ``fake``."""
     import torch.distributed as dist
 
     from repro_torch.configs import (MeshConfig, RunConfig, ShapeConfig,
@@ -117,7 +146,7 @@ def _run(kind: str, cfg=None, *, seq: int = S, batch: int = B,
     from repro_torch.models.registry import build_model
 
     cfg = cfg or smollm()
-    mc = MeshConfig(data=data, model=model_axis)
+    mc = _mesh_config(data, model_axis, pods)
     run = RunConfig(model=cfg, shape=ShapeConfig("t", seq, batch, kind),
                     train=TrainConfig(grad_accum=accum, remat=remat),
                     mesh=mc)
@@ -125,7 +154,7 @@ def _run(kind: str, cfg=None, *, seq: int = S, batch: int = B,
         path="reference") if plain else None)
     rules = dryrun.axis_rules(mc)
     if fake:
-        with dryrun.fake_world(data * model_axis, rank):
+        with dryrun.fake_world(data * model_axis * max(pods, 1), rank):
             return dryrun.trace_step(model, run,
                                      make_mesh_from_config(mc, "cpu"), rules)
     dist.init_process_group("gloo", init_method=f"tcp://localhost:"
@@ -137,8 +166,20 @@ def _run(kind: str, cfg=None, *, seq: int = S, batch: int = B,
         dist.destroy_process_group()
 
 
-def _port_argument_leaves() -> dict:
-    """Each argument leaf's bytes on rank 0 of the port's 2×2 cell."""
+def _mesh_config(data: int, model_axis: int, pods: int = 0):
+    from repro_torch.configs import MeshConfig
+
+    if pods:
+        return MeshConfig(multi_pod=True, pods=pods, data=data,
+                          model=model_axis)
+    return MeshConfig(data=data, model=model_axis)
+
+
+def _port_argument_leaves(pods: int = 0, data: int = 2, model_axis: int = 2,
+                          batch: int = B, accum: int = ACCUM) -> dict:
+    """Each argument leaf's bytes on rank 0 of the port's training cell
+    (the 2×2 one by default), the optimizer state's paths named as the
+    reference's (``.step`` / ``0``)."""
     from torch._subclasses.fake_tensor import FakeTensorMode
 
     from repro_torch.configs import (MeshConfig, RunConfig, ShapeConfig,
@@ -151,13 +192,13 @@ def _port_argument_leaves() -> dict:
     from repro_torch.tree import leaves_with_paths
 
     cfg = smollm()
-    mc = MeshConfig(data=2, model=2)
-    run = RunConfig(model=cfg, shape=ShapeConfig("t", S, B, "train"),
-                    train=TrainConfig(grad_accum=ACCUM, remat="full"),
+    mc = _mesh_config(data, model_axis, pods)
+    run = RunConfig(model=cfg, shape=ShapeConfig("t", S, batch, "train"),
+                    train=TrainConfig(grad_accum=accum, remat="full"),
                     mesh=mc)
     model = build_model(cfg, remat="full")
     out = {}
-    with dryrun.fake_world(4):
+    with dryrun.fake_world(data * model_axis * max(pods, 1)):
         b = build_train_step(model, run, make_mesh_from_config(mc, "cpu"),
                              dryrun.axis_rules(mc))
         with FakeTensorMode():
@@ -170,14 +211,15 @@ def _port_argument_leaves() -> dict:
                 for p, t in leaves_with_paths(tree):
                     out[f"{group}/{path_str(p)}"] = t.numel() \
                         * t.element_size()
-    return out
+    return {k.replace("opt/.step", "opt/0").replace("opt/.state/", "opt/1/")
+            : v for k, v in out.items()}
 
 
 @pytest.fixture(scope="module")
 def reference(tmp_path_factory):
     out = str(tmp_path_factory.mktemp("dryrun_oracle") / "ref.json")
     env = dict(os.environ, PYTHONPATH=SRC, JAX_PLATFORMS="cpu",
-               XLA_FLAGS="--xla_force_host_platform_device_count=4")
+               XLA_FLAGS="--xla_force_host_platform_device_count=8")
     proc = subprocess.run([sys.executable, os.path.abspath(__file__),
                            "oracle", out], env=env, capture_output=True,
                           text=True, timeout=600)
@@ -190,15 +232,53 @@ def reference(tmp_path_factory):
 
 
 def test_argument_bytes_equal_the_references_memory_analysis(reference):
+    ref = reference["grid"]
     mem, _ = _run("train")
     got = _port_argument_leaves()
-    # the optimizer state's paths differ by package (``.step`` / ``0``)
-    norm = {k.replace("opt/.step", "opt/0").replace("opt/.state/", "opt/1/")
-            : v for k, v in got.items()}
     assert sum(got.values()) == mem["argument_bytes"]
-    assert sorted(norm.values()) == sorted(reference["leaves"].values()), \
-        (sorted(norm.items()), sorted(reference["leaves"].items()))
-    assert mem["argument_bytes"] == reference["argument_bytes"]
+    assert sorted(got.values()) == sorted(ref["leaves"].values()), \
+        (sorted(got.items()), sorted(ref["leaves"].items()))
+    assert mem["argument_bytes"] == ref["argument_bytes"]
+
+
+def test_a_multi_pod_cell_takes_the_references_rows(reference):
+    """4 microbatches of 2 rows over 2 (pod) × 2 batch ranks: rank 0 holds
+    the 2 rows the reference's input sharding gives a device, and its
+    argument bytes equal the reference's ``memory_analysis`` leaf by
+    leaf."""
+    ref = reference["pods"]
+    cell = dict(pods=2, data=2, model_axis=1, batch=POD_B, accum=POD_ACCUM)
+    mem, _ = _run("train", **cell)
+    got = _port_argument_leaves(**cell)
+    assert ref["batch_rows"] == POD_B // 4
+    assert got["batch/tokens"] == ref["leaves"]["batch/tokens"] \
+        == ref["batch_rows"] * S * 4
+    assert sorted(got.values()) == sorted(ref["leaves"].values()), \
+        (sorted(got.items()), sorted(ref["leaves"].items()))
+    assert sum(got.values()) == mem["argument_bytes"] \
+        == ref["argument_bytes"]
+
+
+def test_a_microbatch_under_its_batch_ranks_is_spread_over_them(reference):
+    """The reference's record settles how a microbatch of fewer rows than
+    its batch ranks is computed: on 2 (pod) × 4 × 1, its temp bytes with 4
+    rows a microbatch sit at its one-row-a-rank level (8 rows a
+    microbatch), not at the two rows a rank that replicating the rows over
+    ``data`` would compute (16 rows): its partitioner spreads them, padded.
+    The port's rank runs its own 2 rows one at a time: its temp bytes and
+    FLOPs equal its one-row-a-rank cell's (the reference computes 4 rows a
+    rank there, two of them padding)."""
+    one, two = reference["spread/16/2"], reference["spread/32/2"]
+    cell = reference["spread/16/4"]
+    assert abs(cell["temp_bytes"] - one["temp_bytes"]) \
+        < abs(cell["temp_bytes"] - two["temp_bytes"]) / 4
+    port = {n: _run("train", pods=2, data=4, model_axis=1, batch=b,
+                    accum=n) for b, n in SPREAD_CELLS[:2]}
+    small, rows = port[4], port[2]
+    assert small[0]["temp_bytes"] == rows[0]["temp_bytes"]
+    assert small[0]["argument_bytes"] == rows[0]["argument_bytes"] \
+        == cell["argument_bytes"]
+    assert small[1]["flops"] == rows[1]["flops"]
 
 
 @pytest.mark.parametrize("kind", ("train", "prefill", "decode"))
@@ -210,6 +290,71 @@ def test_fake_count_equals_a_real_cpu_run(kind):
     for k in ("flops", "bytes", "transcendentals"):
         assert fake[1][k] == real[1][k], k
     assert fake[1]["flops"] > 0 and fake[0]["temp_bytes"] > 0
+
+
+def _mamba_chunks(kind: str, seq: int, monkeypatch):
+    """Reduced ``jamba-v0.1-52b`` over ``seq`` tokens on a world of one,
+    traced on fake tensors and run for real on the CPU → (fake, real,
+    chunks the fake run traced, chunks the real run ran)."""
+    from repro_torch.configs import reduced_config
+    from repro_torch.models import mamba as M
+
+    cfg = reduced_config("jamba-v0.1-52b")
+    calls = []
+    scan = M._scan_chunk
+
+    def counted(*args):
+        calls.append(1)
+        return scan(*args)
+
+    monkeypatch.setattr(M, "_scan_chunk", counted)
+    run = dict(seq=seq, batch=2, accum=1, data=1, model_axis=1, plain=True)
+    fake = _run(kind, cfg, **run)
+    n_fake, calls[:] = len(calls), []
+    real = _run(kind, cfg, **run, fake=False)
+    return fake, real, n_fake, len(calls)
+
+
+@pytest.mark.parametrize("kind", ("prefill", "train"))
+def test_a_mamba_scan_traced_from_one_chunk_counts_every_chunk(
+        kind, monkeypatch):
+    """Reduced ``jamba-v0.1-52b`` over 256 tokens (two 128-step chunks of
+    the selective scan) on a world of one: on fake tensors each Mamba
+    layer runs its first chunk only and counts it twice, forward and
+    backward (``models/mamba.py:_Repeated``).  Against the same step run
+    for real on the CPU, the FLOPs, bytes and transcendentals are equal,
+    and so is a prefill's memory record.  A training step's temp bytes
+    are at least the real ones and within 2 %: with two chunks the fake
+    peak holds one more ``(B, S, d_inner)`` gradient and one more ``(B,
+    chunk, d_state)`` one than the real peak (270,336 bytes, 1.4 %); with
+    three and four chunks the records are equal (the next test)."""
+    fake, real, n_fake, n_real = _mamba_chunks(kind, 256, monkeypatch)
+    assert n_fake > 0 and n_real > 0
+    for k in ("flops", "bytes", "transcendentals"):
+        assert fake[1][k] == real[1][k], k
+    if kind == "prefill":
+        assert n_real == 2 * n_fake
+        assert fake[0] == real[0]
+    else:
+        assert {k: v for k, v in fake[0].items() if k != "temp_bytes"} \
+            == {k: v for k, v in real[0].items() if k != "temp_bytes"}
+        assert real[0]["temp_bytes"] <= fake[0]["temp_bytes"] \
+            <= 1.02 * real[0]["temp_bytes"]
+
+
+@pytest.mark.parametrize("seq", (384, 512))
+def test_a_mamba_training_step_traced_from_one_chunk_is_the_real_one(
+        seq, monkeypatch):
+    """Three and four chunks of the scan: a training step traced on fake
+    tensors from one chunk a layer has the real step's counts and memory
+    record exactly (the first, middle and last chunks' backwards counted
+    apart, the states between chunks and the gradients the split's
+    backward joins held as the loop holds them), and it traces fewer
+    chunks than the real step runs."""
+    fake, real, n_fake, n_real = _mamba_chunks("train", seq, monkeypatch)
+    assert n_real > n_fake > 0
+    assert fake[1] == real[1]
+    assert fake[0] == real[0]
 
 
 @pytest.mark.parametrize("remat", ("none", "full"))

@@ -1,5 +1,6 @@
-"""The port stands alone: importing every ``repro_torch`` module (and
-``chip_smoke.py``) loads no JAX and nothing of the reference package."""
+"""The port stands alone: importing every ``repro_torch`` module (its
+examples included) and ``chip_smoke.py`` loads no JAX and nothing of the
+reference package."""
 import os
 import pkgutil
 import subprocess
@@ -37,7 +38,11 @@ def test_port_imports_no_jax_and_no_reference_package():
                  "models.moe", "configs.rwkv6_7b", "configs.internvl2_1b",
                  "configs.whisper_small", "parallel", "parallel.sharding",
                  "parallel.collectives", "parallel.pipeline", "launch.mesh",
-                 "launch.steps", "launch.dryrun", "introspect.memory"):
+                 "launch.steps", "launch.dryrun", "introspect.memory",
+                 "examples", "examples.quickstart",
+                 "examples.convert_pretrained", "examples.serve_jpeg",
+                 "examples.serve_qos", "examples.train_e2e",
+                 "examples.lm_train"):
         assert "repro_torch." + want in names, want
     code = (
         "import importlib, sys\n"

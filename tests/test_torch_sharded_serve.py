@@ -17,6 +17,10 @@ Decode starts at index ``INDEX`` of a ``T``-slot cache and takes
 rank's slots only, the last one after a wrap, on another rank than the
 first two.
 
+On a fake 1 × 2 world a Mamba or RWKV decode step steps only the rank's
+slice of its states: half the whole step's state-update work, and no
+state- or weight-sized collective.
+
 Tolerances: the logits within 1e-5 of the largest |logit| of the step,
 and every cache leaf (gathered whole from the ranks' slices) within 1e-5
 of its largest |value|: both packages compute in fp32, the sums over the
@@ -359,6 +363,102 @@ def test_sharded_decode_equals_one_device_over_the_whole_cache(runs, arch,
         _close(port[f"{arch}/{b}/{tag}/logits/{i}"],
                port[f"{arch}/{b}/{tag}/one_logits/{i}"],
                f"{arch}/{b} step {i}")
+
+
+# ------------------------------------------------- the slice's own work
+
+#: the mixer code of a decode step: a collective called from one of these
+#: (or from ``gather_tree``/``_slice_tree`` on a mixer's leaves) is the
+#: Mamba or RWKV layer's own traffic
+MIXER_FNS = ("mamba_decode_step", "rwkv_time_mix_decode",
+             "rwkv_channel_mix_decode", "_mamba_xz", "_whole_states")
+MIXER_LEAVES = ("/mamba", "/tm", "/cm")
+
+
+def _mixer_frame() -> bool:
+    frame = sys._getframe(2)
+    while frame is not None:
+        name = frame.f_code.co_name
+        if name in MIXER_FNS:
+            return True
+        if name in ("gather_tree", "_slice_tree") and str(
+                frame.f_locals.get("prefix", "")).endswith(MIXER_LEAVES):
+            return True
+        frame = frame.f_back
+    return False
+
+
+def _decode_work(cfg, model_axis: int, monkeypatch) -> tuple[dict, list]:
+    """One decode step at batch 2 on rank 0 of a fake 1 × ``model_axis``
+    world → (the state steps' FLOPs and transcendentals, summed over
+    Mamba's ``_ssm_step`` and RWKV's ``_wkv_step`` calls; each collective
+    the mixers call, as (kind, payload bytes))."""
+    from repro_torch.configs import MeshConfig, RunConfig, ShapeConfig
+    from repro_torch.introspect import opcount
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_mesh_from_config
+    from repro_torch.models import mamba as M
+    from repro_torch.models import rwkv as RW
+    from repro_torch.models.registry import build_model
+    from repro_torch.parallel import collectives as C
+
+    scan = {"flops": 0.0, "transcendentals": 0.0}
+    calls = []
+
+    def counted(fn):
+        def run(*args):
+            with opcount.count() as cost:
+                out = fn(*args)
+            scan["flops"] += cost.flops
+            scan["transcendentals"] += cost.transcendentals
+            return out
+        return run
+
+    report = C._report
+
+    def recording(kind, payload, n, factor=1.0):
+        if _mixer_frame():
+            calls.append((kind, factor * payload.numel()
+                          * payload.element_size()))
+        return report(kind, payload, n, factor)
+
+    mc = MeshConfig(data=1, model=model_axis)
+    run = RunConfig(model=cfg, shape=ShapeConfig("d", T, 2, "decode"),
+                    mesh=mc)
+    with monkeypatch.context() as patch, dryrun.fake_world(model_axis):
+        patch.setattr(M, "_ssm_step", counted(M._ssm_step))
+        patch.setattr(RW, "_wkv_step", counted(RW._wkv_step))
+        patch.setattr(C, "_report", recording)
+        dryrun.trace_step(build_model(cfg), run,
+                          make_mesh_from_config(mc, "cpu"),
+                          dryrun.axis_rules(mc))
+    return scan, calls
+
+
+@pytest.mark.parametrize("arch", ("jamba-v0.1-52b", "rwkv6-7b"))
+def test_mesh_decode_steps_only_the_ranks_state_slice(arch, monkeypatch):
+    """A decode step of reduced ``jamba-v0.1-52b`` (``d_inner`` 128,
+    ``d_state`` 8) or ``rwkv6-7b`` (4 heads of 16) at batch 2 on rank 0 of
+    a fake 1 × 2 world, against a world of one: the state steps' FLOPs and
+    transcendentals are half of the whole step's, exactly, and no
+    collective of a Mamba or RWKV layer moves as much as one layer's state
+    (``ssm`` or ``wkv``, 8,192 bytes): no state and no weight is gathered,
+    only a token's activations and partial products."""
+    from repro_torch.configs import reduced_config
+
+    cfg = reduced_config(arch)
+    whole, _ = _decode_work(cfg, 1, monkeypatch)
+    rank, calls = _decode_work(cfg, 2, monkeypatch)
+    assert whole["flops"] > 0
+    assert 2 * rank["flops"] == whole["flops"]
+    assert 2 * rank["transcendentals"] == whole["transcendentals"]
+    if arch == "rwkv6-7b":
+        state = 2 * (cfg.d_model // cfg.rwkv_head_size) \
+            * cfg.rwkv_head_size ** 2 * 4
+    else:
+        state = 2 * cfg.expand * cfg.d_model * cfg.d_state * 4
+    assert state == 8192
+    assert calls and max(b for _, b in calls) < state, calls
 
 
 # ------------------------------------------------------------ spec parity

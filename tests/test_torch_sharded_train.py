@@ -17,13 +17,22 @@ compression ``none`` and ``bf16``.  The dense model's step is the global
 batch's whatever the cut, so three more layouts of it are held against
 the reference's data × model run at the ``none`` tolerances: ZeRO-1 off,
 a 2 (pod) × 2 (data) mesh on the multi-pod rules, and that mesh with 4
-microbatches of 2 rows (fewer rows than its 4 batch ranks: the batch
-goes over ``pod`` alone and the ``data`` ranks hold the same rows, as in
-``jamba-v0.1-52b``'s 2×16×16 training cell).  A fifth run of it
-carries a ``loss_mask`` whose count differs between the data ranks of a
-microbatch, held against the reference's masked 2×2 run at the same
-tolerances: the loss is the masked mean over the global microbatch, not
-the mean of the ranks' own masked means.
+microbatches of 2 rows (fewer rows than its 4 batch ranks, as in
+``jamba-v0.1-52b``'s 2×16×16 training cell: each rank holds the 2 rows
+the reference's input sharding gives it, one microbatch, and runs them
+a row at a time).  A fifth run of it carries a ``loss_mask`` whose
+count differs between the data ranks of a microbatch, held against the
+reference's masked 2×2 run at the same tolerances: the loss is the
+masked mean over the global microbatch, not the mean of the ranks' own
+masked means; a sixth, the same masked batches in 4 microbatches on the
+2 (pod) × 2 mesh, against the reference's masked run of 4 microbatches.
+The MoE's step depends on its layout (each shard's capacity, the aux
+loss's statistics), so its run of 4 microbatches on the 2 (pod) × 2 mesh
+is held against the reference's own run on that mesh: the reference
+routes each microbatch's pod shard (one row, replicated over ``data``)
+and sums the aux loss's counts over the microbatch; the port's rank runs
+its two rows one at a time, after a pass that counts the routed pairs
+per microbatch.
 
 AdamW's ``eps`` is 1e-3 in both runs.  At the default 1e-8 the update
 m/√v is the gradient's sign where a gradient is near zero, so a
@@ -67,6 +76,14 @@ COMPRESSION = ("none", "bf16")
 LAYOUTS = ("no-zero1", "pod-data", "micro-replicated")
 #: the dense model's run with a loss mask, against the reference's own
 MASKED = "masked"
+#: the masked run with 4 microbatches of 2 rows, against the reference's
+#: own; the port's on the 2 (pod) × 2 mesh, where a rank holds one
+#: microbatch and runs it a row at a time
+MASKED_SPREAD = "masked-spread"
+#: the MoE's run with 4 microbatches of 2 rows on the 2 (pod) × 2 mesh in
+#: both packages
+MOE_SPREAD = "moe-spread"
+MOE = "granite-moe-3b-a800m"
 B, S, STEPS, ACCUM, LR, EPS = 8, 16, 3, 2, 1e-3, 1e-3
 LOSS_RTOL, PARAM_RTOL = 1e-5, 1e-5
 BF16_MEAN_ATOL = STEPS * LR * 2 * (2 * 2 ** -8)
@@ -136,20 +153,34 @@ def oracle(out_path: str) -> None:
     from repro.models.registry import build_model
     from repro.parallel.sharding import AxisRules, sharding_rules
 
-    mesh = make_test_mesh(2, 2)
-    rules = AxisRules.default(False, data=2, model=2).with_mesh(mesh)
-    runs = [(f"{arch}/{comp}", arch, comp, False) for arch in ARCHS
+    from jax.sharding import AxisType, Mesh
+
+    grid = (make_test_mesh(2, 2), MeshConfig(data=2, model=2))
+    pods = (Mesh(np.array(jax.devices()[:4]).reshape(2, 2, 1),
+                 ("pod", "data", "model"),
+                 axis_types=(AxisType.Auto,) * 3),
+            MeshConfig(multi_pod=True, pods=2, data=2, model=1))
+    runs = [(f"{arch}/{comp}", arch, comp, False, grid) for arch in ARCHS
             for comp in COMPRESSION]
-    runs.append((f"smollm-360m/none/{MASKED}", "smollm-360m", "none", True))
+    runs.append((f"smollm-360m/none/{MASKED}", "smollm-360m", "none", True,
+                 grid))
+    runs.append((f"smollm-360m/none/{MASKED_SPREAD}", "smollm-360m", "none",
+                 True, grid))
+    runs.append((f"{MOE}/none/{MOE_SPREAD}", MOE, "none", False, pods))
     res = {}
-    for key, arch, comp, masked in runs:
+    for key, arch, comp, masked, (mesh, mesh_cfg) in runs:
+        rules = AxisRules.default(
+            mesh_cfg.multi_pod, pods=mesh_cfg.pods, data=mesh_cfg.data,
+            model=mesh_cfg.model).with_mesh(mesh)
         cfg = ModelConfig(**JPEG) if arch == "jpeg-resnet" \
             else reduced_config(arch)
         model = build_model(cfg)
-        tc = TrainConfig(grad_accum=ACCUM, learning_rate=LR, eps=EPS,
+        accum = 2 * ACCUM if key.endswith((MASKED_SPREAD, MOE_SPREAD)) \
+            else ACCUM
+        tc = TrainConfig(grad_accum=accum, learning_rate=LR, eps=EPS,
                          schedule="constant", grad_compression=comp)
         run = RunConfig(model=cfg, shape=ShapeConfig("t", S, B, "train"),
-                        train=tc, mesh=MeshConfig(data=2, model=2))
+                        train=tc, mesh=mesh_cfg)
         with mesh, sharding_rules(rules):
             b = build_train_step(model, run, mesh, rules)
             flat, tdef = jax.tree_util.tree_flatten_with_path(
@@ -180,10 +211,10 @@ def oracle(out_path: str) -> None:
 
 
 def _rank_runs(mesh):
-    """Every (arch, compression) run on this rank, two more layouts of the
-    dense model's (``LAYOUTS``) and its masked run (``MASKED``) → on rank
-    0 the losses, the full parameters after 3 steps and the MoE's dropped
-    pairs."""
+    """Every (arch, compression) run on this rank, three more layouts of
+    the dense model's (``LAYOUTS``) and its masked runs (``MASKED``,
+    ``MASKED_SPREAD``) → on rank 0 the losses, the full parameters after 3
+    steps and the MoE's dropped pairs."""
     from repro_torch.configs import (MeshConfig, ModelConfig, RunConfig,
                                      ShapeConfig, TrainConfig,
                                      reduced_config)
@@ -216,14 +247,21 @@ def _rank_runs(mesh):
               MeshConfig(multi_pod=True, pods=2, data=2, model=1), True,
               False),
              (f"smollm-360m/none/{MASKED}", "smollm-360m", "none", mesh,
-              grid, True, True)]
+              grid, True, True),
+             (f"smollm-360m/none/{MASKED_SPREAD}", "smollm-360m", "none",
+              pods, MeshConfig(multi_pod=True, pods=2, data=2, model=1),
+              True, True),
+             (f"{MOE}/none/{MOE_SPREAD}", MOE, "none", pods,
+              MeshConfig(multi_pod=True, pods=2, data=2, model=1), True,
+              False)]
     res = {}
     for key, arch, comp, on, mesh_cfg, zero1, masked in runs:
         cfg = ModelConfig(**JPEG) if arch == "jpeg-resnet" \
             else reduced_config(arch)
         model = build_model(cfg)
         dropped[0] = 0
-        accum = 2 * ACCUM if key.endswith(LAYOUTS[2]) else ACCUM
+        accum = 2 * ACCUM if key.endswith(
+            (LAYOUTS[2], MASKED_SPREAD, MOE_SPREAD)) else ACCUM
         tc = TrainConfig(grad_accum=accum, learning_rate=LR, eps=EPS,
                          schedule="constant", grad_compression=comp,
                          zero1=zero1)
@@ -288,7 +326,7 @@ def _leaf_keys(res: dict, prefix: str) -> list[str]:
     return sorted(k for k in res if k.startswith(prefix)
                   and not k.endswith(("/losses", "/dropped"))
                   and k[len(prefix):].split("/")[0]
-                  not in LAYOUTS + (MASKED,))
+                  not in LAYOUTS + (MASKED, MASKED_SPREAD, MOE_SPREAD))
 
 
 @pytest.mark.parametrize("comp", COMPRESSION)
@@ -352,10 +390,57 @@ def test_a_masked_loss_is_the_global_microbatchs_masked_mean(runs):
         assert diff <= PARAM_RTOL * np.abs(ref[k]).max(), (k, diff)
 
 
+def test_a_masked_loss_over_spread_microbatches_is_their_masked_mean(runs):
+    """4 microbatches of 2 rows over 2 (pod) × 2 batch ranks, with a loss
+    mask: each rank holds one microbatch and runs it a row at a time, the
+    mask counted per microbatch over every rank.  The losses and
+    parameters after 3 steps are the reference's masked run of 4
+    microbatches at the ``none`` tolerances."""
+    from repro_torch.launch.steps import batch_rows
+
+    assert batch_rows(B, 2 * ACCUM, 4, 1) == [2, 3]
+    ref, port = runs
+    key = f"smollm-360m/none/{MASKED_SPREAD}"
+    np.testing.assert_allclose(port[f"{key}/losses"], ref[f"{key}/losses"],
+                               rtol=LOSS_RTOL)
+    keys = _leaf_keys(ref, f"{key}/")
+    assert keys and keys == _leaf_keys(port, f"{key}/")
+    for k in keys:
+        diff = np.abs(port[k] - ref[k]).max()
+        assert diff <= PARAM_RTOL * np.abs(ref[k]).max(), (k, diff)
+
+
 def test_the_moe_runs_drop_tokens(runs):
     _, port = runs
     for comp in COMPRESSION:
         assert port[f"granite-moe-3b-a800m/{comp}/dropped"] > 0
+
+
+def test_the_moe_over_spread_microbatches_is_the_references(runs):
+    """4 microbatches of 2 rows over 2 (pod) × 2 batch ranks: the port's
+    rank runs its microbatch a row at a time, each row one of the
+    reference's dispatch groups (``steps.moe_group_rows``), the aux
+    loss's counts summed per microbatch.  The losses (with the aux loss)
+    and parameters after 3 steps are the reference's run on the same mesh
+    at the ``none`` tolerances, and tokens were dropped."""
+    from repro_torch.configs import MeshConfig
+    from repro_torch.launch.mesh import make_axis_rules
+    from repro_torch.launch.steps import local_microbatches, moe_group_rows
+
+    rules = make_axis_rules(MeshConfig(multi_pod=True, pods=2, data=2,
+                                       model=1))
+    assert moe_group_rows(rules, B // (2 * ACCUM), S) == 1
+    assert local_microbatches(B, 2 * ACCUM, 4, 1) == 2
+    ref, port = runs
+    key = f"{MOE}/none/{MOE_SPREAD}"
+    assert port[f"{key}/dropped"] > 0
+    np.testing.assert_allclose(port[f"{key}/losses"], ref[f"{key}/losses"],
+                               rtol=LOSS_RTOL)
+    keys = _leaf_keys(ref, f"{key}/")
+    assert keys and keys == _leaf_keys(port, f"{key}/")
+    for k in keys:
+        diff = np.abs(port[k] - ref[k]).max()
+        assert diff <= PARAM_RTOL * np.abs(ref[k]).max(), (k, diff)
 
 
 if __name__ == "__main__" and sys.argv[1:2] == ["oracle"]:
