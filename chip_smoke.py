@@ -205,8 +205,12 @@ Phases, each fatal on failure:
    ``smollm-360m`` at full width cut to 4 layers (15/5 heads: attention
    gathered, the FFN Megatron), ``granite-moe-3b-a800m`` cut to 2 (24/8
    heads: Megatron attention; the expert-parallel MoE with ZeRO-3
-   experts), ``jpeg-resnet`` at batch 8, each against the same run on one
-   rank (losses and gathered parameters); ``pipelined_apply`` over 4
+   experts), ``jamba-v0.1-52b`` cut to its first layer (a Mamba mixer
+   with its dense FFN: each rank its half of ``d_inner``, ``in_proj``'s
+   product moved by an all-to-all), ``rwkv6-7b`` cut to 2 (each rank
+   32 of the 64 heads and half of d_ff), ``jpeg-resnet`` at batch 8,
+   each against the same run on one rank (losses and gathered
+   parameters); ``pipelined_apply`` over 4
    stages of one full-width ``smollm-360m`` layer each, 8 microbatches,
    against the stages run in turn.  Every rank must launch each
    workload's kernels.  Multi-device speed is not measured;
@@ -222,9 +226,11 @@ Phases, each fatal on failure:
    SERVE4_LAYERS layers, fp32, prefill and decode over a sequence-sharded
    cache against one rank within SERVE4_RTOL, every rank launching the
    attention forward in prefill; then ``jamba-v0.1-52b`` and
-   ``rwkv6-7b`` at full width cut to SSM4_LAYERS layers, fp32, decoding
-   from one rank's prompt states with each rank stepping its own slice
-   of the Mamba and RWKV states, against one rank within SERVE4_RTOL;
+   ``rwkv6-7b`` at full width cut to SSM4_LAYERS layers, fp32, each rank
+   prefilling its row with its own slice of the Mamba and RWKV layers
+   (logits and state slices against one rank's prefill within
+   SERVE4_RTOL), then decoding on from those states, each rank stepping
+   its own state slice, against one rank's decode within SERVE4_RTOL;
 25. the paper's own formulation in ``core/``, fp32 with TF32 off, each
    card result against the same function on CPU copies (the plain
    versions): (a) Algorithm 1 at CIFAR size: ``explode_full`` (a 1.07 GB
@@ -414,6 +420,14 @@ MESH_MOE_RTOL = 1e-5
 #: microbatches of PP_MB × PP_SEQ) MESH_PIPE_RTOL of the largest |value|.
 MESH4_BATCH, MESH4_SEQ, MESH4_ACCUM, MESH4_STEPS = 4, 512, 2, 2
 MESH4_SMOLLM_LAYERS, MESH4_GRANITE_LAYERS, MESH4_MOE_CF = 4, 2, 5.0
+#: phase 23's Mamba and RWKV runs at full width, each cut to its depth.
+#: A leaf drawn at zero holds only AdamW's updates after the steps: their
+#: fp32 rounding, over ``eps``, is 1e-5 to 4e-5 of its largest |value|
+#: whatever the layout (RWKV's ``ln_b`` at d 1024 on the CPU: 3.4e-5 on 4
+#: data ranks with no model cut; at full width on 2 × 2 on the card,
+#: 3.2e-5), so such leaves start at MESH4_OFF_ZERO × N(0, 1)
+MESH4_SSM_LAYERS = (("jamba-v0.1-52b", 1), ("rwkv6-7b", 2))
+MESH4_OFF_ZERO = 0.1
 MESH_EPS, MESH_LOSS_RTOL, MESH_PARAM_RTOL, MESH_PIPE_RTOL = \
     1e-3, 1e-5, 1e-5, 1e-6
 PP_STAGES, PP_MICRO, PP_MB, PP_SEQ = 4, 8, 1, 512
@@ -421,11 +435,16 @@ JPEG_KERNELS = ("fused_block", "jpeg_conv", "asm_relu", "block_dct",
                 "block_idct")
 KERNELS = JPEG_KERNELS + ("flash_attention", "flash_attention_bwd")
 #: the kernels each of phase 23's workloads must launch on every rank
+#: (the Mamba layer and RWKV run no hand-written kernel: their scans are
+#: torch ops, as the reference's are jnp)
 MESH4_KERNELS = {
     "smollm-360m": ("flash_attention", "flash_attention_bwd"),
     "granite-moe-3b-a800m": ("flash_attention", "flash_attention_bwd"),
+    "jamba-v0.1-52b": (), "rwkv6-7b": (),
     "jpeg-resnet": ("jpeg_conv", "asm_relu", "block_dct", "block_idct"),
     "pipeline": ("flash_attention",)}
+#: phase 23's training runs, in order
+MESH4_RUNS = tuple(k for k in MESH4_KERNELS if k != "pipeline")
 #: phase 24 (a): production cells traced with no card (arch, shape, mesh)
 DRYRUN_CELLS = (("smollm-360m", "train_4k", "single"),
                 ("mixtral-8x7b", "decode_32k", "single"),
@@ -444,14 +463,14 @@ CARD_BYTES = 80e9
 SERVE4_LAYERS, SERVE4_BATCH, SERVE4_PROMPT, SERVE4_SLOTS, SERVE4_DECODE = \
     4, 2, 512, 1024, 8
 SERVE4_RTOL = 1e-5
-#: phase 24 (c)'s sliced Mamba and RWKV decode: each arch at full width
-#: cut to SSM4_LAYERS layers (jamba's two are Mamba mixers, the second
-#: with its MoE FFN at capacity factor SSM4_CAPACITY, so neither a shard
-#: nor one rank drops a token), fp32, SERVE4_BATCH prompts of SSM4_PROMPT
-#: tokens prefilled on one rank, then SSM4_DECODE steps on four ranks
-#: from those states, against one rank within SERVE4_RTOL
+#: phase 24 (c)'s sliced Mamba and RWKV prefill and decode: each arch at
+#: full width cut to SSM4_LAYERS layers (jamba's two are Mamba mixers, the
+#: second with its MoE FFN at capacity factor SSM4_CAPACITY, so neither a
+#: shard nor one rank drops a token), fp32, SERVE4_BATCH prompts of
+#: SSM4_PROMPT tokens prefilled on four ranks, then SSM4_DECODE steps on
+#: from those states, each against one rank within SERVE4_RTOL
 SSM4_ARCHS = ("jamba-v0.1-52b", "rwkv6-7b")
-SSM4_LAYERS, SSM4_PROMPT, SSM4_DECODE, SSM4_CAPACITY = 2, 64, 2, 8.0
+SSM4_LAYERS, SSM4_PROMPT, SSM4_DECODE, SSM4_CAPACITY = 2, 512, 2, 8.0
 #: phase 25: Algorithm 1 at CIFAR size (PAPER_BATCH images of PAPER_CH
 #: channels, PAPER_IMAGE² pixels, a PAPER_CH → PAPER_CH 3×3 kernel: a 1.07
 #: GB operator at stride 1) and Fig. 4a's PAPER_BLOCKS blocks; the convs
@@ -3178,15 +3197,20 @@ def mesh_run_config(cfg, batch: int, seq: int, accum: int, comp: str = "none",
 
 
 def mesh_train(model, run, mesh, full_params, batches):
-    """``build_train_step`` from ``full_params``, one step a batch →
-    (losses, parameters (this rank's), spec tree, step ms)."""
+    """``build_train_step`` from ``full_params`` (the whole tree, or a
+    function that draws it, whose tree is freed once this rank has its
+    slices), one step a batch → (losses, parameters (this rank's), spec
+    tree, step ms)."""
     import torch
 
     from repro_torch.launch.mesh import make_axis_rules
     from repro_torch.launch.steps import build_train_step
 
     b = build_train_step(model, run, mesh, make_axis_rules(run.mesh))
-    params = b.init_fns[0](full_params)
+    full = full_params() if callable(full_params) else full_params
+    params = b.init_fns[0](full)
+    del full
+    torch.cuda.empty_cache()
     opt = b.init_fns[1](params)
     losses, ms = [], []
     for batch in batches:
@@ -3379,46 +3403,61 @@ def mesh_one_phase(dev, card: str, launches: dict, mesh) -> None:
 
 
 def mesh4_workloads(dev):
-    """Phase 23's runs: (name, model, run config on 2×2, full parameters,
-    batches).  ``smollm-360m`` cut to MESH4_SMOLLM_LAYERS layers (15/5
-    heads: attention gathered), ``granite-moe-3b-a800m`` cut to
-    MESH4_GRANITE_LAYERS (24/8 heads: Megatron; experts on the
+    """Phase 23's runs, one at a time: (name, model, run config on 2×2, a
+    function that draws the full parameters, batches).  ``smollm-360m`` cut to MESH4_SMOLLM_LAYERS
+    layers (15/5 heads: attention gathered), ``granite-moe-3b-a800m`` cut
+    to MESH4_GRANITE_LAYERS (24/8 heads: Megatron; experts on the
     expert-parallel path with ZeRO-3 storage; capacity factor
     MESH4_MOE_CF, so no shard drops and one rank runs the same
-    computation), fp32, AdamW eps MESH_EPS; full ``jpeg-resnet`` at batch
-    TRAIN_BATCH (batch norm statistics over every rank's rows)."""
+    computation), ``jamba-v0.1-52b`` and ``rwkv6-7b`` cut as
+    MESH4_SSM_LAYERS says (drawn on the card: each rank runs the model
+    axis's slice of their Mamba and RWKV layers; the leaves they draw at
+    zero, Mamba's ``conv_b`` and RWKV's ``ln_b``, moved off it by
+    MESH4_OFF_ZERO), fp32, AdamW eps MESH_EPS; full ``jpeg-resnet`` at
+    batch TRAIN_BATCH (batch norm statistics over every rank's rows)."""
     import torch
 
     from repro_torch.configs import get_config
     from repro_torch.data.pipeline import token_iterator
     from repro_torch.launch import train
     from repro_torch.models.registry import build_model
+    from repro_torch.tree import leaves
 
-    out = []
+    def off_zero(params):
+        noise = torch.Generator(device=dev).manual_seed(1)
+        for leaf in leaves(params):
+            if not leaf.any():
+                leaf.copy_(MESH4_OFF_ZERO * torch.randn(
+                    leaf.shape, generator=noise, device=dev))
+        return params
+
     for arch, layers in ((LM_ARCH, MESH4_SMOLLM_LAYERS),
-                         (MOE_ARCH, MESH4_GRANITE_LAYERS)):
+                         (MOE_ARCH, MESH4_GRANITE_LAYERS)) \
+            + MESH4_SSM_LAYERS:
         cfg = dataclasses.replace(get_config(arch), n_layers=layers,
                                   dtype="float32")
         if cfg.n_experts:
             cfg = dataclasses.replace(cfg, capacity_factor=MESH4_MOE_CF)
         model = build_model(cfg, remat="full")
-        params = model.init_params(torch.Generator().manual_seed(0), dev)
         batches = [train.to_model_batch(cfg, next(token_iterator(
             s, MESH4_BATCH, MESH4_SEQ, cfg.vocab_size)), dev)
             for s in range(MESH4_STEPS)]
-        out.append((arch, model, mesh_run_config(
+        draw = (lambda m=model: off_zero(m.init_params(
+            torch.Generator(device=dev).manual_seed(0), dev))) \
+            if cfg.ssm_kind else (lambda m=model: m.init_params(
+                torch.Generator().manual_seed(0), dev))
+        yield (arch, model, mesh_run_config(
             cfg, MESH4_BATCH, MESH4_SEQ, MESH4_ACCUM, eps=MESH_EPS, data=2,
-            model=2), params, batches))
+            model=2), draw, batches)
     cfg = get_config("jpeg-resnet")
     model = build_model(cfg)
-    params = model.init_params(torch.Generator().manual_seed(0), dev)
     it = train.build_iterator(cfg, TRAIN_BATCH, 0, 0, dev)
     batches = [train.to_model_batch(cfg, next(it), dev)
                for _ in range(MESH4_STEPS)]
-    out.append(("jpeg-resnet", model, mesh_run_config(
+    yield ("jpeg-resnet", model, mesh_run_config(
         cfg, TRAIN_BATCH, cfg.image_size, 1, eps=MESH_EPS, data=2, model=2),
-        params, batches))
-    return out
+        lambda: model.init_params(torch.Generator().manual_seed(0), dev),
+        batches)
 
 
 def pipeline_inputs(dev):
@@ -3474,6 +3513,7 @@ def mesh4_reference(dev, mesh, path: str) -> None:
             ref[name]["nudged"] = {k: v.cpu() for k, v in leaves_with_paths(
                 tree_map(lambda x, s: gather_full(x, s, mesh), q, specs))}
         del p, full, params, batches
+        torch.cuda.empty_cache()
     stages, mb, stage_fn = pipeline_inputs(dev)
     seq = mb
     for p in stages:
@@ -3505,14 +3545,18 @@ def mesh4_rank(mesh):
     out = {}
     for name, model, run, params, batches in mesh4_workloads(dev):
         reset_counts()
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats()
         losses, p, specs, ms = mesh_train(model, run, mesh, params, batches)
         launched = counts()
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30 \
+            if dev.type == "cuda" else 0.0
         full = tree_map(lambda x, s: gather_full(x, s, mesh), p, specs)
         want = ref[name]
         loss_err = max(abs(a - b) / abs(b) for a, b in
                        zip(losses, want["losses"]))
         worst = (0.0, "")
-        p0 = dict(leaves_with_paths(params))
+        p0 = dict(leaves_with_paths(params())) if "nudged" in want else {}
         for path, x in leaves_with_paths(full):
             w = want["params"][path].to(x.device)
             if "nudged" in want:
@@ -3532,7 +3576,7 @@ def mesh4_rank(mesh):
                                     / max(float(w.abs().max()), 1e-30),
                                     path))
         out[name] = {"losses": losses, "loss_err": loss_err,
-                     "param_err": worst, "ms": ms,
+                     "param_err": worst, "ms": ms, "peak_gib": peak,
                      "one_rank_ms": want["ms"], "launches": launched}
         del p, full, params, batches
         torch.cuda.empty_cache()
@@ -3592,7 +3636,7 @@ def mesh_phases(dev, card: str, launches: dict) -> None:
         shutil.rmtree(ref_dir, ignore_errors=True)
     wall = time.perf_counter() - t0
     for r in ranks:
-        for name in ("smollm-360m", "granite-moe-3b-a800m", "jpeg-resnet"):
+        for name in MESH4_RUNS:
             res = r[name]
             bound = 1.0 if name == "jpeg-resnet" else MESH_PARAM_RTOL
             if not (res["loss_err"] <= MESH_LOSS_RTOL
@@ -3613,7 +3657,7 @@ def mesh_phases(dev, card: str, launches: dict) -> None:
             for k, v in got.items():
                 launches[k] += v
     r0 = ranks[0]
-    for name in ("smollm-360m", "granite-moe-3b-a800m", "jpeg-resnet"):
+    for name in MESH4_RUNS:
         res = r0[name]
         pe = res["param_err"]
         held = (f"parameters {pe[0]:.3e} of the leaf's largest (at "
@@ -3624,7 +3668,8 @@ def mesh_phases(dev, card: str, launches: dict) -> None:
             f"[{card}]: losses {res['losses']}, against one rank: losses "
             f"{res['loss_err']:.3e}, {held}; step ms "
             f"{[round(t, 1) for t in res['ms']]} (one rank "
-            f"{[round(t, 1) for t in res['one_rank_ms']]})")
+            f"{[round(t, 1) for t in res['one_rank_ms']]}); rank 0's peak "
+            f"{res['peak_gib']:.2f} GiB")
     pp = r0["pipeline"]
     staged = {k: sum(r["staged"].get(k, 0) for r in ranks)
               for k in sorted({k for r in ranks for k in r["staged"]})}
@@ -3705,7 +3750,7 @@ def serve4_inputs(dev):
 
 
 def ssm4_inputs(arch: str):
-    """Phase 24 (c)'s sliced decode of ``arch``: the config cut to
+    """Phase 24 (c)'s sliced prefill and decode of ``arch``: the config cut to
     SSM4_LAYERS layers, fp32, the model, the prompt and the decode tokens
     (seed 6); the parameters come from :func:`ssm4_params`."""
     import torch
@@ -3735,9 +3780,9 @@ def ssm4_params(model, dev):
 
 
 def ssm4_reference(dev) -> dict:
-    """Each of SSM4_ARCHS on one rank: the states after the prompt in a
-    decode cache of SERVE4_SLOTS slots, each decode step's logits and the
-    cache after them, on the host."""
+    """Each of SSM4_ARCHS on one rank: the prefill's logits and cache, the
+    states after the prompt in a decode cache of SERVE4_SLOTS slots, each
+    decode step's logits and the cache after them, on the host."""
     import torch
 
     from repro_torch.tree import tree_map
@@ -3747,7 +3792,8 @@ def ssm4_reference(dev) -> dict:
         cfg, model, prompt, toks = ssm4_inputs(arch)
         params = ssm4_params(model, dev)
         with torch.no_grad():
-            _, cache = model.prefill(params, {"tokens": prompt.to(dev)})
+            logits, cache = model.prefill(params,
+                                          {"tokens": prompt.to(dev)})
             dcache = model.init_cache(SERVE4_BATCH, SERVE4_SLOTS, dev)
             for j, c in cache.items():
                 if j == "index":
@@ -3762,6 +3808,7 @@ def ssm4_reference(dev) -> dict:
                                             {"tokens": t.to(dev)})
                 outs.append(lg)
         out[arch] = tree_map(lambda x: x.cpu(), {
+            "prefill_logits": logits, "prefill_cache": cache,
             "decode_cache": dcache, "decode_logits": torch.stack(outs),
             "decode_cache_after": one})
         del params, cache, dcache, one
@@ -3770,27 +3817,34 @@ def ssm4_reference(dev) -> dict:
 
 
 def ssm4_rank(mesh, dev, ref: dict, err) -> dict:
-    """One rank's sliced decode of each of SSM4_ARCHS against its part of
-    one rank's run; the whole parameters are drawn one rank at a time,
-    each rank keeping its slices.  Returns the largest differences and the
-    collective bytes of the first step."""
+    """One rank's sliced prefill of each of SSM4_ARCHS, then its sliced
+    decode on from the states it computed, each against its part of one
+    rank's run; the whole parameters are drawn one rank at a time, each
+    rank keeping its slices.  Returns the largest differences and the
+    collective bytes of the prefill and of the first decode step."""
     import torch
     import torch.distributed as dist
 
     from repro_torch.configs import MeshConfig, RunConfig, ShapeConfig
     from repro_torch.introspect import opcount
     from repro_torch.launch.mesh import make_axis_rules
-    from repro_torch.launch.steps import build_decode_step
+    from repro_torch.launch.steps import (build_decode_step,
+                                          build_prefill_step,
+                                          cache_shardings)
+    from repro_torch.parallel.sharding import local_slice
     from repro_torch.tree import leaves, tree_map
 
     mc = MeshConfig(data=2, model=2)
     rules = make_axis_rules(mc)
     out = {}
     for arch in SSM4_ARCHS:
-        cfg, model, _, toks = ssm4_inputs(arch)
+        cfg, model, prompt, toks = ssm4_inputs(arch)
         run = RunConfig(model=cfg, shape=ShapeConfig(
             "d", SERVE4_SLOTS, SERVE4_BATCH, "decode"), mesh=mc)
         db = build_decode_step(model, run, mesh, rules)
+        pb = build_prefill_step(model, dataclasses.replace(
+            run, shape=ShapeConfig("p", SSM4_PROMPT, SERVE4_BATCH,
+                                   "prefill")), mesh, rules)
         local = None
         for turn in range(dist.get_world_size()):
             if dist.get_rank() == turn:
@@ -3800,8 +3854,30 @@ def ssm4_rank(mesh, dev, ref: dict, err) -> dict:
                 torch.cuda.empty_cache()
             dist.barrier()
         want = ref[arch]
+        with torch.no_grad(), opcount.count() as cost:
+            logits, cache = pb.step_fn(local, {"tokens": prompt.to(dev)})
+        out[f"{arch} prefill collective bytes"] = cost.collective_bytes
+        out[f"{arch} prefill_logits"] = err(
+            logits, want["prefill_logits"][pb.rows])
+        specs = cache_shardings(model.init_cache(
+            SERVE4_BATCH, SSM4_PROMPT, "meta"), cfg, rules, SERVE4_BATCH)
+        mine = tree_map(lambda x, sp: local_slice(x, sp, mesh),
+                        want["prefill_cache"], specs)
+        out[f"{arch} prefill_cache"] = max(
+            err(a, b) for a, b in zip(leaves(cache), leaves(mine))
+            if a.dim())
+        # decode goes on from the states this rank's prefill computed
+        # (keys and values, where a cut has attention, from one rank's)
         lc = tree_map(lambda x: x.to(dev), db.init_fns[1](
             want["decode_cache"]))
+        for j, c in cache.items():
+            if j == "index":
+                lc[j].copy_(c)
+                continue
+            for n, x in c.items():
+                if n not in ("k", "v"):
+                    lc[j][n].copy_(x)
+        del cache
         errs = []
         with torch.no_grad():
             for i, t in enumerate(toks):
@@ -4069,14 +4145,15 @@ def dryrun_phase(dev, card: str, launches: dict) -> None:
         f"attention launches per rank "
         f"{[r['launches']['flash_attention'] for r in ranks]}; 4 ranks in "
         f"{wall4:.2f} s; phase 24 in {time.perf_counter() - t0:.2f} s")
-    log(f"serve 2x2 sliced decode, {' and '.join(SSM4_ARCHS)} at full "
-        f"width cut to {SSM4_LAYERS} layers, fp32, {SERVE4_BATCH} prompts "
-        f"of {SSM4_PROMPT} on one rank, then {SSM4_DECODE} steps on the 4 "
-        f"ranks [{card}]: largest difference from one rank over the ranks "
+    log(f"serve 2x2 sliced prefill and decode, {' and '.join(SSM4_ARCHS)} "
+        f"at full width cut to {SSM4_LAYERS} layers, fp32, {SERVE4_BATCH} "
+        f"prompts of {SSM4_PROMPT} prefilled on the 4 ranks, then "
+        f"{SSM4_DECODE} steps on from their states [{card}]: largest "
+        f"difference from one rank over the ranks "
         f"{ {k: max(r['ssm'][k] for r in ranks) for k in ranks[0]['ssm']} }"
-        f" (collective bytes: a rank's first step, every layer: the "
-        f"embedding and head gathered whole, and jamba's MoE experts "
-        f"gathered over data)")
+        f" (collective bytes: a rank's prefill and first decode step, every"
+        f" layer: the embedding and head gathered whole, and jamba's MoE "
+        f"experts gathered over data)")
 
 
 def examples_phase(dev, card: str, launches: dict) -> None:

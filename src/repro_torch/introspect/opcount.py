@@ -201,7 +201,8 @@ def add_work(cost: OpCost, times: float = 1.0) -> None:
 def add_collective(kind: str, nbytes: float, group_size: int) -> None:
     """Add one collective call to the active counts: ``kind`` (the
     reference's op names: ``all-reduce``, ``all-gather``,
-    ``reduce-scatter``, ``collective-broadcast``, ``collective-permute``),
+    ``reduce-scatter``, ``all-to-all``, ``collective-broadcast``,
+    ``collective-permute``),
     its payload bytes by the reference's rule and its group's size."""
     for c in _active():
         for entry in c.collectives:

@@ -15,13 +15,14 @@ Under mesh rules (``parallel/sharding.py``; the training step of
 weights.  Where a weight arrives cut over ``model`` the layer runs the
 Megatron split: :func:`model_in` enters the region (identity forward, the
 gradient summed over ``model``), each rank computes its heads or its d_ff
-columns, and :func:`model_out` sums the partial outputs.  The reference's
+columns, and :func:`model_out` sums the partial outputs.  The Mamba and
+RWKV layers run their own splits through a :class:`Split`.  The reference's
 ``shard(...)`` hints have no counterpart: a rank's activations are
 already its own rows.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Any, NamedTuple, Optional
 
 import math
 
@@ -173,3 +174,51 @@ def model_out(x: torch.Tensor) -> torch.Tensor:
 
     rules = active_rules()
     return C.ReduceFrom.apply(x, rules.mesh, rules.axes("model"))
+
+
+class Split(NamedTuple):
+    """A layer's work cut over the mesh axes ``axes``, each rank computing
+    its part (a Mamba layer's ``d_inner`` slice, an RWKV layer's heads and
+    channel-mix columns), with the autograd forms of
+    ``parallel/collectives.py`` at its edges, so the forward and its
+    gradient both hold."""
+    mesh: Any
+    axes: tuple[str, ...]
+
+    def enter(self, x: torch.Tensor) -> torch.Tensor:
+        """``x``, whole on every rank, as the region's input: its gradient
+        summed over the ranks' parts."""
+        from repro_torch.parallel import collectives as C
+
+        return C.CopyTo.apply(x, self.mesh, self.axes)
+
+    def exit(self, x: torch.Tensor) -> torch.Tensor:
+        """The ranks' partial products summed: the region's output, whole
+        on every rank."""
+        from repro_torch.parallel import collectives as C
+
+        return C.ReduceFrom.apply(x, self.mesh, self.axes)
+
+    def join(self, x: torch.Tensor, summed: bool) -> torch.Tensor:
+        """The ranks' column slices ``x`` joined along the last dim.  The
+        gradient of the whole is reduce-scattered when ``summed`` (each
+        rank's use of it gives a partial gradient), else each rank keeps
+        its own columns of it (every rank's gradient is the same)."""
+        from repro_torch.parallel import collectives as C
+
+        return C.GatherParam.apply(
+            x, self.mesh, ((x.dim() - 1, self.axes),),
+            frozenset(self.axes) if summed else frozenset())
+
+    def part(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        """This rank's chunk along ``dim`` of ``x``, whole on every rank;
+        the gradient gathered (``collectives.OwnChunk``)."""
+        from repro_torch.parallel import collectives as C
+
+        return C.OwnChunk.apply(x, self.mesh, self.axes, dim)
+
+    def index(self) -> tuple[int, int]:
+        """(this rank's part, the number of parts)."""
+        from repro_torch.parallel.sharding import chunk_of
+
+        return chunk_of(self.mesh, self.axes)

@@ -13,9 +13,15 @@ Each chunk is recomputed in the backward (non-reentrant
 ``torch.utils.checkpoint``), as ``jax.checkpoint(outer)`` does.  The scan
 is torch ops: the reference writes it in jnp, with no Pallas kernel.
 
-Decode is the single-step recurrence over ``(conv, ssm)`` states; on a
-mesh it steps this rank's slice of ``d_inner`` (``mamba_decode_step``'s
-``xz`` and ``reduce``).
+Decode is the single-step recurrence over ``(conv, ssm)`` states.
+
+On a mesh a rank computes its own slice of ``d_inner``, as the reference's
+partitioner cuts the layer (its ``xin`` pinned to ``model``, the weights'
+specs of ``parallel/sharding.py``), in the forward, prefill and decode
+alike: ``xz`` is the rank's x and z columns of the in-projection's product
+and a ``layers.Split`` sums the x- and out-projections' partial products;
+the causal conv, the scan, ``d_skip`` and the gate run on the slice, and
+the states a prefill or a decode step returns are the rank's slices.
 """
 from __future__ import annotations
 
@@ -205,18 +211,38 @@ def _selective_scan(delta: torch.Tensor, a: torch.Tensor, bmat: torch.Tensor,
     return torch.cat(ys, 1), h
 
 
+def _x_proj(xc: torch.Tensor, w: torch.Tensor, cfg: ModelConfig, split
+            ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """dt, B and C from the conv's output: on a mesh the partial products
+    of the rank's rows of ``x_proj`` summed first, then taken as the
+    input of the rank's part again (dt feeds its ``dt_proj`` columns, B
+    and C its slice of the scan)."""
+    proj = xc @ w
+    if split is not None:
+        proj = split.enter(split.exit(proj))
+    ds = cfg.d_state
+    return proj.split([_dt_rank(cfg), ds, ds], dim=-1)
+
+
 def mamba_forward(x: torch.Tensor, params: dict, cfg: ModelConfig,
-                  cache: dict | None = None
+                  cache: dict | None = None, *,
+                  xz: torch.Tensor | None = None, split=None
                   ) -> tuple[torch.Tensor, dict | None]:
     """(B, S, D) → (B, S, D); with ``cache`` (its states before the
-    sequence) also the cache after it, as decode takes it."""
+    sequence) also the cache after it, as decode takes it.
+
+    On a mesh (``split``, a ``layers.Split``) ``params`` and ``cache``
+    hold this rank's slice of ``d_inner``, ``xz`` is the rank's x and z
+    columns of the in-projection's product (B, S, 2·di/n), and the
+    returned states are the rank's slices."""
     s = x.shape[1]
-    ds, dtr = cfg.d_state, _dt_rank(cfg)
-    xin, z = (x @ params["in_proj"]).chunk(2, dim=-1)
+    if xz is None:
+        xz = x @ params["in_proj"]
+    xin, z = xz.chunk(2, dim=-1)
     conv_init = None if cache is None else cache["conv"]
     xc = F.silu(_causal_conv(xin, params["conv_w"], params["conv_b"],
                              conv_init))
-    dt, bmat, cmat = (xc @ params["x_proj"]).split([dtr, ds, ds], dim=-1)
+    dt, bmat, cmat = _x_proj(xc, params["x_proj"], cfg, split)
     delta = F.softplus(dt @ params["dt_proj"] + params["dt_bias"]).float()
     a = -torch.exp(params["a_log"])  # (di, ds)
     xbar = delta * xc.float()
@@ -229,6 +255,8 @@ def mamba_forward(x: torch.Tensor, params: dict, cfg: ModelConfig,
                                 h0)
     y = y + params["d_skip"] * xc.float()
     out = (y.to(x.dtype) * F.silu(z)) @ params["out_proj"]
+    if split is not None:
+        out = split.exit(out)
     if cache is None:
         return out, None
     dc = params["conv_w"].shape[0]
@@ -263,26 +291,17 @@ def _ssm_step(h: torch.Tensor, delta: torch.Tensor, a: torch.Tensor,
 
 def mamba_decode_step(x: torch.Tensor, params: dict, cfg: ModelConfig,
                       cache: dict, *, xz: torch.Tensor | None = None,
-                      reduce=None) -> tuple[torch.Tensor, dict]:
-    """One token, ``x`` (B, 1, D) → (out (B, 1, D), the new states).
-
-    On a mesh a rank steps one slice of ``d_inner``: ``params`` and
-    ``cache`` hold that slice, ``xz`` is the token's x and z columns of it
-    (B, 2·di/n; the in-projection's own column slice does not line up
-    with them), and ``reduce`` sums the partial products of the x- and
-    out-projections, whose rows are cut along ``d_inner``, over the
-    slices."""
-    ds, dtr = cfg.d_state, _dt_rank(cfg)
+                      split=None) -> tuple[torch.Tensor, dict]:
+    """One token, ``x`` (B, 1, D) → (out (B, 1, D), the new states); on a
+    mesh over this rank's slice of ``d_inner`` as in
+    :func:`mamba_forward`, ``xz`` (B, 1, 2·di/n)."""
     if xz is None:
-        xz = x[:, 0] @ params["in_proj"]
-    xin, z = xz.chunk(2, dim=-1)  # (B, di)
+        xz = x @ params["in_proj"]
+    xin, z = xz[:, 0].chunk(2, dim=-1)  # (B, di)
     conv_buf = torch.cat([cache["conv"], xin[:, None]], dim=1)  # (B, dc, di)
     xc = F.silu(torch.einsum("bcd,cd->bd", conv_buf, params["conv_w"])
                 + params["conv_b"])
-    proj = xc @ params["x_proj"]
-    if reduce is not None:
-        proj = reduce(proj)
-    dt, bmat, cmat = proj.split([dtr, ds, ds], dim=-1)
+    dt, bmat, cmat = _x_proj(xc, params["x_proj"], cfg, split)
     delta = F.softplus(dt @ params["dt_proj"] + params["dt_bias"]).float()
     a = -torch.exp(params["a_log"])
     y, h = _ssm_step(cache["ssm"], delta, a, bmat.float(), cmat.float(),
@@ -290,6 +309,6 @@ def mamba_decode_step(x: torch.Tensor, params: dict, cfg: ModelConfig,
     y = y + params["d_skip"] * xc.float()
     y = y.to(x.dtype) * F.silu(z)
     out = y @ params["out_proj"]
-    if reduce is not None:
-        out = reduce(out)
+    if split is not None:
+        out = split.exit(out)
     return out[:, None], {"conv": conv_buf[:, 1:], "ssm": h}

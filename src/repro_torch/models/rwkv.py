@@ -27,9 +27,16 @@ torch ops: the reference writes it in jnp, with no Pallas kernel.  Its
 plain version, :func:`_wkv_plain`, runs the one-step recurrence token by
 token (``plain=True``: a ``reference`` dispatch path).
 
-Decode is the single-token recurrence over the shift states and S; on a
-mesh it steps this rank's heads of S (``rwkv_time_mix_decode``'s
-``reduce``, ``rwkv_channel_mix``'s ``gather``).
+Decode is the single-token recurrence over the shift states and S.
+
+On a mesh (a ``layers.Split`` over ``model``) a rank computes, in the
+forward, prefill and decode alike, its own heads of the time mix (its
+columns of ``receptance``, ``key``, ``value``, ``gate`` and
+``decay_w2``, its rows of ``output``, whose partial products are summed)
+and its own ``d_ff`` columns of the channel mix, whose hidden activation
+is gathered before ``value``'s column slice and whose output columns are
+gathered, as the reference's compiled step moves them; the token-shift
+mixes run whole on every rank.
 """
 from __future__ import annotations
 
@@ -200,23 +207,30 @@ def _group_norm_heads(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
     return xh.reshape(b, s, d) * w + bias
 
 
-def _time_mix(x, p, cfg: ModelConfig, cache, wkv, reduce=None):
+def _time_mix(x, p, cfg: ModelConfig, cache, wkv, split=None):
     """The time mix around ``wkv`` (the chunked scan or one step); the
     decays and the recurrence in fp32, or wider for a wider model.  The
-    heads are those of ``p``'s projections: a slice of them on a mesh,
-    where ``reduce`` sums the output projection's partial products."""
+    heads are those of ``p``'s projections: on a mesh (``split``) this
+    rank's, the mixed inputs of the projections entering the rank's part
+    and the output projection's partial products summed."""
     b, s, _ = x.shape
     hs = cfg.rwkv_head_size
     d = p["receptance"].shape[-1]  # this rank's heads' width
     nh = d // hs
     acc = torch.promote_types(x.dtype, torch.float32)
     xx = _token_shift(x, None if cache is None else cache["shift_tm"])
-    xw, xk, xv, xr, xg = _ddlerp(x, xx, p)
+    mixed = _ddlerp(x, xx, p)
+    lora = torch.tanh(mixed[0] @ p["decay_w1"])
+    if split is not None:
+        mixed, lora = split.enter(mixed[1:]), split.enter(lora)
+    else:
+        mixed = mixed[1:]
+    xk, xv, xr, xg = mixed
     r = (xr @ p["receptance"]).reshape(b, s, nh, hs)
     k = (xk @ p["key"]).reshape(b, s, nh, hs)
     v = (xv @ p["value"]).reshape(b, s, nh, hs)
     g = F.silu(xg @ p["gate"])
-    decay = p["decay_base"] + torch.tanh(xw @ p["decay_w1"]) @ p["decay_w2"]
+    decay = p["decay_base"] + lora @ p["decay_w2"]
     w = torch.exp(-torch.exp(decay.to(acc))).reshape(b, s, nh, hs)
     w = torch.clamp(w, min=math.exp(-MAX_NEG_LOGW))  # numerical guard
     s0 = x.new_zeros((b, nh, hs, hs), dtype=acc) if cache is None \
@@ -226,37 +240,43 @@ def _time_mix(x, p, cfg: ModelConfig, cache, wkv, reduce=None):
                         p["bonus"].to(acc), s0)
     y = _group_norm_heads(y.reshape(b, s, d), p["ln_w"], p["ln_b"], nh)
     out = (y.to(x.dtype) * g) @ p["output"]
-    if reduce is not None:
-        out = reduce(out)
+    if split is not None:
+        out = split.exit(out)
     new_cache = None if cache is None else {"shift_tm": x[:, -1:],
                                             "wkv": s_last}
     return out, new_cache
 
 
 def rwkv_time_mix(x: torch.Tensor, p: dict, cfg: ModelConfig,
-                  cache: dict | None = None, *, plain: bool = False):
+                  cache: dict | None = None, *, plain: bool = False,
+                  split=None):
     """(B, S, D) → (B, S, D) over the chunked scan (its plain version with
     ``plain``); with ``cache`` (``shift_tm``, ``wkv``) it starts from that
-    state and returns the new one, else None."""
-    return _time_mix(x, p, cfg, cache, _wkv_plain if plain else _wkv_chunked)
+    state and returns the new one, else None.  On a mesh (``split``)
+    ``p`` and ``wkv`` are this rank's heads (:func:`_time_mix`)."""
+    return _time_mix(x, p, cfg, cache, _wkv_plain if plain else _wkv_chunked,
+                     split)
 
 
 def rwkv_channel_mix(x: torch.Tensor, p: dict, cfg: ModelConfig,
-                     cache: dict | None = None, gather=None):
+                     cache: dict | None = None, split=None):
     """(B, S, D) → (B, S, D); with ``cache`` (``shift_cm``) it shifts in
-    that token and returns the new one, else None.  On a mesh ``p`` holds
-    a column slice of ``key``, ``value`` and ``receptance``, and
-    ``gather`` joins the slices' columns of the hidden activation and of
-    the output."""
+    that token and returns the new one, else None.  On a mesh (``split``)
+    ``p`` holds this rank's columns of ``key`` (of d_ff), ``value`` and
+    ``receptance`` (of d): the hidden activation's columns are gathered
+    whole for ``value``'s slice (its gradient reduce-scattered), and the
+    output's columns gathered, as the reference's compiled step does."""
     xx = _token_shift(x, None if cache is None else cache["shift_cm"])
     xk = x + (xx - x) * p["mu_k"]
     xr = x + (xx - x) * p["mu_r"]
+    if split is not None:
+        xk, xr = split.enter(torch.stack([xk, xr]))
     k = torch.square(F.relu(xk @ p["key"]))
-    if gather is not None:
-        k = gather(k)
+    if split is not None:
+        k = split.join(k, summed=True)
     out = torch.sigmoid(xr @ p["receptance"]) * (k @ p["value"])
-    if gather is not None:
-        out = gather(out)
+    if split is not None:
+        out = split.join(out, summed=False)
     return out, (None if cache is None else {"shift_cm": x[:, -1:]})
 
 
@@ -275,13 +295,13 @@ def init_rwkv_cache(cfg: ModelConfig, batch: int, dtype: torch.dtype,
 
 
 def rwkv_time_mix_decode(x: torch.Tensor, p: dict, cfg: ModelConfig,
-                         cache: dict, reduce=None):
+                         cache: dict, split=None):
     """One token (B, 1, D) of the time mix by the single-step recurrence
     → (output, new ``shift_tm`` and ``wkv``); on a mesh over this rank's
     heads of ``wkv`` (:func:`_time_mix`)."""
-    return _time_mix(x, p, cfg, cache, _wkv_step, reduce)
+    return _time_mix(x, p, cfg, cache, _wkv_step, split)
 
 
 def rwkv_channel_mix_decode(x: torch.Tensor, p: dict, cfg: ModelConfig,
-                            cache: dict, gather=None):
-    return rwkv_channel_mix(x, p, cfg, cache, gather)
+                            cache: dict, split=None):
+    return rwkv_channel_mix(x, p, cfg, cache, split)

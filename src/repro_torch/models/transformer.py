@@ -40,10 +40,15 @@ per leaf class: self-attention whose query and key/value head counts both
 divide over ``model`` runs Megatron's split (column-parallel q/k/v,
 row-parallel ``o_proj``, one all-reduce), and so does the SwiGLU FFN
 (``w_gate``/``w_in`` by columns, ``w_out`` by rows); the MoE's experts
-take ``models/moe.py``'s expert-parallel path; every other leaf cut over
-an axis (the embedding and tied head, attention with uneven heads such as
-``smollm-360m``'s 15/5, cross-attention, whisper's gelu MLP, Mamba and
-RWKV weights) is gathered whole just before its layer runs and its
+take ``models/moe.py``'s expert-parallel path; a Mamba layer runs its
+own ``d_inner`` slice and an RWKV layer its own heads and channel-mix
+columns, as the reference's partitioner cuts them (:data:`_SLICED`):
+``in_proj``'s product reaches the slice that needs it by one all-to-all,
+the partial products of the projections cut by rows are summed, and the
+RWKV channel mix gathers its hidden activation and its output columns.
+Every other leaf cut over an axis (the embedding and tied head, attention
+with uneven heads such as ``smollm-360m``'s 15/5, cross-attention,
+whisper's gelu MLP) is gathered whole just before its layer runs and its
 gradient sliced back (:func:`_mesh_layer`).  Without rules nothing of
 this runs.
 
@@ -60,16 +65,12 @@ writes the new key and value at ring slot ``index % T`` on the rank that
 owns that slot only, attends with every head over the rank's own slots,
 and combines the ranks' partial softmaxes over the sequence axes with one
 max and two sums (:func:`layers.decode_attention_sharded`); a split
-layer keeps its own heads for the row-parallel ``o_proj``.  A Mamba layer
-steps its own ``d_inner`` slice of the states with its slices of the
-weights (the x- and out-projections' partial products summed over
-``model``, ``in_proj``'s product gathered), and an RWKV layer its own
-heads of ``wkv`` (``output``'s partial product summed, the channel mix's
-column slices gathered); no weight or state is gathered, but for an RWKV
-layer whose heads ``model`` does not divide, which gathers its states and
-weights, steps them whole and keeps its slice.  The prefill and the
-training forward still compute Mamba and RWKV layers whole from gathered
-weights.
+layer keeps its own heads for the row-parallel ``o_proj``.  Mamba and
+RWKV layers run their slices as in the forward, and the states a prefill
+computes are the rank's slices, which decode steps on; no Mamba or RWKV
+weight or state is gathered, but for an RWKV layer whose heads ``model``
+does not divide, which gathers its states and weights, steps them whole
+and keeps its slice.
 
 Unlike the reference's pure functions, :func:`decode_step` writes the new
 token's keys and values, and each Mamba layer's new states, into the
@@ -307,18 +308,27 @@ def _norm(x, w, b=None, eps: float = 1e-5):
 def _attn_block(h, p, cfg: ModelConfig, positions, *, causal, window,
                 want_cache=False, plain=False):
     """Self-attention → (output, cache or None).  Projections narrower
-    than ``q_dim`` are this rank's whole heads of a Megatron split over
-    ``model`` (:func:`_mesh_layer`): the rank attends with its heads and
-    the partial outputs of ``o_proj`` are summed."""
+    than ``q_dim`` are this rank's whole query heads of a Megatron split
+    over ``model`` (:func:`_mesh_layer`): the rank attends with its heads
+    and the partial outputs of ``o_proj`` are summed.  Where ``model``
+    does not divide the key/value heads (:func:`_grouped_heads`) the
+    ranks' key and value columns are gathered and each rank attends with
+    the key/value heads its query heads read."""
     b, s, _ = h.shape
     split = p["q_proj"].shape[-1] != cfg.q_dim
     if split:
         h = L.model_in(h)
     hd = cfg.head_dim
-    hq, hkv = p["q_proj"].shape[-1] // hd, p["k_proj"].shape[-1] // hd
+    hq = p["q_proj"].shape[-1] // hd
     q = (h @ p["q_proj"]).reshape(b, s, hq, hd)
-    k = (h @ p["k_proj"]).reshape(b, s, hkv, hd)
-    v = (h @ p["v_proj"]).reshape(b, s, hkv, hd)
+    k, v = h @ p["k_proj"], h @ p["v_proj"]
+    grouped = split and cfg.n_kv_heads % active_rules().size("model") != 0
+    if grouped:  # every head's columns, from the ranks of ``model``
+        rules = active_rules()
+        cut = L.Split(rules.mesh, rules.axes("model"))
+        k, v = (cut.join(x, summed=True) for x in (k, v))
+    k = k.reshape(b, s, -1, hd)
+    v = v.reshape(b, s, -1, hd)
     if cfg.use_rope:
         q = L.apply_rope(q, positions, cfg.rope_theta)
         k = L.apply_rope(k, positions, cfg.rope_theta)
@@ -326,25 +336,43 @@ def _attn_block(h, p, cfg: ModelConfig, positions, *, causal, window,
     if want_cache:
         t = s if window is None else min(s, window)
         kc, vc = k[:, s - t:], v[:, s - t:]
-        if split:  # the cache holds every head (cut by slot)
+        if split and not grouped:  # the cache holds every head (by slot)
             rules = active_rules()
             kc, vc = (C.all_gather(x, rules.mesh, rules.axes("model"), 2)
                       for x in (kc, vc))
         kv_cache = {"k": kc, "v": vc}
+    if grouped:  # the key/value heads of this rank's query heads
+        lo, hi = _grouped_heads(cfg, hq)
+        k, v = k[:, :, lo:hi], v[:, :, lo:hi]
     out = L.attention(q, k, v, causal=causal, window=window, plain=plain)
     out = out.reshape(b, s, hq * hd) @ p["o_proj"]
     return (L.model_out(out) if split else out), kv_cache
 
 
+def _grouped_heads(cfg: ModelConfig, hq: int) -> tuple[int, int]:
+    """The key/value heads [lo, hi) that this rank's ``hq`` query heads
+    read, where the query heads are cut over ``model`` and the key/value
+    heads are not: a rank's heads read one key/value head, or a whole
+    number of them (:func:`_mesh_layer` checks which)."""
+    rules = active_rules()
+    me, _ = chunk_of(rules.mesh, rules.axes("model"))
+    group = cfg.n_heads // cfg.n_kv_heads
+    return me * hq // group, ((me + 1) * hq - 1) // group + 1
+
+
 def _mixer(h, p, cfg: ModelConfig, mixer: str, positions, *, causal,
-           want_cache=False, plain=False):
+           want_cache=False, plain=False, split=None):
     """The mixer sub-block of a layer: norm, then attention (its output is
-    the reference's ``mixer_out``) or Mamba → (output, cache or None)."""
+    the reference's ``mixer_out``) or Mamba (on a mesh, ``split``, this
+    rank's ``d_inner`` slice) → (output, cache or None)."""
     x = _norm(h, p["ln1"], p.get("ln1_b"), cfg.norm_eps)
     if mixer == "mamba":
-        c0 = M.init_mamba_cache(cfg, h.shape[0], h.dtype, h.device) \
+        c0 = _local_states(M.init_mamba_cache(cfg, h.shape[0], h.dtype,
+                                              h.device), split) \
             if want_cache else None
-        return M.mamba_forward(x, p["mamba"], cfg, c0)
+        xz = None if split is None else _mamba_xz(
+            x, p["mamba"]["in_proj"], cfg, split)
+        return M.mamba_forward(x, p["mamba"], cfg, c0, xz=xz, split=split)
     return _attn_block(x, p["attn"], cfg, positions, causal=causal,
                        window=cfg.sliding_window, want_cache=want_cache,
                        plain=plain)
@@ -405,21 +433,23 @@ def _checkpoint(fn, *args, policy=None):
 
 
 def _rwkv_layer(h, p, cfg: ModelConfig, *, want_cache=False, remat="none",
-                plain=False):
+                plain=False, split=None):
     """An RWKV layer: time mix (its scan's plain version with ``plain``),
     then channel mix (its second norm is RMS always, as in the reference)
-    → (h, 0.0, cache or None)."""
-    c0 = RW.init_rwkv_cache(cfg, h.shape[0], h.dtype, h.device) \
+    → (h, 0.0, cache or None); on a mesh (``split``) over this rank's
+    heads and columns, its ``wkv`` state the rank's heads."""
+    c0 = _local_states(RW.init_rwkv_cache(cfg, h.shape[0], h.dtype,
+                                          h.device), split) \
         if want_cache else None
 
     def tm(x):
         return RW.rwkv_time_mix(_norm(x, p["ln1"], p.get("ln1_b"),
                                       cfg.norm_eps), p["tm"], cfg, c0,
-                                plain=plain)
+                                plain=plain, split=split)
 
     def cm(x):
         return RW.rwkv_channel_mix(L.rms_norm(x, p["ln2"], cfg.norm_eps),
-                                   p["cm"], cfg, c0)
+                                   p["cm"], cfg, c0, split)
 
     if remat == "outputs":
         h = h + _checkpoint(lambda x: tm(x)[0], h)
@@ -432,21 +462,23 @@ def _rwkv_layer(h, p, cfg: ModelConfig, *, want_cache=False, remat="none",
 
 def _apply_layer(h, p, cfg: ModelConfig, kind: tuple[str, str], positions,
                  *, causal=True, enc_kv=None, want_cache=False, plain=False,
-                 remat="none", aux_coef=None):
+                 remat="none", aux_coef=None, split=None):
     """Full-sequence layer (forward / prefill) → (h, aux, cache or None);
     with ``enc_kv`` a layer that has ``cross`` attention attends to those
     encoder keys and values after its mixer.  ``remat="outputs"``
     checkpoints the mixer, cross-attention and FFN sub-blocks each on its
     own, so their outputs (and the FFN's aux) are what the backward
-    keeps.  ``aux_coef``: the MoE FFN's (:func:`_ffn`)."""
+    keeps.  ``aux_coef``: the MoE FFN's (:func:`_ffn`).  ``split``: a
+    Mamba or RWKV layer's cut on a mesh (:func:`_split_of`)."""
     mixer, ffn = kind
     if mixer == "rwkv":
         return _rwkv_layer(h, p, cfg, want_cache=want_cache, remat=remat,
-                           plain=plain)
+                           plain=plain, split=split)
     cross = enc_kv is not None and "cross" in p
     if remat == "outputs":
         a = _checkpoint(lambda x: _mixer(x, p, cfg, mixer, positions,
-                                         causal=causal, plain=plain)[0], h)
+                                         causal=causal, plain=plain,
+                                         split=split)[0], h)
         h = h + a
         if cross:
             h = h + _checkpoint(lambda x: _cross(x, p, cfg, enc_kv, plain),
@@ -454,7 +486,7 @@ def _apply_layer(h, p, cfg: ModelConfig, kind: tuple[str, str], positions,
         f, aux = _checkpoint(lambda x: _ffn(x, p, cfg, ffn, aux_coef), h)
         return h + f, aux, None
     a, cache = _mixer(h, p, cfg, mixer, positions, causal=causal,
-                      want_cache=want_cache, plain=plain)
+                      want_cache=want_cache, plain=plain, split=split)
     h = h + a
     if cross:
         h = h + _cross(h, p, cfg, enc_kv, plain)
@@ -537,15 +569,21 @@ def _state_axes(rules, cfg: ModelConfig, mixer: str) -> tuple[str, ...]:
                                       rules.axes("cache_seq"))[2])
 
 
-#: the leaves a decode step uses as this rank's slice, each by the dim it
-#: is sliced along: Mamba's along ``d_inner``, the RWKV time mix's along
-#: the heads of ``wkv`` (the projections' columns, ``output``'s rows), the
-#: channel mix's by columns.  The leaves not named are used as they are
-#: held: RWKV's token-shift mixing (``mu``, ``ddlerp_w*``, ``decay_w1``)
-#: and the channel mix's ``mu_k``/``mu_r`` are replicated, and Mamba's
-#: ``in_proj``, cut by columns of (d, 2·di) that do not line up with the
-#: ``d_inner`` slice, stays its column slice and its product is gathered
-#: instead (:func:`_mamba_xz`); no weight is gathered on this path.
+#: the leaves a Mamba or RWKV layer uses as this rank's slice on a mesh,
+#: each by the dim it is sliced along, in the forward, prefill and decode
+#: alike: Mamba's along ``d_inner``, the RWKV time mix's along the heads of
+#: ``wkv`` (the projections' columns, ``output``'s rows), the channel mix's
+#: by columns (``key``'s of d_ff, ``value``'s and ``receptance``'s of d).
+#: A leaf the specs cut is used as it is held; a leaf held whole (the 1-D
+#: ones, ``decay_w2``) gives the rank its chunk, its gradient gathered.
+#: The leaves not named are used as they are held: RWKV's token-shift
+#: mixing (``mu``, ``ddlerp_w*``, ``decay_w1``) and the channel mix's
+#: ``mu_k``/``mu_r`` are replicated, and Mamba's ``in_proj``, cut by
+#: columns of (d, 2·di) that do not line up with the ``d_inner`` slice,
+#: stays its column slice and its product is moved instead
+#: (:func:`_mamba_xz`).  No Mamba or RWKV weight is gathered: the
+#: reference's compiled steps gather none either
+#: (``tests/test_torch_dryrun.py``).
 _SLICED = {
     "mamba": {"conv_w": -1, "conv_b": 0, "x_proj": 0, "dt_proj": -1,
               "dt_bias": 0, "a_log": 0, "d_skip": 0, "out_proj": 0},
@@ -554,62 +592,118 @@ _SLICED = {
            "ln_b": 0, "output": 0},
     "cm": {"key": -1, "value": -1, "receptance": -1},
 }
+#: the mixer of each sliced parameter group
+_MIXER = {"mamba": "mamba", "tm": "rwkv", "cm": "rwkv"}
+#: the states a sliced layer computes as the rank's slices
+_STATES = {"mamba": ("conv", "ssm"), "rwkv": ("wkv",)}
 
 
-def _model_part(x: torch.Tensor, spec, dim: int, axes: tuple[str, ...],
-                mesh) -> torch.Tensor:
-    """This rank's chunk over ``axes`` of a layer leaf ``x`` along
+def _split_of(cfg: ModelConfig, mixer: str, decode: bool = False):
+    """The cut (``layers.Split``) of a Mamba or RWKV layer under the
+    active rules, or None where it runs whole.  A decode step cuts the
+    layer over its states' axes (:func:`_state_axes`); the forward and
+    prefill over ``model`` where it divides ``d_inner`` (Mamba) or both
+    the heads and d_ff (RWKV)."""
+    rules = active_rules()
+    if rules is None or mixer not in _STATES:
+        return None
+    if decode:
+        axes = _state_axes(_cache_layout(), cfg, mixer)
+    else:
+        axes = rules.axes("model")
+        n = chunk_of(rules.mesh, axes)[1] if axes else 1
+        width = (cfg.expand * cfg.d_model,) if mixer == "mamba" else (
+            cfg.d_model // cfg.rwkv_head_size, cfg.d_ff)
+        if n == 1 or any(w % n for w in width):
+            axes = ()
+    return L.Split(rules.mesh, axes) if axes else None
+
+
+def _local_states(states: dict, split) -> dict:
+    """Zero initial states (``init_mamba_cache``, ``init_rwkv_cache``) as
+    a layer cut by ``split`` computes them: Mamba's along ``d_inner``,
+    RWKV's ``wkv`` by head."""
+    if split is None:
+        return states
+    idx, n = split.index()
+    dims = {"conv": -1, "ssm": 1, "wkv": 1}
+    return {k: x.chunk(n, dims[k])[idx] if k in dims else x
+            for k, x in states.items()}
+
+
+def _model_part(x: torch.Tensor, spec, dim: int, split) -> torch.Tensor:
+    """This rank's chunk over ``split``'s axes of a layer leaf ``x`` along
     ``dim``: ``x`` itself where ``spec`` (the layer's, or None) cuts it,
     which must be along ``dim`` over those axes (``param_pspec`` cuts
     these leaves there); else the chunk of the whole leaf (a leaf
-    ``model`` does not divide, or ``DRYRUN_NO_TP``'s whole weights)."""
+    ``model`` does not divide, or ``DRYRUN_NO_TP``'s whole weights), its
+    gradient gathered (``layers.Split.part``)."""
     cuts = [spec_axes(e) for e in spec or ()]
     if any(cuts):
-        if cuts[dim] != axes or sum(map(bool, cuts)) != 1:
+        if cuts[dim] != split.axes or sum(map(bool, cuts)) != 1:
             raise ValueError(f"a leaf cut {tuple(spec)}, not along dim "
-                             f"{dim} over {axes}")
+                             f"{dim} over {split.axes}")
         return x
-    idx, n = chunk_of(mesh, axes)
-    return x.chunk(n, dim)[idx]
+    return split.part(x, dim)
 
 
-def _slice_tree(sub: dict, prefix: str, dims: dict, axes, rules) -> dict:
-    """One mixer's leaves as its sliced decode uses them (:data:`_SLICED`):
+def _slice_tree(sub: dict, prefix: str, dims: dict, split, rules) -> dict:
+    """One mixer's leaves as its sliced layer uses them (:data:`_SLICED`):
     each named leaf as this rank's chunk, every other leaf as it is held
     (whole, or Mamba's ``in_proj`` by columns: :func:`_mamba_xz`)."""
     out = dict(sub)
     for name, d in dims.items():
         spec = (rules.specs or {}).get(f"{prefix}/{name}")
         spec = spec[1:] if spec is not None else None  # the stacked dim
-        out[name] = _model_part(sub[name], spec, d, axes, rules.mesh)
+        out[name] = _model_part(sub[name], spec, d, split)
     return out
 
 
 def _mamba_xz(x: torch.Tensor, w: torch.Tensor, cfg: ModelConfig,
-              axes: tuple[str, ...], mesh) -> torch.Tensor:
-    """The token's x and z columns of this rank's ``d_inner`` slice (B,
-    2·di/n) from ``in_proj`` ``w``: the whole weight's product, or the
-    product of its column slice gathered over ``axes`` (B × 2·di values
-    on the wire where the weight would be d × 2·di)."""
-    xz = x[:, 0] @ w
-    if xz.shape[-1] != 2 * cfg.expand * cfg.d_model:
-        xz = C.all_gather(xz, mesh, axes, 1)
-    idx, n = chunk_of(mesh, axes)
-    return torch.cat([t.chunk(n, dim=-1)[idx] for t in xz.chunk(2, dim=-1)],
-                     dim=-1)
+              split) -> torch.Tensor:
+    """The x and z columns (B, S, 2·di/n) of this rank's ``d_inner`` slice
+    from ``in_proj`` ``w``.  From the rank's column block of ``w`` (the
+    specs cut it by columns of (d, 2·di)): of the 2n pieces of di/n
+    columns of the whole product, block ``r`` holds pieces 2r and 2r + 1,
+    and piece ``j`` is the x (j < n) or z (j ≥ n) columns of rank ``j %
+    n``, so one all-to-all takes each piece where it is used (B·S·di/n
+    values in and out of a rank, as the reference's collective-permutes
+    move them).  From a whole ``w``, the rank's columns of its
+    product."""
+    idx, n = split.index()
+    if w.shape[-1] == 2 * cfg.expand * cfg.d_model:
+        xin, z = (x @ w).chunk(2, dim=-1)
+        return torch.cat([split.part(xin, -1), split.part(z, -1)], dim=-1)
+    if len(split.axes) != 1:
+        raise ValueError(f"in_proj's product moves over one axis, not "
+                         f"{split.axes}")
+    xz = split.enter(x) @ w
+    c = xz.shape[-1] // 2
+    dest = [(2 * idx) % n, (2 * idx + 1) % n]
+    if dest[1] < dest[0]:  # pieces in the order of their ranks
+        xz = torch.cat([xz[..., c:], xz[..., :c]], dim=-1)
+    send, recv = [0] * n, [0] * n
+    for r in dest:
+        send[r] += c
+    for r in (idx // 2, (n + idx) // 2):  # its x piece, then its z piece
+        recv[r] += c
+    return C.AllToAll.apply(xz, split.mesh, split.axes[0], xz.dim() - 1,
+                            send, recv)
 
 
 def _store_cache(caches: dict, c: dict, i: int, n_periods: int, s: int,
-                 slots: int, rules=None) -> None:
+                 slots: int, rules=None, own=()) -> None:
     """Write repetition ``i``'s cache ``c`` of one position into the
     stacked ``caches`` (allocated, zero, at the first write): attention
     keys and values at position ``p``'s ring slot ``p % slots`` (the last
-    ``t`` of ``s`` positions), Mamba and RWKV states whole; with the cut
-    ``rules`` of :func:`_cache_layout`, this rank's slots and slices."""
+    ``t`` of ``s`` positions), Mamba and RWKV states as computed; with the
+    cut ``rules`` of :func:`_cache_layout`, this rank's slots and slices,
+    the states named in ``own`` already the rank's slices."""
     c = {n: _ring(x, s, slots) if n in ("k", "v") else x
          for n, x in c.items()}
     if rules is not None:
-        c = {n: _local_cache(rules, n, x) for n, x in c.items()}
+        c = {n: x if n in own else _local_cache(rules, n, x)
+             for n, x in c.items()}
     for n, x in c.items():
         if n not in caches:
             caches[n] = x.new_zeros((n_periods,) + tuple(x.shape))
@@ -621,31 +715,35 @@ def _mesh_layer(p: dict, prefix: str, cfg: ModelConfig,
     """One layer's parameters as its code uses them under mesh rules:
     every leaf cut over an axis gathered whole (``sharding.gather_tree``)
     but those the layer splits itself: self-attention's projections when
-    both head counts divide over ``model`` (whole heads a rank), the
-    SwiGLU FFN's when their specs cut d_ff (the Megatron split), and the
-    MoE's experts (its expert-parallel path).  For a ``decode`` step
-    whose Mamba or RWKV states are cut (:func:`_state_axes`), the mixer's
-    leaves are this rank's slices (:func:`_slice_tree`)."""
+    both head counts divide over ``model`` (whole heads a rank), or, in
+    the forward and prefill, when the query heads do and each rank's
+    query heads read one or a whole number of key/value heads (the key
+    and value columns are then gathered: :func:`_attn_block`), the
+    SwiGLU FFN's when their specs cut d_ff (the Megatron split), the
+    MoE's experts (its expert-parallel path), and a Mamba or RWKV layer's
+    when it is cut (:func:`_split_of`: its slices, :func:`_slice_tree`),
+    in the forward, prefill and decode (``decode``) alike."""
     rules = active_rules()
     m = rules.size("model")
     spec = rules.specs or {}
-    layout = _cache_layout() if decode else None
 
     def cut(name: str, dim: int) -> bool:
         s = spec.get(f"{prefix}/{name}")
         return s is not None and "model" in spec_axes(s[dim])
 
+    hq, group = cfg.n_heads // m, cfg.n_heads // max(cfg.n_kv_heads, 1)
+    kv_ok = cfg.n_kv_heads % m == 0 or not decode and (
+        hq % group == 0 or group % hq == 0)
     out = {}
     for key, sub in p.items():
         at = f"{prefix}/{key}"
-        axes = _state_axes(layout, cfg, "mamba" if key == "mamba"
-                           else "rwkv") if key in _SLICED else ()
+        split = _split_of(cfg, _MIXER[key], decode) if key in _SLICED \
+            else None
         if key == "moe":
             out[key] = sub
-        elif axes:
-            out[key] = _slice_tree(sub, at, _SLICED[key], axes, rules)
-        elif key == "attn" and cfg.n_heads % m == 0 \
-                and cfg.n_kv_heads % m == 0 \
+        elif split is not None:
+            out[key] = _slice_tree(sub, at, _SLICED[key], split, rules)
+        elif key == "attn" and cfg.n_heads % m == 0 and hq and kv_ok \
                 and all(cut(f"attn/{w}", -1) for w in
                         ("q_proj", "k_proj", "v_proj")) \
                 and cut("attn/o_proj", -2):
@@ -692,6 +790,8 @@ def _run_stack(h, blocks, cfg: ModelConfig, kinds, period, positions, *,
     caches: dict[str, dict[str, torch.Tensor]] = {
         f"pos{j}": {} for j in range(period)}
     moe_at = [j for j in range(period) if kinds[j][1] == "moe"]
+    own = [_own_states(layout, cfg, kinds[j][0]) for j in range(period)] \
+        if layout is not None else [()] * period
 
     def body(x, i):
         """Repetition ``i`` → (x, its aux, each position's cache)."""
@@ -700,14 +800,16 @@ def _run_stack(h, blocks, cfg: ModelConfig, kinds, period, positions, *,
             coef = None if aux_coef is None or j not in moe_at \
                 else aux_coef[i * len(moe_at) + moe_at.index(j)]
             p = _layer(blocks, j, i)
+            split = None
             if mesh:
                 p = _mesh_layer(p, f"{prefix}/pos{j}", cfg)
+                split = _split_of(cfg, kinds[j][0])
             enc_kv = None if enc_out is None else _cross_kv(enc_out, p, cfg)
             x, a, c = _apply_layer(
                 x, p, cfg, kinds[j], positions, causal=causal, enc_kv=enc_kv,
                 want_cache=want_cache, plain=plain,
                 remat="outputs" if remat == "outputs" else "none",
-                aux_coef=coef)
+                aux_coef=coef, split=split)
             aux_i = aux_i + a
             out.append(c)
         return x, aux_i, out
@@ -723,8 +825,21 @@ def _run_stack(h, blocks, cfg: ModelConfig, kinds, period, positions, *,
         aux = aux + a
         for j, c in enumerate(out if want_cache else ()):
             _store_cache(caches[f"pos{j}"], c, i, n_periods, s,
-                         _ring_len(cfg, s, cache_len), layout)
+                         _ring_len(cfg, s, cache_len), layout, own[j])
     return h, aux, (caches if want_cache else None)
+
+
+def _own_states(layout, cfg: ModelConfig, mixer: str) -> tuple[str, ...]:
+    """The states a prefill's ``mixer`` layer computes as this rank's
+    slices of the cut cache ``layout``: those of a cut layer, whose axes
+    must be the cache's."""
+    split = _split_of(cfg, mixer)
+    if split is None:
+        return ()
+    if split.axes != _state_axes(layout, cfg, mixer):
+        raise ValueError(f"a {mixer} layer cut over {split.axes}, its "
+                         f"cache over {_state_axes(layout, cfg, mixer)}")
+    return _STATES[mixer]
 
 
 def _cross_kv(enc_out, p, cfg: ModelConfig):
@@ -815,6 +930,15 @@ def forward(params, cfg: ModelConfig, batch: dict, *, plain: bool = False,
     whole first, and each layer's as :func:`_run_stack` says."""
     if active_rules() is not None:
         params = _mesh_top(params)
+    h, aux = _final_hidden(params, cfg, batch, plain=plain, remat=remat)
+    return _lm_head(params, cfg, h), aux
+
+
+def _final_hidden(params, cfg: ModelConfig, batch: dict, *, plain=False,
+                  remat="none"):
+    """The stack and the final norm over ``batch`` (its leaves outside
+    the stacks already gathered under mesh rules) → (the hidden states of
+    the S tokens (B, S, D), aux)."""
     h, sv = _embed_inputs(params, cfg, batch)
     b, s, _ = h.shape
     enc = _encode(params, cfg, batch["frames"], plain=plain, remat=remat) \
@@ -826,7 +950,46 @@ def forward(params, cfg: ModelConfig, batch: dict, *, plain: bool = False,
                            remat=remat,
                            aux_coef=None if coef is None else coef[0])
     h = _norm(h, params["ln_f"], params.get("ln_f_b"), cfg.norm_eps)
-    return _lm_head(params, cfg, h[:, sv:]), aux
+    return h[:, sv:], aux
+
+
+def _head_split(params, cfg: ModelConfig):
+    """(this rank's vocab columns of the LM head (D, V'/n), their cut)
+    where the active rules cut the head (or the tied embedding) by vocab
+    over ``model`` alone, else None."""
+    rules = active_rules()
+    if rules is None or not rules.specs:
+        return None
+    name = "embed" if cfg.tie_embeddings else "head"
+    spec = rules.specs.get(name)
+    vdim = 0 if cfg.tie_embeddings else 1
+    if spec is None or spec_axes(spec[1 - vdim]) \
+            or spec_axes(spec[vdim]) != rules.axes("model"):
+        return None
+    w = params[name]
+    return (w.T if cfg.tie_embeddings else w), L.Split(rules.mesh,
+                                                       rules.axes("model"))
+
+
+def _split_nll(h, w, split, labels, vocab: int) -> torch.Tensor:
+    """Next-token losses (B, S) from this rank's vocab columns ``w`` of
+    the head, as the reference's partitioner runs a vocab-cut head: each
+    rank its logits' columns (the padded vocab masked), the log-sum-exp
+    from the ranks' maxima and sums, the label's logit from the rank that
+    holds it."""
+    logits = (split.enter(h) @ w).float()
+    idx, _ = split.index()
+    width = logits.shape[-1]
+    cols = torch.arange(idx * width, (idx + 1) * width, device=h.device)
+    logits = logits.masked_fill(cols >= vocab, float("-inf"))
+    top = C.all_reduce(logits.detach().amax(-1, keepdim=True), split.mesh,
+                       split.axes, "max")
+    total = split.exit(torch.exp(logits - top).sum(-1))
+    at = labels.long() - idx * width
+    mine = (at >= 0) & (at < width)
+    picked = logits.gather(-1, at.clamp(0, width - 1)[..., None])[..., 0]
+    picked = split.exit(torch.where(mine, picked, 0.0))
+    return top[..., 0] + torch.log(total) - picked
 
 
 def prefill(params, cfg: ModelConfig, batch: dict, pad_to: int | None = None,
@@ -862,15 +1025,23 @@ def loss_fn(params, cfg: ModelConfig, batch: dict, *,
     (masked by ``batch['loss_mask']`` when given) → (loss, metrics), as the
     reference computes it; differentiable, with ``remat`` as in
     :func:`forward`.  Under mesh rules ``batch`` is this rank's rows and
-    the loss its share of the step's, and a mask comes with the training
+    the loss its share of the step's; a head cut by vocab over ``model``
+    stays cut, each rank computing its vocab columns of the logits
+    (:func:`_split_nll`); and a mask comes with the training
     step's ``loss_weight`` (B,): each row's factor, its global
     microbatch's unmasked tokens counted once a step over every rank
     (``launch/steps.py``).  The loss is then the weighted sum of the rows'
     masked token losses, so that the mean of the ranks' losses over the
     batch axes is the mean of the microbatches' masked means."""
-    logits, aux = forward(params, cfg, batch, plain=plain, remat=remat)
-    logp = F.log_softmax(logits, dim=-1)
-    nll = -logp.gather(-1, batch["labels"].long()[..., None])[..., 0]
+    head = _head_split(params, cfg)
+    if head is None:
+        logits, aux = forward(params, cfg, batch, plain=plain, remat=remat)
+        logp = F.log_softmax(logits, dim=-1)
+        nll = -logp.gather(-1, batch["labels"].long()[..., None])[..., 0]
+    else:
+        top = _mesh_top({k: v for k, v in params.items() if k != "head"})
+        h, aux = _final_hidden(top, cfg, batch, plain=plain, remat=remat)
+        nll = _split_nll(h, *head, batch["labels"], cfg.vocab_size)
     mask = batch.get("loss_mask")
     weight = batch.get("loss_weight")
     if mask is not None and weight is not None:
@@ -999,42 +1170,34 @@ def _decode_layer(h, p, cfg: ModelConfig, kind, cache, index, cross=None):
     layer with ``cross`` attention attends to all of ``cross``'s keys and
     values.  Under the decode step's rules a Mamba or RWKV layer whose
     states are cut steps this rank's slice with its sliced leaves
-    (:func:`_mesh_layer`): the partial products of the projections whose
-    rows are cut are summed and the column slices of the RWKV channel
-    mix's activations gathered, over the states' axes; an RWKV layer
-    whose heads ``model`` does not divide gathers its states, steps them
-    whole and keeps its slice."""
+    (:func:`_mesh_layer`), as the forward runs it (:func:`_split_of`);
+    an RWKV layer whose heads ``model`` does not divide gathers its
+    states, steps them whole and keeps its slice."""
     mixer, ffn = kind
     x = _norm(h, p["ln1"], p.get("ln1_b"), cfg.norm_eps)
-    layout = _cache_layout() if mixer in ("rwkv", "mamba") else None
-    axes = _state_axes(layout, cfg, mixer)
-    reduce = gather = None
-    if axes:
-        def reduce(t):
-            return C.all_reduce(t, layout.mesh, axes)
-
-        def gather(t):
-            return C.all_gather(t, layout.mesh, axes, t.dim() - 1)
+    layout = _cache_layout() if mixer in _STATES else None
+    split = _split_of(cfg, mixer, decode=True)
 
     def keep(new: dict) -> None:  # this rank's slices of the new states
         for n, v in new.items():
-            cache[n].copy_(v if layout is None or axes
+            cache[n].copy_(v if layout is None or split is not None
                            else _local_cache(layout, n, v))
 
     if mixer == "rwkv":
-        states = cache if axes else _whole_states(layout, cache, cfg)
-        a, c1 = RW.rwkv_time_mix_decode(x, p["tm"], cfg, states, reduce)
+        states = cache if split is not None \
+            else _whole_states(layout, cache, cfg)
+        a, c1 = RW.rwkv_time_mix_decode(x, p["tm"], cfg, states, split)
         h = h + a
         c, c2 = RW.rwkv_channel_mix_decode(
             L.rms_norm(h, p["ln2"], cfg.norm_eps), p["cm"], cfg, states,
-            gather)
+            split)
         keep({**c1, **c2})
         return h + c
     if mixer == "mamba":
-        xz = None if not axes else _mamba_xz(
-            x, p["mamba"]["in_proj"], cfg, axes, layout.mesh)
+        xz = None if split is None else _mamba_xz(
+            x, p["mamba"]["in_proj"], cfg, split)
         a, new = M.mamba_decode_step(x, p["mamba"], cfg, cache, xz=xz,
-                                     reduce=reduce)
+                                     split=split)
         keep(new)
     else:
         a = _attn_decode(x, p["attn"], cfg, cache, index)

@@ -24,7 +24,11 @@ identity backward) bracket a Megatron region; :class:`AllReduce` sums
 forward and backward (statistics over the batch axes); :class:`GatherParam`
 gathers a sharded leaf just before its use and either reduce-scatters its
 gradient (over axes whose ranks hold different data) or keeps its own
-slice (over axes whose ranks computed the same thing).
+slice (over axes whose ranks computed the same thing); :class:`OwnChunk`
+is the reverse, a rank's chunk of a leaf every rank holds whole, its
+gradient gathered; :class:`AllToAll` moves pieces of an activation
+between ranks and back in the backward (the Mamba in-projection's product,
+``models/transformer.py``).
 
 Every call over more than one rank reports itself to the active
 ``introspect.opcount`` counts: its kind, its group's size and its payload
@@ -43,8 +47,9 @@ import torch.distributed as dist
 from repro_torch.introspect import opcount
 
 __all__ = ["STAGED", "group", "all_reduce", "all_gather", "reduce_scatter",
-           "broadcast", "shift", "CopyTo", "ReduceFrom", "AllReduce",
-           "GatherParam", "batch_mean", "psum_compressed",
+           "all_to_all", "broadcast", "shift", "CopyTo", "ReduceFrom",
+           "AllReduce", "AllToAll", "GatherParam", "OwnChunk", "batch_mean",
+           "psum_compressed",
            "hierarchical_psum", "ring_all_gather"]
 
 #: point-to-point calls staged through the host (gloo with CUDA tensors)
@@ -140,6 +145,22 @@ def reduce_scatter(x: torch.Tensor, mesh, axes,
     return out.contiguous()
 
 
+def all_to_all(x: torch.Tensor, mesh, axis: str, dim: int,
+               send: Sequence[int], recv: Sequence[int]) -> torch.Tensor:
+    """Each rank of ``axis`` cuts ``x`` along ``dim`` into pieces of
+    ``send[j]`` for rank ``j``, in rank order, and returns the pieces it
+    receives, of ``recv[j]`` from rank ``j``, joined in rank order."""
+    n = _size(mesh, axis)
+    if n == 1:
+        return x
+    src = x.movedim(dim, 0).contiguous()
+    out = src.new_empty((sum(recv),) + tuple(src.shape[1:]))
+    _report("all-to-all", src, n)
+    dist.all_to_all_single(out, src, list(recv), list(send),
+                           group=group(mesh, axis))
+    return out.movedim(0, dim).contiguous()
+
+
 def _own_chunk(x: torch.Tensor, mesh, axis: str, dim: int) -> torch.Tensor:
     n = _size(mesh, axis)
     size = x.shape[dim] // n
@@ -219,6 +240,39 @@ class AllReduce(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         return all_reduce(g, ctx.mesh, ctx.axes), None, None
+
+
+class AllToAll(torch.autograd.Function):
+    """:func:`all_to_all` forward; its gradient goes back the same way,
+    ``send`` and ``recv`` swapped."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axis, dim, send, recv):
+        ctx.args = (mesh, axis, dim, recv, send)
+        return all_to_all(x, mesh, axis, dim, send, recv)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_to_all(g, *ctx.args), None, None, None, None, None
+
+
+class OwnChunk(torch.autograd.Function):
+    """This rank's chunk over ``axes`` along ``dim`` of a leaf every rank
+    holds whole, for a region whose ranks each compute a part; backward
+    all-gathers the chunks' gradients, so every rank holds the leaf's
+    whole gradient, as for any replicated leaf."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axes, dim):
+        from repro_torch.parallel.sharding import chunk_of
+
+        ctx.mesh, ctx.axes, ctx.dim = mesh, axes, dim
+        idx, n = chunk_of(mesh, axes)
+        return x.chunk(n, dim)[idx]
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_gather(g, ctx.mesh, ctx.axes, ctx.dim), None, None, None
 
 
 class GatherParam(torch.autograd.Function):

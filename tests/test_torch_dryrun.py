@@ -22,10 +22,22 @@
 * ``run_cell`` writes ``ok`` records for reduced cells of every family
   (attention head_dim 64, the kernel's), on one pod and two, and the
   reference's skip reasons; the command line; uneven cache slots raise.
+* The model-axis cut of the Mamba and RWKV layers against the reference's
+  compiled steps (reduced ``jamba-v0.1-52b`` and ``rwkv6-7b``, training
+  and prefill, on data 1 × model 1 and 1 × 4): the port's per-rank FLOPs
+  fall from one model rank to four as the reference's do (within 10 %),
+  and no Mamba or RWKV weight the port gathers is one the reference's
+  forward does not gather (it gathers none); a mesh prefill computes the
+  rank's half of each scan on a fake 1 × 2 world and gathers no mixer
+  leaf.
+* The spread MoE step (reduced ``granite-moe-3b-a800m``, 4 microbatches
+  of 2 rows on 2 (pod) × 2 × 1): the port's rank computes fewer FLOPs
+  than the reference's device, its counting pass included.
 """
 import dataclasses
 import json
 import os
+import re
 import subprocess
 import sys
 import threading
@@ -65,16 +77,33 @@ POD_B, POD_ACCUM = 8, 4
 SPREAD_CELLS = ((16, 4), (16, 2), (32, 2))
 
 
+#: the model-axis cut's cells: reduced Mamba and RWKV models over batch
+#: CUT_B of CUT_S tokens (sizes no weight has, so a gathered weight shows
+#: by its shape), training and prefill, on data 1 × model 1 and 1 × 4
+CUT_ARCHS, CUT_KINDS, CUT_MODEL = (("jamba-v0.1-52b", "rwkv6-7b"),
+                                   ("train", "prefill"), (1, 4))
+CUT_B, CUT_S, CUT_RTOL = 3, 64, 0.10
+#: the spread MoE cell of ``tests/test_torch_sharded_train.py``'s
+#: ``moe-spread`` run: reduced granite, 4 microbatches of 2 rows, 16 tokens,
+#: on 2 (pod) × 2 × 1
+MOE = "granite-moe-3b-a800m"
+MOE_B, MOE_S, MOE_ACCUM = 8, 16, 4
+
+
 def _reference_cell(pods: int, data: int, model_axis: int, batch: int,
-                    accum: int) -> dict:
+                    accum: int, arch: str | None = None,
+                    seq: int = S) -> dict:
     """The reference's training cell compiled on the first forced host
     devices: its argument and temp bytes (``memory_analysis``), each
-    argument leaf's bytes on one device, and the rows of the batch's
-    shard."""
+    argument leaf's bytes on one device, the rows of the batch's shard and
+    its per-device FLOPs (``launch/hlo_analysis.py``); reduced ``arch``
+    instead of ``smollm-360m``."""
     import jax
     from jax.sharding import AxisType, Mesh
     from repro.configs.base import (MeshConfig, RunConfig, ShapeConfig,
                                     TrainConfig)
+    from repro.configs.base import reduced_config
+    from repro.launch import hlo_analysis
     from repro.launch.steps import build_train_step, path_str
     from repro.models.registry import build_model, input_specs
     from repro.parallel.sharding import AxisRules, sharding_rules
@@ -85,9 +114,9 @@ def _reference_cell(pods: int, data: int, model_axis: int, batch: int,
     mesh = Mesh(devices, names, axis_types=(AxisType.Auto,) * len(names))
     rules = AxisRules.default(bool(pods), pods=pods or 2, data=data,
                               model=model_axis).with_mesh(mesh)
-    cfg = smollm(ref=True)
+    cfg = reduced_config(arch) if arch else smollm(ref=True)
     model = build_model(cfg, remat="full")
-    run = RunConfig(model=cfg, shape=ShapeConfig("t", S, batch, "train"),
+    run = RunConfig(model=cfg, shape=ShapeConfig("t", seq, batch, "train"),
                     train=TrainConfig(grad_accum=accum, remat="full"),
                     mesh=MeshConfig(multi_pod=bool(pods), pods=pods or 2,
                                     data=data, model=model_axis))
@@ -111,17 +140,85 @@ def _reference_cell(pods: int, data: int, model_axis: int, batch: int,
     return {"argument_bytes": int(memory.argument_size_in_bytes),
             "temp_bytes": int(memory.temp_size_in_bytes), "leaves": leaves,
             "batch_rows": int(b.in_shardings[2]["tokens"].shard_shape(
-                host["tokens"].shape)[0])}
+                host["tokens"].shape)[0]),
+            "flops": hlo_analysis.analyze_hlo(
+                compiled.as_text(), int(np.prod(shape))).flops}
+
+
+#: an all-gather in optimized HLO text: its result's shapes, its op name
+_ALL_GATHER = re.compile(r"=\s*(\(.*?\)|\S+)\s+all-gather(?:-start)?\(.*?"
+                         r"op_name=\"([^\"]*)\"")
+
+
+def _forward_gathers(hlo: str) -> list[list[int]]:
+    """The shape of each array an all-gather of the forward returns (not
+    of the backward: XLA names its ops ``transpose(jvp(...))``)."""
+    out = []
+    for line in hlo.splitlines():
+        m = _ALL_GATHER.search(line)
+        if m and "transpose(" not in m.group(2):
+            out += [[int(d) for d in dims.split(",") if d] for dims in
+                    re.findall(r"\w+\[([\d,]*)\]", m.group(1))]
+    return out
+
+
+def _reference_cut_cell(arch: str, kind: str, model_axis: int) -> dict:
+    """The reference's training or prefill step of reduced ``arch`` over
+    ``CUT_B`` × ``CUT_S`` tokens, compiled on data 1 × ``model_axis``: its
+    per-device FLOPs, its collectives (``launch/hlo_analysis.py``) and the
+    shapes its forward all-gathers."""
+    import jax
+    from jax.sharding import AxisType, Mesh
+    from repro.configs.base import (MeshConfig, RunConfig, ShapeConfig,
+                                    TrainConfig, reduced_config)
+    from repro.launch import hlo_analysis
+    from repro.launch.steps import build_prefill_step, build_train_step
+    from repro.models.registry import build_model, input_specs
+    from repro.parallel.sharding import AxisRules, sharding_rules
+
+    mesh = Mesh(np.array(jax.devices()[:model_axis]).reshape(1, model_axis),
+                ("data", "model"), axis_types=(AxisType.Auto,) * 2)
+    rules = AxisRules.default(False, data=1, model=model_axis
+                              ).with_mesh(mesh)
+    cfg = reduced_config(arch)
+    model = build_model(cfg, remat="full")
+    run = RunConfig(model=cfg, shape=ShapeConfig("t", CUT_S, CUT_B, kind),
+                    train=TrainConfig(grad_accum=1, remat="full"),
+                    mesh=MeshConfig(data=1, model=model_axis))
+    with mesh, sharding_rules(rules):
+        if kind == "train":
+            b = build_train_step(model, run, mesh, rules)
+            lowered = jax.jit(b.step_fn, in_shardings=b.in_shardings,
+                              out_shardings=b.out_shardings).lower(
+                b.params_shape, b.opt_shape,
+                input_specs(cfg, run.shape, dryrun=True))
+        else:
+            step, shardings, params, batch = build_prefill_step(
+                model, run, mesh, rules)
+            lowered = jax.jit(step, in_shardings=shardings).lower(params,
+                                                                   batch)
+        hlo = lowered.compile().as_text()
+    cost = hlo_analysis.analyze_hlo(hlo, model_axis).to_json()
+    return {"flops": cost["flops"], "collectives": cost["collective_ops"],
+            "gathered": _forward_gathers(hlo)}
 
 
 def oracle(out_path: str) -> None:
     """The reference's cells → ``out_path`` (json): the 2×2 one, the
     2 (pod) × 2 × 1 one of ``POD_ACCUM`` microbatches and the
-    ``SPREAD_CELLS`` on 2 × 4 × 1 (eight forced host devices)."""
+    ``SPREAD_CELLS`` on 2 × 4 × 1 (eight forced host devices), the spread
+    MoE cell, and the model-axis cut's cells."""
     out = {"grid": _reference_cell(0, 2, 2, B, ACCUM),
-           "pods": _reference_cell(2, 2, 1, POD_B, POD_ACCUM)}
+           "pods": _reference_cell(2, 2, 1, POD_B, POD_ACCUM),
+           "moe-spread": _reference_cell(2, 2, 1, MOE_B, MOE_ACCUM, MOE,
+                                         MOE_S)}
     for b, n in SPREAD_CELLS:
         out[f"spread/{b}/{n}"] = _reference_cell(2, 4, 1, b, n)
+    for arch in CUT_ARCHS:
+        for kind in CUT_KINDS:
+            for m in CUT_MODEL:
+                out[f"cut/{arch}/{kind}/{m}"] = _reference_cut_cell(
+                    arch, kind, m)
     with open(out_path, "w") as f:
         json.dump(out, f)
 
@@ -279,6 +376,128 @@ def test_a_microbatch_under_its_batch_ranks_is_spread_over_them(reference):
     assert small[0]["argument_bytes"] == rows[0]["argument_bytes"] \
         == cell["argument_bytes"]
     assert small[1]["flops"] == rows[1]["flops"]
+
+
+MIXER_LEAVES = ("/mamba", "/tm", "/cm")
+
+
+def _gathered_mixer_leaves(monkeypatch) -> list:
+    """Patch ``transformer.gather_tree`` to record each Mamba or RWKV
+    leaf it gathers, as (path, whole shape of one layer's leaf)."""
+    from repro_torch.models import transformer as T
+    from repro_torch.tree import leaves_with_paths
+
+    seen = []
+    gather = T.gather_tree
+
+    def recording(tree, prefix="", **kw):
+        out = gather(tree, prefix, **kw)
+        if str(prefix).endswith(MIXER_LEAVES):
+            seen.extend(
+                (f"{prefix}/{path}", tuple(w.shape))
+                for (path, t), (_, w) in zip(leaves_with_paths(tree),
+                                             leaves_with_paths(out))
+                if w.shape != t.shape)
+        return out
+
+    monkeypatch.setattr(T, "gather_tree", recording)
+    return seen
+
+
+@pytest.mark.parametrize("kind", CUT_KINDS)
+@pytest.mark.parametrize("arch", CUT_ARCHS)
+def test_the_cut_scales_as_the_references(reference, arch, kind,
+                                          monkeypatch):
+    """Reduced ``arch`` over 3 × 64 tokens: the port's per-rank FLOPs on
+    data 1 × model 4 over those on 1 × 1 are within 10 % of the same ratio
+    of the reference's compiled steps (about ¼ for jamba, whose every
+    layer's work is cut; about ½ for RWKV, whose token-shift mixes and
+    chunked scan's elementwise work run on every rank at this width).  And
+    every Mamba or RWKV weight the port gathers on 1 × 4 is a shape the
+    reference's forward all-gathers: the port gathers none, and neither
+    does the reference."""
+    from repro_torch.configs import reduced_config
+
+    cfg = reduced_config(arch)
+    ref = {m: reference[f"cut/{arch}/{kind}/{m}"] for m in CUT_MODEL}
+    gathered = _gathered_mixer_leaves(monkeypatch)
+    port = {m: _run(kind, cfg, seq=CUT_S, batch=CUT_B, accum=1, data=1,
+                    model_axis=m, plain=True)[1]["flops"]
+            for m in CUT_MODEL}
+    want = ref[4]["flops"] / ref[1]["flops"]
+    got = port[4] / port[1]
+    assert abs(got / want - 1) <= CUT_RTOL, (got, want)
+    assert want < 0.6
+    assert all(list(sh) in ref[4]["gathered"] for _, sh in gathered),         gathered
+    assert not gathered
+
+
+@pytest.mark.parametrize("arch", CUT_ARCHS)
+def test_mesh_prefill_cuts_the_mamba_and_rwkv_layers(arch, monkeypatch):
+    """A prefill of reduced ``arch`` at batch 2 on rank 0 of a fake 1 × 2
+    world, against a world of one: the scan's work (Mamba's
+    ``_scan_chunk``, the steps of RWKV's plain scan, ``_wkv_step``) is
+    half of the whole prefill's, exactly, and no Mamba or RWKV leaf goes
+    through ``gather_tree``."""
+    from repro_torch.configs import reduced_config
+    from repro_torch.introspect import opcount
+    from repro_torch.models import mamba as M
+    from repro_torch.models import rwkv as RW
+
+    cfg = reduced_config(arch)
+    mod, name = (M, "_scan_chunk") if arch.startswith("jamba") \
+        else (RW, "_wkv_step")
+    fn = getattr(mod, name)
+    work = []
+
+    def counted(*args):
+        with opcount.count() as cost:
+            out = fn(*args)
+        work.append(cost.flops)
+        return out
+
+    monkeypatch.setattr(mod, name, counted)
+    gathered = _gathered_mixer_leaves(monkeypatch)
+    scans = {}
+    for m in (1, 2):
+        work.clear()
+        _run("prefill", cfg, seq=S, batch=2, data=1, model_axis=m,
+             plain=True)
+        scans[m] = sum(work)
+    assert scans[1] > 0 and 2 * scans[2] == scans[1]
+    assert not gathered
+
+
+def test_the_spread_moe_step_computes_less_than_the_references(
+        reference, monkeypatch):
+    """Reduced ``granite-moe-3b-a800m``, 4 microbatches of 2 rows of 16
+    tokens on 2 (pod) × 2 × 1 (the ``moe-spread`` run of
+    ``tests/test_torch_sharded_train.py``): the port's rank runs its 2
+    rows a dispatch group at a time after a pass without gradients that
+    counts the routed pairs; the reference's device runs every
+    microbatch's row, padded, and routes its pod's shard on every ``data``
+    rank.  The port's per-rank FLOPs, its counting pass included, are
+    below the reference's per-device FLOPs."""
+    from repro_torch.configs import reduced_config
+    from repro_torch.introspect import opcount
+    from repro_torch.launch import steps
+
+    weigh = steps._weigh_moe_aux
+    passes = []
+
+    def counted(*args, **kw):
+        with opcount.count() as cost:
+            out = weigh(*args, **kw)
+        passes.append(cost.flops)
+        return out
+
+    monkeypatch.setattr(steps, "_weigh_moe_aux", counted)
+    _, cost = _run("train", reduced_config(MOE), seq=MOE_S, batch=MOE_B,
+                   accum=MOE_ACCUM, data=2, model_axis=1, pods=2,
+                   plain=True)
+    ref = reference["moe-spread"]["flops"]
+    assert passes and sum(passes) > 0
+    assert cost["flops"] < ref, (cost["flops"], sum(passes), ref)
 
 
 @pytest.mark.parametrize("kind", ("train", "prefill", "decode"))
@@ -474,8 +693,8 @@ def test_collectives_of_a_hand_counted_decode_step():
 def test_collective_payloads_follow_the_references_rule():
     """One call of each collective on a fake 2 × 2 world, each over one
     axis of 2 ranks: an all-gather counts its gathered output, an
-    all-reduce twice its input, a reduce-scatter, a broadcast and a ring
-    shift their input."""
+    all-reduce twice its input, a reduce-scatter, an all-to-all, a
+    broadcast and a ring shift their input."""
     from torch._subclasses.fake_tensor import FakeTensorMode
 
     from repro_torch.introspect import opcount
@@ -491,15 +710,17 @@ def test_collective_payloads_follow_the_references_rule():
             C.all_reduce(x, mesh, ("data", "model"))
             C.all_reduce(x, mesh, "model", "max")
             C.reduce_scatter(x, mesh, "data", 0)
+            C.all_to_all(x, mesh, "model", 0, [1, 3], [3, 1])
             C.broadcast(x, mesh, "data", 0)
             C.shift(x, mesh, "model", "test")
     ops = {c["kind"]: (c["bytes"], c["count"])
            for c in cost.to_json()["collective_ops"]}
     assert ops == {"all-gather": (96.0, 1.0), "all-reduce": (288.0, 3.0),
                    "reduce-scatter": (48.0, 1.0),
+                   "all-to-all": (48.0, 1.0),
                    "collective-broadcast": (48.0, 1.0),
                    "collective-permute": (48.0, 1.0)}
-    assert cost.collective_bytes_by_group_size() == {2: 528.0}
+    assert cost.collective_bytes_by_group_size() == {2: 576.0}
 
 
 def _kernel_cases():

@@ -8,7 +8,12 @@ runs the same step on four gloo ranks spawned by
 parameters and feed the same batches: reduced ``smollm-360m`` (15/5-style
 uneven heads: 3 over 1, so attention is gathered and the FFN Megatron),
 reduced ``granite-moe-3b-a800m`` (4/2 heads, the Megatron attention, the
-expert-parallel MoE with ZeRO-3 experts, capacity drops on each shard) and
+expert-parallel MoE with ZeRO-3 experts, capacity drops on each shard),
+reduced ``jamba-v0.1-52b`` (``d_inner`` 128 and the RWKV heads below cut
+over ``model``: each rank runs its slice of a Mamba layer, its product of
+``in_proj`` moved by an all-to-all, beside the Megatron attention and the
+MoE), reduced ``rwkv6-7b`` (4 heads of 16 and d_ff 128: each rank runs
+two heads of the time mix and 64 columns of the channel mix) and
 ``jpeg-resnet`` at the parity size of ``tests/test_torch_train.py``
 (widths (4, 8), 16 px; the reduced config's three stages take ~80 s on
 four CPU ranks), batch norm statistics over every rank's rows.  Global
@@ -70,7 +75,8 @@ import torch
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SRC = os.path.join(ROOT, "src")
 
-ARCHS = ("smollm-360m", "granite-moe-3b-a800m", "jpeg-resnet")
+ARCHS = ("smollm-360m", "granite-moe-3b-a800m", "jamba-v0.1-52b",
+         "rwkv6-7b", "jpeg-resnet")
 COMPRESSION = ("none", "bf16")
 #: the dense model's step on two more layouts (``_rank_runs``)
 LAYOUTS = ("no-zero1", "pod-data", "micro-replicated")
