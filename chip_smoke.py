@@ -208,7 +208,10 @@ Phases, each fatal on failure:
    experts), ``jamba-v0.1-52b`` cut to its first layer (a Mamba mixer
    with its dense FFN: each rank its half of ``d_inner``, ``in_proj``'s
    product moved by an all-to-all), ``rwkv6-7b`` cut to 2 (each rank
-   32 of the 64 heads and half of d_ff), ``jpeg-resnet`` at batch 8,
+   32 of the 64 heads and half of d_ff), ``whisper-small`` cut to 2
+   encoder and 2 decoder layers (Megatron self- and cross-attention and
+   gelu MLP, the embedding and head cut by vocab), ``jpeg-resnet`` at
+   batch 8,
    each against the same run on one rank (losses and gathered
    parameters); ``pipelined_apply`` over 4
    stages of one full-width ``smollm-360m`` layer each, 8 microbatches,
@@ -216,8 +219,9 @@ Phases, each fatal on failure:
    workload's kernels.  Multi-device speed is not measured;
 24. the dry-run (``launch/dryrun.py``): (a) the production cells of
    DRYRUN_CELLS traced with no card visible, one process a cell, each
-   ``status ok``, its per-rank bytes printed against the card's 80 GB,
-   its kernel launch counts unchanged; (b) the same trace of phase 22's
+   ``status ok``, its per-rank bytes printed against the card's 80 GB
+   and its collective bytes by group (PERF.md holds the prediction), its
+   kernel launch counts unchanged; (b) the same trace of phase 22's
    ``smollm-360m`` step on a world of one against that step run for real
    on the card over NCCL under the same counter and tracker: counted
    FLOPs and bytes within DRY_COUNT_RTOL, the predicted peak within
@@ -231,6 +235,14 @@ Phases, each fatal on failure:
    (logits and state slices against one rank's prefill within
    SERVE4_RTOL), then decoding on from those states, each rank stepping
    its own state slice, against one rank's decode within SERVE4_RTOL;
+   then WIDE4_RUNS on the same ranks, each against one rank within
+   SERVE4_RTOL and launching the attention forward in prefill:
+   ``whisper-small`` at full width cut to 2 + 2 layers on 2 × 2 (the
+   encoder over 1500 frames, then decode steps against its cross cache)
+   and ``starcoder2-3b`` at full width cut to 2 layers on 1 × 4, whose
+   ``model`` does not divide its 2 key/value heads: each rank's 6 query
+   heads read a head of 128 columns that two ranks hold (prefill, then 4
+   decode steps);
 25. the paper's own formulation in ``core/``, fp32 with TF32 off, each
    card result against the same function on CPU copies (the plain
    versions): (a) Algorithm 1 at CIFAR size: ``explode_full`` (a 1.07 GB
@@ -427,6 +439,11 @@ MESH4_SMOLLM_LAYERS, MESH4_GRANITE_LAYERS, MESH4_MOE_CF = 4, 2, 5.0
 #: data ranks with no model cut; at full width on 2 × 2 on the card,
 #: 3.2e-5), so such leaves start at MESH4_OFF_ZERO × N(0, 1)
 MESH4_SSM_LAYERS = (("jamba-v0.1-52b", 1), ("rwkv6-7b", 2))
+#: phase 23's whisper-small run at full width, cut to this many encoder
+#: and decoder layers (12 heads and d_ff 3072 over 2 model ranks: the
+#: Megatron split of its self- and cross-attention and gelu MLP; the
+#: frames zero, as the trainer feeds them)
+MESH4_WHISPER_LAYERS = 2
 MESH4_OFF_ZERO = 0.1
 MESH_EPS, MESH_LOSS_RTOL, MESH_PARAM_RTOL, MESH_PIPE_RTOL = \
     1e-3, 1e-5, 1e-5, 1e-6
@@ -441,6 +458,7 @@ MESH4_KERNELS = {
     "smollm-360m": ("flash_attention", "flash_attention_bwd"),
     "granite-moe-3b-a800m": ("flash_attention", "flash_attention_bwd"),
     "jamba-v0.1-52b": (), "rwkv6-7b": (),
+    "whisper-small": ("flash_attention", "flash_attention_bwd"),
     "jpeg-resnet": ("jpeg_conv", "asm_relu", "block_dct", "block_idct"),
     "pipeline": ("flash_attention",)}
 #: phase 23's training runs, in order
@@ -471,6 +489,19 @@ SERVE4_RTOL = 1e-5
 #: from those states, each against one rank within SERVE4_RTOL
 SSM4_ARCHS = ("jamba-v0.1-52b", "rwkv6-7b")
 SSM4_LAYERS, SSM4_PROMPT, SSM4_DECODE, SSM4_CAPACITY = 2, 512, 2, 8.0
+#: phase 24 (c)'s model-axis runs on the same four ranks, each at full
+#: width cut to WIDE4_LAYERS layers (whisper's: encoder and decoder
+#: layers each), fp32, against one rank within SERVE4_RTOL:
+#: ``whisper-small`` on 2 × 2 (the encoder over SERVE4_BATCH × 1500
+#: frames as its prefill, then WIDE4_DECODE steps against the cross cache
+#: of its output), and ``starcoder2-3b`` on 1 × 4, where ``model`` does
+#: not divide its 2 key/value heads (each rank's 6 query heads read a
+#: head of 128 columns that two ranks hold): a prefill of SERVE4_BATCH ×
+#: SERVE4_PROMPT, then WIDE4_DECODE steps
+WIDE4_RUNS = ((AUDIO_ARCH, (2, 2)), ("starcoder2-3b", (1, 4)))
+WIDE4_LAYERS, WIDE4_DECODE = 2, 4
+WIDE4_HELD = ("prefill_out", "prefill_cache", "decode_logits",
+              "decode_cache")
 #: phase 25: Algorithm 1 at CIFAR size (PAPER_BATCH images of PAPER_CH
 #: channels, PAPER_IMAGE² pixels, a PAPER_CH → PAPER_CH 3×3 kernel: a 1.07
 #: GB operator at stride 1) and Fig. 4a's PAPER_BLOCKS blocks; the convs
@@ -3413,8 +3444,10 @@ def mesh4_workloads(dev):
     MESH4_SSM_LAYERS says (drawn on the card: each rank runs the model
     axis's slice of their Mamba and RWKV layers; the leaves they draw at
     zero, Mamba's ``conv_b`` and RWKV's ``ln_b``, moved off it by
-    MESH4_OFF_ZERO), fp32, AdamW eps MESH_EPS; full ``jpeg-resnet`` at
-    batch TRAIN_BATCH (batch norm statistics over every rank's rows)."""
+    MESH4_OFF_ZERO), ``whisper-small`` cut to MESH4_WHISPER_LAYERS
+    encoder and decoder layers (drawn the same way: its biases start at
+    zero), fp32, AdamW eps MESH_EPS; full ``jpeg-resnet`` at batch
+    TRAIN_BATCH (batch norm statistics over every rank's rows)."""
     import torch
 
     from repro_torch.configs import get_config
@@ -3433,9 +3466,11 @@ def mesh4_workloads(dev):
 
     for arch, layers in ((LM_ARCH, MESH4_SMOLLM_LAYERS),
                          (MOE_ARCH, MESH4_GRANITE_LAYERS)) \
-            + MESH4_SSM_LAYERS:
+            + MESH4_SSM_LAYERS + ((AUDIO_ARCH, MESH4_WHISPER_LAYERS),):
         cfg = dataclasses.replace(get_config(arch), n_layers=layers,
                                   dtype="float32")
+        if cfg.encoder_decoder:
+            cfg = dataclasses.replace(cfg, n_encoder_layers=layers)
         if cfg.n_experts:
             cfg = dataclasses.replace(cfg, capacity_factor=MESH4_MOE_CF)
         model = build_model(cfg, remat="full")
@@ -3444,7 +3479,8 @@ def mesh4_workloads(dev):
             for s in range(MESH4_STEPS)]
         draw = (lambda m=model: off_zero(m.init_params(
             torch.Generator(device=dev).manual_seed(0), dev))) \
-            if cfg.ssm_kind else (lambda m=model: m.init_params(
+            if cfg.ssm_kind or cfg.encoder_decoder \
+            else (lambda m=model: m.init_params(
                 torch.Generator().manual_seed(0), dev))
         yield (arch, model, mesh_run_config(
             cfg, MESH4_BATCH, MESH4_SEQ, MESH4_ACCUM, eps=MESH_EPS, data=2,
@@ -3896,6 +3932,142 @@ def ssm4_rank(mesh, dev, ref: dict, err) -> dict:
     return out
 
 
+def wide4_inputs(arch: str, dev):
+    """One of WIDE4_RUNS: the config, the model, the whole parameters
+    (seed 0, drawn on the host), the prefill batch and the decode tokens
+    (seed 7)."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.registry import build_model
+
+    cfg = dataclasses.replace(get_config(arch), n_layers=WIDE4_LAYERS,
+                              dtype="float32")
+    if cfg.encoder_decoder:
+        cfg = dataclasses.replace(cfg, n_encoder_layers=WIDE4_LAYERS)
+    model = build_model(cfg)
+    params = model.init_params(torch.Generator().manual_seed(0), dev)
+    gen = torch.Generator().manual_seed(7)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size,
+                                     (SERVE4_BATCH, SERVE4_PROMPT),
+                                     generator=gen, dtype=torch.int32)}
+    if cfg.encoder_decoder:
+        batch["frames"] = torch.randn(
+            (SERVE4_BATCH, cfg.encoder_context_len, cfg.d_model),
+            generator=gen)
+    toks = [torch.randint(0, cfg.vocab_size, (SERVE4_BATCH, 1),
+                          generator=gen, dtype=torch.int32).to(dev)
+            for _ in range(WIDE4_DECODE)]
+    return cfg, model, params, {k: v.to(dev) for k, v in batch.items()}, \
+        toks
+
+
+def wide4_reference(dev) -> dict:
+    """Each of WIDE4_RUNS on one rank: the prefill's output and cache
+    (whisper's: the encoder output), the decode cache it fills (the
+    prompt's keys and values in its first slots, or whisper's cross cache
+    of the encoder output), each decode step's logits and the cache after
+    them, on the host."""
+    import torch
+
+    from repro_torch.models import transformer as T
+    from repro_torch.tree import tree_map
+
+    out = {}
+    for arch, _ in WIDE4_RUNS:
+        cfg, model, params, batch, toks = wide4_inputs(arch, dev)
+        with torch.no_grad():
+            first, cache = model.prefill(params, batch)
+            dcache = model.init_cache(SERVE4_BATCH, SERVE4_SLOTS, dev)
+            if cfg.encoder_decoder:
+                dcache["cross"] = T.cross_cache(params, cfg, first)
+            else:
+                dcache["index"].copy_(cache["index"])
+                for j, c in cache.items():
+                    for n, x in (c.items() if j != "index" else ()):
+                        dcache[j][n][:, :, :x.shape[2]] = x
+            one = tree_map(lambda x: x.clone(), dcache)
+            logits = []
+            for t in toks:
+                lg, one = model.decode_step(params, one, {"tokens": t})
+                logits.append(lg)
+        out[arch] = tree_map(lambda x: x.cpu(), {
+            "prefill_out": first, "prefill_cache": cache or {},
+            "decode_cache": dcache, "decode_logits": torch.stack(logits),
+            "decode_cache_after": one})
+        del params, cache, dcache, one
+        torch.cuda.empty_cache()
+    return out
+
+
+def wide4_rank(dev, ref: dict, err, device_type: str) -> dict:
+    """This rank's part of each of WIDE4_RUNS on its own mesh of the four
+    ranks: the prefill step and WIDE4_DECODE decode steps on its rows and
+    parameter and cache slices, against its part of one rank's run (the
+    largest difference over the largest |value|), with the prefill's
+    attention launches and the collective bytes of the prefill and of the
+    first decode step."""
+    import torch
+
+    from repro_torch.configs import MeshConfig, RunConfig, ShapeConfig
+    from repro_torch.introspect import opcount
+    from repro_torch.launch.mesh import make_axis_rules, make_mesh
+    from repro_torch.launch.steps import (build_decode_step,
+                                          build_prefill_step,
+                                          cache_shardings)
+    from repro_torch.parallel.sharding import local_slice
+    from repro_torch.tree import leaves, tree_map
+
+    out = {}
+    for arch, (data, model_axis) in WIDE4_RUNS:
+        mesh = make_mesh((data, model_axis), ("data", "model"), device_type)
+        mc = MeshConfig(data=data, model=model_axis)
+        rules = make_axis_rules(mc)
+        cfg, model, params, batch, toks = wide4_inputs(arch, dev)
+        want = ref[arch]
+        run = RunConfig(model=cfg, shape=ShapeConfig(
+            "p", SERVE4_PROMPT, SERVE4_BATCH, "prefill"), mesh=mc)
+        pb = build_prefill_step(model, run, mesh, rules)
+        db = build_decode_step(model, dataclasses.replace(
+            run, shape=ShapeConfig("d", SERVE4_SLOTS, SERVE4_BATCH,
+                                   "decode")), mesh, rules)
+        local = pb.init_fns[0](params)
+        del params
+        reset_counts()
+        with torch.no_grad(), opcount.count() as cost:
+            first, cache = pb.step_fn(local, batch)
+        res = {"launches": counts(),
+               "prefill collective bytes": cost.collective_bytes,
+               "prefill_out": err(first, want["prefill_out"][pb.rows])}
+        if cache is not None:
+            specs = cache_shardings(model.init_cache(
+                SERVE4_BATCH, SERVE4_PROMPT, "meta"), cfg, rules,
+                SERVE4_BATCH)
+            mine = tree_map(lambda x, sp: local_slice(x, sp, mesh),
+                            want["prefill_cache"], specs)
+            res["prefill_cache"] = max(
+                err(a, b) for a, b in zip(leaves(cache), leaves(mine))
+                if a.dim())
+        lc = tree_map(lambda x: x.to(dev), db.init_fns[1](
+            want["decode_cache"]))
+        errs = []
+        with torch.no_grad():
+            for i, t in enumerate(toks):
+                with opcount.count() as cost:
+                    lg, lc = db.step_fn(local, lc, {"tokens": t})
+                if i == 0:
+                    res["decode collective bytes"] = cost.collective_bytes
+                errs.append(err(lg, want["decode_logits"][i][db.rows]))
+        after = db.init_fns[1](want["decode_cache_after"])
+        res["decode_logits"] = max(errs)
+        res["decode_cache"] = max(err(a, b) for a, b in
+                                  zip(leaves(lc), leaves(after)) if a.dim())
+        out[arch] = res
+        del local, lc, cache
+        torch.cuda.empty_cache()
+    return out
+
+
 def serve4_reference(dev, path: str) -> None:
     """Phase 24 (c) on one rank, the whole batch and cache: the prefill's
     logits and cache, the decode cache (the prompt's keys and values in
@@ -3906,6 +4078,7 @@ def serve4_reference(dev, path: str) -> None:
     from repro_torch.tree import tree_map
 
     ssm = ssm4_reference(dev)
+    wide = wide4_reference(dev)
     cfg, model, params, batch, toks = serve4_inputs(dev)
     with torch.no_grad():
         logits, cache = model.prefill(params, batch)
@@ -3925,7 +4098,8 @@ def serve4_reference(dev, path: str) -> None:
     torch.save({"prefill_logits": logits.cpu(), "prefill_cache": host(cache),
                 "decode_cache": host(dcache),
                 "decode_logits": torch.stack(outs).cpu(),
-                "decode_cache_after": host(one), "ssm": ssm}, path)
+                "decode_cache_after": host(one), "ssm": ssm,
+                "wide": wide}, path)
     del params, cache, dcache, one
     torch.cuda.empty_cache()
 
@@ -3995,6 +4169,7 @@ def serve4_rank(mesh):
     del local, lc
     torch.cuda.empty_cache()
     out["ssm"] = ssm4_rank(mesh, dev, ref["ssm"], err)
+    out["wide"] = wide4_rank(dev, ref["wide"], err, mesh.device_type)
     return out
 
 
@@ -4136,6 +4311,16 @@ def dryrun_phase(dev, card: str, launches: dict) -> None:
                  f"decode against one rank {ssm} (> {SERVE4_RTOL})")
         for k, v in r["launches"].items():
             launches[k] += v
+        for arch, res in r["wide"].items():
+            held = {k: v for k, v in res.items() if k in WIDE4_HELD}
+            if not max(held.values()) <= SERVE4_RTOL:
+                fail(f"serve rank {r['rank']} {arch}: against one rank "
+                     f"{held} (> {SERVE4_RTOL})")
+            if res["launches"]["flash_attention"] <= 0:
+                fail(f"serve rank {r['rank']} {arch}: the prefill launched "
+                     f"no attention ({res['launches']})")
+            for k, v in res["launches"].items():
+                launches[k] += v
     log(f"serve 2x2 (data × model, 4 ranks on one card, gloo) {LM_ARCH} "
         f"full width, {SERVE4_LAYERS} layers, fp32, prefill "
         f"{SERVE4_BATCH} × {SERVE4_PROMPT}, {SERVE4_DECODE} decode steps "
@@ -4152,8 +4337,25 @@ def dryrun_phase(dev, card: str, launches: dict) -> None:
         f"difference from one rank over the ranks "
         f"{ {k: max(r['ssm'][k] for r in ranks) for k in ranks[0]['ssm']} }"
         f" (collective bytes: a rank's prefill and first decode step, every"
-        f" layer: the embedding and head gathered whole, and jamba's MoE "
-        f"experts gathered over data)")
+        f" layer: the embedding's rows summed over model, the logits' "
+        f"columns gathered, and jamba's MoE experts gathered over data)")
+    for arch, (data, model_axis) in WIDE4_RUNS:
+        wide = [r["wide"][arch] for r in ranks]
+        held = {k: max(w[k] for w in wide) for k in WIDE4_HELD
+                if k in wide[0]}
+        what = (f"full width, {WIDE4_LAYERS} encoder and decoder "
+                f"layers, the encoder over {SERVE4_BATCH} × 1500 frames"
+                if arch == AUDIO_ARCH else
+                f"full width, {WIDE4_LAYERS} layers, 24/2 heads of 128 over "
+                f"4 model ranks, a prefill of {SERVE4_BATCH} × "
+                f"{SERVE4_PROMPT}")
+        log(f"serve {data}x{model_axis} (data × model, 4 ranks on one card,"
+            f" gloo) {arch}, {what}, then {WIDE4_DECODE} decode steps, fp32 "
+            f"[{card}]: largest difference from one rank over the ranks "
+            f"{held}; prefill attention launches per rank "
+            f"{[w['launches']['flash_attention'] for w in wide]}; collective"
+            f" bytes a rank: prefill {wide[0]['prefill collective bytes']:.0f}"
+            f", first decode step {wide[0]['decode collective bytes']:.0f}")
 
 
 def examples_phase(dev, card: str, launches: dict) -> None:

@@ -10,13 +10,16 @@ the activation dtype.  Full-sequence attention is
 its plain version on a CPU one or when the caller asks for it
 (``plain=True``).
 
-Under mesh rules (``parallel/sharding.py``; the training step of
-``launch/steps.py`` installs them) a layer sees this rank's slices of its
-weights.  Where a weight arrives cut over ``model`` the layer runs the
-Megatron split: :func:`model_in` enters the region (identity forward, the
-gradient summed over ``model``), each rank computes its heads or its d_ff
-columns, and :func:`model_out` sums the partial outputs.  The Mamba and
-RWKV layers run their own splits through a :class:`Split`.  The reference's
+Under mesh rules (``parallel/sharding.py``; the steps of
+``launch/steps.py`` install them) a layer sees this rank's slices of its
+weights, and what crosses ranks is activations.  Where a weight arrives
+cut over ``model`` the layer runs the Megatron split: :func:`model_in`
+enters the region (identity forward, the gradient summed over
+``model``), each rank computes its heads or its d_ff columns (the gelu
+MLP's output bias left for after the sum), and :func:`model_out` sums the
+partial outputs.  Attention, the vocab-cut embedding and head, and the
+Mamba and RWKV layers run their splits through a :class:`Split`
+(``models/transformer.py``).  The reference's
 ``shard(...)`` hints have no counterpart: a rank's activations are
 already its own rows.
 """
@@ -149,10 +152,13 @@ def swiglu_mlp(x: torch.Tensor, w_gate: torch.Tensor, w_in: torch.Tensor,
 
 
 def gelu_mlp(x: torch.Tensor, w_in: torch.Tensor, b_in: torch.Tensor,
-             w_out: torch.Tensor, b_out: torch.Tensor) -> torch.Tensor:
+             w_out: torch.Tensor,
+             b_out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """gelu(x @ w_in + b_in) @ w_out + b_out, gelu's tanh approximation
-    (``jax.nn.gelu``'s default)."""
-    return F.gelu(x @ w_in + b_in, approximate="tanh") @ w_out + b_out
+    (``jax.nn.gelu``'s default); without ``b_out`` where a split layer
+    adds it after the ranks' sum."""
+    out = F.gelu(x @ w_in + b_in, approximate="tanh") @ w_out
+    return out if b_out is None else out + b_out
 
 
 def model_in(x: torch.Tensor) -> torch.Tensor:
@@ -178,8 +184,10 @@ def model_out(x: torch.Tensor) -> torch.Tensor:
 
 class Split(NamedTuple):
     """A layer's work cut over the mesh axes ``axes``, each rank computing
-    its part (a Mamba layer's ``d_inner`` slice, an RWKV layer's heads and
-    channel-mix columns), with the autograd forms of
+    its part (an attention layer's column blocks, the embedding's vocab
+    rows and the head's vocab columns, a Mamba layer's ``d_inner`` slice,
+    an RWKV layer's heads and channel-mix columns), with the autograd
+    forms of
     ``parallel/collectives.py`` at its edges, so the forward and its
     gradient both hold."""
     mesh: Any

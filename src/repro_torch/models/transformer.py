@@ -36,19 +36,29 @@ takes the reference's ``remat`` values (``none``, ``full``, ``dots``,
 
 On a mesh (the rules ``launch/steps.py`` installs, with each leaf's spec)
 ``forward`` and ``loss_fn`` run on this rank's rows and parameter slices,
-per leaf class: self-attention whose query and key/value head counts both
-divide over ``model`` runs Megatron's split (column-parallel q/k/v,
-row-parallel ``o_proj``, one all-reduce), and so does the SwiGLU FFN
-(``w_gate``/``w_in`` by columns, ``w_out`` by rows); the MoE's experts
-take ``models/moe.py``'s expert-parallel path; a Mamba layer runs its
-own ``d_inner`` slice and an RWKV layer its own heads and channel-mix
-columns, as the reference's partitioner cuts them (:data:`_SLICED`):
+and the model axis moves activations, not weights, as the reference's
+partitioner does.  The embedding, cut by vocab rows, looks up the tokens
+its rows hold and sums the ranks' rows (:func:`_lookup`); the head, cut
+by vocab columns, computes the rank's columns of the logits (kept cut in
+the loss, :func:`_split_nll`; gathered where logits are returned,
+:func:`_lm_head`).  Self- and cross-attention run on their projections'
+column blocks where ``model`` divides the query heads (Megatron's split:
+column-parallel q/k/v, row-parallel ``o_proj``, one all-reduce); where it
+does not divide the key/value heads, each rank receives the key and
+value columns its query heads read from the ranks that hold them, by one
+all-to-all (:func:`_read_heads`).  The dense FFN runs Megatron's split
+too (SwiGLU's ``w_gate``/``w_in``, whisper's ``wi``/``bi`` by columns,
+``w_out``/``wo`` by rows); the MoE's experts take ``models/moe.py``'s
+expert-parallel path; a Mamba layer runs its own ``d_inner`` slice and an
+RWKV layer its own heads and channel-mix columns (:data:`_SLICED`):
 ``in_proj``'s product reaches the slice that needs it by one all-to-all,
 the partial products of the projections cut by rows are summed, and the
 RWKV channel mix gathers its hidden activation and its output columns.
-Every other leaf cut over an axis (the embedding and tied head, attention
-with uneven heads such as ``smollm-360m``'s 15/5, cross-attention,
-whisper's gelu MLP) is gathered whole just before its layer runs and its
+One layout gathers weights on purpose: attention whose query heads
+``model`` does not divide (``smollm-360m``'s 15/5 over 16) gathers its
+projections whole in the forward and prefill, where gathering every
+head's activations, the reference's choice, moves more bytes
+(:func:`_heads_split`); so does any leaf a layer cannot split, its
 gradient sliced back (:func:`_mesh_layer`).  Without rules nothing of
 this runs.
 
@@ -59,18 +69,21 @@ its rows of the cache and, of an attention layer's keys and values, every
 head at its own slots (the flash-decode layout;
 ``sharding.cache_leaf_pspec``); Mamba's states are cut along ``d_inner``
 and RWKV's ``wkv`` by head over ``model``.  Prefill writes each rank's
-slots and state slices.  A decode step's attention gathers the token's
-query, key and value heads over ``model`` when its projections are split,
-writes the new key and value at ring slot ``index % T`` on the rank that
-owns that slot only, attends with every head over the rank's own slots,
-and combines the ranks' partial softmaxes over the sequence axes with one
-max and two sums (:func:`layers.decode_attention_sharded`); a split
-layer keeps its own heads for the row-parallel ``o_proj``.  Mamba and
-RWKV layers run their slices as in the forward, and the states a prefill
-computes are the rank's slices, which decode steps on; no Mamba or RWKV
-weight or state is gathered, but for an RWKV layer whose heads ``model``
-does not divide, which gathers its states and weights, steps them whole
-and keeps its slice.
+slots and state slices (an attention layer's key and value columns of
+the cached positions gathered over ``model``).  A decode step's attention,
+for every head layout, keeps its projections cut by columns and gathers
+the token's query, key and value columns over ``model``, writes the new
+key and value at ring slot ``index % T`` on the rank that owns that slot
+only, attends with every head over the rank's own slots, and combines
+the ranks' partial softmaxes over the sequence axes with one max and two
+sums (:func:`layers.decode_attention_sharded`); ``o_proj``'s rows take
+the rank's columns of the output.  Cross-attention attends with the
+rank's own heads over the whole cross cache where ``model`` divides them.
+Mamba and RWKV layers run their slices as in the forward, and the states
+a prefill computes are the rank's slices, which decode steps on; no Mamba
+or RWKV weight or state is gathered, but for an RWKV layer whose heads
+``model`` does not divide, which gathers its states and weights, steps
+them whole and keeps its slice.
 
 Unlike the reference's pure functions, :func:`decode_step` writes the new
 token's keys and values, and each Mamba layer's new states, into the
@@ -305,59 +318,110 @@ def _norm(x, w, b=None, eps: float = 1e-5):
     return L.rms_norm(x, w, eps) if b is None else L.layer_norm(x, w, b, eps)
 
 
+def _attn_split(p: dict, cfg: ModelConfig):
+    """The cut (``layers.Split`` over ``model``) of an attention layer
+    whose projections are this rank's columns (:func:`_mesh_layer` keeps
+    them so), or None where they are whole."""
+    if p["q_proj"].shape[-1] == cfg.q_dim:
+        return None
+    rules = active_rules()
+    return L.Split(rules.mesh, rules.axes("model"))
+
+
+def _heads(x: torch.Tensor, hd: int) -> torch.Tensor:
+    """Columns (B, S, H·hd) as heads (B, S, H, hd)."""
+    return x.reshape(x.shape[0], x.shape[1], -1, hd)
+
+
+def _rope(x: torch.Tensor, positions, cfg: ModelConfig) -> torch.Tensor:
+    return L.apply_rope(x, positions, cfg.rope_theta) if cfg.use_rope \
+        else x
+
+
 def _attn_block(h, p, cfg: ModelConfig, positions, *, causal, window,
                 want_cache=False, plain=False):
     """Self-attention → (output, cache or None).  Projections narrower
-    than ``q_dim`` are this rank's whole query heads of a Megatron split
-    over ``model`` (:func:`_mesh_layer`): the rank attends with its heads
-    and the partial outputs of ``o_proj`` are summed.  Where ``model``
-    does not divide the key/value heads (:func:`_grouped_heads`) the
-    ranks' key and value columns are gathered and each rank attends with
-    the key/value heads its query heads read."""
+    than ``q_dim`` are this rank's column blocks of a split over ``model``
+    (:func:`_mesh_layer`): whole query heads, and the key and value
+    columns of the heads they read (:func:`_read_heads`, which moves them
+    between ranks where the rank does not hold them); the rank attends
+    with its heads and the partial outputs of ``o_proj`` are summed.  A
+    prefill's cache holds every head: the ranks' key and value columns of
+    the cached positions are gathered."""
     b, s, _ = h.shape
-    split = p["q_proj"].shape[-1] != cfg.q_dim
-    if split:
-        h = L.model_in(h)
     hd = cfg.head_dim
-    hq = p["q_proj"].shape[-1] // hd
-    q = (h @ p["q_proj"]).reshape(b, s, hq, hd)
-    k, v = h @ p["k_proj"], h @ p["v_proj"]
-    grouped = split and cfg.n_kv_heads % active_rules().size("model") != 0
-    if grouped:  # every head's columns, from the ranks of ``model``
-        rules = active_rules()
-        cut = L.Split(rules.mesh, rules.axes("model"))
-        k, v = (cut.join(x, summed=True) for x in (k, v))
-    k = k.reshape(b, s, -1, hd)
-    v = v.reshape(b, s, -1, hd)
-    if cfg.use_rope:
-        q = L.apply_rope(q, positions, cfg.rope_theta)
-        k = L.apply_rope(k, positions, cfg.rope_theta)
+    split = _attn_split(p, cfg)
+    if split is not None:
+        h = split.enter(h)
+    q, k, v = (h @ p[w] for w in ("q_proj", "k_proj", "v_proj"))
+    t = s if window is None else min(s, window)  # the cached positions
     kv_cache = None
-    if want_cache:
-        t = s if window is None else min(s, window)
-        kc, vc = k[:, s - t:], v[:, s - t:]
-        if split and not grouped:  # the cache holds every head (by slot)
-            rules = active_rules()
-            kc, vc = (C.all_gather(x, rules.mesh, rules.axes("model"), 2)
-                      for x in (kc, vc))
-        kv_cache = {"k": kc, "v": vc}
-    if grouped:  # the key/value heads of this rank's query heads
-        lo, hi = _grouped_heads(cfg, hq)
-        k, v = k[:, :, lo:hi], v[:, :, lo:hi]
+    if want_cache and split is not None:
+        # the cache holds every head (by slot): the ranks' columns are
+        # gathered, then rotated as whole heads
+        kc, vc = (C.all_gather(x[:, s - t:], split.mesh, split.axes, -1)
+                  for x in (k, v))
+        kv_cache = {"k": _rope(_heads(kc, hd), positions[:, s - t:], cfg),
+                    "v": _heads(vc, hd)}
+    hq = q.shape[-1] // hd
+    if split is not None:
+        k, v = (_read_heads(x, cfg, hq, split) for x in (k, v))
+    q = _rope(_heads(q, hd), positions, cfg)
+    k, v = _rope(_heads(k, hd), positions, cfg), _heads(v, hd)
+    if want_cache and split is None:
+        kv_cache = {"k": k[:, s - t:], "v": v[:, s - t:]}
     out = L.attention(q, k, v, causal=causal, window=window, plain=plain)
     out = out.reshape(b, s, hq * hd) @ p["o_proj"]
-    return (L.model_out(out) if split else out), kv_cache
+    return (split.exit(out) if split is not None else out), kv_cache
 
 
-def _grouped_heads(cfg: ModelConfig, hq: int) -> tuple[int, int]:
-    """The key/value heads [lo, hi) that this rank's ``hq`` query heads
-    read, where the query heads are cut over ``model`` and the key/value
-    heads are not: a rank's heads read one key/value head, or a whole
-    number of them (:func:`_mesh_layer` checks which)."""
-    rules = active_rules()
-    me, _ = chunk_of(rules.mesh, rules.axes("model"))
+def _grouped_heads(cfg: ModelConfig, hq: int, rank: int) -> tuple[int, int]:
+    """The key/value heads [lo, hi) that rank ``rank``'s ``hq`` query
+    heads of a split over ``model`` read: one key/value head, or a whole
+    number of them (:func:`_heads_split` checks which)."""
     group = cfg.n_heads // cfg.n_kv_heads
-    return me * hq // group, ((me + 1) * hq - 1) // group + 1
+    return rank * hq // group, ((rank + 1) * hq - 1) // group + 1
+
+
+def _read_heads(x: torch.Tensor, cfg: ModelConfig, hq: int,
+                split) -> torch.Tensor:
+    """The key or value columns (B, S, ·) of the heads this rank's ``hq``
+    query heads read (:func:`_grouped_heads`), from ``x``, the rank's
+    column block of the whole (B, S, kv_dim).  Where the block is those
+    columns (``model`` divides the key/value heads, Megatron's split) it
+    is ``x``; else one all-to-all over ``model`` sends each rank's block
+    to the ranks whose heads read it, so each rank receives just the
+    columns it reads, from the ranks that hold them (the reference's
+    partitioner gathers them over those ranks alone: the same bytes).  Its
+    gradient goes back the same way, each block's summed over its
+    readers."""
+    idx, n = split.index()
+    hd, w = cfg.head_dim, x.shape[-1]
+
+    def need(r: int) -> tuple[int, int]:  # the columns rank r reads
+        lo, hi = _grouped_heads(cfg, hq, r)
+        return lo * hd, hi * hd
+
+    def overlap(a: tuple[int, int], r: int) -> tuple[int, int]:
+        return max(a[0], r * w), min(a[1], (r + 1) * w)
+
+    if need(idx) == (idx * w, (idx + 1) * w):
+        return x
+    if len(split.axes) != 1:
+        raise ValueError(f"key/value columns move over one axis, not "
+                         f"{split.axes}")
+    send, recv, pieces = [0] * n, [0] * n, []
+    for r in range(n):
+        lo, hi = overlap(need(r), idx)
+        if hi > lo:
+            send[r] = hi - lo
+            pieces.append(x[..., lo - idx * w:hi - idx * w])
+        lo, hi = overlap(need(idx), r)
+        recv[r] = max(hi - lo, 0)
+    # the pieces arrive in rank order, which is the columns' order
+    src = torch.cat(pieces, dim=-1)
+    return C.AllToAll.apply(src, split.mesh, split.axes[0], src.dim() - 1,
+                            send, recv)
 
 
 def _mixer(h, p, cfg: ModelConfig, mixer: str, positions, *, causal,
@@ -380,24 +444,38 @@ def _mixer(h, p, cfg: ModelConfig, mixer: str, positions, *, causal,
 
 def _cross(h, p, cfg: ModelConfig, enc_kv, plain=False):
     """The cross-attention sub-block: norm, then attention of the layer's
-    queries over the encoder's keys and values ``enc_kv`` (no mask, no
-    RoPE)."""
+    queries over the encoder's keys and values ``enc_kv`` (:func:`_cross_kv`;
+    no mask, no RoPE), split over ``model`` as self-attention is."""
     x = _norm(h, p["ln_cross"], p.get("ln_cross_b"), cfg.norm_eps)
-    b, s, _ = x.shape
-    q = (x @ p["cross"]["q_proj"]).reshape(b, s, cfg.n_heads, cfg.head_dim)
-    out = L.attention(q, *enc_kv, causal=False, plain=plain)
-    return out.reshape(b, s, cfg.q_dim) @ p["cross"]["o_proj"]
+    cp, hd = p["cross"], cfg.head_dim
+    split = _attn_split(cp, cfg)
+    if split is not None:
+        x = split.enter(x)
+    q = x @ cp["q_proj"]
+    hq = q.shape[-1] // hd
+    k, v = enc_kv if split is None else (
+        _read_heads(t, cfg, hq, split) for t in enc_kv)
+    out = L.attention(_heads(q, hd), _heads(k, hd), _heads(v, hd),
+                      causal=False, plain=plain)
+    out = out.reshape(q.shape) @ cp["o_proj"]
+    return split.exit(out) if split is not None else out
 
 
 def _ffn(h, p, cfg: ModelConfig, ffn: str, aux_coef=None):
     """The FFN sub-block of a layer → (output, the reference's
     ``ffn_out``; aux loss, 0.0 for a dense FFN); ``aux_coef`` as
-    ``moe.moe_ffn`` takes it."""
+    ``moe.moe_ffn`` takes it.  A dense FFN whose weights are this rank's
+    d_ff columns (``w_gate``/``w_in`` or ``wi``/``bi``) and rows
+    (``w_out`` or ``wo``) runs Megatron's split, its partial outputs
+    summed (whisper's output bias added once, after the sum)."""
     x = _norm(h, p["ln2"], p.get("ln2_b"), cfg.norm_eps)
     if ffn == "moe":
         return moe.moe_ffn(x, p["moe"], cfg, aux_coef)
     f = p["ffn"]
     if cfg.family == "audio":
+        if f["wi"].shape[-1] != cfg.d_ff:  # this rank's d_ff columns
+            out = L.gelu_mlp(L.model_in(x), f["wi"], f["bi"], f["wo"])
+            return L.model_out(out) + f["bo"], 0.0
         return L.gelu_mlp(x, f["wi"], f["bi"], f["wo"], f["bo"]), 0.0
     if f["w_gate"].shape[-1] != cfg.d_ff:  # this rank's d_ff columns
         out = L.swiglu_mlp(L.model_in(x), f["w_gate"], f["w_in"], f["w_out"])
@@ -710,30 +788,53 @@ def _store_cache(caches: dict, c: dict, i: int, n_periods: int, s: int,
         caches[n][i] = x
 
 
+def _heads_split(cfg: ModelConfig, m: int, decode: bool) -> bool:
+    """Whether an attention layer whose projections are cut over ``model``
+    (``m`` ranks) runs on its column blocks: a decode step always (the
+    token's columns gathered, :func:`_attn_decode`); the forward and
+    prefill where ``model`` divides the query heads and each rank's query
+    heads read one or a whole number of key/value heads
+    (:func:`_attn_block`).  Otherwise (``smollm-360m``'s 15/5 heads and
+    ``whisper-small``'s 12 over 16) the forward gathers the projections
+    whole.  The reference's partitioner gathers every head's query, key
+    and value columns instead, which grow with the tokens a rank holds
+    while a layer's weights do not: per rank and step, in the dry-run
+    (``tools/uneven_heads.py``), 61.130 against 18.097 GB at ``smollm-360m
+    × train_4k``, 23.069 against 8.462 GB at ``prefill_32k``, 37.069
+    against 7.021 GB at ``whisper-small × train_4k`` (ROADMAP, "Different
+    on purpose")."""
+    if decode:
+        return True
+    hq, group = cfg.n_heads // m, cfg.n_heads // max(cfg.n_kv_heads, 1)
+    return cfg.n_heads % m == 0 and hq > 0 and (
+        hq % group == 0 or group % hq == 0)
+
+
 def _mesh_layer(p: dict, prefix: str, cfg: ModelConfig,
                 decode: bool = False) -> dict:
-    """One layer's parameters as its code uses them under mesh rules:
-    every leaf cut over an axis gathered whole (``sharding.gather_tree``)
-    but those the layer splits itself: self-attention's projections when
-    both head counts divide over ``model`` (whole heads a rank), or, in
-    the forward and prefill, when the query heads do and each rank's
-    query heads read one or a whole number of key/value heads (the key
-    and value columns are then gathered: :func:`_attn_block`), the
-    SwiGLU FFN's when their specs cut d_ff (the Megatron split), the
-    MoE's experts (its expert-parallel path), and a Mamba or RWKV layer's
-    when it is cut (:func:`_split_of`: its slices, :func:`_slice_tree`),
-    in the forward, prefill and decode (``decode``) alike."""
+    """One layer's parameters as its code uses them under mesh rules: the
+    leaves each layer splits itself as they are held, every other leaf
+    cut over an axis gathered whole (``sharding.gather_tree``).  A layer
+    splits its self- and cross-attention projections (cut by columns,
+    ``o_proj`` by rows) where :func:`_heads_split` says, the dense FFN's
+    (SwiGLU's ``w_gate``/``w_in``, whisper's ``wi``/``bi``, by columns;
+    ``w_out``/``wo`` by rows) when their specs cut d_ff (the Megatron
+    split), the MoE's experts (its expert-parallel path), and a Mamba or
+    RWKV layer's when it is cut (:func:`_split_of`: its slices,
+    :func:`_slice_tree`), in the forward, prefill and decode (``decode``)
+    alike."""
     rules = active_rules()
-    m = rules.size("model")
     spec = rules.specs or {}
 
     def cut(name: str, dim: int) -> bool:
         s = spec.get(f"{prefix}/{name}")
         return s is not None and "model" in spec_axes(s[dim])
 
-    hq, group = cfg.n_heads // m, cfg.n_heads // max(cfg.n_kv_heads, 1)
-    kv_ok = cfg.n_kv_heads % m == 0 or not decode and (
-        hq % group == 0 or group % hq == 0)
+    def all_cut(key: str, cols, rows) -> bool:
+        return all(cut(f"{key}/{w}", -1) for w in cols) \
+            and all(cut(f"{key}/{w}", -2) for w in rows)
+
+    heads = _heads_split(cfg, rules.size("model"), decode)
     out = {}
     for key, sub in p.items():
         at = f"{prefix}/{key}"
@@ -743,14 +844,12 @@ def _mesh_layer(p: dict, prefix: str, cfg: ModelConfig,
             out[key] = sub
         elif split is not None:
             out[key] = _slice_tree(sub, at, _SLICED[key], split, rules)
-        elif key == "attn" and cfg.n_heads % m == 0 and hq and kv_ok \
-                and all(cut(f"attn/{w}", -1) for w in
-                        ("q_proj", "k_proj", "v_proj")) \
-                and cut("attn/o_proj", -2):
+        elif key in ("attn", "cross") and heads and all_cut(
+                key, ("q_proj", "k_proj", "v_proj"), ("o_proj",)):
             out[key] = sub
-        elif key == "ffn" and "w_gate" in sub \
-                and cut("ffn/w_gate", -1) and cut("ffn/w_in", -1) \
-                and cut("ffn/w_out", -2):
+        elif key == "ffn" and (
+                all_cut(key, ("w_gate", "w_in"), ("w_out",)) if "w_gate"
+                in sub else all_cut(key, ("wi", "bi"), ("wo",))):
             out[key] = sub
         else:
             out[key] = gather_tree(sub, at, stacked=True)
@@ -843,17 +942,52 @@ def _own_states(layout, cfg: ModelConfig, mixer: str) -> tuple[str, ...]:
 
 
 def _cross_kv(enc_out, p, cfg: ModelConfig):
-    """A layer's cross-attention keys and values (B, T, KVH, hd) from the
-    encoder output."""
-    b, t, _ = enc_out.shape
-    return tuple((enc_out @ p["cross"][w]).reshape(b, t, cfg.n_kv_heads,
-                                                   cfg.head_dim)
-                 for w in ("k_proj", "v_proj"))
+    """A layer's cross-attention keys and values (B, T, kv_dim) from the
+    encoder output: this rank's columns where the projections are split
+    (:func:`_cross`)."""
+    cp = p["cross"]
+    split = _attn_split(cp, cfg)
+    x = enc_out if split is None else split.enter(enc_out)
+    return x @ cp["k_proj"], x @ cp["v_proj"]
+
+
+def _vocab_split(name: str):
+    """The cut (``layers.Split`` over ``model``) of the embedding
+    (``name`` ``embed``, by vocab rows) or the LM head (``head``, by vocab
+    columns) where the active rules' specs cut it so, else None."""
+    rules = active_rules()
+    if rules is None or not rules.specs or name not in rules.specs:
+        return None
+    spec, vdim = rules.specs[name], 0 if name == "embed" else 1
+    axes = rules.axes("model")
+    if not axes or spec_axes(spec[vdim]) != axes \
+            or spec_axes(spec[1 - vdim]):
+        return None
+    return L.Split(rules.mesh, axes)
+
+
+def _lookup(params, tokens) -> torch.Tensor:
+    """The embedding rows of ``tokens`` (B, S) → (B, S, D).  From a table
+    cut by vocab rows over ``model`` (:func:`_vocab_split`), each rank
+    looks up the tokens its rows hold, zeros for the rest, and the ranks'
+    rows are summed (one all-reduce of (B, S, D), the reference's); the
+    gradient reaches the rank's rows only.  Padded vocab rows are never
+    looked up."""
+    table, tokens = params["embed"], tokens.long()
+    split = _vocab_split("embed")
+    if split is None:
+        return table[tokens]
+    idx, _ = split.index()
+    rows = table.shape[0]
+    at = tokens - idx * rows
+    mine = (at >= 0) & (at < rows)
+    e = table[at.clamp(0, rows - 1)]
+    return split.exit(torch.where(mine[..., None], e, torch.zeros_like(e)))
 
 
 def _embed_tokens(params, cfg: ModelConfig, tokens):
     """Embedding rows; the audio family adds sinusoidal positions."""
-    e = params["embed"][tokens.long()]
+    e = _lookup(params, tokens)
     if cfg.family == "audio":
         pos = L.sinusoidal_positions(
             torch.arange(tokens.shape[1], device=e.device), cfg.d_model)
@@ -862,18 +996,30 @@ def _embed_tokens(params, cfg: ModelConfig, tokens):
 
 
 def _lm_head(params, cfg: ModelConfig, h):
-    w = params["embed"].T if cfg.tie_embeddings else params["head"]
-    logits = (h @ w).float()
+    """Logits (B, ·, V) fp32.  From a head cut by vocab columns over
+    ``model`` (:func:`_head_split`) each rank computes its columns, and
+    the logits are gathered, never the table (the reference's steps leave
+    them cut: ROADMAP, "Different on purpose")."""
+    head = _head_split(params, cfg)
+    if head is None:
+        w = params["embed"].T if cfg.tie_embeddings else params["head"]
+        logits = (h @ w).float()
+    else:
+        w, split = head
+        logits = split.join(split.enter(h) @ w, summed=False).float()
     if logits.shape[-1] != cfg.vocab_size:
         logits = logits[..., : cfg.vocab_size]
     return logits
 
 
 def _mesh_top(params: dict) -> dict:
-    """``params`` with the leaves outside the layer stacks gathered."""
+    """``params`` with the leaves outside the layer stacks gathered, but
+    an embedding and head cut by vocab (:func:`_vocab_split`), which the
+    lookup and the head use as they are held."""
     out = dict(params)
     for key, sub in params.items():
-        if key == "blocks":
+        if key == "blocks" or key in ("embed", "head") \
+                and _vocab_split(key) is not None:
             continue
         if key == "encoder":
             out[key] = dict(sub, **{k: gather_tree(v, f"encoder/{k}")
@@ -925,9 +1071,11 @@ def forward(params, cfg: ModelConfig, batch: dict, *, plain: bool = False,
     ``vision_embeds`` (B, Sv, D) (the logits cover the S tokens only); the
     audio family's ``frames`` (B, T, D); from the training step, for rows
     of one microbatch spread over the ranks, ``moe_aux_coef`` (B, MoE
-    layers, E), the same for every row (:func:`_run_stack`).  Under mesh rules the leaves
-    outside the layer stacks (embedding, head, final norms) are gathered
-    whole first, and each layer's as :func:`_run_stack` says."""
+    layers, E), the same for every row (:func:`_run_stack`).  Under mesh
+    rules the embedding and head cut by vocab are used as they are held
+    (:func:`_lookup`, :func:`_lm_head`), any other leaf outside the layer
+    stacks is gathered whole first, and each layer's leaves are used as
+    :func:`_run_stack` says."""
     if active_rules() is not None:
         params = _mesh_top(params)
     h, aux = _final_hidden(params, cfg, batch, plain=plain, remat=remat)
@@ -957,18 +1105,12 @@ def _head_split(params, cfg: ModelConfig):
     """(this rank's vocab columns of the LM head (D, V'/n), their cut)
     where the active rules cut the head (or the tied embedding) by vocab
     over ``model`` alone, else None."""
-    rules = active_rules()
-    if rules is None or not rules.specs:
-        return None
     name = "embed" if cfg.tie_embeddings else "head"
-    spec = rules.specs.get(name)
-    vdim = 0 if cfg.tie_embeddings else 1
-    if spec is None or spec_axes(spec[1 - vdim]) \
-            or spec_axes(spec[vdim]) != rules.axes("model"):
+    split = _vocab_split(name)
+    if split is None:
         return None
     w = params[name]
-    return (w.T if cfg.tie_embeddings else w), L.Split(rules.mesh,
-                                                       rules.axes("model"))
+    return (w.T if cfg.tie_embeddings else w), split
 
 
 def _split_nll(h, w, split, labels, vocab: int) -> torch.Tensor:
@@ -1039,8 +1181,8 @@ def loss_fn(params, cfg: ModelConfig, batch: dict, *,
         logp = F.log_softmax(logits, dim=-1)
         nll = -logp.gather(-1, batch["labels"].long()[..., None])[..., 0]
     else:
-        top = _mesh_top({k: v for k, v in params.items() if k != "head"})
-        h, aux = _final_hidden(top, cfg, batch, plain=plain, remat=remat)
+        h, aux = _final_hidden(_mesh_top(params), cfg, batch, plain=plain,
+                               remat=remat)
         nll = _split_nll(h, *head, batch["labels"], cfg.vocab_size)
     mask = batch.get("loss_mask")
     weight = batch.get("loss_weight")
@@ -1120,19 +1262,16 @@ def _attn_decode(h, p, cfg: ModelConfig, cache, index):
     heads of a Megatron split (module docstring)."""
     b, hd = h.shape[0], cfg.head_dim
     layout = _cache_layout()
-    split = p["q_proj"].shape[-1] != cfg.q_dim
-    if split:
-        h = L.model_in(h)
-    q = (h @ p["q_proj"]).reshape(b, 1, -1, hd)
-    k = (h @ p["k_proj"]).reshape(b, 1, -1, hd)
-    v = (h @ p["v_proj"]).reshape(b, 1, -1, hd)
-    if cfg.use_rope:
-        pos = index.reshape(1, 1).expand(b, 1)
-        q = L.apply_rope(q, pos, cfg.rope_theta)
-        k = L.apply_rope(k, pos, cfg.rope_theta)
-    if split:  # every head, from the ranks of ``model``
-        mesh, maxes = layout.mesh, layout.axes("model")
-        q, k, v = (C.all_gather(x, mesh, maxes, 2) for x in (q, k, v))
+    split = _attn_split(p, cfg)
+    if split is not None:
+        h = split.enter(h)
+    q, k, v = (h @ p[w] for w in ("q_proj", "k_proj", "v_proj"))
+    if split is not None:  # every head's columns, from the ranks
+        q, k, v = (C.all_gather(x, split.mesh, split.axes, -1)
+                   for x in (q, k, v))
+    pos = index.reshape(1, 1).expand(b, 1)
+    q, k, v = _rope(_heads(q, hd), pos, cfg), _rope(_heads(k, hd), pos,
+                                                    cfg), _heads(v, hd)
     t = cache["k"].shape[1]
     seq = spec_axes(_leaf_spec(layout, "k", cache["k"])[1]) \
         if layout is not None else ()
@@ -1156,12 +1295,46 @@ def _attn_decode(h, p, cfg: ModelConfig, cache, index):
         out = L.decode_attention_sharded(
             q, cache["k"], cache["v"], torch.clamp(index + 1, max=total),
             chunk * t, layout.mesh, seq)
-    if split:  # this rank's heads for the row-parallel o_proj
-        hq = p["q_proj"].shape[-1] // hd
-        me, _ = chunk_of(layout.mesh, layout.axes("model"))
-        out = out[:, :, me * hq:(me + 1) * hq]
-    out = out.reshape(b, 1, -1) @ p["o_proj"]
-    return L.model_out(out) if split else out
+    return _rows_out(out.reshape(b, 1, -1), p, split)
+
+
+def _rows_out(out: torch.Tensor, p: dict, split) -> torch.Tensor:
+    """``o_proj`` of a decode step's attention output (B, 1, q_dim) of
+    every head: where ``o_proj`` is this rank's rows of a split, the
+    rank's columns of the output times them, summed over the ranks."""
+    if split is None:
+        return out @ p["o_proj"]
+    idx, _ = split.index()
+    w = p["o_proj"].shape[0]
+    return split.exit(out[..., idx * w:(idx + 1) * w] @ p["o_proj"])
+
+
+def _cross_decode(x, cp: dict, cfg: ModelConfig, cross: dict):
+    """One token's cross-attention over every frame of ``cross``'s keys and
+    values, ``x`` normed.  Split over ``model`` (:func:`_attn_split`) the
+    rank attends with its own query heads and the key/value heads they
+    read, where ``model`` divides the heads (:func:`_heads_split`), else
+    with every head from the token's gathered query columns; either way
+    ``o_proj``'s rows take the rank's columns and the ranks' products are
+    summed."""
+    b, hd, t = x.shape[0], cfg.head_dim, cross["k"].shape[1]
+    split = _attn_split(cp, cfg)
+    if split is not None:
+        x = split.enter(x)
+    q = x @ cp["q_proj"]
+    k, v = cross["k"], cross["v"]
+    if split is None:
+        out = L.decode_attention(_heads(q, hd), k, v, t)
+        return out.reshape(b, 1, -1) @ cp["o_proj"]
+    idx, n = split.index()
+    if not _heads_split(cfg, n, decode=False):
+        q = C.all_gather(q, split.mesh, split.axes, -1)
+        out = L.decode_attention(_heads(q, hd), k, v, t)
+        return _rows_out(out.reshape(b, 1, -1), cp, split)
+    lo, hi = _grouped_heads(cfg, q.shape[-1] // hd, idx)
+    out = L.decode_attention(_heads(q, hd), k[:, :, lo:hi], v[:, :, lo:hi],
+                             t)
+    return split.exit(out.reshape(b, 1, -1) @ cp["o_proj"])
 
 
 def _decode_layer(h, p, cfg: ModelConfig, kind, cache, index, cross=None):
@@ -1203,13 +1376,8 @@ def _decode_layer(h, p, cfg: ModelConfig, kind, cache, index, cross=None):
         a = _attn_decode(x, p["attn"], cfg, cache, index)
     h = h + a
     if cross is not None and "cross" in p:
-        b = h.shape[0]
         x = _norm(h, p["ln_cross"], p.get("ln_cross_b"), cfg.norm_eps)
-        q = (x @ p["cross"]["q_proj"]).reshape(b, 1, cfg.n_heads,
-                                               cfg.head_dim)
-        ca = L.decode_attention(q, cross["k"], cross["v"],
-                                cross["k"].shape[1])
-        h = h + ca.reshape(b, 1, cfg.q_dim) @ p["cross"]["o_proj"]
+        h = h + _cross_decode(x, p["cross"], cfg, cross)
     return h + _ffn(h, p, cfg, ffn)[0]
 
 
@@ -1224,7 +1392,7 @@ def decode_step(params, cfg: ModelConfig, cache: dict, batch: dict):
     mesh = active_rules() is not None
     if mesh:
         params = _mesh_top(params)
-    h = params["embed"][batch["tokens"].long()]
+    h = _lookup(params, batch["tokens"])
     index = cache["index"]
     if cfg.family == "audio":
         pe = L.sinusoidal_positions(index.reshape(1), cfg.d_model)

@@ -18,17 +18,24 @@ host (copied to the CPU, sent, the received one copied back), and
 tensor.
 
 The autograd forms are the model axis's building blocks
-(``models/layers.py``, ``models/moe.py``): :class:`CopyTo` (identity
-forward, all-reduce backward) and :class:`ReduceFrom` (all-reduce forward,
-identity backward) bracket a Megatron region; :class:`AllReduce` sums
-forward and backward (statistics over the batch axes); :class:`GatherParam`
-gathers a sharded leaf just before its use and either reduce-scatters its
-gradient (over axes whose ranks hold different data) or keeps its own
-slice (over axes whose ranks computed the same thing); :class:`OwnChunk`
-is the reverse, a rank's chunk of a leaf every rank holds whole, its
-gradient gathered; :class:`AllToAll` moves pieces of an activation
-between ranks and back in the backward (the Mamba in-projection's product,
-``models/transformer.py``).
+(``models/layers.py``, ``models/transformer.py``, ``models/moe.py``),
+which move activations between ranks: :class:`CopyTo` (identity forward,
+all-reduce backward) and :class:`ReduceFrom` (all-reduce forward,
+identity backward) bracket a Megatron region, and ``ReduceFrom`` sums the
+vocab-cut embedding's rows; :class:`AllReduce` sums forward and backward
+(statistics over the batch axes); :class:`GatherParam` joins a cut tensor
+along its dims just before its use (the logits' vocab columns, RWKV's
+channel-mix activation; a leaf a layer cannot split, and the MoE's
+ZeRO-3 experts over ``data``) and either reduce-scatters its gradient
+(over axes whose ranks hold different data) or keeps its own slice (over
+axes whose ranks computed the same thing); :class:`OwnChunk` is the
+reverse, a rank's chunk of a leaf every rank holds whole, its gradient
+gathered; :class:`AllToAll` moves pieces of an activation between ranks
+and back in the backward (the Mamba in-projection's product, and the key
+and value columns of the heads a rank's query heads read where ``model``
+does not divide the key/value heads).  Every group is a whole mesh axis:
+an all-to-all with uneven splits stands for the reference's gathers over
+sub-groups of an axis, with the same payload.
 
 Every call over more than one rank reports itself to the active
 ``introspect.opcount`` counts: its kind, its group's size and its payload

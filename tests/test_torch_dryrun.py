@@ -669,23 +669,25 @@ def test_rank_zero_stands_for_the_last_rank(tmp_path):
 def test_collectives_of_a_hand_counted_decode_step():
     """Reduced ``smollm-360m`` (d 60, 3/1 heads of 20, d_ff 128, vocab
     512, tied, 2 layers, fp32), one decode step at batch 2 on 2×2: the
-    rank's row and the cache's slots over ``model``.  All-gathers (their
-    gathered output): the embedding (512 × 60) once, and each layer's
-    q/k/v/o projections (3 heads do not split over 2 ranks), 60 × 60, 60
-    × 20, 60 × 20, 60 × 60.  All-reduces (twice their input): each
-    layer's decode-attention combine, a max and a sum of (1, 1, 3, 1, 1)
-    and a sum of (1, 1, 1, 3, 20), and its Megatron FFN's output (1, 1,
-    60).  Every group has 2 ranks."""
+    rank's row and the cache's slots over ``model``.  No weight moves.
+    All-gathers (their gathered output): each layer's token columns of q,
+    k and v, (1, 1, 60), (1, 1, 20) and (1, 1, 20) (3 heads do not split
+    over 2 ranks: the projections stay cut by columns), and the logits'
+    vocab columns (1, 1, 512) once.  All-reduces (twice their input): the
+    vocab-cut embedding's rows (1, 1, 60) once; each layer's
+    decode-attention combine, a max and a sum of (1, 1, 3, 1, 1) and a sum
+    of (1, 1, 1, 3, 20), its ``o_proj`` rows' output (1, 1, 60) and its
+    Megatron FFN's output (1, 1, 60).  Every group has 2 ranks."""
     from repro_torch.configs import reduced_config
 
     _, cost = _run("decode", reduced_config("smollm-360m"), seq=16, batch=2)
     f32 = 4
-    gather = f32 * (512 * 60 + 2 * (60 * 60 + 60 * 20 + 60 * 20 + 60 * 60))
-    reduce = 2 * f32 * 2 * (3 + 3 + 3 * 20 + 60)
+    gather = f32 * (2 * (60 + 20 + 20) + 512)
+    reduce = 2 * f32 * (60 + 2 * (3 + 3 + 3 * 20 + 60 + 60))
     ops = {c["kind"]: (c["bytes"], c["count"], c["group_size"])
            for c in cost["collective_ops"]}
-    assert ops == {"all-gather": (gather, 9.0, 2),
-                   "all-reduce": (reduce, 8.0, 2)}
+    assert ops == {"all-gather": (gather, 7.0, 2),
+                   "all-reduce": (reduce, 11.0, 2)}
     assert cost["collectives_by_group"] == {"2": gather + reduce}
     assert cost["collective_bytes"] == gather + reduce
 

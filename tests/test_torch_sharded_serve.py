@@ -7,7 +7,8 @@ The reference runs in one subprocess with four forced host devices
 their shardings on ``make_test_mesh(2, 2)``); the port runs the same
 steps on four gloo ranks spawned by ``launch.mesh.run_local``.  Both take
 the same numpy-drawn parameters, prompts, decode caches and tokens, for
-reduced ``smollm-360m`` (3/1 heads: attention gathered), ``mixtral-8x7b``
+reduced ``smollm-360m`` (3/1 heads: attention's weights gathered in
+prefill, the token's columns in decode), ``mixtral-8x7b``
 (a 64-slot window, MoE), ``jamba-v0.1-52b`` (Mamba states cut along
 ``d_inner``, attention and MoE), ``rwkv6-7b`` (``wkv`` cut by head) and
 ``whisper-small`` (a cross cache; its prefill is the encoder), each at
@@ -16,6 +17,18 @@ Decode starts at index ``INDEX`` of a ``T``-slot cache and takes
 ``STEPS`` steps: ring slots 14, 15 and 0, so each step writes on one
 rank's slots only, the last one after a wrap, on another rank than the
 first two.
+
+The same four ranks also run a data 1 × model 4 layout, prefill then
+decode, against the reference's steps compiled on a 1 × 4 mesh of its
+four devices and against one device, for ``WIDE_ARCHS``
+(``wide_config``: the MoE at a capacity factor of 8 on both sides): reduced ``mixtral-8x7b``
+(4/2 heads: each rank's query head reads a key/value head whose columns
+two ranks hold, moved to it by an all-to-all), ``smollm-360m`` (3/1
+heads: the prefill gathers the attention weights, a decode step the
+token's query, key and value columns) and ``whisper-small`` with 6 heads
+of 16 (``WIDE_WHISPER_HEADS``, which 4 ranks do not divide: its encoder
+prefill gathers the attention weights, its decode gathers the token's
+columns for self- and cross-attention alike).
 
 On a fake 1 × 2 world a Mamba or RWKV decode step steps only the rank's
 slice of its states: half the whole step's state-update work, and no
@@ -45,6 +58,9 @@ SRC = os.path.join(ROOT, "src")
 ARCHS = ("smollm-360m", "mixtral-8x7b", "jamba-v0.1-52b", "rwkv6-7b",
          "whisper-small")
 BATCHES = (2, 1)
+#: the archs also run on data 1 × model 4 against one device
+WIDE_ARCHS = ("mixtral-8x7b", "smollm-360m", "whisper-small")
+WIDE_WHISPER_HEADS = 6
 S, T, INDEX, STEPS = 16, 16, 14, 3
 TOL = 1e-5
 #: the language models: every arch of the port but jpeg-resnet, a
@@ -168,10 +184,84 @@ def oracle(out_path: str) -> None:
                     res[f"{key}/decode/logits/{i}"] = np.asarray(logits)
             for p, leaf in flat(cache):
                 res[f"{key}/decode/cache/{p}"] = np.asarray(leaf)
+    res.update(_wide_oracle())
     np.savez(out_path, **res)
 
 
+def _wide_oracle() -> dict:
+    """The reference's prefill and decode of ``WIDE_ARCHS`` on data 1 ×
+    model 4 at batch 2 (keys as :func:`_wide_runs`'s, the drawn decode
+    cache under ``cache_in``)."""
+    import jax
+    import jax.numpy as jnp
+    from repro.configs.base import (MeshConfig, RunConfig, ShapeConfig,
+                                    reduced_config)
+    from repro.launch.mesh import make_test_mesh
+    from repro.launch.steps import (build_decode_step, build_prefill_step,
+                                    path_str)
+    from repro.models.registry import build_model
+    from repro.parallel.sharding import AxisRules, sharding_rules
+
+    def flat(tree):
+        return [(path_str(p), leaf) for p, leaf in
+                jax.tree_util.tree_flatten_with_path(tree)[0]]
+
+    mesh = make_test_mesh(1, 4)
+    rules = AxisRules.default(False, data=1, model=4).with_mesh(mesh)
+    res, b = {}, 2
+    for arch in WIDE_ARCHS:
+        cfg = wide_config(reduced_config(arch))
+        model = build_model(cfg)
+        key = f"{arch}/1x4"
+        run = RunConfig(model=cfg, shape=ShapeConfig("p", S, b, "prefill"),
+                        mesh=MeshConfig(data=1, model=4))
+        with mesh, sharding_rules(rules):
+            step, sh, pshape, _ = build_prefill_step(model, run, mesh, rules)
+            params = jax.tree_util.tree_unflatten(
+                jax.tree_util.tree_structure(pshape),
+                [jnp.asarray(a) for a in draw(
+                    [(p, leaf.shape) for p, leaf in flat(pshape)])])
+            out, cache = jax.jit(step, in_shardings=sh)(
+                params, {k: jnp.asarray(v) for k, v in
+                         prompt(cfg, b).items()})
+        res[f"{key}/prefill/out"] = np.asarray(out)
+        for p, leaf in flat(cache or {}):
+            res[f"{key}/prefill/cache/{p}"] = np.asarray(leaf)
+        run = dataclasses.replace(run, shape=ShapeConfig("d", T, b,
+                                                         "decode"))
+        with mesh, sharding_rules(rules):
+            step, sh, (_, cshape, _) = build_decode_step(model, run, mesh,
+                                                         rules)
+            drawn = draw_cache([(p, leaf.shape) for p, leaf in flat(cshape)])
+            for p, a in drawn.items():
+                res[f"{key}/cache_in/{p}"] = a
+            cache = jax.tree_util.tree_unflatten(
+                jax.tree_util.tree_structure(cshape),
+                [jnp.asarray(drawn[p]) for p, _ in flat(cshape)])
+            jitted = jax.jit(step, in_shardings=sh,
+                             out_shardings=(None, sh[1]))
+            for i, t in enumerate(tokens(cfg, b)):
+                logits, cache = jitted(params, cache,
+                                       {"tokens": jnp.asarray(t)})
+                res[f"{key}/logits/{i}"] = np.asarray(logits)
+        for p, leaf in flat(cache):
+            res[f"{key}/cache/{p}"] = np.asarray(leaf)
+    return res
+
+
 # --------------------------------------------------------------- the port
+
+
+def wide_config(cfg):
+    """``cfg`` (the reference's or the port's reduced config) as the data
+    1 × model 4 runs take it: an MoE's capacity factor 8, so no token is
+    dropped; whisper with ``WIDE_WHISPER_HEADS`` heads."""
+    if cfg.n_experts:
+        cfg = dataclasses.replace(cfg, capacity_factor=8.0)
+    if cfg.encoder_decoder:
+        cfg = dataclasses.replace(cfg, n_heads=WIDE_WHISPER_HEADS,
+                                  n_kv_heads=WIDE_WHISPER_HEADS)
+    return cfg
 
 
 def _configs(arch: str):
@@ -269,7 +359,78 @@ def _rank_runs(mesh):
                         res[f"{key}/{tag}/one_logits/{i}"] = lo
                 for p, x in whole(cache, db.in_shardings[1]).items():
                     res[f"{key}/{tag}/cache/{p}"] = x
+    res.update(_wide_runs(ref))
     return res if dist.get_rank() == 0 else None
+
+
+def _wide_runs(ref: dict) -> dict:
+    """``WIDE_ARCHS`` on a data 1 × model 4 mesh of the same four ranks at
+    batch 2: the prefill's output and cache gathered whole, and each
+    decode step's logits and the cache after them from the reference's
+    drawn cache (in ``ref``), beside one device's run of the same steps
+    on the whole parameters and cache."""
+    from repro_torch.configs import (MeshConfig, RunConfig, ShapeConfig,
+                                     reduced_config)
+    from repro_torch.launch.mesh import make_axis_rules, make_mesh
+    from repro_torch.launch.steps import (build_decode_step,
+                                          build_prefill_step,
+                                          cache_shardings)
+    from repro_torch.models.registry import build_model, param_shapes
+    from repro_torch.parallel.sharding import gather_full, path_str
+    from repro_torch.tree import leaves_with_paths, tree_map
+
+    mesh = make_mesh((1, 4), ("data", "model"), "cpu")
+    mc = MeshConfig(data=1, model=4)
+    rules = make_axis_rules(mc)
+    res, b = {}, 2
+
+    def whole(tree, specs):
+        return {path_str(p): x for p, x in leaves_with_paths(
+            tree_map(lambda x, s: gather_full(x, s, mesh), tree, specs))}
+
+    for arch in WIDE_ARCHS:
+        cfg = wide_config(reduced_config(arch))
+        model = build_model(cfg)
+        pshape = param_shapes(model)
+        it = iter(draw([(path_str(p), tuple(x.shape))
+                        for p, x in leaves_with_paths(pshape)]))
+        full = tree_map(lambda _: torch.from_numpy(next(it)), pshape)
+        batch = {k: torch.from_numpy(v) for k, v in prompt(cfg, b).items()}
+        run = RunConfig(model=cfg, shape=ShapeConfig("p", S, b, "prefill"),
+                        mesh=mc)
+        pb = build_prefill_step(model, run, mesh, rules)
+        with torch.no_grad():
+            out, cache = pb.step_fn(pb.init_fns[0](full), batch)
+            one_out, one_cache = model.prefill(full, batch)
+        key = f"{arch}/1x4"
+        res[f"{key}/prefill/out"], res[f"{key}/prefill/one"] = out, one_out
+        if cache is not None:  # whisper's prefill is its encoder
+            specs = cache_shardings(model.init_cache(b, S, "meta"), cfg,
+                                    rules, b)
+            for p, x in whole(cache, specs).items():
+                res[f"{key}/prefill/cache/{p}"] = x
+            for p, x in leaves_with_paths(one_cache):
+                res[f"{key}/prefill/one_cache/{path_str(p)}"] = x
+        run = RunConfig(model=cfg, shape=ShapeConfig("d", T, b, "decode"),
+                        mesh=mc)
+        db = build_decode_step(model, run, mesh, rules)
+        params = db.init_fns[0](full)
+        drawn = {p[len(f"{key}/cache_in/"):]: v for p, v in ref.items()
+                 if p.startswith(f"{key}/cache_in/")}
+        cache = db.init_fns[1](_fill(db.cache_shape, drawn))
+        one = _fill(db.cache_shape, drawn)
+        with torch.no_grad():
+            for i, t in enumerate(tokens(cfg, b)):
+                t = torch.from_numpy(t)
+                res[f"{key}/logits/{i}"], cache = db.step_fn(
+                    params, cache, {"tokens": t})
+                res[f"{key}/one_logits/{i}"], one = model.decode_step(
+                    full, one, {"tokens": t})
+        for p, x in whole(cache, db.in_shardings[1]).items():
+            res[f"{key}/cache/{p}"] = x
+        for p, x in leaves_with_paths(one):
+            res[f"{key}/one_cache/{path_str(p)}"] = x
+    return res
 
 
 def _fill(shape_tree, arrays: dict):
@@ -363,6 +524,75 @@ def test_sharded_decode_equals_one_device_over_the_whole_cache(runs, arch,
         _close(port[f"{arch}/{b}/{tag}/logits/{i}"],
                port[f"{arch}/{b}/{tag}/one_logits/{i}"],
                f"{arch}/{b} step {i}")
+
+
+@pytest.mark.parametrize("arch", WIDE_ARCHS)
+def test_a_1x4_prefill_equals_one_device(runs, arch):
+    """Data 1 × model 4, batch 2: the prefill's last logits (whisper's
+    encoder output) and every cache leaf, gathered whole, against one
+    device's prefill."""
+    _, port = runs
+    key = f"{arch}/1x4/prefill"
+    _close(port[f"{key}/out"], port[f"{key}/one"], f"{key} output")
+    want = sorted(k[len(f"{key}/one_cache/"):] for k in port
+                  if k.startswith(f"{key}/one_cache/"))
+    assert bool(want) != (arch == "whisper-small")  # the encoder: no cache
+    assert want == sorted(k[len(f"{key}/cache/"):] for k in port
+                          if k.startswith(f"{key}/cache/"))
+    for p in want:
+        _close(port[f"{key}/cache/{p}"], port[f"{key}/one_cache/{p}"],
+               f"{key} cache {p}")
+
+
+@pytest.mark.parametrize("arch", WIDE_ARCHS)
+def test_a_1x4_decode_equals_one_device(runs, arch):
+    """Data 1 × model 4, batch 2, from a drawn cache at index INDEX: each
+    step's logits and the cache after STEPS steps, gathered whole,
+    against one device's steps over the whole cache."""
+    _, port = runs
+    key = f"{arch}/1x4"
+    for i in range(STEPS):
+        _close(port[f"{key}/logits/{i}"], port[f"{key}/one_logits/{i}"],
+               f"{key} step {i}")
+    want = sorted(k[len(f"{key}/one_cache/"):] for k in port
+                  if k.startswith(f"{key}/one_cache/"))
+    assert want
+    for p in want:
+        _close(port[f"{key}/cache/{p}"], port[f"{key}/one_cache/{p}"],
+               f"{key} cache {p}")
+
+
+@pytest.mark.parametrize("arch", WIDE_ARCHS)
+def test_a_1x4_prefill_matches_the_references_1x4_step(runs, arch):
+    """Data 1 × model 4, batch 2: the port's prefill output (whisper's
+    encoder output) and every cache leaf, gathered whole, against the
+    reference's prefill compiled on the same mesh."""
+    ref, port = runs
+    key = f"{arch}/1x4/prefill"
+    _close(port[f"{key}/out"], ref[f"{key}/out"], f"{key} output")
+    want = sorted(k for k in ref if k.startswith(f"{key}/cache/"))
+    assert bool(want) != (arch == "whisper-small")  # the encoder: no cache
+    assert want == sorted(k for k in port if k.startswith(f"{key}/cache/"))
+    for k in want:
+        _close(port[k], ref[k], k)
+
+
+@pytest.mark.parametrize("arch", WIDE_ARCHS)
+def test_a_1x4_decode_matches_the_references_1x4_steps(runs, arch):
+    """Data 1 × model 4, batch 2, from the reference's drawn cache at
+    index INDEX: the port's logits of each step and its cache after STEPS
+    steps, gathered whole, against the reference's decode step compiled
+    on the same mesh."""
+    ref, port = runs
+    key = f"{arch}/1x4"
+    for i in range(STEPS):
+        _close(port[f"{key}/logits/{i}"], ref[f"{key}/logits/{i}"],
+               f"{key} step {i}")
+    want = sorted(k for k in ref if k.startswith(f"{key}/cache/"))
+    assert want
+    assert want == sorted(k for k in port if k.startswith(f"{key}/cache/"))
+    for k in want:
+        _close(port[k], ref[k], k)
 
 
 # ------------------------------------------------- the slice's own work

@@ -13,7 +13,10 @@ reduced ``jamba-v0.1-52b`` (``d_inner`` 128 and the RWKV heads below cut
 over ``model``: each rank runs its slice of a Mamba layer, its product of
 ``in_proj`` moved by an all-to-all, beside the Megatron attention and the
 MoE), reduced ``rwkv6-7b`` (4 heads of 16 and d_ff 128: each rank runs
-two heads of the time mix and 64 columns of the channel mix) and
+two heads of the time mix and 64 columns of the channel mix), reduced
+``whisper-small`` (4/4 heads: the Megatron split of the encoder's and
+decoder's self-attention, of the cross-attention and of the gelu MLP;
+the embedding and head cut by vocab; frames drawn normal) and
 ``jpeg-resnet`` at the parity size of ``tests/test_torch_train.py``
 (widths (4, 8), 16 px; the reduced config's three stages take ~80 s on
 four CPU ranks), batch norm statistics over every rank's rows.  Global
@@ -76,7 +79,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SRC = os.path.join(ROOT, "src")
 
 ARCHS = ("smollm-360m", "granite-moe-3b-a800m", "jamba-v0.1-52b",
-         "rwkv6-7b", "jpeg-resnet")
+         "rwkv6-7b", "whisper-small", "jpeg-resnet")
 COMPRESSION = ("none", "bf16")
 #: the dense model's step on two more layouts (``_rank_runs``)
 LAYOUTS = ("no-zero1", "pod-data", "micro-replicated")
@@ -123,7 +126,8 @@ def draw(paths_shapes, seed: int = 0) -> list[np.ndarray]:
 
 def batches(cfg, seed: int = 1, masked: bool = False) -> list[dict]:
     """STEPS global batches; ``masked``: with a ``loss_mask`` that keeps
-    each row's tokens at a rate of its own (0.1 to 0.9)."""
+    each row's tokens at a rate of its own (0.1 to 0.9); the audio
+    family's with ``frames`` (B, encoder_context_len, D)."""
     rng = np.random.default_rng(seed)
     out = []
     for _ in range(STEPS):
@@ -136,6 +140,10 @@ def batches(cfg, seed: int = 1, masked: bool = False) -> list[dict]:
         else:
             t = rng.integers(0, cfg.vocab_size, (B, S + 1)).astype(np.int32)
             out.append({"tokens": t[:, :S], "labels": t[:, 1:]})
+            if cfg.family == "audio":
+                out[-1]["frames"] = rng.standard_normal(
+                    (B, cfg.encoder_context_len, cfg.d_model)).astype(
+                        np.float32)
             if masked:
                 keep = rng.uniform(0.1, 0.9, (B, 1))
                 out[-1]["loss_mask"] = (rng.uniform(size=(B, S)) < keep

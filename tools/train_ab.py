@@ -1,4 +1,5 @@
-"""Two checkouts compared on the bf16 training path of ``smollm-360m``.
+"""Two checkouts compared on the bf16 training and prefill paths of
+``smollm-360m``.
 
 Runs, each in a process of its own, the checkouts in the order A B B A
 (a parent first and last, so drift over the call weighs on both):
@@ -9,7 +10,9 @@ Runs, each in a process of its own, the checkouts in the order A B B A
 * one step of the trainer's step function profiled with
   ``torch.profiler`` (``chip_smoke.profile_step``): device busy time and
   each attention kernel's device ms in that step;
-* CUDA-event times (``chip_smoke.cuda_ms``) of the attention forward as
+* CUDA-event times (``chip_smoke.cuda_ms``) of the serving prefill of
+  ``chip_smoke.py`` phase 11 (bf16 weights, 4 prompts of 2048, full
+  depth) and of the attention forward as
   serving calls it (``flash_attention``), as training calls it
   (``flash_attention_lse``: lse and, where the checkout's forward returns
   it, the output's bf16 rounding residual) and of its backward, at the
@@ -51,6 +54,7 @@ def one(checkout: str, steps: int) -> dict:
     from repro_torch.kernels import flash_attention as kfa
     from repro_torch.launch import train
     from repro_torch.models.registry import build_model
+    from repro_torch.models.transformer import cast_params
     from repro_torch.optim import make_optimizer, make_schedule
 
     dev = torch.device("cuda", 0)
@@ -80,10 +84,20 @@ def one(checkout: str, steps: int) -> dict:
                                    lambda: step(params, state, batch))
     kernel_ms = {k: sum(t for name, t in device_us.items() if k in name)
                  / 1e3 for k in KERNELS}
-    del params, state, batch, model
+    del params, state, batch
     torch.cuda.empty_cache()
 
     gen = torch.Generator(device=dev).manual_seed(4)
+    params = cast_params(model.init_params(gen, dev), torch.bfloat16, dev)
+    prompts = {"tokens": torch.randint(0, cfg.vocab_size, (BATCH, SEQ),
+                                       generator=gen, device=dev,
+                                       dtype=torch.int32)}
+    with torch.inference_mode():
+        prefill_ms = cs.cuda_ms(lambda: model.prefill(params, prompts),
+                                reps=5)
+    del params, model
+    torch.cuda.empty_cache()
+
     q, do = (torch.randn((BATCH, SEQ, cfg.n_heads, cfg.head_dim),
                          generator=gen, device=dev).bfloat16()
              for _ in range(2))
@@ -97,6 +111,7 @@ def one(checkout: str, steps: int) -> dict:
         "median_step_ms": statistics.median(step_ms[1:]),
         "profiled_step_busy_ms": sum(device_us.values()) / 1e3,
         "profiled_step_kernel_ms": kernel_ms,
+        "serving_prefill_ms": prefill_ms,
         "attention_serving_forward_ms": cs.cuda_ms(
             lambda: kfa.flash_attention(q, k, v)),
         "attention_training_forward_ms": cs.cuda_ms(
@@ -138,7 +153,7 @@ def main() -> None:
                **json.loads(proc.stdout.strip().splitlines()[-1])}
         print(json.dumps(row), flush=True)
         runs.append(row)
-    keys = ("median_step_ms", "profiled_step_busy_ms",
+    keys = ("median_step_ms", "profiled_step_busy_ms", "serving_prefill_ms",
             "attention_serving_forward_ms", "attention_training_forward_ms",
             "attention_backward_ms")
     print(json.dumps({"order": [r["checkout"] for r in runs],
