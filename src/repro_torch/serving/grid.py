@@ -193,19 +193,23 @@ class GridCell:
             view[n:] = 0.0
         return host
 
-    def __call__(self, rows: np.ndarray, rids=None) -> torch.Tensor:
+    def __call__(self, rows: np.ndarray) -> torch.Tensor:
         tr = self._tracer
         ta = tr.now() if tr.enabled else 0.0
         n = np.asarray(rows).shape[0]
         host = self._stage(rows)
-        if tr.enabled:
-            # nested under the scheduler's device-dispatch span: the
-            # host-staging share of the dispatch
-            tr.span("device", "pad/stage", ta, tr.now(),
-                    args={"cell": self.name, "n": n,
-                          "pad": self.bucket - n, "rids": rids})
         self.hits += 1
-        return self._run(host)
+        if not tr.enabled:
+            return self._run(host)
+        # nested under the scheduler's device-dispatch span: the
+        # host-staging share of the dispatch, then the copy to the card
+        # and the replay being enqueued
+        tb = tr.now()
+        tr.span("device", "pad/stage", ta, tb,
+                args={"cell": self.name, "n": n, "pad": self.bucket - n})
+        out = self._run(host)
+        tr.span("device", "launch", tb, tr.now())
+        return out
 
     def warmup(self) -> None:
         """One run on a zero batch, waited for: a replay that faults
@@ -331,21 +335,19 @@ class GridColumn:
                 executor=self.executor)
         return c
 
-    def _route(self, kind: str, rows: np.ndarray,
-               rids=None) -> torch.Tensor:
+    def _route(self, kind: str, rows: np.ndarray) -> torch.Tensor:
         rows = np.asarray(rows, np.float32)
         n = rows.shape[0]
         bucket = n if self.buckets is None else bucket_for(n, self.buckets)
-        return self.cell(kind, bucket, rows.shape[1:])(rows, rids=rids)
+        return self.cell(kind, bucket, rows.shape[1:])(rows)
 
-    def coef_fn(self, rows: np.ndarray, rids=None) -> torch.Tensor:
-        """Serve a ``(n, bh, bw, C, 64)`` coefficient batch; ``rids``
-        labels the flight-recorder span, nothing more."""
-        return self._route("coefficients", rows, rids=rids)
+    def coef_fn(self, rows: np.ndarray) -> torch.Tensor:
+        """Serve a ``(n, bh, bw, C, 64)`` coefficient batch."""
+        return self._route("coefficients", rows)
 
-    def packed_fn(self, rows: np.ndarray, rids=None) -> torch.Tensor:
+    def packed_fn(self, rows: np.ndarray) -> torch.Tensor:
         """Serve a ``(n, bh, bw, C·w_in)`` tile-packed batch."""
-        return self._route("bytes", rows, rids=rids)
+        return self._route("bytes", rows)
 
 
 class PlanGrid:

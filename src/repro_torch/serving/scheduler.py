@@ -129,8 +129,8 @@ class ServeRequest:
     """
 
     __slots__ = ("rid", "kind", "payload", "deadline", "submitted",
-                 "t_enq", "tier", "latency_s", "_event", "_result",
-                 "_error")
+                 "t_sub", "t_enq", "tier", "latency_s", "_event",
+                 "_result", "_error")
 
     def __init__(self, rid: int, kind: str, payload: Any,
                  deadline: float | None):
@@ -139,6 +139,7 @@ class ServeRequest:
         self.payload = payload
         self.deadline = deadline          # absolute monotonic seconds
         self.submitted = time.monotonic()
+        self.t_sub = self.submitted       # tracer-clock submit time
         self.t_enq = self.submitted       # tracer-clock enqueue time
         self.tier: str | None = None      # tier name that served it
         self.latency_s: float | None = None
@@ -327,9 +328,9 @@ class BandElasticScheduler:
                                None if deadline_s is None
                                else time.monotonic() + deadline_s)
             if tr.enabled:
-                req.t_enq = tr.now()
-                tr.span("request", "admission", t_sub, req.t_enq,
-                        tid=req.rid, args={"kind": kind})
+                # its admission and queue rows are written in bulk once
+                # it is done with (_trace_dequeued)
+                req.t_sub, req.t_enq = t_sub, tr.now()
             self._queues[kind].append(req)
             self._work.notify_all()  # worker and ingest thread both wait
             return req
@@ -536,9 +537,8 @@ class BandElasticScheduler:
                     self._note_pool_restarts(ingestlib)
                     if tr.enabled:
                         t = tr.now()
+                        self._trace_dequeued(reqs, t)
                         for r in reqs:
-                            tr.span("request", "queue", r.t_enq, t,
-                                    tid=r.rid)
                             tr.instant("request", "fail", t=t, tid=r.rid,
                                        args={"stage": "ingest"})
                     for r in reqs:
@@ -561,9 +561,8 @@ class BandElasticScheduler:
                 if errors:
                     if tr.enabled:
                         t = tr.now()
+                        self._trace_dequeued([reqs[i] for i in errors], t)
                         for i in errors:
-                            tr.span("request", "queue", reqs[i].t_enq, t,
-                                    tid=reqs[i].rid)
                             tr.instant("request", "fail", t=t,
                                        tid=reqs[i].rid,
                                        args={"stage": "codec"})
@@ -575,6 +574,7 @@ class BandElasticScheduler:
                             if i not in errors]
                 with self._lock:
                     if self._stop and not self._drain:
+                        self._trace_admitted(reqs)
                         for r in reqs:
                             r._fail(SchedulerClosed(
                                 "scheduler closed before completion"))
@@ -584,6 +584,7 @@ class BandElasticScheduler:
                         # the worker died while we were decoding: these
                         # requests are invisible to _fail_all — fail them
                         # here so close() never strands a waiter
+                        self._trace_admitted(reqs)
                         for r in reqs:
                             r._fail(self._error)
                         self._ingesting = 0
@@ -597,6 +598,7 @@ class BandElasticScheduler:
                 with self._idle:
                     self._idle.notify_all()
         except BaseException as e:  # noqa: BLE001 — re-raised at waiters
+            self._trace_admitted(reqs)
             for r in reqs:
                 r._fail(e)
             with self._lock:
@@ -634,12 +636,12 @@ class BandElasticScheduler:
         self.metrics.record_deadline_shed(len(shed))
         self.metrics.record_failure("deadline", len(shed))
         tr = self.tracer
-        t = tr.now() if tr.enabled else 0.0
+        if tr.enabled:
+            # close the chains: the queue rows, then the terminals
+            t = tr.now()
+            self._trace_dequeued(shed, t)
+            tr.instant_many("request", "shed", t, tids=[r.rid for r in shed])
         for r in shed:
-            if tr.enabled:
-                # close the chain: time-in-queue span, then the terminal
-                tr.span("request", "queue", r.t_enq, t, tid=r.rid)
-                tr.instant("request", "shed", t=t, tid=r.rid)
             r._fail(DeadlineExceeded(
                 f"request {r.rid} expired before dispatch"))
 
@@ -705,6 +707,10 @@ class BandElasticScheduler:
                                            and not self._ingesting)):
                         break
                     now = time.monotonic()
+                    # the requests leave the queue here: their queue rows
+                    # end, and the batch's batch-form span starts
+                    t_take = self.tracer.now() if self.tracer.enabled \
+                        else 0.0
                     slack = self._head_slack_locked(now)
                     depth = self._pending_locked()
                     reqs, decoded, shed = self._take_batch_locked(now)
@@ -726,13 +732,6 @@ class BandElasticScheduler:
                         self._idle.notify_all()
                     continue
                 tr = self.tracer
-                t_take = tr.now() if tr.enabled else 0.0
-                if tr.enabled:
-                    # queue span closes here for the whole batch — once,
-                    # before the retry loop, so retries don't duplicate it
-                    for r in reqs:
-                        tr.span("request", "queue", r.t_enq, t_take,
-                                tid=r.rid)
                 seq = self._dispatch_seq
                 self._dispatch_seq += 1
                 err: Exception | None = None
@@ -747,6 +746,8 @@ class BandElasticScheduler:
                     except Exception as e:  # transient? bounded retry
                         err = e
                     except BaseException as e:
+                        if tr.enabled:
+                            self._trace_dequeued(reqs, t_take)
                         for r in reqs:  # the in-flight batch left the
                             r._fail(e)  # queue — _fail_all can't see it
                         raise
@@ -757,6 +758,7 @@ class BandElasticScheduler:
                     # scheduler survives, the breaker accumulates
                     if tr.enabled:
                         t = tr.now()
+                        self._trace_dequeued(reqs, t_take)
                         for r in reqs:
                             tr.instant("request", "fail", t=t, tid=r.rid,
                                        args={"stage": "executor"})
@@ -781,10 +783,6 @@ class BandElasticScheduler:
         n = len(reqs)
         bucket = self.grid_engine.bucket_for(n)
         tr = self.tracer
-        rids = [r.rid for r in reqs] if tr.enabled else None
-        # rids ride along only when tracing: untraced dispatch keeps the
-        # bare executor signature (tests monkeypatch coef_fn/packed_fn)
-        kw = {"rids": rids} if tr.enabled else {}
         ingest_wall = None
         t0 = time.monotonic()
         # the logits come back to the host here, which also waits for the
@@ -798,22 +796,28 @@ class BandElasticScheduler:
             # Rows go in *unpadded*: the grid cell stages them into its
             # pinned bucket-shaped buffer and zero-fills the pad tail.
             coef, ingest_wall = decoded
-            kind = "bytes"
-            logits = _to_host(ex.packed_fn(
-                ingestlib.pack_tiles(coef, ex.w_in), **kw))
+            kind, run = "bytes", ex.packed_fn
+            rows = ingestlib.pack_tiles(coef, ex.w_in)
         else:
-            kind = "coefficients"
-            logits = _to_host(ex.coef_fn(np.stack(
-                [np.asarray(r.payload, np.float32) for r in reqs]), **kw))
+            kind, run = "coefficients", ex.coef_fn
+            rows = np.stack([np.asarray(r.payload, np.float32)
+                             for r in reqs])
+        if tr.enabled:
+            tr.span("device", "gather", t0s, tr.now())
+        out = run(rows)
+        t_rb = tr.now() if tr.enabled else 0.0
+        logits = _to_host(out)
         wall = time.monotonic() - t0
         if tr.enabled:
             t1s = tr.now()
-            # batch-form covers take -> dispatch start (tier selection +
-            # tile packing); device-dispatch is exactly the interval the
-            # report's device_wall_s accumulates, so span sums reconcile
+            tr.span("device", "readback", t_rb, t1s)
+            # batch-form covers take -> dispatch start; device-dispatch is
+            # exactly the interval the report's device_wall_s
+            # accumulates, so span sums reconcile
             tr.span("scheduler", "batch-form", t_take, t0s,
                     args={"tier": name, "n": n, "bucket": bucket,
                           "kind": kind})
+            rids = [r.rid for r in reqs]
             dargs = {"tier": name, "n": n, "bucket": bucket,
                      "kind": kind, "rids": rids}
             # --profile-grid annotations: the cell's counted FLOPs and
@@ -826,10 +830,7 @@ class BandElasticScheduler:
                 dargs.update({k: cost[k] for k in ("flops", "predicted_us")
                               if k in cost})
             tr.span("device", "device-dispatch", t0s, t1s, args=dargs)
-            for r in reqs:
-                # flow arrow: this request's queue row -> its batch slice
-                tr.flow(r.rid, ("request", r.rid, t_take),
-                        ("device", 0, t0s))
+        t_done = tr.now() if tr.enabled else 0.0
         # only device wall reaches the QoS EMA: host decode cost is
         # band-independent, so folding it in would poison tier selection
         self.selector.observe(tier_ix, wall, bucket=bucket)
@@ -840,18 +841,49 @@ class BandElasticScheduler:
         t_now = tr.now() if tr.enabled else 0.0
         for i, r in enumerate(reqs):
             r._complete(logits[i], name)
-            if tr.enabled:
-                tr.instant("request", "complete", t=t_now, tid=r.rid,
-                           args={"tier": name})
             self.metrics.record_request(
                 r.latency_s, tier=name,
                 deadline_missed=(r.deadline is not None
                                  and now > r.deadline))
+        if tr.enabled:
+            tr.span("scheduler", "complete", t_done, tr.now(),
+                    args={"n": n})
+            # the requests' own rows last, outside the batch's spans, so
+            # those time the worker and not the recorder: each one's
+            # admission and queue rows, the flow arrow from its queue row
+            # to its batch slice, and its terminal
+            ids = np.asarray(rids, np.int64)
+            self._trace_dequeued(reqs, t_take, ids)
+            tr.flow_many(ids, ("request", ids, t_take), ("device", 0, t0s))
+            tr.instant_many("request", "complete", t_now, tids=ids)
         with self._idle:
             self._in_flight = 0
             self._batches += 1
             self._images += n
             self._idle.notify_all()
+
+    def _trace_dequeued(self, reqs: list[ServeRequest], t: float,
+                        ids: np.ndarray | None = None) -> None:
+        """The admission and queue rows of ``reqs``, which left the queue
+        at ``t`` (tracer clock), in bulk: a request's rows are written
+        once it is done with, rather than at submit, off the client's
+        thread.  ``ids``: their request ids as an array, where the caller
+        has one."""
+        if ids is None:
+            ids = np.asarray([r.rid for r in reqs], np.int64)
+        t_enq = np.asarray([r.t_enq for r in reqs], np.float64)
+        self.tracer.span_many("request", "admission",
+                              [r.t_sub for r in reqs], t_enq, tids=ids)
+        self.tracer.span_many("request", "queue", t_enq, t, tids=ids)
+
+    def _trace_admitted(self, reqs: list[ServeRequest]) -> None:
+        """Admission rows alone for ``reqs``, which a close or a failure
+        takes before they left the scheduler's hands: admitted and never
+        served, their chains stay open."""
+        if self.tracer.enabled and reqs:
+            self.tracer.span_many(
+                "request", "admission", [r.t_sub for r in reqs],
+                [r.t_enq for r in reqs], tids=[r.rid for r in reqs])
 
     def _fail_all(self, err: BaseException, record: bool = True) -> None:
         with self._idle:
@@ -865,5 +897,6 @@ class BandElasticScheduler:
             self._in_flight = 0
             self._work.notify_all()
             self._idle.notify_all()
+        self._trace_admitted(pending)
         for r in pending:
             r._fail(err)

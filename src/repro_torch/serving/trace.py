@@ -12,16 +12,29 @@ Span taxonomy (one chain per request id, see TESTING.md):
 track (pid)     name        interval
 =============== ========== =====================================================
 ``scheduler``   admission*  ``submit()`` entry → accepted into a queue
-``scheduler``   batch-form  batch taken from the queue → executor dispatch
-                            (tier selection + tile packing)
+``scheduler``   batch-form  batch taken from the queue (the take and the tier
+                            selection) → executor dispatch
+``scheduler``   complete    after the dispatch: the QoS estimate, the batch's
+                            metrics and each request's completion (args ``n``)
 ``ingest``      ingest-decode  one bytes batch through ``codec.ingest_batch``
 ``ingest``      decode-shard   one spawn-pool shard of that batch (tid = shard)
-``device``      device-dispatch  staged batch through the grid cell executable
-                            (the interval ``device_wall_s`` accumulates)
+``device``      device-dispatch  batch array to logits on the host (the
+                            interval ``device_wall_s`` accumulates); its
+                            children, in order:
+``device``      gather      the batch array from the payloads (``np.stack``;
+                            on the bytes path ``pack_tiles``)
 ``device``      pad/stage   host staging copy into the pinned bucket buffer
-``request``     admission / queue   per-request rows (tid = request id)
+``device``      launch      the copy to the card and the graph replay enqueued
+``device``      readback    waiting for the graph, and the logits to the host
+``request``     admission / queue   per-request rows (tid = request id),
+                            written in bulk once the batch is done with
 ``request``     complete / fail / shed   terminal instants closing the chain
 =============== ========== =====================================================
+
+The worker's own time a batch is ``batch-form`` + ``gather`` +
+``pad/stage`` + ``launch`` + ``complete``: the serial chain but the wait
+in ``readback`` and the recorder's own writes of the batch's request
+rows, which follow ``complete``.
 
 Instant events mark tier switches, breaker transitions, ingest-pool
 restarts, and post-warmup compiles.  Batches link to their member
@@ -32,8 +45,13 @@ served.
 The recorder is a true flight recorder: a ring of the newest
 ``capacity`` events, O(1) per record, with a ``dropped`` counter for
 evicted history — it can stay on under sustained load without growing.
+Events are packed records in preallocated chunks, not Python objects, so
+a traced run does not feed the garbage collector one object an event.
 The clock is injectable (tests drive it deterministically); timestamps
-are exported relative to tracer construction in microseconds.
+are exported relative to tracer construction in microseconds, with the
+construction's ``(time.monotonic(), time.time_ns())`` anchor under
+``otherData.clock_anchor``, so the file lays over a ``torch.profiler``
+trace of the same window.
 
 :data:`NULL_TRACER` is the disabled no-op twin — the scheduler threads
 it unconditionally so tracing costs one attribute check when off.
@@ -43,14 +61,16 @@ share.  :func:`device_profile` (also exported under the reference's name
 """
 from __future__ import annotations
 
-import collections
 import contextlib
 import json
 import math
 import os
+import struct
 import threading
 import time
 from typing import Any, Callable
+
+import numpy as np
 
 __all__ = [
     "Tracer",
@@ -91,6 +111,15 @@ class NullTracer:
     def flow(self, *a, **kw) -> None:
         pass
 
+    def span_many(self, *a, **kw) -> None:
+        pass
+
+    def instant_many(self, *a, **kw) -> None:
+        pass
+
+    def flow_many(self, *a, **kw) -> None:
+        pass
+
     def events(self) -> list:
         return []
 
@@ -99,6 +128,18 @@ class NullTracer:
 
 
 NULL_TRACER = NullTracer()
+
+
+#: one event of the store: phase code, track and name codes (interned),
+#: tid, start relative to construction (s), and the duration (s) or, for a
+#: flow record, the flow id
+_REC = struct.Struct("<bHHqdd")
+_PACK = _REC.pack_into
+_DTYPE = np.dtype([("ph", "i1"), ("track", "<u2"), ("name", "<u2"),
+                   ("tid", "<i8"), ("ts", "<f8"), ("val", "<f8")])
+_PHASE_CODES = ("X", "i", "s", "f")
+#: events one chunk of the store holds
+CHUNK_EVENTS = 1 << 16
 
 
 class Tracer:
@@ -110,8 +151,23 @@ class Tracer:
     monotonic ``() -> float`` (seconds); every recorded timestamp is
     a reading of this clock, stored relative to construction time.
 
-    Recording is a tuple append under a lock — cheap enough to leave on
-    in production serving (the fig5 serving mode measures the overhead).
+    Each event is one packed 29-byte record (:data:`_REC`) in chunks of
+    :data:`CHUNK_EVENTS` allocated on first use, so a large capacity
+    costs only what is recorded; track and name are codes into an
+    interned string table, and ``args`` dicts sit in a side table keyed
+    by the event's slot.  An event without ``args`` therefore creates no
+    object the garbage collector tracks, and recording is one
+    ``pack_into`` under a lock; a batch's per-request events go in with
+    one hold of the lock (:meth:`span_many`, :meth:`instant_many`,
+    :meth:`flow_many`).  :meth:`events` builds the tuples only when
+    called.
+
+    :attr:`anchor` is one ``(time.monotonic(), time.time_ns())`` pair read
+    at construction, right after the clock's zero ``t0_s``: with the
+    default clock, an event at ``ts`` seconds lies at wall-clock
+    nanosecond ``anchor[1] + (t0_s + ts - anchor[0]) * 1e9``, the clock
+    of ``torch.profiler`` traces (:func:`device_profile`).  It is exported
+    under ``otherData.clock_anchor``.
     """
 
     enabled = True
@@ -123,10 +179,16 @@ class Tracer:
         self.capacity = int(capacity)
         self._clock = clock
         self._t0 = clock()
+        self.anchor = (time.monotonic(), time.time_ns())
         self._lock = threading.Lock()
-        # record: (ph, track, tid, name, t_rel_s, dur_s_or_flow_id, args)
-        self._ring: collections.deque = collections.deque(maxlen=capacity)
-        self._dropped = 0
+        self._chunks: list[bytearray | None] = [None] * (
+            -(-self.capacity // CHUNK_EVENTS))
+        self._n = 0                       # events ever recorded
+        # interned track and name codes; code 0 is never handed out, so a
+        # lookup's miss and a code can share one truth test
+        self._codes: dict[str, int] = {}
+        self._strings: list[str] = [""]
+        self._args: dict[int, dict] = {}  # slot -> args
 
     # ------------------------------------------------------------- recording
     def now(self) -> float:
@@ -136,25 +198,48 @@ class Tracer:
     @property
     def dropped(self) -> int:
         with self._lock:
-            return self._dropped
+            return max(self._n - self.capacity, 0)
 
-    def _push(self, rec: tuple) -> None:
+    def _code(self, s: str) -> int:
+        c = self._codes.get(s)
+        if c is None:
+            c = self._codes[s] = len(self._strings)
+            self._strings.append(s)
+        return c
+
+    def _new_chunk(self, c: int) -> bytearray:
+        chunk = self._chunks[c] = bytearray(_REC.size * min(
+            CHUNK_EVENTS, self.capacity - c * CHUNK_EVENTS))
+        return chunk
+
+    def _push(self, ph: int, track: str, tid: int, name: str, t: float,
+              val: float, args: dict | None) -> None:
+        codes = self._codes
         with self._lock:
-            if len(self._ring) == self.capacity:
-                self._dropped += 1
-            self._ring.append(rec)
+            n = self._n
+            self._n = n + 1
+            slot = n % self.capacity
+            c, off = divmod(slot, CHUNK_EVENTS)
+            chunk = self._chunks[c] or self._new_chunk(c)
+            if n >= self.capacity:
+                self._args.pop(slot, None)
+            if args is not None:
+                self._args[slot] = args
+            _PACK(chunk, off * _REC.size, ph,
+                  codes.get(track) or self._code(track),
+                  codes.get(name) or self._code(name), tid,
+                  t - self._t0, val)
 
     def span(self, track: str, name: str, t0: float, t1: float, *,
              tid: int = 0, args: dict | None = None) -> None:
         """One completed interval ``[t0, t1]`` (absolute clock readings)."""
-        self._push(("X", track, tid, name, t0 - self._t0,
-                    max(t1 - t0, 0.0), args))
+        self._push(0, track, tid, name, t0, max(t1 - t0, 0.0), args)
 
     def instant(self, track: str, name: str, *, t: float | None = None,
                 tid: int = 0, args: dict | None = None) -> None:
         """One point event (``t`` defaults to the clock's now)."""
         t = self._clock() if t is None else t
-        self._push(("i", track, tid, name, t - self._t0, 0.0, args))
+        self._push(1, track, tid, name, t, 0.0, args)
 
     def flow(self, fid: int, src: tuple[str, int, float],
              dst: tuple[str, int, float]) -> None:
@@ -164,27 +249,107 @@ class Tracer:
         fall inside the slices the arrow should bind to.
         """
         track, tid, t = src
-        self._push(("s", track, tid, "req", t - self._t0, int(fid), None))
+        self._push(2, track, tid, "req", t, int(fid), None)
         track, tid, t = dst
-        self._push(("f", track, tid, "req", t - self._t0, int(fid), None))
+        self._push(3, track, tid, "req", t, int(fid), None)
+
+    def _push_many(self, n: int, ph: int, track: str, tid, name: str,
+                   t, val) -> None:
+        """``n`` events without args, in order, in one hold of the lock;
+        ``tid``, ``t`` and ``val`` are scalars or sequences of ``n``."""
+        rec = np.empty(n, _DTYPE)
+        rec["ph"], rec["tid"], rec["ts"], rec["val"] = ph, tid, t, val
+        rec["ts"] -= self._t0
+        size = _REC.size
+        with self._lock:
+            rec["track"], rec["name"] = self._code(track), self._code(name)
+            raw = memoryview(rec.tobytes())
+            start, cap = self._n, self.capacity
+            self._n += n
+            if self._args:
+                for p in range(max(start, cap), start + n):
+                    self._args.pop(p % cap, None)
+            done = 0
+            while done < n:
+                c, off = divmod((start + done) % cap, CHUNK_EVENTS)
+                chunk = self._chunks[c] or self._new_chunk(c)
+                k = min(n - done, len(chunk) // size - off)
+                chunk[off * size:(off + k) * size] = \
+                    raw[done * size:(done + k) * size]
+                done += k
+
+    def span_many(self, track: str, name: str, t0s, t1, *, tids) -> None:
+        """A :meth:`span` from each of ``t0s`` to ``t1`` (one reading, or
+        one each) with tid ``tids[k]``, in one hold of the lock: a batch
+        closing its requests' rows."""
+        t0s = np.asarray(t0s, np.float64)
+        self._push_many(len(t0s), 0, track, tids, name, t0s, np.maximum(
+            np.asarray(t1, np.float64) - t0s, 0.0))
+
+    def instant_many(self, track: str, name: str, t: float, *,
+                     tids) -> None:
+        """An :meth:`instant` at ``t`` for each tid of ``tids``, in one
+        hold of the lock."""
+        self._push_many(len(tids), 1, track, tids, name, t, 0.0)
+
+    def flow_many(self, fids, src: tuple, dst: tuple) -> None:
+        """A :meth:`flow` for each id of ``fids``: all the sources, then
+        all the destinations; the tids and times of ``src``/``dst`` are
+        scalars or sequences like ``fids``."""
+        track, tid, t = src
+        self._push_many(len(fids), 2, track, tid, "req", t, fids)
+        track, tid, t = dst
+        self._push_many(len(fids), 3, track, tid, "req", t, fids)
 
     # --------------------------------------------------------------- export
-    def events(self) -> list[tuple]:
-        """Snapshot of the ring (oldest surviving event first)."""
+    def _snapshot(self):
+        """``(records, slots, strings, args, dropped)``: the surviving
+        events oldest first as a numpy record array, their ring slots, and
+        copies of the tables, taken under the lock."""
         with self._lock:
-            return list(self._ring)
+            n, cap = self._n, self.capacity
+            runs = [(0, n)] if n <= cap else [(n % cap, cap), (0, n % cap)]
+            parts = []
+            for a, b in runs:
+                while a < b:
+                    c, off = divmod(a, CHUNK_EVENTS)
+                    k = min(b - a, CHUNK_EVENTS - off)
+                    parts.append(bytes(self._chunks[c][
+                        off * _REC.size:(off + k) * _REC.size]))
+                    a += k
+            strings = list(self._strings)
+            args = dict(self._args)
+        recs = np.frombuffer(b"".join(parts), _DTYPE)
+        slots = np.concatenate([np.arange(a, b) for a, b in runs])
+        return recs, slots, strings, args, max(n - cap, 0)
+
+    def _events(self) -> tuple[list[tuple], int]:
+        recs, slots, S, A, dropped = self._snapshot()
+        P = _PHASE_CODES
+        return [(P[p], S[tk], tid, S[nm], ts,
+                 int(v) if p >= 2 else v, A.get(sl))
+                for p, tk, nm, tid, ts, v, sl in zip(
+                    recs["ph"].tolist(), recs["track"].tolist(),
+                    recs["name"].tolist(), recs["tid"].tolist(),
+                    recs["ts"].tolist(), recs["val"].tolist(),
+                    slots.tolist())], dropped
+
+    def events(self) -> list[tuple]:
+        """Snapshot of the ring (oldest surviving event first), as
+        ``(ph, track, tid, name, t_rel_s, dur_s_or_flow_id, args)``."""
+        return self._events()[0]
 
     def summary(self) -> dict:
         """Cheap run summary for reports/narration (no event payloads)."""
-        with self._lock:
-            evs = list(self._ring)
-            dropped = self._dropped
-        by_name: dict[str, int] = {}
-        for ph, track, _tid, name, *_ in evs:
-            if ph in ("X", "i"):
-                by_name[f"{track}/{name}"] = by_name.get(
-                    f"{track}/{name}", 0) + 1
-        return {"enabled": True, "events": len(evs), "dropped": dropped,
+        recs, _, S, _, dropped = self._snapshot()
+        keep = recs["ph"] <= 1  # spans and instants
+        keys = (recs["track"][keep].astype(np.int64) << 16) \
+            | recs["name"][keep]
+        uniq, first, counts = np.unique(keys, return_index=True,
+                                        return_counts=True)
+        by_name = {f"{S[k >> 16]}/{S[k & 0xFFFF]}": c for _, k, c in sorted(
+            zip(first.tolist(), uniq.tolist(), counts.tolist()))}
+        return {"enabled": True, "events": len(recs), "dropped": dropped,
                 "capacity": self.capacity, "by_name": by_name}
 
     def export(self) -> dict:
@@ -193,11 +358,10 @@ class Tracer:
         One pid per component track (process metadata named), ``X``
         complete events for spans, ``i`` instants, ``s``/``f`` flow
         pairs.  Timestamps/durations are microseconds relative to
-        tracer construction.
+        tracer construction; ``otherData.clock_anchor`` maps them onto
+        the wall clock (:attr:`anchor`).
         """
-        evs = self.events()
-        with self._lock:
-            dropped = self._dropped
+        evs, dropped = self._events()
         pids: dict[str, int] = {}
         out: list[dict] = []
         order = list(TRACKS) + sorted(
@@ -231,7 +395,10 @@ class Tracer:
             "traceEvents": out,
             "displayTimeUnit": "ms",
             "otherData": {"dropped": dropped, "capacity": self.capacity,
-                          "events": len(evs)},
+                          "events": len(evs),
+                          "clock_anchor": {"t0_s": self._t0,
+                                           "monotonic_s": self.anchor[0],
+                                           "wall_ns": self.anchor[1]}},
         }
 
     def write(self, path: str) -> None:

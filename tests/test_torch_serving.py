@@ -26,6 +26,7 @@ import os
 import shutil
 import subprocess
 import sys
+import threading
 
 import numpy as np
 import jax.numpy as jnp
@@ -633,6 +634,116 @@ def test_traced_run_validates_in_both_packages(served, model, scratch,
     rep = s.metrics.report()
     assert summ["device_span_s"] == pytest.approx(rep["device_wall_s"],
                                                   rel=0.05)
+
+
+def test_traced_dispatch_has_one_span_per_stage(served, model):
+    """Each ``device-dispatch`` holds one ``gather``, ``pad/stage``,
+    ``launch`` and ``readback``, in order, covering at least 90 % of it;
+    each batch has one ``scheduler/complete`` after it; per-request
+    events carry no args, and ``pad/stage`` no request ids."""
+    p, ladder = served
+    tracer = sv.Tracer()
+    with _sched(ladder, tracer=tracer) as s:
+        s.warmup(kinds=("coefficients",))
+        reqs = [s.submit(model[4][i % 6]) for i in range(11)]
+        s.drain(timeout=120)
+    assert all(r.result() is not None for r in reqs)
+    evs = tracer.events()
+    spans = [(f"{tk}/{nm}", ts, ts + d, args)
+             for ph, tk, _, nm, ts, d, args in evs if ph == "X"]
+    dispatches = [sp for sp in spans if sp[0] == "device/device-dispatch"]
+    completes = sorted(sp for sp in spans if sp[0] == "scheduler/complete")
+    assert dispatches and len(completes) == len(dispatches)
+    stages = ("device/gather", "device/pad/stage", "device/launch",
+              "device/readback")
+    for k, (_, a, b, args) in enumerate(dispatches):
+        inside = sorted((t0, name, t1) for name, t0, t1, _ in spans
+                        if name in stages and a <= t0 and t1 <= b)
+        assert [name for _, name, _ in inside] == list(stages)
+        assert all(x[2] <= y[0] for x, y in zip(inside, inside[1:]))
+        assert sum(t1 - t0 for t0, _, t1 in inside) >= 0.9 * (b - a)
+        done = completes[k]
+        assert done[1] >= b and done[3] == {"n": args["n"]}
+        if k + 1 < len(dispatches):
+            assert done[2] <= dispatches[k + 1][1]
+    for ph, tk, _, nm, _, _, args in evs:
+        if tk == "request":
+            assert args is None, (ph, nm, args)
+        if nm == "pad/stage":
+            assert "rids" not in args
+
+
+def test_traced_unhappy_paths_keep_their_chains(served, model, monkeypatch):
+    """Admission rows are written as requests leave the queue: a shed
+    and a poisoned request still close their chains (as the reference's
+    ``test_traced_shed_and_fail_close_their_chains``), and requests a
+    non-draining close fails while queued keep an admission row and no
+    terminal, as before, and so do byte requests the ingest thread holds
+    when such a close comes."""
+    monkeypatch.setenv("JPEG_INGEST_WORKERS", "1")
+    p, ladder = served
+    tracer = sv.Tracer()
+    with _sched(ladder, tracer=tracer) as s:
+        ok = s.submit(model[4][0])
+        expired = s.submit(model[4][1], deadline_s=-0.001)
+        bad = s.submit(b"not a jpeg scan", kind="bytes")
+        assert np.isfinite(ok.result(timeout=60)).all()
+        with pytest.raises(sv.DeadlineExceeded):
+            expired.result(timeout=60)
+        with pytest.raises(sv.RequestFailed):
+            bad.result(timeout=60)
+        s.drain(timeout=60)
+    obj = tracer.export()
+    summ = sv.validate_trace(obj)
+    assert summ == ref_sv.validate_trace(obj)
+    assert summ["open_chains"] == []
+    assert (summ["complete"], summ["shed"], summ["failed"]) == (1, 1, 1)
+
+    tracer = sv.Tracer()
+    s = _sched(ladder, batch=2, tracer=tracer)
+    with s._lock:
+        queued = []
+        for i in range(3):
+            r = sv.ServeRequest(900 + i, "coefficients", model[4][0], None)
+            r.t_sub = r.t_enq = tracer.now()
+            s._queues["coefficients"].append(r)
+            queued.append(r)
+        s._stop, s._drain = True, False
+        s._work.notify_all()
+    s.close(drain=False)
+    summ = sv.validate_trace(tracer.export(), require_closed=False)
+    assert summ["open_chains"] == [900, 901, 902]
+    assert summ["spans_by_name"] == {"request/admission": 3}
+
+    entered, release = threading.Event(), threading.Event()
+
+    class Hold:
+        """Keeps the ingest thread on its popped batch until released."""
+
+        def on_ingest(self, reqs):
+            entered.set()
+            release.wait(60)
+
+        def on_execute(self, seq, reqs):
+            pass
+
+    tracer = sv.Tracer()
+    s = _sched(ladder, batch=2, tracer=tracer, faults=Hold())
+    held = [s.submit(d, kind="bytes") for d in _traffic(2)]
+    assert entered.wait(60)
+    with s._lock:
+        assert not s._queues["bytes"]  # popped, not yet decoded
+        s._stop, s._drain = True, False
+        s._work.notify_all()
+    release.set()
+    s.close(drain=False)
+    for r in held:
+        with pytest.raises(sv.SchedulerClosed):
+            r.result(timeout=60)
+    summ = sv.validate_trace(tracer.export(), require_closed=False)
+    assert summ["open_chains"] == sorted(r.rid for r in held)
+    assert summ["spans_by_name"]["request/admission"] == 2
+    assert "request/queue" not in summ["spans_by_name"]
 
 
 def test_metrics_report_has_the_references_keys():
