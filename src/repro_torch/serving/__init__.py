@@ -27,6 +27,7 @@ on PyTorch, with one CUDA graph per grid cell on the card.
 from repro_torch.serving.breaker import BreakerPolicy, CircuitBreaker
 from repro_torch.serving.faults import FaultInjector, FaultSpec, InjectedFault
 from repro_torch.serving.grid import (
+    Dispatch,
     GridCell,
     GridColumn,
     PinnedPool,
@@ -70,7 +71,7 @@ from repro_torch.serving.trace import (
 )
 
 __all__ = [
-    "DEFAULT_CAPS", "GridCell", "GridColumn", "PinnedPool", "PlanGrid",
+    "DEFAULT_CAPS", "Dispatch", "GridCell", "GridColumn", "PinnedPool", "PlanGrid",
     "batch_buckets", "bucket_for", "cover_buckets", "validate_buckets",
     "PlanLadder", "PlanTier", "build_ladder", "cap_plan", "save_ladder",
     "load_ladder", "Log2Histogram", "MetricsWriter", "NULL_TRACER",

@@ -17,6 +17,11 @@ batch sizes:
   call and copy from Python.  Every graph of a grid shares one memory pool
   (``torch.cuda.graph_pool_handle()``) for its intermediates, so sixteen
   cells do not hold sixteen copies of the activations;
+* :meth:`GridCell.dispatch` returns before the card is done: it enqueues
+  the copy, the replay and the copy of the logits back into a pinned
+  buffer, and hands back a :class:`Dispatch` to wait on, so the scheduler
+  can stage the next batch while this one runs (up to :data:`WINDOW`
+  batches on the card's one stream);
 * **capture accounting**: every capture fires ``on_compile(cell_name)``
   once, so the scheduler reports ``compiles_total`` /
   ``compiles_post_warmup`` under the reference's names.
@@ -39,10 +44,14 @@ from repro_torch.core import plan as planlib
 from repro_torch.serving.trace import NULL_TRACER
 
 __all__ = ["batch_buckets", "validate_buckets", "bucket_for",
-           "cover_buckets", "PinnedPool", "GridCell", "GridColumn",
-           "PlanGrid"]
+           "cover_buckets", "PinnedPool", "Dispatch", "GridCell",
+           "GridColumn", "PlanGrid", "WINDOW"]
 
 KINDS = ("coefficients", "bytes")
+
+#: batches one grid may have launched and not yet read back: the
+#: scheduler's launch window, and the staging slots a cell cycles through
+WINDOW = 2
 
 
 # --------------------------------------------------------------------------
@@ -104,21 +113,27 @@ def cover_buckets(buckets, batch: int) -> tuple[int, ...]:
 
 
 class PinnedPool:
-    """Reusable host staging buffers, one per (shape, dtype), in pinned
-    memory when ``pin`` (a CUDA grid), so the copy to the device runs
-    asynchronously.  The grid has one dispatching thread (the scheduler
-    worker), which waits for each batch's logits before staging the next,
-    so sharing a buffer between cells is safe."""
+    """Reusable host buffers, one per (window slot, shape, dtype), in
+    pinned memory when ``pin`` (a CUDA grid), so copies between host and
+    device run asynchronously.
+
+    The grid has one dispatching thread (the scheduler worker).  Dispatch
+    ``seq`` stages its rows into, and reads its logits back through, the
+    buffers of slot ``seq % WINDOW``.  A slot is reused only after the
+    batch that last used it has been read back (the worker completes batch
+    k - 1 before it launches batch k + 1), so no copy still queued on the
+    card reads or writes a buffer the host is filling.  Cells share a
+    slot's buffers for the same reason."""
 
     def __init__(self, pin: bool = False) -> None:
         self.pin = bool(pin)
         self._bufs: dict[tuple, torch.Tensor] = {}
 
-    def get(self, shape, dtype=torch.float32) -> torch.Tensor:
-        key = (tuple(int(s) for s in shape), dtype)
+    def get(self, shape, dtype=torch.float32, slot: int = 0) -> torch.Tensor:
+        key = (int(slot), tuple(int(s) for s in shape), dtype)
         buf = self._bufs.get(key)
         if buf is None:
-            buf = self._bufs[key] = torch.zeros(key[0], dtype=dtype,
+            buf = self._bufs[key] = torch.zeros(key[1], dtype=dtype,
                                                 pin_memory=self.pin)
         return buf
 
@@ -131,16 +146,60 @@ class PinnedPool:
         return len(self._bufs)
 
 
+class Dispatch:
+    """One batch launched on a :class:`GridCell`: its first ``n`` logits on
+    their way to the host.
+
+    ``asynchronous``: the launch returned before the card finished (a CUDA
+    cell); the logits land in the pinned buffer of the dispatch's window
+    slot, after an event that :meth:`wait` synchronises on.  Otherwise (an
+    eager CPU cell) they were computed before :meth:`GridCell.dispatch`
+    returned.
+    """
+
+    __slots__ = ("n", "asynchronous", "_out", "_start", "_end")
+
+    def __init__(self, n: int, out: torch.Tensor, start=None, end=None):
+        self.n = n
+        self._out = out
+        self._start = start
+        self._end = end
+        self.asynchronous = end is not None
+
+    def synchronize(self) -> None:
+        """Block until the logits are on the host; the event's wait
+        releases the interpreter lock."""
+        if self._end is not None:
+            self._end.synchronize()
+
+    def wait(self) -> np.ndarray:
+        """The ``(n, classes)`` logits as numpy, a copy of the slot's
+        buffer, which a later dispatch of the same slot overwrites."""
+        self.synchronize()
+        out = self._out[:self.n].numpy()
+        return out.copy() if self.asynchronous else out
+
+    def device_s(self) -> float | None:
+        """Seconds the card spent on this batch alone, from its copy in
+        to its logits out (CUDA events on the stream, so a batch queued
+        behind another is not charged for the wait); None on the CPU.
+        Call after :meth:`wait`."""
+        if self._end is None:
+            return None
+        return self._start.elapsed_time(self._end) / 1e3
+
+
 class GridCell:
     """One (kind, bucket) executor of a grid column.
 
-    ``__call__(rows)`` stages up to ``bucket`` rows (numpy) into the
-    pooled buffer, zero-filling the pad tail, and runs the captured
-    executor; it returns the logits of all ``bucket`` slots (callers take
-    the first ``n``).  On a CUDA device that is the graph's static output
-    buffer, which the next call of this cell overwrites: copy or consume
-    it first (the scheduler's ``_execute`` copies it to the host).
-    ``hits`` counts served dispatches, ``replays`` every run of the
+    :meth:`dispatch` ``(rows, seq)`` stages up to ``bucket`` rows (numpy)
+    into the pooled buffer of window slot ``seq % WINDOW``, zero-filling
+    the pad tail, launches the captured executor and returns a
+    :class:`Dispatch` of the first ``n`` logits.  ``__call__(rows)``
+    stages into slot 0, runs the executor and returns the logits of all
+    ``bucket`` slots; on a CUDA device that is the graph's static output
+    buffer, which the next run of this cell overwrites: copy or consume it
+    first.  ``hits`` counts served batches, ``replays`` every run of the
     executor (warm-up and timing included); ``graph_launches`` is what one
     replay launches, by kernel.  ``compiled``/``packed``/``executor`` are
     the schedule the executor was captured from, which :meth:`profile`
@@ -171,14 +230,20 @@ class GridCell:
     def graph_launches(self) -> dict[str, int]:
         return dict(getattr(self._fn, "graph_launches", {}))
 
+    @property
+    def asynchronous(self) -> bool:
+        """Whether a dispatch returns before its work is done: a captured
+        CUDA graph (an eager CPU walk has no graph)."""
+        return getattr(self._fn, "graph", None) is not None
+
     def _run(self, host: torch.Tensor) -> torch.Tensor:
         self.replays += 1
         return self._fn(host)
 
-    def _stage(self, rows) -> torch.Tensor:
-        """The pooled host buffer holding ``rows`` (numpy), zero-padded to
-        the bucket; all zeros when ``rows`` is None."""
-        host = self._pool.get(self._shape)
+    def _stage(self, rows, slot: int = 0) -> torch.Tensor:
+        """Slot ``slot``'s pooled host buffer holding ``rows`` (numpy),
+        zero-padded to the bucket; all zeros when ``rows`` is None."""
+        host = self._pool.get(self._shape, slot=slot)
         view = host.numpy()
         n = 0
         if rows is not None:
@@ -194,28 +259,57 @@ class GridCell:
         return host
 
     def __call__(self, rows: np.ndarray) -> torch.Tensor:
+        host = self._stage(rows)
+        self.hits += 1
+        return self._run(host)
+
+    def dispatch(self, rows: np.ndarray, seq: int = 0) -> Dispatch:
+        """Launch ``rows`` as dispatch ``seq``; see the class docstring.
+
+        On a CUDA cell everything goes on the current stream, in order:
+        an event, the copy into the graph's static input, the replay, the
+        copy of the first ``n`` logits into the slot's pinned buffer, an
+        event.  The next dispatch's copy into a static input and its
+        replay over a static output are stream-ordered after this one's
+        replay and logits copy, so two batches in flight never race on a
+        cell's buffers, nor on the graph memory pool the cells share."""
         tr = self._tracer
         ta = tr.now() if tr.enabled else 0.0
         n = np.asarray(rows).shape[0]
-        host = self._stage(rows)
+        slot = seq % WINDOW
+        host = self._stage(rows, slot)
         self.hits += 1
-        if not tr.enabled:
-            return self._run(host)
-        # nested under the scheduler's device-dispatch span: the
-        # host-staging share of the dispatch, then the copy to the card
-        # and the replay being enqueued
-        tb = tr.now()
-        tr.span("device", "pad/stage", ta, tb,
-                args={"cell": self.name, "n": n, "pad": self.bucket - n})
-        out = self._run(host)
-        tr.span("device", "launch", tb, tr.now())
-        return out
+        tb = tr.now() if tr.enabled else 0.0
+        if self.asynchronous:
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = self._run(host)
+            buf = self._pool.get(out.shape, out.dtype, slot=slot)
+            buf[:n].copy_(out[:n], non_blocking=True)
+            end.record()
+            d = Dispatch(n, buf, start, end)
+        else:
+            d = Dispatch(n, self._run(host))
+        if tr.enabled:
+            # nested under the scheduler's device-dispatch span: the
+            # host-staging share of the dispatch, then the copies and the
+            # replay being enqueued
+            tr.span("device", "pad/stage", ta, tb,
+                    args={"cell": self.name, "n": n,
+                          "pad": self.bucket - n, "seq": seq})
+            tr.span("device", "launch", tb, tr.now(), args={"seq": seq})
+        return d
 
     def warmup(self) -> None:
         """One run on a zero batch, waited for: a replay that faults
-        shows here, before traffic."""
+        shows here, before traffic.  A CUDA cell also allocates every
+        window slot's pinned staging and logits buffers now."""
         out = self._run(self._stage(None))
         if out.device.type == "cuda":
+            for slot in range(WINDOW):
+                self._pool.get(self._shape, slot=slot)
+                self._pool.get(out.shape, out.dtype, slot=slot)
             torch.cuda.synchronize(out.device)
 
     def _wall(self, host: torch.Tensor, iters: int) -> float:
@@ -292,7 +386,8 @@ class GridColumn:
 
     :meth:`coef_fn` / :meth:`packed_fn` take an unpadded row batch, route
     it to the smallest covering bucket's cell and return that bucket's
-    logits.  Cells are captured on first use, and all of them under
+    logits; :meth:`dispatch` launches it there and returns a
+    :class:`Dispatch`.  Cells are captured on first use, and all of them under
     :meth:`PlanGrid.warmup`.
     """
 
@@ -335,19 +430,30 @@ class GridColumn:
                 executor=self.executor)
         return c
 
-    def _route(self, kind: str, rows: np.ndarray) -> torch.Tensor:
+    def _route(self, kind: str, rows: np.ndarray):
+        """``(cell, rows)``: the smallest covering bucket's cell, and
+        ``rows`` as float32."""
         rows = np.asarray(rows, np.float32)
         n = rows.shape[0]
         bucket = n if self.buckets is None else bucket_for(n, self.buckets)
-        return self.cell(kind, bucket, rows.shape[1:])(rows)
+        return self.cell(kind, bucket, rows.shape[1:]), rows
 
     def coef_fn(self, rows: np.ndarray) -> torch.Tensor:
         """Serve a ``(n, bh, bw, C, 64)`` coefficient batch."""
-        return self._route("coefficients", rows)
+        cell, rows = self._route("coefficients", rows)
+        return cell(rows)
 
     def packed_fn(self, rows: np.ndarray) -> torch.Tensor:
         """Serve a ``(n, bh, bw, C·w_in)`` tile-packed batch."""
-        return self._route("bytes", rows)
+        cell, rows = self._route("bytes", rows)
+        return cell(rows)
+
+    def dispatch(self, kind: str, rows: np.ndarray, seq: int = 0) -> Dispatch:
+        """Launch a ``kind`` batch (``"coefficients"`` or ``"bytes"``, as
+        :meth:`coef_fn` / :meth:`packed_fn` take them) as dispatch ``seq``
+        (:meth:`GridCell.dispatch`)."""
+        cell, rows = self._route(kind, rows)
+        return cell.dispatch(rows, seq)
 
 
 class PlanGrid:

@@ -33,6 +33,19 @@ runtime object:
   the reference's name for it) and any capture after warmup is reported
   as ``compiles_post_warmup``.
 
+**A two-deep launch window.**  A cell whose dispatch returns before the
+card is done (a CUDA graph, ``grid.Dispatch.asynchronous``) lets the
+worker launch batch k, then read back and complete batch k - 1 while the
+card runs k, then take and launch k + 1: the host's staging and
+completion overlap the card's work, with at most ``grid.WINDOW`` batches
+launched and not yet read back, completed in order.  With a batch on the
+card the take waits until ``batch`` requests are pending or that batch
+has left the card, whichever comes first, so closed-loop cohorts stay
+whole; a watcher thread waits on the card (the event's wait releases the
+interpreter lock) and wakes the worker.  An eager CPU cell has computed
+its logits when its dispatch returns, and keeps a window of one: take,
+run, read back, complete.
+
 Lifecycle mirrors the ``data.pipeline.prefetch`` contract: the worker
 thread is owned by the scheduler — :meth:`close` (or leaving the
 ``with`` block) joins it, draining queued requests by default.  The worker
@@ -69,7 +82,7 @@ import numpy as np
 import torch
 
 from repro_torch.serving.breaker import BreakerPolicy, CircuitBreaker
-from repro_torch.serving.grid import PlanGrid
+from repro_torch.serving.grid import WINDOW, PlanGrid
 from repro_torch.serving.ladder import PlanLadder
 from repro_torch.serving.metrics import ServeMetrics
 from repro_torch.serving.qos import QosPolicy, TierSelector
@@ -82,8 +95,8 @@ KINDS = ("coefficients", "bytes")
 
 
 def _to_host(logits) -> np.ndarray:
-    """A cell's logits as a numpy copy (a CUDA tensor is copied to the
-    host, which waits for the graph that wrote it)."""
+    """A batch's logits as numpy (a CUDA tensor is copied to the host,
+    which waits for the graph that wrote it)."""
     if isinstance(logits, torch.Tensor):
         return logits.cpu().numpy()
     return np.asarray(logits)
@@ -177,6 +190,80 @@ class ServeRequest:
         self._event.set()
 
 
+class _Batch:
+    """A taken batch on its way through the launch window: its requests,
+    tier and queue depth at the take, then its dispatch sequence number,
+    whether it was launched behind an earlier batch not yet read back,
+    its launch (``dispatch``) and the host seconds it took to stage."""
+
+    __slots__ = ("reqs", "kind", "tier_ix", "depth", "decoded", "t_take",
+                 "seq", "behind", "t0", "t0s", "staged_s", "dispatch",
+                 "on_card", "failures")
+
+    def __init__(self, reqs: list[ServeRequest], tier_ix: int, depth: int,
+                 decoded, t_take: float):
+        self.reqs = reqs
+        self.kind = reqs[0].kind
+        self.tier_ix = tier_ix
+        self.depth = depth
+        self.decoded = decoded      # (coef, ingest wall) of a bytes batch
+        self.t_take = t_take
+        self.seq = 0
+        self.behind = False
+        self.t0 = self.t0s = self.staged_s = 0.0
+        self.dispatch = None
+        self.on_card = True         # until the watcher sees it done
+        self.failures = 0
+
+
+class _Watcher:
+    """Waits on its own thread for each launched batch to leave the card,
+    in launch order, then marks it and wakes the worker (``work``, the
+    scheduler's condition): the take's wait for a whole batch ends early
+    when the card has run dry.  The wait is the dispatch's event, which
+    releases the interpreter lock."""
+
+    def __init__(self, work: threading.Condition, device: torch.device):
+        self._work = work
+        self._device = device
+        self._cv = threading.Condition()
+        self._queue: collections.deque[_Batch] = collections.deque()
+        self._stop = False
+        self._thread = threading.Thread(target=self._run, daemon=True,
+                                        name="scheduler-watcher")
+        self._thread.start()
+
+    def watch(self, b: _Batch) -> None:
+        with self._cv:
+            self._queue.append(b)
+            self._cv.notify()
+
+    def close(self) -> None:
+        """Stop after the batches already handed over; joins the thread."""
+        with self._cv:
+            self._stop = True
+            self._cv.notify()
+        self._thread.join()
+
+    def _run(self) -> None:
+        if self._device.type == "cuda":
+            torch.cuda.set_device(self._device)
+        while True:
+            with self._cv:
+                while not self._queue and not self._stop:
+                    self._cv.wait()
+                if not self._queue:
+                    return
+                b = self._queue.popleft()
+            try:
+                b.dispatch.synchronize()
+            except Exception:  # noqa: BLE001 — the worker's wait() meets
+                pass           # the same error, and owns it
+            with self._work:
+                b.on_card = False
+                self._work.notify_all()
+
+
 class BandElasticScheduler:
     """Continuous-batching scheduler with a band-elastic tier policy.
 
@@ -250,6 +337,8 @@ class BandElasticScheduler:
 
         self._pool_seen = _ingestlib.pool_restarts()
         self._dispatch_seq = 0
+        # batches launched while an earlier one was not yet read back
+        self._overlapped = 0
 
         # the (batch bucket × band tier) executor grid: one column per
         # *distinct* compiled schedule (shared tiers reuse its cells), one
@@ -279,7 +368,13 @@ class BandElasticScheduler:
         self._ingesting = 0          # bytes requests currently decoding
         self._ingest_alive = True
         self._rid = itertools.count()
+        # requests taken and not yet completed or failed (every batch in
+        # the launch window)
         self._in_flight = 0
+        # the coefficient queue's length at which the waiting worker wants
+        # waking (None: it is not waiting on the queue), so a burst of
+        # submits wakes it once
+        self._wake_at: int | None = None
         self._stop = False
         self._drain = True
         self._error: BaseException | None = None
@@ -331,8 +426,13 @@ class BandElasticScheduler:
                 # its admission and queue rows are written in bulk once
                 # it is done with (_trace_dequeued)
                 req.t_sub, req.t_enq = t_sub, tr.now()
-            self._queues[kind].append(req)
-            self._work.notify_all()  # worker and ingest thread both wait
+            q = self._queues[kind]
+            q.append(req)
+            if kind == "bytes":
+                self._work.notify_all()  # the ingest thread waits for it
+            elif self._wake_at is not None and len(q) >= self._wake_at:
+                self._wake_at = None
+                self._work.notify_all()
             return req
 
     def _pending_locked(self) -> int:
@@ -355,8 +455,10 @@ class BandElasticScheduler:
 
     def health(self) -> dict:
         """Point-in-time service health: breaker state, failure counters
-        per reason, ingest-pool restarts, queue depths, thread liveness.
-        Exported through the serve report (``--report-out``)."""
+        per reason, ingest-pool restarts, queue depths, requests in
+        flight, batches launched behind an earlier one not yet read back
+        (``overlapped_batches``), thread liveness.  Exported through the
+        serve report (``--report-out``)."""
         with self._lock:
             queues = {k: len(q) for k, q in self._queues.items()}
             queues["decoded_batches"] = len(self._decoded)
@@ -370,6 +472,7 @@ class BandElasticScheduler:
             "qos_estimates": self.selector.estimates(),
             "queues": queues,
             "in_flight": in_flight,
+            "overlapped_batches": self._overlapped,
             "worker_alive": self._worker.is_alive(),
             "ingest_alive": self._ingest_thread.is_alive(),
             "dead": dead,
@@ -649,6 +752,12 @@ class BandElasticScheduler:
     def _ready_locked(self) -> bool:
         return bool(self._decoded) or bool(self._queues["coefficients"])
 
+    def _full_locked(self) -> bool:
+        """A whole batch is waiting: a decoded bytes batch, or ``batch``
+        coefficient requests."""
+        return (bool(self._decoded)
+                or len(self._queues["coefficients"]) >= self.batch)
+
     def _take_batch_locked(self, now: float):
         """Pop the next kind-homogeneous batch, shedding expired requests.
 
@@ -691,135 +800,207 @@ class BandElasticScheduler:
                    for r in e[0][:1] if r.deadline is not None]
         return min(slacks) if slacks else None
 
+    def _wait_locked(self, window) -> bool:
+        """Wait until the worker may take a batch; True when it is to stop
+        taking (a close, with nothing left to drain).
+
+        The take rule: with nothing in the window, take as soon as
+        anything is ready; with a batch on the card, wait until a whole
+        batch is waiting or that batch has left the card, whichever comes
+        first; with the window's batch done on the card, take at once."""
+        while True:
+            if self._error is not None:
+                raise self._error
+            if self._stop and (not self._drain
+                               or (not self._pending_locked()
+                                   and not self._ingesting)):
+                return True
+            if not window:
+                if self._ready_locked():
+                    return False
+                self._wake_at = 1
+            elif not window[-1].on_card or self._full_locked():
+                return False
+            else:
+                self._wake_at = self.batch
+            self._work.wait(timeout=0.05)
+            self._wake_at = None
+
+    def _take_locked(self) -> tuple["_Batch | None", list]:
+        """The next batch (None when every request taken was shed) and
+        the shed requests.  Tier selection happens *after* the take so the
+        capture bucket is known and the QoS estimates key to the right
+        grid cell (a bucket-1 trickle must not be judged by bucket-8
+        latency)."""
+        now = time.monotonic()
+        # the requests leave the queue here: their queue rows end, and
+        # the batch's batch-form span starts
+        t_take = self.tracer.now() if self.tracer.enabled else 0.0
+        slack = self._head_slack_locked(now)
+        depth = self._pending_locked()
+        reqs, decoded, shed = self._take_batch_locked(now)
+        if not reqs:
+            return None, shed
+        tier_ix = self.selector.select(
+            pending=depth, batch=self.batch, head_slack_s=slack,
+            bucket=self.grid_engine.bucket_for(len(reqs)))
+        self._in_flight += len(reqs)
+        return _Batch(reqs, tier_ix, depth, decoded, t_take), shed
+
     def _run(self) -> None:
+        window: collections.deque[_Batch] = collections.deque()
+        watcher: _Watcher | None = None
+        b = None
         try:
             if self.device.type == "cuda":
                 torch.cuda.set_device(self.device)
             while True:
+                b, shed = None, []
                 with self._lock:
-                    while (not self._ready_locked() and not self._stop
-                           and self._error is None):
-                        self._work.wait(timeout=0.05)
-                    if self._error is not None:
-                        raise self._error
-                    if self._stop and (not self._drain
-                                       or (not self._pending_locked()
-                                           and not self._ingesting)):
-                        break
-                    now = time.monotonic()
-                    # the requests leave the queue here: their queue rows
-                    # end, and the batch's batch-form span starts
-                    t_take = self.tracer.now() if self.tracer.enabled \
-                        else 0.0
-                    slack = self._head_slack_locked(now)
-                    depth = self._pending_locked()
-                    reqs, decoded, shed = self._take_batch_locked(now)
-                    tier_ix = None
-                    if reqs:
-                        # tier selection happens *after* the take so the
-                        # capture bucket is known and the QoS estimates
-                        # key to the right grid cell (a bucket-1 trickle
-                        # must not be judged by bucket-8 latency)
-                        tier_ix = self.selector.select(
-                            pending=depth, batch=self.batch,
-                            head_slack_s=slack,
-                            bucket=self.grid_engine.bucket_for(len(reqs)))
-                    self._in_flight = len(reqs)
+                    if self._wait_locked(window):
+                        if not window:
+                            break
+                    else:
+                        b, shed = self._take_locked()
                 self._shed(shed)
-                if not reqs:
+                launched = False
+                if b is not None:
+                    b.seq = self._dispatch_seq
+                    self._dispatch_seq += 1
+                    b.behind = bool(window)
+                    if self._launch_retrying(b):
+                        if b.dispatch.asynchronous:
+                            if b.behind:
+                                self._overlapped += 1
+                            window.append(b)
+                            launched = True
+                            if watcher is None:
+                                watcher = _Watcher(self._work, self.device)
+                            watcher.watch(b)
+                        else:
+                            self._finish(b)
+                    b = None
+                elif not window:
                     with self._idle:
-                        self._in_flight = 0
                         self._idle.notify_all()
-                    continue
-                tr = self.tracer
-                seq = self._dispatch_seq
-                self._dispatch_seq += 1
-                err: Exception | None = None
-                for _attempt in range(self.executor_retries + 1):
-                    try:
-                        if self.faults is not None:
-                            self.faults.on_execute(seq, reqs)
-                        self._execute(reqs, tier_ix, depth, decoded,
-                                      t_take=t_take)
-                        err = None
-                        break
-                    except Exception as e:  # transient? bounded retry
-                        err = e
-                    except BaseException as e:
-                        if tr.enabled:
-                            self._trace_dequeued(reqs, t_take)
-                        for r in reqs:  # the in-flight batch left the
-                            r._fail(e)  # queue — _fail_all can't see it
-                        raise
-                if err is None:
-                    self.breaker.record_success()
-                else:
-                    # retry budget exhausted: fail only this batch — the
-                    # scheduler survives, the breaker accumulates
-                    if tr.enabled:
-                        t = tr.now()
-                        self._trace_dequeued(reqs, t_take)
-                        for r in reqs:
-                            tr.instant("request", "fail", t=t, tid=r.rid,
-                                       args={"stage": "executor"})
-                    for r in reqs:
-                        r._fail(RequestFailed("executor", r.rid, err))
-                    self.metrics.record_failure("executor", len(reqs))
-                    self.breaker.record_failure("executor")
-                    self.selector.note_failure()
-                    with self._idle:
-                        self._in_flight = 0
-                        self._idle.notify_all()
+                # batch k - 1 is read back and completed while the card
+                # runs batch k; with nothing new launched, the last one
+                if window and (len(window) >= WINDOW or not launched):
+                    self._finish(window[0])
+                    window.popleft()
         except BaseException as e:  # noqa: BLE001 — re-raised at waiters
+            # the batches taken and not completed left the queue:
+            # _fail_all can't see them
+            for x in ([b] if b is not None else []) + list(window):
+                if self.tracer.enabled:
+                    self._trace_dequeued(x.reqs, x.t_take)
+                for r in x.reqs:
+                    r._fail(e)
             self._fail_all(e)
             return
+        finally:
+            if watcher is not None:
+                watcher.close()
         self._fail_all(SchedulerClosed("scheduler closed before completion"),
                        record=False)
 
-    def _execute(self, reqs: list[ServeRequest], tier_ix: int,
-                 depth: int, decoded=None, t_take: float = 0.0) -> None:
-        ex = self._execs[tier_ix]
-        name = self.tier_names[tier_ix]
-        n = len(reqs)
-        bucket = self.grid_engine.bucket_for(n)
+    def _launch(self, b: "_Batch") -> None:
+        """Gather ``b``'s rows and dispatch them on its tier's grid
+        column; ``b.dispatch`` is the launched batch."""
+        if self.faults is not None:
+            self.faults.on_execute(b.seq, b.reqs)
+        ex = self._execs[b.tier_ix]
         tr = self.tracer
-        ingest_wall = None
-        t0 = time.monotonic()
-        # the logits come back to the host here, which also waits for the
-        # graph: a cell's static output is overwritten by its next replay
-        t0s = tr.now() if tr.enabled else 0.0
-        if reqs[0].kind == "bytes":
+        b.t0 = time.monotonic()
+        b.t0s = tr.now() if tr.enabled else 0.0
+        if b.kind == "bytes":
             from repro_torch.codec import ingest as ingestlib
 
             # decode already happened on the ingest thread; only the
             # pack-to-tier-width slice and the device walk run here.
             # Rows go in *unpadded*: the grid cell stages them into its
             # pinned bucket-shaped buffer and zero-fills the pad tail.
-            coef, ingest_wall = decoded
-            kind, run = "bytes", ex.packed_fn
-            rows = ingestlib.pack_tiles(coef, ex.w_in)
+            rows = ingestlib.pack_tiles(b.decoded[0], ex.w_in)
         else:
-            kind, run = "coefficients", ex.coef_fn
             rows = np.stack([np.asarray(r.payload, np.float32)
-                             for r in reqs])
+                             for r in b.reqs])
         if tr.enabled:
-            tr.span("device", "gather", t0s, tr.now())
-        out = run(rows)
-        t_rb = tr.now() if tr.enabled else 0.0
-        logits = _to_host(out)
-        wall = time.monotonic() - t0
+            tr.span("device", "gather", b.t0s, tr.now(),
+                    args={"seq": b.seq})
+        b.dispatch = ex.dispatch(b.kind, rows, b.seq)
+        b.staged_s = time.monotonic() - b.t0
+
+    def _launch_retrying(self, b: "_Batch") -> bool:
+        """Launch ``b`` within its retry budget; False when the budget ran
+        out and the batch failed (alone: the scheduler keeps serving)."""
+        while True:
+            try:
+                self._launch(b)
+                return True
+            except Exception as e:  # transient? bounded retry
+                if not self._note_failure(b, e):
+                    return False
+
+    def _note_failure(self, b: "_Batch", err: Exception) -> bool:
+        """Count a failed attempt at ``b``; True while its retry budget
+        lasts, else fail the batch and return False."""
+        b.failures += 1
+        if b.failures <= self.executor_retries:
+            return True
+        # retry budget exhausted: fail only this batch — the scheduler
+        # survives, the breaker accumulates
+        tr = self.tracer
+        if tr.enabled:
+            t = tr.now()
+            self._trace_dequeued(b.reqs, b.t_take)
+            for r in b.reqs:
+                tr.instant("request", "fail", t=t, tid=r.rid,
+                           args={"stage": "executor"})
+        for r in b.reqs:
+            r._fail(RequestFailed("executor", r.rid, err))
+        self.metrics.record_failure("executor", len(b.reqs))
+        self.breaker.record_failure("executor")
+        self.selector.note_failure()
+        with self._idle:
+            self._in_flight -= len(b.reqs)
+            self._idle.notify_all()
+        return False
+
+    def _finish(self, b: "_Batch") -> None:
+        """Read ``b``'s logits back and complete its requests.  A failed
+        readback relaunches the batch alone, within its retry budget."""
+        tr = self.tracer
+        while True:
+            t_rb = tr.now() if tr.enabled else 0.0
+            try:
+                logits = _to_host(b.dispatch.wait())
+                break
+            except Exception as e:
+                if not (self._note_failure(b, e)
+                        and self._launch_retrying(b)):
+                    return
+        device_s = b.dispatch.device_s()
+        # what the batch cost at its tier and bucket: its host staging and
+        # its own time on the card, not its wait behind an earlier batch
+        wall = (time.monotonic() - b.t0 if device_s is None
+                else b.staged_s + device_s)
+        self.breaker.record_success()
+        ex = self._execs[b.tier_ix]
+        name = self.tier_names[b.tier_ix]
+        reqs, n, kind = b.reqs, len(b.reqs), b.kind
+        bucket = self.grid_engine.bucket_for(n)
         if tr.enabled:
             t1s = tr.now()
-            tr.span("device", "readback", t_rb, t1s)
-            # batch-form covers take -> dispatch start; device-dispatch is
-            # exactly the interval the report's device_wall_s
-            # accumulates, so span sums reconcile
-            tr.span("scheduler", "batch-form", t_take, t0s,
+            tr.span("device", "readback", t_rb, t1s, args={"seq": b.seq})
+            # batch-form covers take -> dispatch start; device-dispatch
+            # runs from the gather to the logits on the host
+            tr.span("scheduler", "batch-form", b.t_take, b.t0s,
                     args={"tier": name, "n": n, "bucket": bucket,
                           "kind": kind})
             rids = [r.rid for r in reqs]
             dargs = {"tier": name, "n": n, "bucket": bucket,
-                     "kind": kind, "rids": rids}
+                     "kind": kind, "rids": rids, "seq": b.seq,
+                     "behind": int(b.behind)}
             # --profile-grid annotations: the cell's counted FLOPs and
             # roofline-predicted wall ride on the span, so predicted and
             # measured sit on one track (a tier that shares another's
@@ -829,14 +1010,15 @@ class BandElasticScheduler:
             if cost:
                 dargs.update({k: cost[k] for k in ("flops", "predicted_us")
                               if k in cost})
-            tr.span("device", "device-dispatch", t0s, t1s, args=dargs)
+            tr.span("device", "device-dispatch", b.t0s, t1s, args=dargs)
         t_done = tr.now() if tr.enabled else 0.0
         # only device wall reaches the QoS EMA: host decode cost is
         # band-independent, so folding it in would poison tier selection
-        self.selector.observe(tier_ix, wall, bucket=bucket)
-        self.metrics.record_batch(name, n, wall, queue_depth=depth,
-                                  ingest_s=ingest_wall, slots=bucket,
-                                  cell=f"{name}/{kind}/b{bucket}")
+        self.selector.observe(b.tier_ix, wall, bucket=bucket)
+        self.metrics.record_batch(
+            name, n, wall, queue_depth=b.depth,
+            ingest_s=None if b.decoded is None else b.decoded[1],
+            slots=bucket, cell=f"{name}/{kind}/b{bucket}")
         now = time.monotonic()
         t_now = tr.now() if tr.enabled else 0.0
         for i, r in enumerate(reqs):
@@ -853,11 +1035,12 @@ class BandElasticScheduler:
             # admission and queue rows, the flow arrow from its queue row
             # to its batch slice, and its terminal
             ids = np.asarray(rids, np.int64)
-            self._trace_dequeued(reqs, t_take, ids)
-            tr.flow_many(ids, ("request", ids, t_take), ("device", 0, t0s))
+            self._trace_dequeued(reqs, b.t_take, ids)
+            tr.flow_many(ids, ("request", ids, b.t_take),
+                         ("device", 0, b.t0s))
             tr.instant_many("request", "complete", t_now, tids=ids)
         with self._idle:
-            self._in_flight = 0
+            self._in_flight -= n
             self._batches += 1
             self._images += n
             self._idle.notify_all()

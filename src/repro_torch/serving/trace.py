@@ -18,14 +18,16 @@ track (pid)     name        interval
                             metrics and each request's completion (args ``n``)
 ``ingest``      ingest-decode  one bytes batch through ``codec.ingest_batch``
 ``ingest``      decode-shard   one spawn-pool shard of that batch (tid = shard)
-``device``      device-dispatch  batch array to logits on the host (the
-                            interval ``device_wall_s`` accumulates); its
-                            children, in order:
+``device``      device-dispatch  batch array to logits on the host (args
+                            ``seq``, the dispatch number, and ``behind``, 1
+                            when launched while an earlier batch was not yet
+                            read back); its children, in order (args
+                            ``seq``):
 ``device``      gather      the batch array from the payloads (``np.stack``;
                             on the bytes path ``pack_tiles``)
 ``device``      pad/stage   host staging copy into the pinned bucket buffer
-``device``      launch      the copy to the card and the graph replay enqueued
-``device``      readback    waiting for the graph, and the logits to the host
+``device``      launch      the copies and the graph replay enqueued
+``device``      readback    waiting for the batch, and the logits to the host
 ``request``     admission / queue   per-request rows (tid = request id),
                             written in bulk once the batch is done with
 ``request``     complete / fail / shed   terminal instants closing the chain
@@ -34,7 +36,13 @@ track (pid)     name        interval
 The worker's own time a batch is ``batch-form`` + ``gather`` +
 ``pad/stage`` + ``launch`` + ``complete``: the serial chain but the wait
 in ``readback`` and the recorder's own writes of the batch's request
-rows, which follow ``complete``.
+rows, which follow ``complete``.  Through the scheduler's launch window
+(a CUDA grid) a batch's ``device-dispatch`` also holds the completion of
+the batch before it and the launch of the batch after it; pair stages
+with their batch by ``seq``.  Outside the window (an eager CPU grid)
+``device-dispatch`` is the interval the report's ``device_wall_s``
+accumulates; in it, each batch adds its host staging and its own time on
+the card.
 
 Instant events mark tier switches, breaker transitions, ingest-pool
 restarts, and post-warmup compiles.  Batches link to their member
@@ -429,8 +437,9 @@ def validate_trace(obj: dict, *, require_closed: bool = True) -> dict:
     (``complete``/``fail``/``shed``) is an orphan and fails validation.
 
     Returns a summary dict: event counts, per-terminal request counts,
-    ``device_span_s``/``ingest_span_s`` (span sums that must reconcile
-    with the report's ``device_wall_s``/``ingest_wall_s``), and
+    ``device_span_s``/``ingest_span_s`` (span sums that reconcile with
+    the report's ``device_wall_s``/``ingest_wall_s`` where batches run
+    one at a time), and
     ``open_chains``.  Raises :class:`ValueError` on any violation.
     """
     problems: list[str] = []

@@ -2,8 +2,11 @@
 compiled walk (``core.plan.capture_compiled``), pinned staging, one graph
 memory pool a grid, launch counts under replay, the scheduler's worker
 thread replaying graphs on the ladder's device, the spatial lowering
-under a replay (bit-identical to its eager walk) and ``GridCell.profile``
-(bit-identical to the replay, no capture).
+under a replay (bit-identical to its eager walk), ``GridCell.profile``
+(bit-identical to the replay, no capture), and two batches in flight
+(``GridCell.dispatch``: one cell twice, two buckets, two tiers, the pinned
+slots reused, each bit for bit against the serial replay; the wall a
+queued batch records).
 
 Needs an NVIDIA GPU of compute capability 9.0 and ``nvcc``; skipped
 elsewhere.  No JAX: run on the card with
@@ -14,6 +17,9 @@ The reduced ``jpeg-resnet`` (widths 16/32/64, 32 px) from seeded random
 weights; a replay is held against the same schedule run eagerly within
 1e-5 of the largest |logit| (the same kernels on the same operands).
 """
+import statistics
+import time
+
 import numpy as np
 import pytest
 import torch
@@ -198,3 +204,129 @@ def test_cell_profile_on_the_card_is_inert(dev, ladder, executor):
     prof = cell.profile(rows, iters=2)
     assert np.array_equal(prof["logits"], want)
     assert prof["cell_wall_us"] > 0 and len(captured) == n
+
+
+# --------------------------------------------------------------------------
+# Two batches in flight (the scheduler's launch window)
+# --------------------------------------------------------------------------
+
+
+def _grid(ladder, batch=4, buckets=None):
+    g = serving.PlanGrid(ladder, batch=batch, buckets=buckets, grid=GRID)
+    g.warmup(kinds=("bytes",))
+    return g
+
+
+def _rows(col, n, seed):
+    return np.random.default_rng(seed).normal(
+        size=(n, *GRID, 3 * col.w_in)).astype(np.float32)
+
+
+def _serial(col, rows):
+    """The serial path: ``__call__`` and a copy to the host."""
+    return col.packed_fn(rows).cpu().numpy()[:len(rows)]
+
+
+def test_one_cell_twice_in_flight_is_bit_identical(dev, ladder):
+    col = _grid(ladder).columns[0]
+    a, b = _rows(col, 4, 10), _rows(col, 4, 11)
+    want = [_serial(col, a), _serial(col, b)]
+    da = col.dispatch("bytes", a, 0)
+    db = col.dispatch("bytes", b, 1)     # no readback in between
+    assert da.asynchronous and db.asynchronous
+    got = [da.wait(), db.wait()]
+    for g, w in zip(got, want):
+        assert np.array_equal(g, w)
+
+
+def test_two_buckets_and_two_tiers_in_flight_are_bit_identical(dev, ladder):
+    g = _grid(ladder)
+    top, low = g.columns[0], g.columns[1]
+    assert top is not low
+    cases = [(top, _rows(top, 3, 12)), (top, _rows(top, 1, 13)),
+             (low, _rows(low, 4, 14)), (top, _rows(top, 2, 15))]
+    want = [_serial(col, rows) for col, rows in cases]
+    pending = []
+    for seq, (col, rows) in enumerate(cases):
+        pending.append(col.dispatch("bytes", rows, seq))
+        if len(pending) > 2:          # a window of two, as the worker's
+            pending[-3] = pending[-3].wait()
+    got = [p if isinstance(p, np.ndarray) else p.wait() for p in pending]
+    for gg, w in zip(got, want):
+        assert np.array_equal(gg, w)
+
+
+def test_pinned_slots_are_reused_safely(dev, ladder):
+    """Forty dispatches through the two slots of one cell, each read back
+    only after the next was launched: every answer is its own batch's."""
+    g = _grid(ladder)
+    col = g.columns[0]
+    batches = [_rows(col, 4, 100 + k) for k in range(40)]
+    want = [_serial(col, rows) for rows in batches]
+    n_bufs = len(g.pool)
+    prev = None
+    for k, rows in enumerate(batches):
+        d = col.dispatch("bytes", rows, k)
+        if prev is not None:
+            assert np.array_equal(prev[1].wait(), want[prev[0]])
+        prev = (k, d)
+    assert np.array_equal(prev[1].wait(), want[prev[0]])
+    assert len(g.pool) == n_bufs      # warm-up allocated every slot
+    assert all(b.is_pinned() for b in g.pool._bufs.values())
+
+
+def test_a_batch_queued_behind_another_records_its_own_wall(dev, ladder):
+    """The wall the scheduler hands the QoS selector (host staging plus
+    the batch's own time between its events) for a full batch launched
+    behind another stays within 10 % of the same batch run alone; the
+    host clock from its launch to its logits would read about twice."""
+    g = _grid(ladder, batch=256, buckets=(256,))
+    col = g.columns[0]
+    rows = _rows(col, 256, 20)
+
+    def wall(behind):
+        first = col.dispatch("bytes", rows, 0) if behind else None
+        t0 = time.monotonic()
+        d = col.dispatch("bytes", rows, 1)
+        staged = time.monotonic() - t0
+        if first is not None:
+            first.wait()
+        d.wait()
+        return staged + d.device_s(), time.monotonic() - t0
+
+    for behind in (False, True):
+        wall(behind)
+    alone = statistics.median(wall(False)[0] for _ in range(9))
+    runs = [wall(True) for _ in range(9)]
+    behind = statistics.median(w for w, _ in runs)
+    host = statistics.median(h for _, h in runs)
+    assert abs(behind - alone) <= 0.10 * alone, (behind, alone)
+    assert host > 1.5 * alone, (host, alone)
+
+
+def test_scheduler_overlaps_full_batches_bit_identically(dev, ladder):
+    """Three full batches queued at once: each is launched behind the one
+    before, and every answer equals its batch's serial replay bit for
+    bit."""
+    gen = np.random.default_rng(21)
+    coef = gen.normal(size=(12, *GRID, 3, 64)).astype(np.float32)
+    s = serving.BandElasticScheduler(ladder, batch=4, grid=GRID, channels=3)
+    try:
+        s.warmup(kinds=("coefficients",))
+        with s._lock:
+            reqs = [serving.ServeRequest(500 + i, "coefficients", coef[i],
+                                         None) for i in range(12)]
+            s._queues["coefficients"].extend(reqs)
+            s._work.notify_all()
+        assert s.drain(timeout=120)
+        assert s.health()["overlapped_batches"] == 2
+    finally:
+        s.close()
+    for k in range(3):
+        part = reqs[4 * k: 4 * k + 4]
+        tiers = {r.tier for r in part}
+        assert len(tiers) == 1
+        col = s._execs[s.tier_names.index(tiers.pop())]
+        want = col.coef_fn(coef[4 * k: 4 * k + 4]).cpu().numpy()
+        for i, r in enumerate(part):
+            assert np.array_equal(r.result(), want[i])

@@ -27,6 +27,7 @@ import shutil
 import subprocess
 import sys
 import threading
+import time
 
 import numpy as np
 import jax.numpy as jnp
@@ -744,6 +745,361 @@ def test_traced_unhappy_paths_keep_their_chains(served, model, monkeypatch):
     assert summ["open_chains"] == sorted(r.rid for r in held)
     assert summ["spans_by_name"]["request/admission"] == 2
     assert "request/queue" not in summ["spans_by_name"]
+
+
+# --------------------------------------------------------------------------
+# The launch window (a fake asynchronous card over the CPU cells)
+# --------------------------------------------------------------------------
+
+
+class _LateCard:
+    """Stands in for the card: each grid dispatch runs the real CPU cell
+    at once but hands back a handle that completes later, after ``delay``
+    seconds or, with ``hold``, when :meth:`release` d.  Records every
+    launch ``(seq, n)``, the order of readbacks and the most batches
+    launched and not yet read back; ``fail_launch`` / ``fail_wait`` map a
+    dispatch ``seq`` to how many times its launch / readback raises."""
+
+    def __init__(self, monkeypatch, *, delay=0.01, hold=False,
+                 fail_launch=None, fail_wait=None):
+        self.delay, self.hold = delay, hold
+        self.fail_launch = dict(fail_launch or {})
+        self.fail_wait = dict(fail_wait or {})
+        self.lock = threading.Lock()
+        self.launches, self.waited, self.held = [], [], []
+        self.in_flight = self.most_in_flight = 0
+        real = grid_mod.GridColumn.dispatch
+        card = self
+
+        def dispatch(col, kind, rows, seq=0):
+            with card.lock:
+                card.launches.append((seq, len(rows)))
+                if card.fail_launch.get(seq, 0) > 0:
+                    card.fail_launch[seq] -= 1
+                    raise RuntimeError(f"injected launch fault {seq}")
+                card.in_flight += 1
+                card.most_in_flight = max(card.most_in_flight,
+                                          card.in_flight)
+            return _Late(card, seq, real(col, kind, rows, seq))
+
+        monkeypatch.setattr(grid_mod.GridColumn, "dispatch", dispatch)
+
+    def release(self):
+        """Let every held batch, and every later one, leave the card."""
+        with self.lock:
+            self.hold = False
+            held, self.held = self.held, []
+        for ev in held:
+            ev.set()
+
+    def launched(self, count, timeout=30.0):
+        """Wait until ``count`` launches were made."""
+        end = time.monotonic() + timeout
+        while len(self.launches) < count and time.monotonic() < end:
+            time.sleep(0.002)
+        return len(self.launches) >= count
+
+
+class _Late:
+    asynchronous = True
+
+    def __init__(self, card, seq, inner):
+        self.card, self.seq, self.inner = card, seq, inner
+        self.n = inner.n
+        self._ready = threading.Event()
+        with card.lock:
+            if card.hold:
+                card.held.append(self._ready)
+            else:
+                threading.Timer(card.delay, self._ready.set).start()
+
+    def synchronize(self):
+        assert self._ready.wait(60)
+
+    def wait(self):
+        self.synchronize()
+        card = self.card
+        with card.lock:
+            card.in_flight -= 1
+            card.waited.append(self.seq)
+            if card.fail_wait.get(self.seq, 0) > 0:
+                card.fail_wait[self.seq] -= 1
+                raise RuntimeError(f"injected readback fault {self.seq}")
+        return self.inner.wait()
+
+    def device_s(self):
+        return 1e-3
+
+
+def _queue(s, payloads, base=600):
+    """Put ``payloads`` in the coefficient queue at once (one take sees
+    them all), as requests ``base``, ``base + 1`` ..."""
+    with s._lock:
+        reqs = [sv.ServeRequest(base + i, "coefficients", pay, None)
+                for i, pay in enumerate(payloads)]
+        s._queues["coefficients"].extend(reqs)
+        s._work.notify_all()
+    return reqs
+
+
+def _completion_order(monkeypatch):
+    order = []
+    real = sv.ServeRequest._complete
+
+    def complete(self, logits, tier):
+        order.append(self.rid)
+        real(self, logits, tier)
+
+    monkeypatch.setattr(sv.ServeRequest, "_complete", complete)
+    return order
+
+
+def test_window_completes_in_order_with_at_most_two_launched(
+        served, model, monkeypatch):
+    p, ladder = served
+    card = _LateCard(monkeypatch, delay=0.02)
+    order = _completion_order(monkeypatch)
+    with _sched(ladder, batch=2) as s:
+        s.warmup(kinds=("coefficients",))
+        reqs = _queue(s, [model[4][i % 6] for i in range(12)])
+        assert s.drain(timeout=120)
+        health = s.health()
+    assert all(r.result() is not None for r in reqs)
+    assert order == sorted(order) == [r.rid for r in reqs]
+    assert card.waited == list(range(6))
+    assert card.most_in_flight == 2 and card.in_flight == 0
+    assert health["overlapped_batches"] == 5 and health["in_flight"] == 0
+
+
+def test_window_answers_are_bit_identical_to_the_serial_path(
+        served, model, monkeypatch):
+    """The same full batches, at the same tiers (two tiers in flight at
+    once), through the window and through the eager serial path."""
+    p, ladder = served
+    payloads = [model[4][i % 6] for i in range(12)]
+    got = []
+    for late in (False, True):
+        with monkeypatch.context() as mp:
+            if late:
+                card = _LateCard(mp, delay=0.01)
+            with _sched(ladder) as s:
+                s.selector = _Forced(len(ladder.tiers),
+                                     tier_names=s.tier_names,
+                                     on_switch=s._on_switch)
+                s.warmup(kinds=("coefficients",))
+                reqs = _queue(s, payloads)
+                assert s.drain(timeout=120)
+        got.append([(r.tier, r.result()) for r in reqs])
+    assert card.most_in_flight == 2
+    assert len({t for t, _ in got[1]}) == 3
+    for (ta, a), (tb, b) in zip(*got):
+        assert ta == tb and np.array_equal(a, b)
+
+
+@pytest.mark.parametrize("where", ["launch", "readback"])
+@pytest.mark.parametrize("times", [1, 2])
+def test_window_failure_touches_only_its_own_batch(served, model,
+                                                    monkeypatch, where,
+                                                    times):
+    """Batch 1 of 3 fails at its launch or at its readback, once (retried:
+    everything served) or twice (the retry budget of one runs out: batch 1
+    alone fails, stage ``executor``); the batches around it are served,
+    in order."""
+    p, ladder = served
+    fault = {1: times}
+    card = _LateCard(monkeypatch, delay=0.02,
+                     fail_launch=fault if where == "launch" else None,
+                     fail_wait=fault if where == "readback" else None)
+    order = _completion_order(monkeypatch)
+    with _sched(ladder, batch=2, executor_retries=1) as s:
+        s.warmup(kinds=("coefficients",))
+        reqs = _queue(s, [model[4][i] for i in range(6)])
+        assert s.drain(timeout=120)
+        health = s.health()
+    bad = reqs[2:4] if times == 2 else []
+    for r in reqs:
+        if r in bad:
+            with pytest.raises(sv.RequestFailed) as ei:
+                r.result(timeout=1)
+            assert ei.value.stage == "executor"
+        else:
+            assert r.result(timeout=1) is not None
+    assert order == [r.rid for r in reqs if r not in bad]
+    assert health["failures_total"] == ({"executor": 2} if bad else {})
+    assert health["in_flight"] == 0 and card.in_flight == 0
+    assert card.most_in_flight <= 2
+
+
+@pytest.mark.parametrize("drain", [True, False])
+def test_close_with_two_batches_in_flight(served, model, monkeypatch,
+                                          drain):
+    """Two batches launched and held on the card, a third queued:
+    ``drain()`` times out while they are held; ``close()`` finishes both
+    once they leave the card, and serves the queued one (``drain=True``)
+    or fails it (``drain=False``)."""
+    p, ladder = served
+    card = _LateCard(monkeypatch, hold=True)
+    s = _sched(ladder, batch=2)
+    s.warmup(kinds=("coefficients",))
+    reqs = _queue(s, [model[4][i] for i in range(6)])
+    assert card.launched(2)
+    time.sleep(0.05)
+    assert len(card.launches) == 2 and card.in_flight == 2
+    assert s.health()["in_flight"] == 4
+    assert s.drain(timeout=0.1) is False
+    closer = threading.Thread(target=s.close, kwargs={"drain": drain})
+    closer.start()
+    time.sleep(0.05)
+    assert closer.is_alive()
+    card.release()
+    closer.join(60)
+    assert not closer.is_alive()
+    assert all(r.result(timeout=1) is not None for r in reqs[:4])
+    for r in reqs[4:]:
+        if drain:
+            assert r.result(timeout=1) is not None
+        else:
+            with pytest.raises(sv.SchedulerClosed):
+                r.result(timeout=1)
+    assert s.health()["in_flight"] == 0 and card.in_flight == 0
+
+
+def test_take_waits_for_a_whole_batch_while_one_is_on_the_card(
+        served, model, monkeypatch):
+    """With batch 0 held on the card, requests submitted one by one are
+    not taken until a whole batch is pending; once the card runs dry, a
+    partial batch is taken at once."""
+    p, ladder = served
+    card = _LateCard(monkeypatch, hold=True)
+    with _sched(ladder, batch=4) as s:
+        s.warmup(kinds=("coefficients",))
+        first = [s.submit(model[4][i]) for i in range(4)]
+        assert card.launched(1)
+        nxt = []
+        for i in range(3):
+            nxt.append(s.submit(model[4][i]))
+            time.sleep(0.02)
+        time.sleep(0.05)
+        assert card.launches == [(0, 4)]
+        nxt.append(s.submit(model[4][3]))
+        assert card.launched(2)
+        assert card.launches == [(0, 4), (1, 4)]
+        tail = s.submit(model[4][5])
+        time.sleep(0.05)
+        assert len(card.launches) == 2
+        card.release()
+        assert tail.result(timeout=60) is not None
+        assert s.drain(timeout=60)
+    assert card.launches == [(0, 4), (1, 4), (2, 1)]
+    assert all(r.result() is not None for r in first + nxt)
+
+
+def test_eager_cpu_cell_keeps_a_window_of_one(served, model):
+    """A CPU cell's dispatch has computed its logits when it returns: no
+    batch is launched behind another, and each batch is completed before
+    the next is gathered."""
+    p, ladder = served
+    tracer = sv.Tracer()
+    with _sched(ladder, tracer=tracer) as s:
+        s.warmup(kinds=("coefficients",))
+        assert not any(c.asynchronous for c in s.grid_engine.cells())
+        reqs = [s.submit(model[4][i % 6]) for i in range(11)]
+        assert s.drain(timeout=120)
+        assert s.health()["overlapped_batches"] == 0
+    assert all(r.result() is not None for r in reqs)
+    spans = [(f"{tk}/{nm}", ts, ts + d, args) for ph, tk, _, nm, ts, d, args
+             in tracer.events() if ph == "X"]
+    dispatches = [sp for sp in spans if sp[0] == "device/device-dispatch"]
+    gathers = sorted(sp[1] for sp in spans if sp[0] == "device/gather")
+    completes = sorted(sp[2] for sp in spans if sp[0] == "scheduler/complete")
+    assert [d[3]["seq"] for d in dispatches] == list(range(len(dispatches)))
+    assert all(d[3]["behind"] == 0 for d in dispatches)
+    assert all(c <= g for c, g in zip(completes, gathers[1:]))
+
+
+def test_traced_window_has_one_span_per_stage_and_seq(served, model,
+                                                      monkeypatch):
+    """Through the window each ``seq`` has one ``gather``, ``pad/stage``,
+    ``launch`` and ``readback``, in order, inside its ``device-dispatch``
+    (which now also holds the next batch's launch); one
+    ``scheduler/complete`` a batch, in order; ``behind`` is 0 for the
+    first batch and 1 for each launched before the last was read back;
+    and the trace's chains close."""
+    p, ladder = served
+    _LateCard(monkeypatch, delay=0.02)
+    tracer = sv.Tracer()
+    with _sched(ladder, tracer=tracer) as s:
+        s.warmup(kinds=("coefficients",))
+        _queue(s, [model[4][i % 6] for i in range(12)])
+        assert s.drain(timeout=120)
+    spans = [(f"{tk}/{nm}", ts, ts + d, args) for ph, tk, _, nm, ts, d, args
+             in tracer.events() if ph == "X"]
+    dispatches = sorted((sp for sp in spans
+                         if sp[0] == "device/device-dispatch"),
+                        key=lambda sp: sp[3]["seq"])
+    assert [d[3]["seq"] for d in dispatches] == [0, 1, 2]
+    assert [d[3]["behind"] for d in dispatches] == [0, 1, 1]
+    stages = ("device/gather", "device/pad/stage", "device/launch",
+              "device/readback")
+    for _, a, b, args in dispatches:
+        mine = sorted((t0, name, t1) for name, t0, t1, sa in spans
+                      if name in stages and sa["seq"] == args["seq"])
+        assert [name for _, name, _ in mine] == list(stages)
+        assert all(x[2] <= y[0] for x, y in zip(mine, mine[1:]))
+        assert a <= mine[0][0] and mine[-1][2] <= b
+    completes = sorted(sp for sp in spans if sp[0] == "scheduler/complete")
+    assert [c[3]["n"] for c in completes] == [4, 4, 4]
+    for (_, _, b, _), done in zip(dispatches, completes):
+        assert done[1] >= b
+    later = dispatches[1]
+    assert any(name == "device/launch" and sa["seq"] == 2
+               and later[1] <= t0 <= later[2]
+               for name, t0, _, sa in spans)
+    summ = sv.validate_trace(tracer.export())
+    assert summ["open_chains"] == [] and summ["complete"] == 12
+
+
+def test_window_under_contention(served, model, monkeypatch):
+    """Eight client threads submit and wait at a short switch interval
+    while the fake card completes batches after random delays: every
+    request is answered once, with its own payload's logits, and the
+    window never holds more than two batches."""
+    p, ladder = served
+    card = _LateCard(monkeypatch, delay=0.003)
+    want = {}
+    errors = []
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-5)
+    try:
+        with _sched(ladder, max_pending=256) as s:
+            s.warmup(kinds=("coefficients",))
+            for i in range(6):
+                want[i] = s.submit(model[4][i]).result(timeout=60)
+
+            def client(k):
+                try:
+                    for j in range(25):
+                        i = (k + j) % 6
+                        got = s.submit(model[4][i]).result(timeout=60)
+                        _close(got, want[i], SERVE_RTOL)
+                except Exception as e:  # noqa: BLE001 — reported below
+                    errors.append(e)
+
+            threads = [threading.Thread(target=client, args=(k,))
+                       for k in range(8)]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(120)
+            assert not any(t.is_alive() for t in threads)
+            assert s.drain(timeout=60)
+            health = s.health()
+    finally:
+        sys.setswitchinterval(old)
+    assert errors == []
+    assert card.most_in_flight <= 2 and card.in_flight == 0
+    assert health["in_flight"] == 0
+    assert s.images_served == 6 + 8 * 25
 
 
 def test_metrics_report_has_the_references_keys():
